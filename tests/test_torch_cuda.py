@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version at the full-width shapes, the wrappers'
-refusals, and the offline path at reduced depth.  They skip without a
-card.  This file imports no JAX, so on the GPU machine (which has none) it
+refusals, and the offline and batched serving paths at reduced depth.  They
+skip without a card.  This file imports no JAX, so on the GPU machine (which has none) it
 runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -19,6 +19,8 @@ from voxtral_tpu_torch.ops.banded_encode import (
     banded_attention_plain,
 )
 from voxtral_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+from voxtral_tpu_torch.ops.quant_mm import int4_mm, int4_mm_plain
+from voxtral_tpu_torch.ops.ring import ring_rows_write, ring_rows_write_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +138,149 @@ def test_offline_path_at_reduced_depth(dev):
     want = cpu_engine.encode_clip_bulk(mel)
     rel = ((rows - want).abs().max() / want.abs().max()).item()
     assert rel <= 5e-2, rel
+
+
+# full-width int4 matrices: (out, in) of the decoder's four layer weights
+# and the tied logits table
+INT4_SHAPES = {"wqkv": (6144, 3072), "wo": (3072, 4096),
+               "w13": (18432, 3072), "w2": (3072, 9216),
+               "logits": (131072, 3072)}
+
+
+@pytest.mark.parametrize("rows", [1, 16, 608])
+@pytest.mark.parametrize("name", list(INT4_SHAPES))
+def test_int4_kernel_matches_plain(dev, name, rows):
+    """bf16 x against nibble-packed weights (layer 1 of a 2-layer stack,
+    one layer for the table): the products are exact, only the f32
+    summation order differs, so max abs error <= 1e-5 x max |plain|
+    (chip_smoke.py's INT4_REL_TOL; measured up to 3.005e-7 on an H100)."""
+    from voxtral_tpu_torch.models.quant import quantize_layer_stack
+
+    out_dim, in_dim = INT4_SHAPES[name]
+    n_layers = 1 if name == "logits" else 2
+    gen = torch.Generator(device=dev).manual_seed(out_dim + rows)
+    w = _randn(gen, (n_layers, out_dim, in_dim), torch.bfloat16, dev)
+    q = quantize_layer_stack({"wqkv": w}, bits=4)
+    p, s = q["wqkv"], q["wqkv_scale"]
+    del w, q
+    x = _randn(gen, (rows, in_dim), torch.bfloat16, dev)
+    li = n_layers - 1
+    n0 = int4_mm.launches
+    got = int4_mm(x, p, s, li)
+    want = int4_mm_plain(x, p, s, li)
+    torch.cuda.synchronize()
+    assert int4_mm.launches == n0 + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rows", [5, 40])
+def test_int4_kernel_ragged_edges(dev, rows):
+    """Rows, columns and the packed K range all off the kernel's tiles
+    (out 200, packed 1552 = 24 x 64 + 16), with and without K splits."""
+    from voxtral_tpu_torch.models.quant import quantize_layer_stack
+
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    w = _randn(gen, (1, 200, 3104), torch.bfloat16, dev)
+    q = quantize_layer_stack({"wqkv": w}, bits=4)
+    x = _randn(gen, (rows, 3104), torch.bfloat16, dev)
+    got = int4_mm(x, q["wqkv"], q["wqkv_scale"], 0)
+    want = int4_mm_plain(x, q["wqkv"], q["wqkv_scale"], 0)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.bfloat16,
+                                   torch.float32])
+def test_ring_rows_write_kernel_bit_equal(dev, dtype):
+    """Full-width rings [3, 26, 8, 896, 128]: positions 0, mid-ring and
+    wrapped; rows up to |x| ~ 4000, so fp8 saturates.  The rings are bit
+    for bit those of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (3, 26, 8, 896, 128)
+    kk = _randn(gen, shape, torch.float32, dev).to(dtype)
+    vk = _randn(gen, shape, torch.float32, dev).to(dtype)
+    kp, vp = kk.clone(), vk.clone()
+    k_rows = _randn(gen, (3, 8, 128), torch.float32, dev) * 1000.0
+    v_rows = _randn(gen, (3, 8, 128), torch.float32, dev)
+    pos = torch.tensor([0, 448, 896 + 123], device=dev)
+    n0 = ring_rows_write.launches
+    ring_rows_write(kk, vk, k_rows, v_rows, 25, pos)
+    ring_rows_write_plain(kp, vp, k_rows, v_rows, 25, pos)
+    torch.cuda.synchronize()
+    assert ring_rows_write.launches == n0 + 1
+    assert torch.equal(kk.view(torch.uint8), kp.view(torch.uint8))
+    assert torch.equal(vk.view(torch.uint8), vp.view(torch.uint8))
+    if dtype == torch.float8_e4m3fn:
+        assert kk[:, 25, :, [0, 448, 123]].float().abs().max().item() == 448.0
+
+
+def test_int4_and_rows_wrappers_refuse(dev):
+    p = torch.zeros((2, 64, 64), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 64, 2), device=dev)
+    x = torch.zeros((4, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        int4_mm(x.float(), p, s, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int4_mm(x[:, :100], p[..., :50].contiguous(), s, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_mm(torch.zeros((128, 4), dtype=torch.bfloat16, device=dev).t(),
+                p, s, 0)
+    with pytest.raises(ValueError, match="layer"):
+        int4_mm(x, p, s, 2)
+    ring = torch.zeros((2, 3, 8, 64, 128), device=dev)
+    rows = torch.zeros((2, 8, 128), device=dev)
+    pos = torch.tensor([1, 70], device=dev)
+    with pytest.raises(ValueError, match="rings"):
+        ring_rows_write(ring.half(), ring.half(), rows, rows, 0, pos)
+    with pytest.raises(ValueError, match="f32"):
+        ring_rows_write(ring, ring, rows.bfloat16(), rows.bfloat16(), 0, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        r2 = ring.transpose(3, 4)
+        ring_rows_write(r2, r2, rows, rows, 0, pos)
+
+
+def test_int4_fp8_serving_at_reduced_depth(dev):
+    """Full widths, 2 encoder and 2 decoder layers, int4 decoder and fp8
+    rings, B=2: bulk encode, batched prefill and decode bursts launch every
+    kernel exactly where they should."""
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.parallel import serving as sv
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine, decompose
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    cfg = full_config(kv_dtype="float8_e4m3fn", enc_kv_dtype="bfloat16")
+    cfg = cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder, n_layers=2),
+        decoder=dataclasses.replace(cfg.decoder, n_layers=2))
+    engine = VoxtralEngine(cfg, init_params(cfg, seed=0, device=dev),
+                           dec_kv_ring=256, quantize="int4")
+    rng = np.random.default_rng(0)
+    mel = np.stack([padded_clip_mel(engine, (0.1 * rng.standard_normal(
+        16000)).astype(np.float32)) for _ in range(2)])
+    for fn in (banded_attention_batched, flash_decode, int4_mm,
+               ring_rows_write):
+        fn.launches = 0
+    rows = engine.encode_clips_bulk(mel)
+    assert bool(torch.isfinite(rows).all())
+    plen = engine.prompt_len
+    cache = sv.batched_dec_cache(cfg, 2, engine.dec_kv_ring, device=dev)
+    sv.bprefill(engine.params["decoder"], cfg,
+                engine.prompt_embeds(rows[:, : plen - 1]), cache,
+                torch.zeros(2, dtype=torch.int32, device=dev), engine.ada())
+    prev = torch.full((2,), 32, dtype=torch.int32, device=dev)
+    pos, steps = plen - 1, 0
+    for b in decompose(rows.shape[1] - pos, (64, 16, 4, 1)):
+        toks, _, _, _, cache = sv.bdecode_burst(
+            engine.params["decoder"], cfg, rows[:, pos: pos + b], prev,
+            cache, torch.full((2,), pos, dtype=torch.int32, device=dev),
+            engine.ada())
+        prev, pos, steps = toks[:, -1], pos + b, steps + b
+    torch.cuda.synchronize()
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.decoder.vocab_size
+    assert banded_attention_batched.launches == 2
+    assert flash_decode.launches == 0
+    assert ring_rows_write.launches == 2 * steps
+    assert int4_mm.launches == 2 * 4 + (2 * 4 + 1) * steps

@@ -103,8 +103,37 @@ def test_cli_prints_the_jax_transcript(model_dir, capsys):
     assert "sequential" in out.err
 
 
+@pytest.mark.parametrize("flag,quantize", [("--int8", True),
+                                           ("--int4", "int4")])
+def test_cli_quantized_prints_the_jax_transcript(model_dir, capsys, flag,
+                                                 quantize):
+    """-i --bulk-encode with --int8 / --int4: the transcript of the JAX
+    package's engine quantized the same way (its CLI passes these flags to
+    VoxtralEngine(quantize=...))."""
+    from voxtral_tpu.io.wav import load_wav
+
+    wav = str(model_dir / "clip.wav")
+    samples = load_wav(wav)
+    jcfg = jax_tiny()
+    jengine = jeng.VoxtralEngine(
+        jcfg, jax_load(str(model_dir), jcfg),
+        tokenizer=JTok.load(str(model_dir / "tekken.json")),
+        buckets=(64, 16, 4, 1), enc_kv_ring=128,
+        dec_kv_ring=jeng.adaptive_dec_ring(jcfg, len(samples)),
+        quantize=quantize)
+    want = joff.transcribe_offline(jengine, samples)
+    assert want
+
+    rc = cli.main(["-d", str(model_dir), "-i", wav, "--bulk-encode", flag],
+                  cfg=tiny_config())
+    out = capsys.readouterr()
+    assert rc == 0
+    assert out.out == want + "\n"
+
+
 @pytest.mark.parametrize("extra", [["--stdin"], ["-i", "x.wav"],
-                                   ["-i", "x.wav", "--bulk-encode", "--int8"],
+                                   ["-i", "x.wav", "--bulk-encode", "--alt",
+                                    "0.5"],
                                    ["-i", "x.wav", "--bulk-encode", "--jacobi"]])
 def test_cli_unported_modes_exit_2(model_dir, capsys, extra):
     assert cli.main(["-d", str(model_dir)] + extra, cfg=tiny_config()) == 2

@@ -1,0 +1,237 @@
+"""parallel/serving.py and the decode-step row write of the port against
+the JAX package on tiny_config() float32 with the same weights: the plain
+row write bit for bit against the Pallas kernel (interpret mode), the fp8
+overflow divergence, and batched prefill + burst decode at B=3 on every rung
+of the dtype ladder (token ids exactly equal)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from voxtral_tpu.models import decoder as jdec
+from voxtral_tpu.models import quant as jq
+from voxtral_tpu.ops.ring import _rows_write_batched
+from voxtral_tpu.parallel import serving as jsv
+from voxtral_tpu_torch.config import tiny_config
+from voxtral_tpu_torch.models import decoder as tdec
+from voxtral_tpu_torch.models.params import from_jax_numpy
+from voxtral_tpu_torch.ops.ring import (
+    ring_rows_write,
+    ring_rows_write_plain,
+    ring_write,
+    to_ring_dtype,
+)
+from voxtral_tpu_torch.parallel import serving as tsv
+
+torch.set_num_threads(1)
+
+RING_DTYPES = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
+               ("float8_e4m3fn", torch.float8_e4m3fn)]
+
+
+def _bits(x) -> np.ndarray:
+    """Raw bytes of a torch tensor or a JAX/numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(x)).view(np.uint8)
+
+
+def _rows_case(jdt, tdt, scale=1.0, fn=ring_rows_write_plain):
+    """One row write per stream into layer 1 of [5, 3, 2, 64, 8] rings, in
+    JAX (the Pallas kernel) and in the port (`fn`): (JAX rings, port rings,
+    rows, positions)."""
+    b, n_layers, kh, cap, d = 5, 3, 2, 64, 8
+    rng = np.random.default_rng(9)
+    ring = [jnp.asarray(rng.standard_normal((b, n_layers, kh, cap, d)),
+                        jnp.float32).astype(jdt) for _ in range(2)]
+    rows = [(rng.standard_normal((b, kh, d)) * scale).astype(np.float32)
+            for _ in range(2)]
+    pos = np.array([0, 31, 63, 64 + 5, 3 * 64 + 40], np.int32)  # wraps
+    jout = _rows_write_batched(ring[0], ring[1], jnp.asarray(rows[0]),
+                               jnp.asarray(rows[1]), 1, jnp.asarray(pos))
+    tk, tv = (from_jax_numpy(np.asarray(r)) for r in ring)
+    assert tk.dtype == tdt
+    tout = fn(tk, tv, torch.from_numpy(rows[0]), torch.from_numpy(rows[1]),
+              1, torch.from_numpy(pos))
+    assert tout[0] is tk and tout[1] is tv             # written in place
+    return jout, tout, rows, pos
+
+
+@pytest.mark.parametrize("fn", [ring_rows_write_plain, ring_rows_write],
+                         ids=["plain", "dispatch"])
+@pytest.mark.parametrize("jdt,tdt", RING_DTYPES, ids=[n for n, _ in RING_DTYPES])
+def test_ring_rows_write_matches_pallas(jdt, tdt, fn):
+    """|rows| < 448: both rings bit-equal after the write, in f32, bf16 and
+    fp8, with positions that wrap the 64-slot ring; the dispatching entry
+    point takes the plain version for CPU tensors and launches nothing."""
+    n0 = ring_rows_write.launches
+    jout, tout, _, _ = _rows_case(jdt, tdt, fn=fn)
+    for j, t in zip(jout, tout):
+        np.testing.assert_array_equal(_bits(t), _bits(j))
+    assert ring_rows_write.launches == n0
+
+
+def test_fp8_row_overflow_saturates_in_port_and_is_nan_in_jax():
+    """The one known divergence from the reference (ROADMAP.md section 3):
+    an fp8 row value that rounds past 448 is +-448 in the port (its
+    `to_ring_dtype`, like the kernel's __NV_SATFINITE cast) and NaN in the
+    JAX package (ml_dtypes)."""
+    jout, tout, rows, pos = _rows_case("float8_e4m3fn", torch.float8_e4m3fn,
+                                       scale=1000.0)
+    for i in range(2):                                    # K and V
+        for b, slot in enumerate(pos % 64):
+            row = rows[i][b]                              # [KH, D]
+            got = tout[i][b, 1, :, slot, :].float().numpy()
+            want = np.asarray(jout[i][b, 1, :, slot, :].astype(jnp.float32))
+            over = np.abs(row) > 464      # past 448's rounding interval
+            assert over.any()
+            np.testing.assert_array_equal(got[over],
+                                          np.sign(row[over]) * 448.0)
+            assert np.isnan(want[over]).all()
+            # below the overflow both casts agree bit for bit
+            np.testing.assert_array_equal(got[~over], want[~over])
+    # the single-value form of the same fact, and the prefill's chunk write
+    x = np.array([500.0, -1000.0, 449.0, 464.0, float("inf"), 0.3],
+                 np.float32)
+    np.testing.assert_array_equal(
+        to_ring_dtype(torch.from_numpy(x), torch.float8_e4m3fn)
+        .float().numpy(), [448.0, -448.0, 448.0, 448.0, 448.0, 0.3125])
+    j = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn).astype(
+        jnp.float32))
+    assert np.isnan(j[[0, 1, 4]]).all()
+    assert (j[[2, 3, 5]] == [448.0, 448.0, 0.3125]).all()
+    ring = torch.zeros((1, 1, 8, 6), dtype=torch.float8_e4m3fn)
+    ring_write(ring, torch.from_numpy(x).reshape(1, 1, 1, 6).expand(
+        1, 3, 1, 6), torch.tensor([6]))
+    assert ring.float().abs().max() == 448.0
+
+
+# --- batched prefill + burst decode at B=3 on the dtype ladder --------------
+
+RUNGS = {   # name: (ring dtype, decoder quantization bits or None)
+    "f32": ("float32", None),
+    "fp8": ("float8_e4m3fn", None),
+    "int8_fp8": ("float8_e4m3fn", 8),
+    "int4_fp8": ("float8_e4m3fn", 4),
+}
+B, CAP, BURST, N_BURSTS = 3, 64, 16, 2
+
+
+def _rung(name, params, tparams):
+    """(JAX cfg, JAX decoder tree, port cfg, port decoder tree): the JAX
+    tree quantized in JAX and carried across bit for bit."""
+    kv, bits = RUNGS[name]
+    from voxtral_tpu.config import tiny_config as jax_tiny
+
+    jcfg, tcfg = jax_tiny().replace(kv_dtype=kv), tiny_config().replace(
+        kv_dtype=kv)
+    if bits is None:
+        return jcfg, params["decoder"], tcfg, tparams["decoder"]
+    jp = jq.quantize_params(params, encoder=False, bits=bits)
+    tp = from_jax_numpy(jax.tree.map(np.asarray, jp))
+    return jcfg, jp["decoder"], tcfg, tp["decoder"]
+
+
+def _inputs(cfg):
+    rng = np.random.default_rng(17)
+    pl = cfg.prompt_len - 1
+    emb = rng.standard_normal((B, pl, cfg.decoder.dim)).astype(np.float32)
+    chunks = 3.0 * rng.standard_normal(
+        (B, BURST * N_BURSTS, cfg.decoder.dim)).astype(np.float32)
+    return pl, emb, chunks
+
+
+def _run_jax(jcfg, jdp):
+    pl, emb, chunks = _inputs(jcfg)
+    ada = jdec.ada_scales(jdp, jcfg)
+    cache = jsv.batched_dec_cache(jcfg, B, CAP)
+    cache = jsv.bprefill(jdp, jcfg, jnp.asarray(emb), cache,
+                         jnp.zeros((B,), jnp.int32), ada)
+    prev = jnp.full((B,), 32, jnp.int32)
+    toks = []
+    for i in range(N_BURSTS):
+        t, _, _, _, cache = jsv.bdecode_burst(
+            jdp, jcfg, jnp.asarray(chunks[:, i * BURST:(i + 1) * BURST]),
+            prev, cache, jnp.full((B,), pl + i * BURST, jnp.int32), ada)
+        toks.append(np.asarray(t))
+        prev = t[:, -1]
+    return np.concatenate(toks, axis=1), cache
+
+
+def _run_port(tcfg, tdp, streams=slice(None)):
+    pl, emb, chunks = _inputs(tcfg)
+    emb, chunks = emb[streams], chunks[streams]
+    bsz = emb.shape[0]
+    ada = tdec.ada_scales(tdp, tcfg)
+    cache = tsv.batched_dec_cache(tcfg, bsz, CAP)
+    assert cache.k.dtype == tcfg.kvdtype and cache.k.shape[:2] == (bsz, 2)
+    out = tsv.bprefill(tdp, tcfg, torch.from_numpy(emb), cache,
+                       torch.zeros(bsz, dtype=torch.int32), ada)
+    assert out is cache                                # updated in place
+    prev = torch.full((bsz,), 32, dtype=torch.int32)
+    toks = []
+    for i in range(N_BURSTS):
+        t, _, _, _, cache = tsv.bdecode_burst(
+            tdp, tcfg,
+            torch.from_numpy(chunks[:, i * BURST:(i + 1) * BURST].copy()),
+            prev, cache, torch.full((bsz,), pl + i * BURST,
+                                    dtype=torch.int32), ada)
+        toks.append(t.numpy())
+        prev = t[:, -1]
+    return np.concatenate(toks, axis=1), cache
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+def test_batched_serving_ids_equal_jax(params, params_np, rung):
+    """bprefill + two bdecode_bursts of 16 steps at B=3 on a 64-slot ring
+    that wraps: token ids exactly equal to JAX sv.bprefill/sv.bdecode_burst
+    on the same (JAX-quantized, carried) weights; caches equal to f32
+    rounding, read in f32."""
+    jcfg, jdp, tcfg, tdp = _rung(rung, params, from_jax_numpy(params_np))
+    want, jc = _run_jax(jcfg, jdp)
+    got, tc = _run_port(tcfg, tdp)
+    assert got.shape == (B, BURST * N_BURSTS) and got.dtype == np.int32
+    assert (tcfg.prompt_len - 1) + BURST * N_BURSTS > CAP   # the ring wrapped
+    np.testing.assert_array_equal(got, want)
+    for t, j in ((tc.k, jc.k), (tc.v, jc.v)):
+        np.testing.assert_allclose(
+            t.float().numpy(), np.asarray(j.astype(jnp.float32)),
+            rtol=1e-5, atol=1e-5 if rung == "f32" else 0.07)
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+def test_batched_rows_equal_single_stream(params, params_np, rung):
+    """Each stream of the B=3 run gives exactly the ids of the same stream
+    run alone at B=1, and its cache to f32 rounding (the CPU GEMM sums a
+    3-row product in another order than a 1-row one; an fp8 ring may then
+    round one element to its neighbour)."""
+    _, _, tcfg, tdp = _rung(rung, params, from_jax_numpy(params_np))
+    toks, cache = _run_port(tcfg, tdp)
+    for s in range(B):
+        t1, c1 = _run_port(tcfg, tdp, streams=slice(s, s + 1))
+        np.testing.assert_array_equal(t1[0], toks[s])
+        for one, batched in ((c1.k[0], cache.k[s]), (c1.v[0], cache.v[s])):
+            np.testing.assert_allclose(
+                one.float().numpy(), batched.float().numpy(), rtol=1e-5,
+                atol=1e-5 if rung == "f32" else 0.07)
+
+
+def test_bdecode_burst_attention_paths_agree(params_np):
+    """The fp8 ring takes the plain path and the f32 ring the flash path
+    under attn_impl="auto"; forcing "xla" on the f32 ring gives the same
+    ids (the two paths compute the same function)."""
+    tp = from_jax_numpy(params_np)["decoder"]
+    base = tiny_config()
+    ids = {}
+    for impl in ("auto", "xla"):
+        cfg = base.replace(decoder=dataclasses.replace(base.decoder,
+                                                       attn_impl=impl))
+        ids[impl] = _run_port(cfg, tp)[0]
+    np.testing.assert_array_equal(ids["auto"], ids["xla"])
+    assert tdec._use_flash(base.decoder, torch.zeros(1))
+    assert not tdec._use_flash(base.decoder,
+                               torch.zeros(1, dtype=torch.float8_e4m3fn))

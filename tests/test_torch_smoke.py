@@ -1,0 +1,91 @@
+"""chip_smoke.py's slice and serve phases rehearsed on the CPU at tiny size.
+CPU tensors launch no kernel, so the plain functions stand in for the
+kernels and count as their launches; the phases' own checks (exact launch
+counts per rung, ids in range, identical second runs, kernel path against
+plain path) then run as they do on the card."""
+
+import functools
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from voxtral_tpu_torch.config import tiny_config
+from voxtral_tpu_torch.models import bulk_encode, decoder
+from voxtral_tpu_torch.ops import banded_encode, flash_decode, quant_mm, ring
+
+torch.set_num_threads(1)
+
+
+def _counted(kernel_fn, plain_fn, own=False):
+    """plain_fn, adding one per call to the kernel wrapper's counter, which
+    the phases reset and read (`own`: the stand-in's copy of it, for a
+    wrapper the phases import by name)."""
+    @functools.wraps(kernel_fn)
+    def f(*args, **kwargs):
+        (f if own else kernel_fn).launches += 1
+        return plain_fn(*args, **kwargs)
+    return f
+
+
+@pytest.fixture
+def counted_kernels(monkeypatch):
+    monkeypatch.setattr(bulk_encode, "banded_attention_batched", _counted(
+        banded_encode.banded_attention_batched,
+        banded_encode.banded_attention_plain))
+    monkeypatch.setattr(decoder, "flash_decode", _counted(
+        flash_decode.flash_decode, flash_decode.flash_decode_plain))
+    monkeypatch.setattr(decoder, "ring_rows_write", _counted(
+        ring.ring_rows_write, ring.ring_rows_write_plain))
+    # phase_serve imports int4_mm from its module, so it reads the
+    # stand-in's counter
+    monkeypatch.setattr(quant_mm, "int4_mm", _counted(
+        quant_mm.int4_mm, quant_mm.int4_mm_plain, own=True))
+    yield
+    for fn in (banded_encode.banded_attention_batched,
+               flash_decode.flash_decode, ring.ring_rows_write):
+        fn.launches = 0
+
+
+def test_slice_and_serve_phases_on_cpu(counted_kernels):
+    cfg = tiny_config()
+    params = cs.make_params(cfg, "cpu")
+    sl = cs.phase_slice(cfg, params, "cpu", (1.2, 2.0))
+    assert sl["launches"][0] == 2 * cfg.encoder.n_layers
+    assert sl["launches"][1] == cfg.decoder.n_layers * sum(
+        c["decode_steps"] for c in sl["clips"])
+
+    sv = cs.phase_serve(cfg, params, "cpu", n_streams=3, seconds=2.0,
+                        dec_ring=64, extra_steps=4)
+    rungs = {r["rung"]: r for r in sv["rungs"]}
+    assert list(rungs) == ["bf16", "fp8kv", "int8", "int4", "int4deq"]
+    steps = rungs["bf16"]["decode_steps"]
+    assert sv["launches"] == {
+        "banded_attention_batched": 5 * cfg.encoder.n_layers,
+        "flash_decode": cfg.decoder.n_layers * steps,
+        "ring_rows_write": 4 * cfg.decoder.n_layers * steps,
+        "int4_mm": 4 * cfg.decoder.n_layers
+        + (4 * cfg.decoder.n_layers + 1) * steps,
+    }
+    assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
+    for name in ("fp8kv", "int8", "int4", "int4deq"):
+        assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0
+    # f32 weights and activations: the dequantized rung differs from the
+    # int4 one only in the f32 rounding of its sums, and gives its ids
+    assert rungs["int4deq"]["agree_int4"] == 1.0
+    assert rungs["int4deq"]["int4_max_quant_steps"] <= 0.5 + 1e-5
+
+
+def test_dequantize4_rejects_a_wrong_scale():
+    """dequantize4's bound catches an int4 table whose scales are off."""
+    from voxtral_tpu_torch.models.quant import quantize_params
+
+    cfg = tiny_config()
+    params = cs.make_params(cfg, "cpu")
+    q = quantize_params(params, encoder=False, bits=4)
+    _, worst = cs.dequantize4(q, params)
+    assert 0.4 < worst <= 0.5 + cs.QUANT4_STEP_SLACK
+    bad = dict(q["decoder"])
+    bad["tok_embeddings_scale"] = bad["tok_embeddings_scale"] * 1.1
+    with pytest.raises(AssertionError, match="tok_embeddings"):
+        cs.dequantize4({**q, "decoder": bad}, params)

@@ -7,9 +7,11 @@ tekken.json.  The transcript goes to stdout; metrics go to stderr in the
 reference's formats.  The weights load onto the GPU when one is present,
 else the CPU (where every kernel runs its plain PyTorch version).
 
-The flag surface is the JAX package's (voxtral_tpu/cli.py).  The streaming,
-stdin and microphone modes, --alt, --int8/--int4 and --jacobi are not
-ported yet: they exit with status 2.  Decoding is sequential greedy: the
+The flag surface is the JAX package's (voxtral_tpu/cli.py).  --int8 and
+--int4 quantize the decoder's weights (models/quant.py), and
+VOXTRAL_KV_DTYPE=float8_e4m3fn stores its KV rings in fp8.  The streaming,
+stdin and microphone modes, --alt and --jacobi are not ported yet: they
+exit with status 2.  Decoding is sequential greedy: the
 JAX CLI's default "auto" mode takes Jacobi bursts, which are not ported.
 """
 
@@ -26,8 +28,6 @@ _NOT_PORTED = {
     "stdin": "--stdin",
     "from_mic": "--from-mic",
     "alt": "--alt",
-    "int8": "--int8",
-    "int4": "--int4",
     "jacobi": "--jacobi",
     "monitor": "--monitor",
 }
@@ -54,8 +54,11 @@ def main(argv=None, cfg=None) -> int:
     p.add_argument("--jacobi", action="store_true")
     p.add_argument("--no-jacobi", action="store_true",
                    help="sequential decoding (the port's only mode)")
-    p.add_argument("--int8", action="store_true")
-    p.add_argument("--int4", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weight-only decoder")
+    p.add_argument("--int4", action="store_true",
+                   help="int4 (nibble-packed, per-half scales) weight-only "
+                        "decoder")
     args = p.parse_args(argv)
 
     for attr, flag in _NOT_PORTED.items():
@@ -91,7 +94,8 @@ def main(argv=None, cfg=None) -> int:
     params = load_params(args.model_dir, cfg, device=device, verbose=v >= 2)
     tok = TekkenTokenizer.load(os.path.join(args.model_dir, "tekken.json"))
     engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
-                           buckets=(64, 16, 4, 1))
+                           buckets=(64, 16, 4, 1),
+                           quantize="int4" if args.int4 else args.int8)
     if args.delay is not None:
         engine.set_delay(args.delay)
     if v:

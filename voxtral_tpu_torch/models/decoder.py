@@ -17,8 +17,9 @@ Single-token decode attention (DecoderConfig.attn_impl):
   - "flash": ops/flash_decode.py writes the new K/V row and attends over
     the live window in one call (the hand-written CUDA kernel for CUDA
     tensors, its plain version for CPU tensors);
-  - "xla":   the plain path: ring_rows_write (in-place index write), then
-    ring_attention over the whole ring with a mask;
+  - "xla":   the plain path: ring_rows_write (in-place row write: the
+    hand-written CUDA kernel for CUDA tensors), then ring_attention over
+    the whole ring with a mask;
   - "auto":  "flash" whenever the ring is a float type of >= 2 bytes, at
     any B and any ring capacity; fp8 rings take "xla".  The JAX package
     takes flash at B=1 only above FLASH_RING_THRESHOLD ring slots, a TPU
@@ -30,7 +31,8 @@ float operations.
 
 Numerics follow python_simple_implementation.py:522-664: RMSNorm, RoPE,
 softmax and logits in float32; matmuls take compute-dtype operands and
-return float32 (models/quant.py).
+return float32 (models/quant.py, which also carries the int8 and int4
+weight rungs: int4 products go through the hand-written int4 kernel).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Any
 import torch
 
 from ..config import TOKEN_TEXT_MIN, DecoderConfig, VoxtralConfig
+from ..ops import quant_mm
 from ..ops.flash_decode import flash_decode
 from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
@@ -185,12 +188,20 @@ def decoder_forward(
 def final_logits(params: PyTree, cfg: VoxtralConfig,
                  x: torch.Tensor) -> torch.Tensor:
     """RMSNorm + tied-embedding logits with f32 accumulation (python:657-664).
-    Operands stay in the embedding dtype.  x: [..., dim] -> [..., vocab]
-    f32."""
+    Operands stay in the embedding dtype; int8 and int4 tables take bf16
+    activations.  x: [..., dim] -> [..., vocab] f32."""
     emb = params["tok_embeddings"]
-    if emb.dtype == torch.int8 or "tok_embeddings_scale" in params:
-        raise NotImplementedError(quant.NOT_PORTED)
+    s = params.get("tok_embeddings_scale")
     xn = rms_norm(x, params["final_norm"], cfg.decoder.norm_eps)
+    if quant._is_packed4(emb, s):
+        # nibble-packed int4 table, per-half scales [V, 2]: the int4 kernel
+        y = quant_mm.int4_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
+                             emb[None], s[None], 0)
+        return y.reshape(*x.shape[:-1], emb.shape[0])
+    if emb.dtype == torch.int8:
+        # int8 table: widened to bf16 for the product, rescaled per vocab row
+        return quant.matmul_f32(xn.to(torch.bfloat16),
+                                emb.to(torch.bfloat16).t()) * s
     return quant.matmul_f32(xn.to(emb.dtype), emb.t())
 
 

@@ -139,14 +139,20 @@ def init_params(cfg: VoxtralConfig, seed: int = 0, device="cpu") -> PyTree:
 
 def _np_to_torch(arr: np.ndarray) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
-    if arr.dtype.name == "bfloat16":   # ml_dtypes, as JAX hands it out
+    # ml_dtypes leaves, as JAX hands them out: reinterpret the bits
+    if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     return torch.from_numpy(arr.copy())
 
 
 def from_jax_numpy(tree: PyTree, device="cpu") -> PyTree:
     """The JAX parameter tree with numpy leaves (e.g. `jax.tree.map(
-    np.asarray, params)`) -> the same nested dict of torch tensors."""
+    np.asarray, params)`) -> the same nested dict of torch tensors.  bf16,
+    fp8 e4m3fn and int8 leaves cross bit for bit, so a JAX `quantize_params`
+    tree or fp8 cache runs unchanged in the port."""
     if isinstance(tree, dict):
         return {k: from_jax_numpy(v, device) for k, v in tree.items()}
     return _np_to_torch(np.asarray(tree)).to(device)

@@ -1,11 +1,12 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points.
-On first use they are compiled with `nvcc` for `sm_90a` (Hopper) into one
-shared library under `voxtral_tpu_torch/build/<source hash>/` (ignored by
-git) and loaded with ctypes; a later process with the same sources reuses
-the library.  Nothing here runs at import time: the CPU tests import every
-module of the package on machines with no CUDA toolkit.
+On first use each is compiled with `nvcc` for `sm_90a` (Hopper), all at
+once in parallel, and linked into one shared library under
+`voxtral_tpu_torch/build/<source hash>/` (ignored by git), then loaded with
+ctypes; a later process with the same sources reuses the library.  Nothing
+here runs at import time: the CPU tests import every module of the package
+on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "build")
-SOURCES = ("banded_attention.cu", "flash_decode.cu")
+SOURCES = ("banded_attention.cu", "flash_decode.cu", "int4_mm.cu",
+           "ring_rows_write.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -62,15 +64,30 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]                  # one nvcc per source, together
+    outs = [p.communicate()[0] for p in procs]
+    tmp = f"{lib_path}.{tag}"
+    link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+    link_out = ""
+    if all(p.returncode == 0 for p in procs):
+        lp = subprocess.run(link, capture_output=True, text=True)
+        link_out = lp.stdout + lp.stderr
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    log += " ".join(link) + "\n" + link_out
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        sys.stderr.write(proc.stdout + proc.stderr)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+        f.write(log)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if not os.path.exists(tmp):
+        sys.stderr.write(log)
+        raise RuntimeError(f"nvcc failed building {out_dir} (build.log)")
     os.replace(tmp, lib_path)   # atomic: a concurrent builder sees all or nothing
     return lib_path
 
@@ -89,6 +106,14 @@ def kernels() -> ctypes.CDLL:
             lib.vt_flash_decode.restype = i
             lib.vt_flash_decode.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+            ]
+            lib.vt_int4_mm.restype = i
+            lib.vt_int4_mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.vt_int4_mm_k_split.restype = i
+            lib.vt_int4_mm_k_split.argtypes = [i, i, i]
+            lib.vt_ring_rows_write.restype = i
+            lib.vt_ring_rows_write.argtypes = [
+                p, p, p, p, p, i, i, i, i, i, i, i, p,
             ]
             _lib = lib
         return _lib

@@ -16,8 +16,9 @@ accumulation are float32; the result is cast to out_dtype.
     It takes bf16 or f32 rings with head_dim 128 and raises on anything
     else (fp8 rings stay on the plain ring path, models/decoder.py).
   * CPU tensors take `flash_decode_plain`, the same function in plain
-    PyTorch: the in-place row write of ops/ring.py, then masked softmax
-    attention over the whole ring in f32.
+    PyTorch: the in-place row write of `ring_rows_write_plain`, then masked
+    softmax attention over the whole ring in f32.  It launches no kernel on
+    CUDA tensors either, so it serves as the kernel's reference there.
 
 The decoder's attn_impl="xla" path (ring_rows_write + ring_attention)
 computes the same function; it differs only in rounding (ring_attention
@@ -31,7 +32,7 @@ import math
 import torch
 
 from . import cuda_lib
-from .ring import ring_rows_write, slot_logical_positions
+from .ring import ring_rows_write_plain, slot_logical_positions
 
 
 def flash_decode_plain(q, k_all, v_all, li: int, pos, k_rows=None,
@@ -44,7 +45,7 @@ def flash_decode_plain(q, k_all, v_all, li: int, pos, k_rows=None,
     out_dtype = out_dtype or q.dtype
     pos = pos.reshape(bsz)
     if k_rows is not None:
-        ring_rows_write(k_all, v_all, k_rows, v_rows, li, pos)
+        ring_rows_write_plain(k_all, v_all, k_rows, v_rows, li, pos)
     lpos = slot_logical_positions(pos, cap)                    # [B, cap]
     p = pos[:, None]
     valid = (lpos >= 0) & (lpos > p - window) & (lpos <= p)

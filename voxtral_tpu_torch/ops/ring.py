@@ -18,7 +18,8 @@ Everything is batched-first: rings are [B, KH, cap, D] (one layer) or the
 stacked [B, L, KH, cap, D]; positions are int tensors [B], one per stream.
 Writes are in-place index writes at modular slots (the JAX package rotates
 with concat + dynamic_slice to suit the TPU compiler; that is not needed
-here).
+here).  The single-row write of a decode step, `ring_rows_write`, is the
+hand-written CUDA kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import cuda_lib
+
+
+def to_ring_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Cast rows to a ring dtype, rounding to nearest even; fp8 e4m3fn
+    saturates at +-448, as the kernel's __NV_SATFINITE cast does.  The clamp
+    keeps that on every torch version: torch 2.13 saturates by itself, but
+    torch 2.11's CUDA cast (and the JAX package, through ml_dtypes) turns a
+    value past 464 into NaN."""
+    if dtype == torch.float8_e4m3fn:
+        x = x.clamp(-448.0, 448.0)
+    return x.to(dtype)
 
 
 def ring_write(ring: torch.Tensor, vals: torch.Tensor,
@@ -39,7 +53,7 @@ def ring_write(ring: torch.Tensor, vals: torch.Tensor,
     """
     bsz, _, cap, _ = ring.shape
     t = vals.shape[1]
-    vals = vals.to(ring.dtype)
+    vals = to_ring_dtype(vals, ring.dtype)
     if t > cap:
         vals = vals[:, t - cap:]
         pos0 = pos0 + (t - cap)
@@ -52,6 +66,22 @@ def ring_write(ring: torch.Tensor, vals: torch.Tensor,
     return ring
 
 
+def ring_rows_write_plain(k_all: torch.Tensor, v_all: torch.Tensor,
+                          k_rows: torch.Tensor, v_rows: torch.Tensor, li: int,
+                          pos: torch.Tensor):
+    """Plain PyTorch `ring_rows_write`: one in-place index write per cache."""
+    bsz, _, _, cap, _ = k_all.shape
+    slots = torch.remainder(pos, cap)
+    bidx = torch.arange(bsz, device=k_all.device)
+    k_all[bidx, li, :, slots, :] = to_ring_dtype(k_rows, k_all.dtype)
+    v_all[bidx, li, :, slots, :] = to_ring_dtype(v_rows, v_all.dtype)
+    return k_all, v_all
+
+
+# ring dtype -> ring_kind of csrc/ring_rows_write.cu
+_RING_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+
+
 def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
                     k_rows: torch.Tensor, v_rows: torch.Tensor, li: int,
                     pos: torch.Tensor):
@@ -59,13 +89,51 @@ def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
     [B, L, KH, cap, D] caches at (b, li, :, pos[b] % cap, :).
 
     k_rows/v_rows: [B, KH, D] (cast to the ring dtype); pos: int [B].
-    Returns (k_all, v_all)."""
-    bsz, _, _, cap, _ = k_all.shape
-    slots = torch.remainder(pos, cap)
-    bidx = torch.arange(bsz, device=k_all.device)
-    k_all[bidx, li, :, slots, :] = k_rows.to(k_all.dtype)
-    v_all[bidx, li, :, slots, :] = v_rows.to(v_all.dtype)
+    Returns (k_all, v_all).  CPU tensors take `ring_rows_write_plain`; CUDA
+    tensors launch `csrc/ring_rows_write.cu` (it replaces the Pallas kernel
+    voxtral_tpu/ops/ring.py:_rows_write_kernel), which takes f32, bf16 or
+    fp8 e4m3fn rings, contiguous, and f32 rows, and raises on anything
+    else.  Both cast as `to_ring_dtype` does: fp8 saturates at +-448 (the
+    JAX cast makes NaN there: ROADMAP.md section 3)."""
+    if k_all.device.type == "cpu":
+        return ring_rows_write_plain(k_all, v_all, k_rows, v_rows, li, pos)
+    if k_all.device.type != "cuda":
+        raise NotImplementedError(f"ring_rows_write on {k_all.device}")
+    bsz, n_layers, kh, cap, d = k_all.shape
+    kind = _RING_KINDS.get(k_all.dtype)
+    if kind is None or v_all.dtype != k_all.dtype:
+        raise ValueError("rows-write kernel takes f32, bf16 or fp8 e4m3fn "
+                         f"rings, got {k_all.dtype}, {v_all.dtype}")
+    if v_all.shape != k_all.shape:
+        raise ValueError("rows-write kernel: cache shapes differ")
+    if not (k_all.is_contiguous() and v_all.is_contiguous()):
+        raise ValueError("rows-write kernel: caches must be contiguous "
+                         "(they are written in place)")
+    if not 0 <= li < n_layers:
+        raise ValueError(f"rows-write kernel: layer {li} of {n_layers}")
+    for name, r in (("k_rows", k_rows), ("v_rows", v_rows)):
+        if r.dtype != torch.float32 or r.shape != (bsz, kh, d):
+            raise ValueError(f"rows-write kernel: {name} must be f32 "
+                             f"{(bsz, kh, d)}, got {r.dtype} "
+                             f"{tuple(r.shape)}")
+        if r.device != k_all.device:
+            raise ValueError(f"rows-write kernel: {name} on {r.device}")
+    k_rows, v_rows = k_rows.contiguous(), v_rows.contiguous()
+    pos32 = pos.to(device=k_all.device, dtype=torch.int32).reshape(bsz)
+    pos32 = pos32.contiguous()
+    lib = cuda_lib.kernels()
+    err = lib.vt_ring_rows_write(
+        k_all.data_ptr(), v_all.data_ptr(), k_rows.data_ptr(),
+        v_rows.data_ptr(), pos32.data_ptr(), bsz, n_layers, kh, cap, d, li,
+        kind, cuda_lib.stream_handle(k_all.device),
+    )
+    cuda_lib.check(err, "ring_rows_write")
+    ring_rows_write.launches += 1
     return k_all, v_all
+
+
+# kernel launches since the last reset (CPU calls never count)
+ring_rows_write.launches = 0
 
 
 def slot_logical_positions(p_end: torch.Tensor, cap: int) -> torch.Tensor:

@@ -10,10 +10,12 @@ is cut into the same bursts in both packages.  PyTorch runs eagerly and
 needs no per-shape program; the buckets are where CUDA-graph capture sizes
 will go.
 
+`quantize=` ("int8"/True or "int4") quantizes the decoder only, as the JAX
+engine does (models/quant.py); the encoder stays exact.
+
 Not ported yet (ROADMAP.md): the streaming encoder programs (conv chunks,
-ring encoder, fused streaming), Jacobi decoding, int8/int4 weights (the
-matmuls raise on quantized weights, models/quant.py), encoder weight
-paging, warm-up.
+ring encoder, fused streaming), Jacobi decoding, encoder weight paging,
+the memory ledger, warm-up.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..config import (
 )
 from ..models import decoder as dec_mod
 from ..models.decoder import KVCache, ada_scales
-from ..models.quant import embed_rows
+from ..models.quant import embed_rows, quantize_params
 from ..tokenizer import TekkenTokenizer
 
 DEFAULT_BUCKETS = (256, 64, 16, 4, 1)
@@ -75,6 +77,7 @@ class VoxtralEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         dec_kv_ring: Optional[int] = None,
         decode_mode: str = "sequential",
+        quantize: bool | str = False,      # False | True/"int8" | "int4"
     ):
         if decode_mode != "sequential":
             raise NotImplementedError(
@@ -85,6 +88,12 @@ class VoxtralEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
+        if quantize:
+            # decoder only (where decode reads its bytes); a new tree, so
+            # the caller's params stay as they were
+            params = quantize_params(params, encoder=False,
+                                     bits=4 if quantize == "int4" else 8)
+        self.quantized = quantize
         self.params = params
         self.tokenizer = tokenizer
         self.decode_mode = decode_mode
@@ -141,6 +150,12 @@ class VoxtralEngine:
             self.params["encoder"], self.params["adapter"], self.cfg,
             self._tensor(mel, torch.float32),
         )
+
+    def encode_clips_bulk(self, mel_b) -> torch.Tensor:
+        """Batched bulk encode of B clips of one length: [B, Tm, 128] ->
+        [B, Tm//8, 3072] f32, one banded-kernel launch per layer for all
+        streams (the JAX engine's name for the batched call)."""
+        return self.encode_clip_bulk(mel_b)
 
     def prompt_embeds(self, adapter_rows) -> torch.Tensor:
         """[B, L, dim] adapter rows -> prompt embeddings on the device:
