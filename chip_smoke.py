@@ -18,25 +18,39 @@ script exits non-zero:
                shape (H=32, KH=8, D=128, L=26), with and without the row
                write, bf16 and f32 rings, up to the serve phase's B=16
                rings of 896 slots
-  5. int4     kernel (C) against its plain version at the five
+  5. flash_enc kernel (E) against its plain version at the full-width
+               streaming-encoder shape (H=KH=32, D=64, stacked rings of
+               1024 slots, window 750) for B in {1, 16}, T from 4 to 274,
+               positions at 0, in the first lap and after wraparound; its
+               output bitwise equal across three chunkings of 256 rows
+  6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table)
                at 1, 16 and 608 rows
-  6. rows     kernel (D) against its plain version on [16, 26, 8, 896,
+  7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
                128] rings in fp8, bf16 and f32 (bit-equal rings)
-  7. slice    full_config() bf16 with seeded random weights: three
+  8. slice    full_config() bf16 with seeded random weights: three
                synthetic clips through transcribe_offline_ids on one
                VoxtralEngine, with launch counts, timings and checks
-  8. serve    the batched serving pipeline at B=16 (bulk encode of all
+  9. serve    the batched serving pipeline at B=16 (bulk encode of all
                streams, bprefill, bdecode_burst bursts), once per rung of
                the dtype ladder bf16 / fp8kv / int8 / int4, with launch
                counts, timings, decode ms/step at mid-clip fill and checks;
                then once on the int4 weights dequantized to bf16 (plain
                matmuls), whose ids must agree with the int4 rung's
+ 10. stream   VoxStream at B=1 on an 11 s clip fed 1 s at a time (2 s
+               interval), 0.5 s at a time (-I 0.5) and unfused: exact
+               launch counts, id agreement among the runs and with the
+               offline path, feed() walls, decode ms/step
+ 11. bstream  BatchedTranscriber at B=16 x 30 s, 200-frame intervals,
+               decoder ring 896: exact launch counts, aggregate x realtime,
+               stream 0 against a B=1 VoxStream
 
 The line before the last is a JSON object with one entry per kernel (and
-the slice and serve tables); the last line is {"ok": true, "device": {...}}.
-`--profile` instead prints torch.profiler's breakdown of the serve
-pipeline at B=16 (encode, prefill, decode per rung).  Imports no JAX.
+the slice, serve, stream and bstream tables); the last line is
+{"ok": true, "device": {...}}.  `--profile` instead prints
+torch.profiler's breakdown of the serve pipeline at B=16 (encode,
+prefill, decode per rung) and of the streaming paths at steady state (a
+B=1 feed, a B=16 BatchedTranscriber interval).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +70,10 @@ import numpy as np
 BANDED_TOL = 2e-2
 # (B): the same bf16/f32 ring values, f32 arithmetic in another order
 FLASH_TOL = 1e-4
+# (E), flash encode: as (A), both versions round the probabilities to bf16
+#      before the PV product, against different maxima (the kernel's
+#      running max, the plain version's row max)
+FLASH_ENC_TOL = 2e-2
 # (C): bf16 x int4 products are exact; only the f32 summation order differs
 # (the WMMA tiles and K splits against cuBLAS), compared relative to max
 # |plain|; measured up to 3.005e-7 on an H100 80GB HBM3 (700 W)
@@ -71,6 +89,11 @@ QUANT4_STEP_SLACK = 1e-5
 # serve: least share of ids the int4 rung must share with the same pipeline
 # run in bf16 on its dequantized weights (the JAX tests' bar for a rung)
 DEQUANT_AGREE_MIN = 0.5
+# stream: least share of ids each streaming run must share with the others
+# and with the offline path on the same clip (the same bar: random weights,
+# and cuBLAS picks its GEMM algorithm by row count, so other chunkings
+# round differently on the card)
+STREAM_AGREE_MIN = 0.5
 
 
 def log(phase: str, msg: str) -> None:
@@ -129,6 +152,34 @@ def device_ms(fn, iters: int, with_events: bool = False):
     return (ms, len(events) / iters) if with_events else ms
 
 
+# the card's published peaks (H100 SXM datasheet): the
+# least time a kernel could take is the larger of its bytes over the memory
+# rate and its operations over the bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """bound_ms and bound_by for work that must move `n_bytes` (each input
+    read once, each output written once) and do `n_flops`."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sdpa_ms(q, k, v, mask, iters: int = 20) -> float:
+    """CUDA-event time of one F.scaled_dot_product_attention call over
+    [B, H, T, D] queries and [B, KH, S, D] keys with a boolean mask: the
+    library yardstick of the attention kernels (the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    gqa = q.shape[1] != k.shape[1]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=gqa), iters)
+
+
 def phase_device() -> str:
     import torch
 
@@ -166,10 +217,10 @@ def phase_build() -> None:
                 log("build", line.strip())
 
 
-def _randn(gen, shape, dtype):
+def _randn(gen, shape, dtype, device: str = "cuda"):
     import torch
 
-    return torch.randn(shape, generator=gen, device="cuda",
+    return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float32).to(dtype)
 
 
@@ -220,9 +271,25 @@ def phase_banded() -> dict:
                 q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 20)
             plain = cuda_ms(lambda: banded_attention_plain(
                 q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
-            times = (kern, plain)
-            log("banded", f"B=1 T={t}: kernel {kern:.4f} ms, plain "
-                          f"{plain:.4f} ms per call (CUDA events)")
+            dkern = device_ms(lambda: banded_attention_batched(
+                q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
+            # the library call: SDPA with the boolean band mask
+            i = torch.arange(t, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = sdpa_ms(qt, kt, vt, band)
+            del qt, kt, vt, band
+            # each row meets min(i + 1, window) keys; q, k, v read, out
+            # written once, bf16
+            pairs = sum(min(r + 1, window) for r in range(t))
+            times = (kern, plain, dkern, lib,
+                     bound(4 * q.numel() * 2, 4 * d * h * pairs))
+            log("banded", f"B=1 T={t}: kernel {kern:.4f} ms (device "
+                          f"{dkern:.4f}), plain {plain:.4f} ms, SDPA "
+                          f"{lib:.4f} ms per call; bound "
+                          f"{times[4]['bound_ms']:.4f} ms "
+                          f"({times[4]['bound_by']})")
     # the kernel alone at the serve shape (the last case's tensors)
     kern16 = cuda_ms(lambda: banded_attention_batched(
         q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 10)
@@ -230,6 +297,7 @@ def phase_banded() -> dict:
                   f"(CUDA events)")
     banded_attention_batched.launches = 0
     return {"max_abs_err": worst, "ms": times[0], "plain_ms": times[1],
+            "device_ms": times[2], "library_ms": times[3], **times[4],
             "ms_b16": kern16}
 
 
@@ -252,6 +320,7 @@ def phase_flash() -> dict:
         flash_decode,
         flash_decode_plain,
     )
+    from voxtral_tpu_torch.ops.ring import slot_logical_positions
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -320,9 +389,29 @@ def phase_flash() -> dict:
             times[cap, mode] = (kern, plain)
             log("flash", f"B=1 bf16 cap={cap} pos={p} {mode}: kernel "
                          f"{kern:.4f} ms, plain {plain:.4f} ms per call")
+        if cap == 512:
+            # the library call (attention only: SDPA over the layer's ring
+            # with the logical-position mask, GQA) and the device times
+            lpos = slot_logical_positions(pos, cap)
+            mask = ((lpos >= 0) & (lpos <= pos[:, None])
+                    & (lpos > pos[:, None] - window))[:, None, None, :]
+            lib = sdpa_ms(q[:, :, None], k_all[:, li], v_all[:, li], mask, 50)
+            dkern = device_ms(lambda: flash_decode(
+                q, k_all, v_all, li, pos, k_rows, v_rows, **kw), 20)
+            # the live window's K and V rows read once, q read, the new
+            # rows and the output written (bf16 ring, f32 rows)
+            live = min(p + 1, window, cap)
+            b512 = bound(2 * live * kh * d * 2 + q.numel() * 2
+                         + 2 * kh * d * (4 + 2) + h * d * 2,
+                         4 * h * d * live)
+            log("flash", f"B=1 cap={cap} pos={p}: write+attend device "
+                         f"{dkern:.4f} ms; SDPA (attend) {lib:.4f} ms; "
+                         f"bound {b512['bound_ms']:.6f} ms "
+                         f"({b512['bound_by']})")
     flash_decode.launches = 0
     out = {"max_abs_err": worst, "ms": times[512, "write+attend"][0],
-           "plain_ms": times[512, "write+attend"][1]}
+           "plain_ms": times[512, "write+attend"][1], "device_ms": dkern,
+           "library_ms": lib, **b512}
     for (cap, mode), (kern, plain) in times.items():
         tag = f"{mode.replace('+', '_')}_cap{cap}"
         out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = kern, plain
@@ -387,9 +476,20 @@ def phase_int4() -> dict:
     # the summary times: one call of each of the five matrices at 16 rows
     # (the B=16 decode shape)
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms")
-    out = {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+    # no single PyTorch call takes this nibble-half packing with per-half
+    # scales
+    out = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+           "library_ms": None}
     for i, k in enumerate(keys):
         out[k] = sum(times[n, 16][i] for n in INT4_SHAPES)
+    # the five products at 16 rows: packed weights, scales and x read once,
+    # f32 out written once; 2 operations per weight and row
+    n_bytes = sum(o * i // 2 + o * 2 * 4 + 16 * i * 2 + 16 * o * 4
+                  for o, i in INT4_SHAPES.values())
+    out.update(bound(n_bytes, sum(2 * 16 * o * i
+                                  for o, i in INT4_SHAPES.values())))
+    log("int4", f"five products at 16 rows: bound {out['bound_ms']:.4f} ms "
+                f"({out['bound_by']}), kernel device {out['device_ms']:.4f} ms")
     for (name, rows), vals in times.items():
         for k, v in zip(keys, vals):
             out[f"{k}_{name}_rows{rows}"] = v
@@ -402,6 +502,7 @@ def phase_rows() -> dict:
     from voxtral_tpu_torch.ops.ring import (
         ring_rows_write,
         ring_rows_write_plain,
+        to_ring_dtype,
     )
 
     # torch's own cast on the card, for the record: torch 2.11 makes NaN
@@ -444,8 +545,17 @@ def phase_rows() -> dict:
         def plain_call():
             ring_rows_write_plain(kp, vp, k_rows, v_rows, 7, pos)
 
+        slots = torch.remainder(pos, cap)
+        bidx = torch.arange(bsz, device="cuda")
+        kr, vr = to_ring_dtype(k_rows, rdt), to_ring_dtype(v_rows, rdt)
+
+        def library_call():   # the index assignments, rows already cast
+            kp[bidx, 7, :, slots, :] = kr
+            vp[bidx, 7, :, slots, :] = vr
+
         times[rdt] = (cuda_ms(kern_call, 50), cuda_ms(plain_call, 50),
-                      device_ms(kern_call, 20), device_ms(plain_call, 20))
+                      device_ms(kern_call, 20), device_ms(plain_call, 20),
+                      cuda_ms(library_call, 50))
         log("rows", f"{str(rdt)[6:]} B={bsz}: kernel {times[rdt][0]:.4f} ms, "
                     f"plain {times[rdt][1]:.4f} ms per call (CUDA events); "
                     f"device kernel {times[rdt][2]:.4f} ms, plain "
@@ -453,12 +563,185 @@ def phase_rows() -> dict:
         del kk, vk, kp, vp
     ring_rows_write.launches = 0
     # the summary times: fp8 rings, as the fp8 rungs write them
-    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "library_ms")
+    # fp8: f32 rows read once, one byte per element written, K and V
     out = {"max_abs_err": 0.0,
-           **dict(zip(keys, times[torch.float8_e4m3fn]))}
+           **dict(zip(keys, times[torch.float8_e4m3fn])),
+           **bound(2 * bsz * kh * d * (4 + 1), 0)}
+    log("rows", f"fp8 B={bsz}: index assignment {out['library_ms']:.4f} ms; "
+                f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     for rdt, vals in times.items():
         for k, v in zip(keys, vals):
             out[f"{k}_{str(rdt)[6:]}"] = v
+    return out
+
+
+# the streaming encoder at full width: stacked rings [B, 32, 32, 1024, 64]
+# (1024 = the engine's ring for buckets (64, 16, 4, 1)), chunks of 4 to 274
+# rows (274 = the largest fused chunk the ring holds beside its window),
+# queries at 0, inside the first lap and after wraparound; the bitwise
+# check writes 256 rows after 800 as one chunk and as two other partitions
+FLASH_ENC_FULL = dict(n_layers=32, heads=32, head_dim=64, cap=1024,
+                      window=750, ts=(4, 64, 100, 256, 274),
+                      positions=(0, 300, 5000), prefill=800,
+                      splits=((256,), (64, 64, 64, 64), (100, 100, 56)))
+
+
+def _stream_positions(positions, bsz: int) -> list[int]:
+    """One position per stream: the listed ones, then spread over them."""
+    return [positions[i % len(positions)] + 37 * (i // len(positions))
+            for i in range(bsz)]
+
+
+def _enc_mask(pos0, t: int, cap: int, window: int):
+    """[B, T, cap] validity of ring slots for the chunk's query rows (the
+    kernel's logical-position mask)."""
+    import torch
+
+    from voxtral_tpu_torch.ops.ring import slot_logical_positions
+
+    lpos = slot_logical_positions(pos0 + (t - 1), cap)[:, None, :]
+    q_pos = (pos0[:, None] + torch.arange(t, device=pos0.device,
+                                          dtype=pos0.dtype))[:, :, None]
+    return (lpos >= 0) & (lpos <= q_pos) & (lpos > q_pos - window)
+
+
+def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
+                    batches=(1, 16)) -> dict:
+    """Kernel (E), flash encode, against its plain version over layer L-1 of
+    stacked rings read in place, at every (B, T, position) of `shapes`;
+    then the kernel's bitwise chunking invariance; then its times at the
+    two streaming shapes (B=16 T=64, the batched transcriber's chunk; B=1
+    T=100, the 2 s fused chunk).  main() runs it at full width on the card;
+    with device="cpu" a tiny `shapes` rehearses it (the wrapper then runs
+    the plain version and nothing is timed)."""
+    import torch
+
+    from voxtral_tpu_torch.ops.flash_encode import (
+        flash_bulk_attention_batched,
+        flash_encode_plain,
+    )
+    from voxtral_tpu_torch.ops.ring import ring_chunk_write
+
+    on_gpu = device == "cuda"
+    sh = shapes
+    n_layers, h, d, cap, window = (sh[k] for k in (
+        "n_layers", "heads", "head_dim", "cap", "window"))
+    li = n_layers - 1
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    kw = dict(window=window, out_dtype=torch.float32)
+
+    def rings(bsz):   # zeros but for layer li, which is what is read
+        k_all, v_all = (torch.zeros((bsz, n_layers, h, cap, d),
+                                    dtype=torch.bfloat16, device=device)
+                        for _ in range(2))
+        k_all[:, li] = _randn(gen, (bsz, h, cap, d), torch.bfloat16, device)
+        v_all[:, li] = _randn(gen, (bsz, h, cap, d), torch.bfloat16, device)
+        return k_all, v_all
+
+    worst = 0.0
+    for bsz in batches:
+        k_all, v_all = rings(bsz)
+        pos_sets = ([[p] for p in sh["positions"]] if bsz == 1 else
+                    [_stream_positions(sh["positions"], bsz)])
+        for t in sh["ts"]:
+            q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+            for pos_l in pos_sets:
+                pos = torch.tensor(pos_l, dtype=torch.int32, device=device)
+                got = flash_bulk_attention_batched(
+                    q, k_all[:, li], v_all[:, li], pos, **kw)
+                want = flash_encode_plain(q, k_all[:, li], v_all[:, li], pos,
+                                          **kw)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"[flash_enc] non-finite B={bsz} "
+                                         f"T={t} pos={pos_l[:3]}")
+                err = (got - want).abs().max().item()
+                worst = max(worst, err)
+                ok = err <= FLASH_ENC_TOL
+                log("flash_enc", f"B={bsz} T={t} pos={pos_l[:3]}: max_abs_err "
+                                 f"{err:.3e} (tol {FLASH_ENC_TOL}) "
+                                 f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"[flash_enc] B={bsz} T={t} "
+                                         f"pos={pos_l} err {err}")
+        del k_all, v_all
+
+    # bitwise invariance: `prefill` rows, then n more written and attended
+    # as each partition of `splits`, on fresh rings each time
+    n0, n = sh["prefill"], sum(sh["splits"][0])
+    for bsz in batches:
+        kv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
+        vv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
+        qq = _randn(gen, (bsz, n, h, d), torch.bfloat16, device)
+
+        def run(sizes):
+            k_all, v_all = (torch.zeros((bsz, n_layers, h, cap, d),
+                                        dtype=torch.bfloat16, device=device)
+                            for _ in range(2))
+            zero = torch.zeros(bsz, dtype=torch.int32, device=device)
+            ring_chunk_write(k_all, v_all, kv[:, :n0], vv[:, :n0], li, zero)
+            outs, at = [], 0
+            for s in sizes:
+                p = torch.full((bsz,), n0 + at, dtype=torch.int32,
+                               device=device)
+                _, _, kr, vr = ring_chunk_write(
+                    k_all, v_all, kv[:, n0 + at: n0 + at + s],
+                    vv[:, n0 + at: n0 + at + s], li, p)
+                outs.append(flash_bulk_attention_batched(
+                    qq[:, at: at + s], kr, vr, p, window=window))
+                at += s
+            return torch.cat(outs, dim=1)
+
+        ref = run(sh["splits"][0])
+        for sizes in sh["splits"][1:]:
+            same = torch.equal(ref, run(sizes))
+            log("flash_enc", f"B={bsz}: {n} rows after {n0} as {list(sizes)} "
+                             f"vs {list(sh['splits'][0])}: "
+                             f"{'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"[flash_enc] B={bsz} chunking {sizes} "
+                                     "changed the output")
+    flash_bulk_attention_batched.launches = 0
+    out = {"max_abs_err": worst, "bitwise_invariant": True}
+    if not on_gpu:
+        return out
+
+    # times at the streaming shapes, bf16 out as on the path, full window
+    for bsz, t, tag in ((16, 64, ""), (1, 100, "_b1_t100")):
+        k_all, v_all = rings(bsz)
+        kr, vr = k_all[:, li], v_all[:, li]
+        q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+        pos = torch.tensor(_stream_positions((2000, 5000), bsz),
+                           dtype=torch.int32, device=device)
+
+        def kern():
+            flash_bulk_attention_batched(q, kr, vr, pos, window=window)
+
+        ms = cuda_ms(kern, 50)
+        dms = device_ms(kern, 20)
+        plain = cuda_ms(lambda: flash_encode_plain(q, kr, vr, pos,
+                                                   window=window), 5)
+        # the library call: SDPA over the layer's ring with the
+        # logical-position mask
+        valid = _enc_mask(pos, t, cap, window)
+        lib = sdpa_ms(q.transpose(1, 2).contiguous(), kr, vr, valid[:, None])
+        # the K/V rows some query of the chunk sees, read once; q read and
+        # the output written once (bf16); 4 D operations per (row, head,
+        # valid key)
+        n_slots = int(valid.any(dim=1).sum())
+        b = bound(2 * n_slots * h * d * 2 + 2 * q.numel() * 2,
+                  4 * d * h * int(valid.sum()))
+        flash_bulk_attention_batched.launches = 0
+        out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
+                    f"plain_ms{tag}": plain, f"library_ms{tag}": lib,
+                    f"bound_ms{tag}": b["bound_ms"],
+                    f"bound_by{tag}": b["bound_by"]})
+        log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:3]}: kernel "
+                         f"{ms:.4f} ms (device {dms:.4f}), plain {plain:.4f} "
+                         f"ms, SDPA {lib:.4f} ms per call; bound "
+                         f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        del k_all, v_all, kr, vr
     return out
 
 
@@ -932,7 +1215,250 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
     return {"rungs": table, "launches": launch_totals}
 
 
-def _print_profile(tag: str, events: list, wall_s: float, steps: int) -> None:
+def _stream_counters():
+    from voxtral_tpu_torch.ops.banded_encode import banded_attention_batched
+    from voxtral_tpu_torch.ops.flash_decode import flash_decode
+    from voxtral_tpu_torch.ops.flash_encode import flash_bulk_attention_batched
+
+    return (flash_bulk_attention_batched, flash_decode,
+            banded_attention_batched)
+
+
+def _check_stream_launches(phase: str, cfg, launches: dict, enc_calls: int,
+                           steps: int) -> None:
+    """Exact launch counts of a streaming run: flash encode once per
+    encoder layer for each encoder call of T > 1 rows, flash decode once
+    per decoder layer per decode step, the bulk encoder's kernel never."""
+    want = {"flash_bulk_attention_batched": cfg.encoder.n_layers * enc_calls,
+            "flash_decode": cfg.decoder.n_layers * steps,
+            "banded_attention_batched": 0}
+    if launches != want or enc_calls <= 0 or steps <= 0:
+        raise AssertionError(f"[{phase}] launches {launches} != {want} "
+                             f"({enc_calls} encoder chunks, {steps} steps)")
+
+
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
+    """Drives the streaming path at B=1: VoxStream on an engine built as
+    the CLI builds it (buckets (64, 16, 4, 1), adaptive decoder ring, the
+    encoder ring the engine sizes, the CLI's warm-up), one synthetic clip
+    fed three ways: 1 s at a time at the default 2 s interval, 0.5 s at a
+    time at -I 0.5, and 1 s at a time with fused_streaming=False.  Checks
+    the exact launch counts of each run and the id agreement of the runs
+    with each other and with transcribe_offline_ids on the same clip.
+    main() runs it at full width on the card; a tiny CPU config rehearses
+    it (with the plain functions counted, as for phase_slice)."""
+    import torch
+
+    from voxtral_tpu_torch.config import (
+        SAMPLE_RATE,
+        STREAM_DEFAULT_INTERVAL_S,
+    )
+    from voxtral_tpu_torch.runtime.engine import (
+        VoxtralEngine,
+        adaptive_dec_ring,
+    )
+    from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    on_gpu = device == "cuda"
+    counters = _stream_counters()
+
+    def sync():
+        if on_gpu:
+            torch.cuda.synchronize()
+
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    clip = make_audio(seconds, seed=7)
+    ring = adaptive_dec_ring(cfg, len(clip))
+    engines = {fused: VoxtralEngine(cfg, params, tokenizer=tok,
+                                    dec_kv_ring=ring, buckets=(64, 16, 4, 1),
+                                    fused_streaming=fused)
+               for fused in (True, False)}
+    eng = engines[True]
+    warm = eng.warmup(interval_s=STREAM_DEFAULT_INTERVAL_S)
+    log("stream", f"engine: enc ring {eng.enc_kv_ring}, dec ring "
+                  f"{eng.dec_kv_ring}, buckets {eng.buckets}, fused buckets "
+                  f"{eng.fused_buckets}; warm-up {warm:.1f} s")
+    runs = (("1s_at_2s", True, SAMPLE_RATE, None),
+            ("0.5s_at_0.5s", True, SAMPLE_RATE // 2, 0.5),
+            ("1s_at_2s_unfused", False, SAMPLE_RATE, None))
+    table, ids = [], {}
+    for name, fused, feed_n, interval in runs:
+        for f in counters:
+            f.launches = 0
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        s = VoxStream(engines[fused])
+        s.record_ids = True
+        if interval is not None:
+            s.set_processing_interval(interval)
+        feed_walls = []
+        sync()
+        w0 = time.monotonic()
+        for i in range(0, len(clip), feed_n):
+            f0 = time.monotonic()
+            s.feed(clip[i: i + feed_n])
+            sync()
+            feed_walls.append(time.monotonic() - f0)
+        s.finish()
+        sync()
+        wall = time.monotonic() - w0
+        launches = {f.__name__: f.launches for f in counters}
+        _check_stream_launches("stream", cfg, launches, s.n_enc_chunk_calls,
+                               s.n_decode_steps)
+        vocab = cfg.decoder.vocab_size
+        if not s.generated_ids or not all(0 <= t < vocab
+                                          for t in s.generated_ids):
+            raise AssertionError(f"[stream] {name}: no ids or ids out of "
+                                 "range")
+        ids[name] = s.generated_ids
+        rec = {
+            "run": name, "fused": fused, "feed_s": feed_n / SAMPLE_RATE,
+            "interval_s": (interval if interval is not None
+                           else STREAM_DEFAULT_INTERVAL_S),
+            "clip_s": seconds, "wall_s": wall, "x_realtime": seconds / wall,
+            "feeds": len(feed_walls),
+            "encoder_ms_per_feed": s.encoder_ms / len(feed_walls),
+            "feed_p50_ms": _percentile(feed_walls, 50) * 1e3,
+            "feed_p90_ms": _percentile(feed_walls, 90) * 1e3,
+            "prefill_ms": s.prefill_ms,
+            "decode_ms_per_step": ((s.decoder_ms - s.prefill_ms)
+                                   / max(s.n_decode_steps, 1)),
+            "decode_steps": s.n_decode_steps, "ids": len(s.generated_ids),
+            "text_tokens": s.n_text_tokens,
+            "encoder_chunks": s.n_enc_chunk_calls,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_gpu else 0.0),
+            "launches": launches,
+        }
+        table.append(rec)
+        log("stream", f"{name}: {seconds:.1f} s in {wall:.3f} s "
+                      f"({rec['x_realtime']:.2f}x realtime), {rec['ids']} ids "
+                      f"({rec['text_tokens']} text); encoder "
+                      f"{rec['encoder_ms_per_feed']:.2f} ms/feed (issue), "
+                      f"feed() wall p50 {rec['feed_p50_ms']:.2f} p90 "
+                      f"{rec['feed_p90_ms']:.2f} ms; prefill "
+                      f"{rec['prefill_ms']:.2f} ms, decode "
+                      f"{rec['decode_ms_per_step']:.3f} ms/step over "
+                      f"{rec['decode_steps']} steps; peak "
+                      f"{rec['peak_gib']:.2f} GiB; launches {launches}")
+    for f in counters:
+        f.launches = 0
+    ids["offline"] = transcribe_offline_ids(eng, clip)
+    names = list(ids)
+    agree, first_diff = {}, {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            agree[f"{a}~{b}"] = _agreement(ids[a], ids[b])
+            # where the two greedy decodes part (a flipped near-tie feeds
+            # back, so the ids after it differ more)
+            first_diff[f"{a}~{b}"] = next(
+                (j for j, (x, y) in enumerate(zip(ids[a], ids[b])) if x != y),
+                min(len(ids[a]), len(ids[b])))
+    log("stream", "id agreement: " + ", ".join(
+        f"{k} {v:.3f} (first differs at {first_diff[k]})"
+        for k, v in agree.items()) + f"; min {STREAM_AGREE_MIN}")
+    low = {k: v for k, v in agree.items() if not v >= STREAM_AGREE_MIN}
+    if low:
+        raise AssertionError(f"[stream] id agreement below "
+                             f"{STREAM_AGREE_MIN}: {low}")
+    for f in counters:
+        f.launches = 0
+    return {"runs": table, "agreement": agree, "first_diff": first_diff,
+            "launches": {f.__name__: sum(r["launches"][f.__name__]
+                                         for r in table) for f in counters}}
+
+
+def phase_bstream(cfg, params, device: str, n_streams: int = 16,
+                  seconds: float = 30.0, dec_ring: int = 896,
+                  interval_frames: int = 200) -> dict:
+    """Drives the lockstep BatchedTranscriber: B streams of `seconds`
+    synthetic audio, each from its own seed, as padded mel fed
+    `interval_frames` at a time (bconv0/bconv1/bencode/badapter, then
+    bprefill and bdecode_burst), decoder ring `dec_ring`.  Checks the exact
+    launch counts and the ids, and prints stream 0's agreement with a B=1
+    VoxStream of the same clip.  main() runs it at full width on the card;
+    a tiny CPU config rehearses it."""
+    import torch
+
+    from voxtral_tpu_torch.parallel.serving import BatchedTranscriber
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    on_gpu = device == "cuda"
+    counters = _stream_counters()
+
+    def sync():
+        if on_gpu:
+            torch.cuda.synchronize()
+
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
+                           buckets=(64, 16, 4, 1))
+    clips = [make_audio(seconds, seed=100 + i) for i in range(n_streams)]
+    mel = torch.from_numpy(np.stack([padded_clip_mel(engine, c)
+                                     for c in clips])).to(device)
+    # a short warm run (allocator, cuBLAS handles for these shapes)
+    BatchedTranscriber(engine, n_streams, dec_kv_ring=dec_ring).transcribe(
+        mel[:, : 2 * interval_frames], interval_frames=interval_frames)
+    for f in counters:
+        f.launches = 0
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    tr = BatchedTranscriber(engine, n_streams, dec_kv_ring=dec_ring)
+    sync()
+    w0 = time.monotonic()
+    toks = tr.transcribe(mel, interval_frames=interval_frames)
+    sync()
+    wall = time.monotonic() - w0
+    launches = {f.__name__: f.launches for f in counters}
+    _check_stream_launches("bstream", cfg, launches, tr.n_enc_chunk_calls,
+                           tr.decode_steps)
+    vocab = cfg.decoder.vocab_size
+    if not all(toks) or not all(0 <= t < vocab for s in toks for t in s):
+        raise AssertionError("[bstream] a stream without ids, or ids out of "
+                             "range")
+    # stream 0 alone through VoxStream (1 s feeds, default interval)
+    s = VoxStream(engine)
+    s.record_ids = True
+    for i in range(0, len(clips[0]), 16000):
+        s.feed(clips[0][i: i + 16000])
+    s.finish()
+    m = min(len(toks[0]), len(s.generated_ids))
+    agree_b1 = _agreement(toks[0][:m], s.generated_ids[:m])
+    rec = {"streams": n_streams, "clip_s": seconds, "wall_s": wall,
+           "x_realtime_aggregate": n_streams * seconds / wall,
+           "encode_ms": tr.encode_time * 1e3,
+           "decode_ms": tr.decode_time * 1e3,
+           "decode_steps": tr.decode_steps,
+           "decode_ms_per_step": tr.decode_time * 1e3
+           / max(tr.decode_steps, 1),
+           "encoder_chunks": tr.n_enc_chunk_calls,
+           "tokens": sum(len(t) for t in toks),
+           "stream0_agree_b1": agree_b1, "compared": m,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if on_gpu else 0.0),
+           "launches": launches}
+    log("bstream", f"B={n_streams} x {seconds:.1f} s in {wall:.3f} s "
+                   f"({rec['x_realtime_aggregate']:.2f}x realtime aggregate); "
+                   f"encode {rec['encode_ms']:.1f} ms, decode "
+                   f"{rec['decode_ms']:.1f} ms ({rec['decode_ms_per_step']:.3f}"
+                   f" ms/step over {tr.decode_steps} steps), "
+                   f"{tr.n_enc_chunk_calls} encoder chunks, {rec['tokens']} "
+                   f"ids; stream 0 vs B=1 VoxStream {agree_b1:.3f} over {m} "
+                   f"ids; peak {rec['peak_gib']:.2f} GiB; launches {launches}")
+    for f in counters:
+        f.launches = 0
+    return rec
+
+
+def _print_profile(tag: str, events: list, wall_s: float, steps: int,
+                   unit: str = "step") -> None:
     """Per-step device time, busy share and the largest device items."""
     from collections import defaultdict
 
@@ -941,14 +1467,64 @@ def _print_profile(tag: str, events: list, wall_s: float, steps: int) -> None:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     total = sum(us for us, _ in by_name.values())
-    log("profile", f"{tag}: wall {wall_s * 1e3 / steps:.3f} ms/step "
-                   f"profiled, device {total / 1e3 / steps:.3f} ms/step, busy "
-                   f"{total / 1e6 / wall_s:.3f}, device events "
-                   f"{len(events) / steps:.1f}/step")
+    log("profile", f"{tag}: wall {wall_s * 1e3 / steps:.3f} ms/{unit} "
+                   f"profiled, device {total / 1e3 / steps:.3f} ms/{unit}, "
+                   f"busy {total / 1e6 / wall_s:.3f}, device events "
+                   f"{len(events) / steps:.1f}/{unit}")
     for name, (us, cnt) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:12]:
-        log("profile", f"  {us / 1e3 / steps:8.4f} ms/step {cnt / steps:7.1f}"
-                       f" calls/step {100 * us / total:5.1f} %  {name[:80]}")
+        log("profile", f"  {us / 1e3 / steps:8.4f} ms/{unit} "
+                       f"{cnt / steps:7.1f} calls/{unit} "
+                       f"{100 * us / total:5.1f} %  {name[:80]}")
+
+
+def profile_streaming(cfg, params, n_streams: int = 16,
+                      dec_ring: int = 896) -> None:
+    """torch.profiler breakdown of the streaming paths at steady state:
+    one 2 s feed() of a B=1 VoxStream after 4 s of audio, and one
+    200-frame interval (encoder chunks, adapter, decode burst) of the
+    B=`n_streams` BatchedTranscriber after four intervals."""
+    import torch
+
+    from voxtral_tpu_torch.parallel.serving import BatchedTranscriber
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    eng = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
+                        buckets=(64, 16, 4, 1))
+    clip = make_audio(30.0, seed=7)
+    s = VoxStream(eng)
+    s.feed(clip[: 4 * 16000])
+    at = [4 * 16000]
+
+    def feed():
+        s.feed(clip[at[0]: at[0] + 2 * 16000])
+        at[0] += 2 * 16000
+
+    ev, wall = device_events(feed)
+    _print_profile("stream B=1 feed of 2 s (one interval)", ev, wall, 1,
+                   unit="feed")
+    mel = torch.from_numpy(np.stack([padded_clip_mel(
+        eng, make_audio(30.0, seed=100 + i))
+        for i in range(n_streams)])).cuda()
+    tr = BatchedTranscriber(eng, n_streams, dec_kv_ring=dec_ring)
+    pos = [0]
+
+    def interval():
+        tr.feed_mel(mel[:, pos[0]: pos[0] + 200])
+        tr.run_decoder()
+        pos[0] += 200
+
+    for _ in range(4):
+        interval()
+    steps0 = tr.decode_steps
+    ev, wall = device_events(interval)
+    log("profile", f"bstream: {tr.decode_steps - steps0} decode steps in the "
+                   f"two intervals (unprofiled + profiled)")
+    _print_profile(f"bstream B={n_streams} interval of 200 mel frames", ev,
+                   wall, 1, unit="interval")
 
 
 def phase_profile(cfg, params, n_streams: int = 16, steps: int = 16,
@@ -1036,10 +1612,13 @@ def main(argv: list[str]) -> int:
         from voxtral_tpu_torch.config import full_config
 
         cfg = full_config()
-        phase_profile(cfg, make_params(cfg, "cuda"))
+        params = make_params(cfg, "cuda")
+        phase_profile(cfg, params)
+        profile_streaming(cfg, params)
         return 0
     banded = phase_banded()
     flash = phase_flash()
+    flash_enc = phase_flash_enc()
     from voxtral_tpu_torch.config import full_config
 
     int4 = phase_int4()
@@ -1051,6 +1630,10 @@ def main(argv: list[str]) -> int:
     sv = phase_serve(cfg, params, "cuda", n_streams=16, seconds=30.0,
                      dec_ring=896)
     served = sv["launches"]
+    st = phase_stream(cfg, params, "cuda")
+    bst = phase_bstream(cfg, params, "cuda")
+    streamed = {k: st["launches"][k] + bst["launches"][k]
+                for k in st["launches"]}
     kernels = [
         {"name": "banded_attention", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/banded_attention.cu",
@@ -1060,7 +1643,15 @@ def main(argv: list[str]) -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
-         "launches": sl["launches"][1] + served["flash_decode"], **flash},
+         "launches": (sl["launches"][1] + served["flash_decode"]
+                      + streamed["flash_decode"]), **flash},
+        {"name": "flash_encode", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
+         "replaces": "voxtral_tpu/ops/flash_encode.py:51",
+         "launches": streamed["flash_bulk_attention_batched"],
+         "launches_stream": st["launches"]["flash_bulk_attention_batched"],
+         "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
+         **flash_enc},
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
          "replaces": "voxtral_tpu/ops/quant_mm.py:44",
@@ -1073,11 +1664,15 @@ def main(argv: list[str]) -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
+    if not (kernels[2]["launches_stream"] > 0
+            and kernels[2]["launches_bstream"] > 0):
+        raise AssertionError("flash_encode: no launch on stream or bstream")
     total_s = time.monotonic() - t_start
     log("done", f"all phases in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
                       "step_rel_err": sl["step_rel_err"],
-                      "serve": sv["rungs"], "total_s": total_s}))
+                      "serve": sv["rungs"], "stream": st,
+                      "bstream": bst, "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version at the full-width shapes, the wrappers'
-refusals, and the offline and batched serving paths at reduced depth.  They
+refusals, and the offline, batched serving and streaming paths at reduced
+depth.  They
 skip without a card.  This file imports no JAX, so on the GPU machine (which has none) it
 runs on its own:
 
@@ -19,6 +20,10 @@ from voxtral_tpu_torch.ops.banded_encode import (
     banded_attention_plain,
 )
 from voxtral_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+from voxtral_tpu_torch.ops.flash_encode import (
+    flash_bulk_attention_batched,
+    flash_encode_plain,
+)
 from voxtral_tpu_torch.ops.quant_mm import int4_mm, int4_mm_plain
 from voxtral_tpu_torch.ops.ring import ring_rows_write, ring_rows_write_plain
 
@@ -284,3 +289,131 @@ def test_int4_fp8_serving_at_reduced_depth(dev):
     assert flash_decode.launches == 0
     assert ring_rows_write.launches == 2 * steps
     assert int4_mm.launches == 2 * 4 + (2 * 4 + 1) * steps
+
+
+def _enc_rings(gen, bsz, cap, dtype, dev, n_layers=3):
+    """Stacked encoder caches [B, L, 32, cap, 64] of random rows."""
+    shape = (bsz, n_layers, 32, cap, 64)
+    return (_randn(gen, shape, dtype, dev), _randn(gen, shape, dtype, dev))
+
+
+@pytest.mark.parametrize("bsz,t,pos", [
+    (1, 4, [0]), (1, 100, [300]), (1, 274, [5000]), (1, 64, [1020]),
+    (3, 64, [0, 300, 5000]), (3, 256, [17, 750, 4099])])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_encode_kernel_matches_plain(dev, bsz, t, pos, dtype):
+    """Full-width encoder shape (H=KH=32, D=64, cap 1024, window 750),
+    layer 2 of a stacked cache read in place through its view: both
+    versions round the probabilities to bf16 before the PV product, the
+    kernel against its running max and the plain one against the row max,
+    so they agree to bf16 resolution (2e-2 abs, chip_smoke.py's
+    FLASH_ENC_TOL)."""
+    gen = torch.Generator(device=dev).manual_seed(t + bsz)
+    k_all, v_all = _enc_rings(gen, bsz, 1024, dtype, dev)
+    q = _randn(gen, (bsz, t, 32, 64), torch.bfloat16, dev)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n0 = flash_bulk_attention_batched.launches
+    got = flash_bulk_attention_batched(q, k_all[:, 2], v_all[:, 2], p,
+                                       window=750, out_dtype=torch.float32)
+    want = flash_encode_plain(q, k_all[:, 2], v_all[:, 2], p, window=750,
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert flash_bulk_attention_batched.launches == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2
+
+
+def test_flash_encode_kernel_chunking_invariant_bitwise(dev):
+    """After 800 positions, 256 more written and attended as [256],
+    [64] * 4 and [100, 100, 56]: the kernel's outputs are bit-identical
+    (it walks the ring in absolute slot order)."""
+    from voxtral_tpu_torch.ops.ring import ring_write
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n0, n = 800, 256
+    kv = _randn(gen, (1, n0 + n, 32, 64), torch.bfloat16, dev)
+    vv = _randn(gen, (1, n0 + n, 32, 64), torch.bfloat16, dev)
+    qq = _randn(gen, (1, n, 32, 64), torch.bfloat16, dev)
+
+    def run(sizes):
+        k, v = (torch.zeros((1, 32, 1024, 64), dtype=torch.bfloat16,
+                            device=dev) for _ in range(2))
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        ring_write(k, kv[:, :n0], zero)
+        ring_write(v, vv[:, :n0], zero)
+        outs, at = [], 0
+        for s in sizes:
+            p = torch.full((1,), n0 + at, dtype=torch.int32, device=dev)
+            ring_write(k, kv[:, n0 + at: n0 + at + s], p)
+            ring_write(v, vv[:, n0 + at: n0 + at + s], p)
+            outs.append(flash_bulk_attention_batched(
+                qq[:, at: at + s], k, v, p, window=750))
+            at += s
+        return torch.cat(outs, dim=1)
+
+    a = run([256])
+    assert torch.equal(a, run([64] * 4))
+    assert torch.equal(a, run([100, 100, 56]))
+
+
+def test_flash_encode_wrapper_refuses(dev):
+    q = torch.zeros((1, 8, 32, 64), dtype=torch.bfloat16, device=dev)
+    ring = torch.zeros((1, 32, 128, 64), dtype=torch.bfloat16, device=dev)
+    p = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_bulk_attention_batched(q.float(), ring, ring, p, window=750)
+    f8 = ring.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="rings"):
+        flash_bulk_attention_batched(q, f8, f8, p, window=750)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bulk_attention_batched(q[..., :32], ring[..., :32],
+                                     ring[..., :32], p, window=750)
+
+
+def test_streaming_paths_at_reduced_depth(dev):
+    """Full widths, 2 encoder and 2 decoder layers, bf16, encoder ring
+    1024: VoxStream (fused and bucketed) and BatchedTranscriber at B=2
+    launch flash-encode once per layer for every encoder chunk of T > 1
+    and flash-decode once per layer per decode step; the streams give ids
+    in range."""
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.parallel.serving import BatchedTranscriber
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+    from voxtral_tpu_torch.tokenizer import TekkenTokenizer
+
+    cfg = full_config()
+    cfg = cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder, n_layers=2),
+        decoder=dataclasses.replace(cfg.decoder, n_layers=2))
+    params = init_params(cfg, seed=0, device=dev)
+    tok = TekkenTokenizer([bytes([i % 256]) for i in range(131072 - 1000)],
+                          1000)
+    rng = np.random.default_rng(0)
+    audio = (0.1 * rng.standard_normal(3 * 16000)).astype(np.float32)
+    for fused in (True, False):
+        engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=256,
+                               buckets=(64, 16, 4, 1), fused_streaming=fused)
+        assert engine.enc_kv_ring == 1024
+        flash_bulk_attention_batched.launches = 0
+        flash_decode.launches = 0
+        s = VoxStream(engine)
+        s.record_ids = True
+        for i in range(0, len(audio), 16000):
+            s.feed(audio[i: i + 16000])
+        s.finish()
+        torch.cuda.synchronize()
+        assert s.n_enc_chunk_calls > 0 and s.n_decode_steps > 0
+        assert flash_bulk_attention_batched.launches == 2 * s.n_enc_chunk_calls
+        assert flash_decode.launches == 2 * s.n_decode_steps
+        assert all(0 <= t < cfg.decoder.vocab_size for t in s.generated_ids)
+    flash_bulk_attention_batched.launches = 0
+    flash_decode.launches = 0
+    tr = BatchedTranscriber(engine, batch=2, dec_kv_ring=256)
+    mel = np.stack([padded_clip_mel(engine, audio)] * 2)
+    toks = tr.transcribe(mel, interval_frames=200)
+    torch.cuda.synchronize()
+    assert flash_bulk_attention_batched.launches == 2 * tr.n_enc_chunk_calls
+    assert flash_decode.launches == 2 * tr.decode_steps
+    assert toks[0] == toks[1]           # two copies of one clip

@@ -77,3 +77,44 @@ def test_cpu_run_launches_no_kernel():
     assert banded_attention_batched.launches == 0
     assert flash_decode.launches == 0
     assert np.isfinite(stats["encode_s"])
+
+
+def test_streaming_modules_import_alone_and_launch_no_kernel_on_cpu():
+    """The streaming slice's modules are among those the probe imports, and
+    a CPU run of VoxStream and BatchedTranscriber (fused and bucketed
+    encoder chunks of T > 1) launches no kernel."""
+    from conftest import make_audio
+    from voxtral_tpu_torch.config import tiny_config
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.ops.flash_decode import flash_decode
+    from voxtral_tpu_torch.ops.flash_encode import flash_bulk_attention_batched
+    from voxtral_tpu_torch.parallel.serving import BatchedTranscriber
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+    from voxtral_tpu_torch.tokenizer import TekkenTokenizer
+
+    names = {m.name for m in pkgutil.walk_packages(
+        voxtral_tpu_torch.__path__, "voxtral_tpu_torch.")}
+    assert {"voxtral_tpu_torch.runtime.stream", "voxtral_tpu_torch.mic",
+            "voxtral_tpu_torch.models.fused_stream",
+            "voxtral_tpu_torch.ops.flash_encode"} <= names
+    cfg = tiny_config()
+    tok = TekkenTokenizer([bytes([i]) for i in range(256)], 1000)
+    flash_bulk_attention_batched.launches = 0
+    flash_decode.launches = 0
+    audio = make_audio(1.0, seed=4)
+    for fused in (True, False):
+        engine = VoxtralEngine(cfg, init_params(cfg, seed=1), tokenizer=tok,
+                               enc_kv_ring=64, dec_kv_ring=64,
+                               buckets=(16, 4, 1), fused_streaming=fused)
+        s = VoxStream(engine)
+        s.feed(audio)
+        s.finish()
+        assert s.n_enc_chunk_calls > 0 and s.n_generated > 0
+    tr = BatchedTranscriber(engine, batch=2)
+    mel = np.stack([padded_clip_mel(engine, audio)] * 2)
+    tr.transcribe(mel, interval_frames=48)
+    assert tr.n_enc_chunk_calls > 0 and tr.decode_steps > 0
+    assert flash_bulk_attention_batched.launches == 0
+    assert flash_decode.launches == 0

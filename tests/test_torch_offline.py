@@ -1,9 +1,13 @@
 """The port's offline path against the JAX package's on tiny_config()
 float32 with the same weights: padded mel, transcribe_offline_ids (exact
-ids) and the CLI's -i --bulk-encode path on a small model directory."""
+ids) and the CLI on a small model directory: -i --bulk-encode, and the
+streaming modes (-i, --stdin, --from-mic with -I, --alt, --delay,
+--monitor), whose stdout equals the JAX CLI stream's."""
 
 import base64
+import io
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -62,6 +66,11 @@ def test_adaptive_ring_and_decompose_equal():
             jeng.decompose(n, jeng.DEFAULT_BUCKETS)
 
 
+# the CLI's engine sizes its encoder ring to the window plus the largest
+# bucket (64), as the JAX CLI's does: 24 + 64 needs 128 slots
+CLI_CFG = dict(enc_kv_ring=128)
+
+
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     """consolidated.safetensors in the reference layout + a byte tokenizer."""
@@ -94,8 +103,8 @@ def test_cli_prints_the_jax_transcript(model_dir, capsys):
     want = joff.transcribe_offline(jengine, samples)
     assert want
 
-    rc = cli.main(["-d", str(model_dir), "-i", wav, "--bulk-encode"],
-                  cfg=tiny_config())
+    rc = cli.main(["-d", str(model_dir), "-i", wav, "--bulk-encode",
+                   "--device", "cpu"], cfg=tiny_config(**CLI_CFG))
     out = capsys.readouterr()
     assert rc == 0
     assert out.out == want + "\n"
@@ -124,17 +133,158 @@ def test_cli_quantized_prints_the_jax_transcript(model_dir, capsys, flag,
     want = joff.transcribe_offline(jengine, samples)
     assert want
 
-    rc = cli.main(["-d", str(model_dir), "-i", wav, "--bulk-encode", flag],
-                  cfg=tiny_config())
+    rc = cli.main(["-d", str(model_dir), "-i", wav, "--bulk-encode", flag,
+                   "--device", "cpu"], cfg=tiny_config(**CLI_CFG))
     out = capsys.readouterr()
     assert rc == 0
     assert out.out == want + "\n"
 
 
-@pytest.mark.parametrize("extra", [["--stdin"], ["-i", "x.wav"],
-                                   ["-i", "x.wav", "--bulk-encode", "--alt",
-                                    "0.5"],
-                                   ["-i", "x.wav", "--bulk-encode", "--jacobi"]])
+@pytest.mark.parametrize("extra", [
+    ["-i", "x.wav", "--bulk-encode", "--jacobi"],
+    ["-i", "x.wav", "--jacobi"],
+    ["--stdin", "--jacobi", "--device", "cpu"]])
 def test_cli_unported_modes_exit_2(model_dir, capsys, extra):
     assert cli.main(["-d", str(model_dir)] + extra, cfg=tiny_config()) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_refuses_without_cuda(model_dir, capsys, monkeypatch):
+    """The default device is cuda: with none, the CLI says so and returns
+    non-zero before it loads anything; it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = str(model_dir / "clip.wav")
+    for extra in (["-i", wav], ["-i", wav, "--bulk-encode"], ["--stdin"]):
+        assert cli.main(["-d", str(model_dir)] + extra,
+                        cfg=tiny_config()) == 1
+        err = capsys.readouterr().err
+        assert "no CUDA device; pass --device cpu to run on the CPU" in err
+        assert "Loading" not in err
+
+
+# --- the streaming modes ----------------------------------------------------
+
+def _jax_stream_out(model_dir, samples, feeds, *, continuous=False,
+                    interval=None, alt=None, delay=None):
+    """What the JAX CLI prints for a stream fed `feeds` (sample counts):
+    its engine built as its CLI builds it, sequential decoding, and its
+    own `_drain`."""
+    import contextlib
+    import io
+
+    from voxtral_tpu import cli as jcli
+    from voxtral_tpu.runtime.stream import VoxStream as JStream
+
+    jcfg = jax_tiny(**CLI_CFG)
+    ring = (jeng.adaptive_dec_ring(jcfg, len(samples)) if not continuous
+            else 2048)
+    eng = jeng.VoxtralEngine(
+        jcfg, jax_load(str(model_dir), jcfg),
+        tokenizer=JTok.load(str(model_dir / "tekken.json")),
+        dec_kv_ring=ring, buckets=(64, 16, 4, 1), decode_mode="sequential")
+    if delay is not None:
+        eng.set_delay(delay)
+    s = JStream(eng)
+    if interval is not None:
+        s.set_processing_interval(interval)
+    if alt is not None:
+        s.set_alt(4, alt)
+    s.set_continuous(continuous)
+    out, state = io.StringIO(), {"any": False}
+    with contextlib.redirect_stdout(out):
+        i = 0
+        for n in feeds:
+            s.feed(samples[i: i + n])
+            jcli._drain(s, state, alt is not None)
+            i += n
+        s.finish()
+        jcli._drain(s, state, alt is not None)
+    return out.getvalue() + "\n"
+
+
+def _second_feeds(n):
+    return [16000] * (n // 16000) + ([n % 16000] if n % 16000 else [])
+
+
+@pytest.mark.parametrize("extra,kw", [
+    ([], {}),
+    (["-I", "0.5", "--alt", "0.5"], {"interval": 0.5, "alt": 0.5}),
+    (["--delay", "240", "--monitor"], {"delay": 240}),
+])
+def test_cli_streaming_prints_the_jax_transcript(model_dir, capsys, extra,
+                                                 kw):
+    """-i without --bulk-encode streams the clip 1 s at a time through
+    VoxStream: stdout is what the JAX CLI's stream prints, with -I, --alt
+    ([best|alt] groups), --delay and --monitor (symbols on stderr)."""
+    from voxtral_tpu.io.wav import load_wav
+
+    wav = str(model_dir / "clip.wav")
+    samples = load_wav(wav)
+    want = _jax_stream_out(model_dir, samples, _second_feeds(len(samples)),
+                           **kw)
+    assert want.strip()
+    rc = cli.main(["-d", str(model_dir), "-i", wav, "--device", "cpu"]
+                  + extra, cfg=tiny_config(**CLI_CFG))
+    out = capsys.readouterr()
+    assert rc == 0
+    assert out.out == want
+    assert "warmup bucket 64" in out.err and "Warm-up done" in out.err
+    assert "Device memory:" in out.err and "enc ring 128" in out.err
+    assert "Encoder:" in out.err
+    if "--monitor" in extra:
+        assert "▶" in out.err and "·" in out.err
+    if "--alt" in extra:
+        assert "[" in out.out
+
+
+def test_cli_stdin_wav_and_raw_pcm(model_dir, capsys, monkeypatch):
+    """--stdin with WAV bytes streams like -i (1 s feeds); raw s16le PCM
+    runs in continuous mode, 4 bytes first, then 8192-byte reads."""
+    import types
+
+    from voxtral_tpu.io.wav import load_wav
+
+    wav = model_dir / "clip.wav"
+    samples = load_wav(str(wav))
+    pcm = np.round(samples * 32768.0).clip(-32768, 32767).astype("<i2")
+    np.testing.assert_array_equal(pcm.astype(np.float32) / 32768.0, samples)
+    cases = (
+        (wav.read_bytes(), _jax_stream_out(
+            model_dir, samples, _second_feeds(len(samples)))),
+        (pcm.tobytes(), _jax_stream_out(
+            model_dir, samples, [2] + [4096] * (len(samples) // 4096 + 1),
+            continuous=True)),
+    )
+    for data, want in cases:
+        monkeypatch.setattr(sys, "stdin", types.SimpleNamespace(
+            buffer=io.BytesIO(data)))
+        rc = cli.main(["-d", str(model_dir), "--stdin", "--device", "cpu"],
+                      cfg=tiny_config(**CLI_CFG))
+        out = capsys.readouterr()
+        assert rc == 0
+        assert out.out == want and want.strip()
+
+
+def test_cli_from_mic(model_dir, capsys, monkeypatch, tmp_path):
+    """--from-mic: the capture command's s16le PCM goes through the mic
+    loop (all of it is voice, so all of it is fed) in continuous mode."""
+    from voxtral_tpu.io.wav import load_wav
+
+    samples = load_wav(str(model_dir / "clip.wav"))
+    raw = tmp_path / "mic.raw"
+    raw.write_bytes(np.round(samples * 32768.0).astype("<i2").tobytes())
+    cmd = [sys.executable, "-c",
+           f"import sys; sys.stdout.buffer.write(open({str(raw)!r}, 'rb')"
+           ".read())"]
+    monkeypatch.setattr(cli, "_mic_command", lambda: cmd)
+    want = _jax_stream_out(model_dir, samples, [1600] * 20, continuous=True)
+    rc = cli.main(["-d", str(model_dir), "--from-mic", "--device", "cpu"],
+                  cfg=tiny_config(**CLI_CFG))
+    out = capsys.readouterr()
+    assert rc == 0
+    assert out.out == want and want.strip()
+    assert "Capturing from mic" in out.err
+    monkeypatch.setattr(cli, "_mic_command", lambda: None)
+    assert cli.main(["-d", str(model_dir), "--from-mic", "--device", "cpu"],
+                    cfg=tiny_config(**CLI_CFG)) == 1
+    assert "No mic capture backend" in capsys.readouterr().err

@@ -2,9 +2,11 @@
 the JAX package on tiny_config() float32 with the same weights: the plain
 row write bit for bit against the Pallas kernel (interpret mode), the fp8
 overflow divergence, and batched prefill + burst decode at B=3 on every rung
-of the dtype ladder (token ids exactly equal)."""
+of the dtype ladder (token ids exactly equal), and the batched streaming
+encoder calls and BatchedTranscriber at B=3."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import make_audio
 from voxtral_tpu.models import decoder as jdec
 from voxtral_tpu.models import quant as jq
 from voxtral_tpu.ops.ring import _rows_write_batched
@@ -235,3 +238,102 @@ def test_bdecode_burst_attention_paths_agree(params_np):
     assert tdec._use_flash(base.decoder, torch.zeros(1))
     assert not tdec._use_flash(base.decoder,
                                torch.zeros(1, dtype=torch.float8_e4m3fn))
+
+
+# --- the lockstep batched streaming transcriber at B=3 ----------------------
+
+def _stream_mels(seconds=2.0, seeds=(61, 62, 63)):
+    """Padded mel of each clip, cut to the shortest: [B, T, 128]."""
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    eng = SimpleNamespace(delay_tokens=tiny_config().delay_tokens)
+    audios = [make_audio(seconds, seed=s) for s in seeds]
+    mels = [padded_clip_mel(eng, a) for a in audios]
+    n = min(m.shape[0] for m in mels)
+    return audios, np.stack([m[:n] for m in mels])
+
+
+@pytest.fixture(scope="module")
+def transcriber_runs(params, params_np, tiny_tokenizer):
+    """(JAX BatchedTranscriber tokens, port tokens, port transcriber, port
+    engine) at B=3 with 48-frame feeds, f32."""
+    from voxtral_tpu.config import tiny_config as jax_tiny
+    from voxtral_tpu.runtime.engine import VoxtralEngine as JEngine
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine as TEngine
+    from voxtral_tpu_torch.tokenizer import TekkenTokenizer
+
+    audios, mel = _stream_mels()
+    je = JEngine(jax_tiny(), params, tokenizer=tiny_tokenizer,
+                 buckets=(16, 4, 1), enc_kv_ring=64, dec_kv_ring=64)
+    want = jsv.BatchedTranscriber(je, batch=B, dec_kv_ring=64).transcribe(
+        mel, interval_frames=48)
+    te = TEngine(tiny_config(), from_jax_numpy(params_np),
+                 tokenizer=TekkenTokenizer([bytes([i]) for i in range(256)],
+                                           1000),
+                 buckets=(16, 4, 1), enc_kv_ring=64, dec_kv_ring=64)
+    tr = tsv.BatchedTranscriber(te, batch=B, dec_kv_ring=64)
+    got = tr.transcribe(torch.from_numpy(mel), interval_frames=48)
+    return audios, want, got, tr, te
+
+
+def test_batched_transcriber_equals_jax(transcriber_runs):
+    """Every stream's token ids equal the JAX BatchedTranscriber's; the
+    encoder ran through bencode in chunks of T > 1 (the flash-encode
+    path)."""
+    _, want, got, tr, _ = transcriber_runs
+    assert [len(t) for t in want] == [len(t) for t in got]
+    assert got == want
+    assert min(len(t) for t in got) > 10
+    assert tr.n_enc_chunk_calls > 0 and tr.decode_steps > 0
+    assert tr.enc_cache.k.shape[0] == B
+
+
+def test_batched_transcriber_equals_single_stream(transcriber_runs):
+    """Each stream's text tokens are a prefix-equal match of the port's
+    single VoxStream on the same clip (tests/test_batched.py's check)."""
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    audios, _, got, _, te = transcriber_runs
+    tok = te.tokenizer
+    for i, audio in enumerate(audios):
+        s = VoxStream(te)
+        s.set_processing_interval(0.1)
+        s.feed(audio)
+        s.finish()
+        ref = s.get()
+        text = [tok.decode(t) for t in got[i]
+                if tok.classify(t) == tok.TOK_TEXT]
+        m = min(len(text), len(ref))
+        assert m > 0
+        assert text[:m] == ref[:m], f"stream {i}"
+
+
+def test_batched_encoder_calls_equal_jax(params, params_np):
+    """bconv0 -> bconv1 -> bencode -> badapter at B=3 with per-stream
+    encoder positions (the port's calls are batched-first; JAX vmaps)."""
+    from voxtral_tpu.config import tiny_config as jax_tiny
+
+    jcfg, tcfg = jax_tiny(), tiny_config()
+    tp = from_jax_numpy(params_np)
+    rng = np.random.default_rng(21)
+    mel = rng.standard_normal((B, 16, 128)).astype(np.float32)
+    pos = np.array([0, 40, 130], np.int32)     # the third ring has wrapped
+    jc0, _ = jsv.bconv0(params["encoder"], jcfg, jnp.asarray(mel),
+                        jnp.zeros((B, 2, 128), jnp.float32))
+    tc0, _ = tsv.bconv0(tp["encoder"], tcfg, torch.from_numpy(mel),
+                        torch.zeros((B, 2, 128)))
+    jc1, _ = jsv.bconv1(params["encoder"], jcfg, jc0,
+                        jnp.zeros((B, 2, 16), jnp.float32))
+    tc1, _ = tsv.bconv1(tp["encoder"], tcfg, tc0, torch.zeros((B, 2, 16)))
+    jcache = jsv.batched_enc_cache(jcfg, B, 64)
+    tcache = tsv.batched_enc_cache(tcfg, B, 64)
+    assert tuple(tcache.k.shape) == tuple(jcache.k.shape)
+    jy, jcache = jsv.bencode(params["encoder"], jcfg, jc1, jcache,
+                             jnp.asarray(pos))
+    ty, tcache = tsv.bencode(tp["encoder"], tcfg, tc1, tcache,
+                             torch.from_numpy(pos))
+    ja = jsv.badapter(params["adapter"], jcfg, jy)
+    ta = tsv.badapter(tp["adapter"], tcfg, ty)
+    for t, j in ((tc1, jc1), (ty, jy), (ta, ja), (tcache.k, jcache.k)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)

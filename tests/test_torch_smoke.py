@@ -1,4 +1,5 @@
-"""chip_smoke.py's slice and serve phases rehearsed on the CPU at tiny size.
+"""chip_smoke.py's slice, serve, flash_enc, stream and bstream phases
+rehearsed on the CPU at tiny size.
 CPU tensors launch no kernel, so the plain functions stand in for the
 kernels and count as their launches; the phases' own checks (exact launch
 counts per rung, ids in range, identical second runs, kernel path against
@@ -11,8 +12,14 @@ import torch
 
 import chip_smoke as cs
 from voxtral_tpu_torch.config import tiny_config
-from voxtral_tpu_torch.models import bulk_encode, decoder
-from voxtral_tpu_torch.ops import banded_encode, flash_decode, quant_mm, ring
+from voxtral_tpu_torch.models import bulk_encode, decoder, encoder
+from voxtral_tpu_torch.ops import (
+    banded_encode,
+    flash_decode,
+    flash_encode,
+    quant_mm,
+    ring,
+)
 
 torch.set_num_threads(1)
 
@@ -35,6 +42,9 @@ def counted_kernels(monkeypatch):
         banded_encode.banded_attention_plain))
     monkeypatch.setattr(decoder, "flash_decode", _counted(
         flash_decode.flash_decode, flash_decode.flash_decode_plain))
+    monkeypatch.setattr(encoder, "flash_bulk_attention_batched", _counted(
+        flash_encode.flash_bulk_attention_batched,
+        flash_encode.flash_encode_plain))
     monkeypatch.setattr(decoder, "ring_rows_write", _counted(
         ring.ring_rows_write, ring.ring_rows_write_plain))
     # phase_serve imports int4_mm from its module, so it reads the
@@ -43,12 +53,15 @@ def counted_kernels(monkeypatch):
         quant_mm.int4_mm, quant_mm.int4_mm_plain, own=True))
     yield
     for fn in (banded_encode.banded_attention_batched,
-               flash_decode.flash_decode, ring.ring_rows_write):
+               flash_decode.flash_decode, ring.ring_rows_write,
+               flash_encode.flash_bulk_attention_batched):
         fn.launches = 0
 
 
 def test_slice_and_serve_phases_on_cpu(counted_kernels):
-    cfg = tiny_config()
+    # the engine's encoder ring must hold its window (24) and the largest
+    # bucket (64)
+    cfg = tiny_config(enc_kv_ring=128)
     params = cs.make_params(cfg, "cpu")
     sl = cs.phase_slice(cfg, params, "cpu", (1.2, 2.0))
     assert sl["launches"][0] == 2 * cfg.encoder.n_layers
@@ -89,3 +102,48 @@ def test_dequantize4_rejects_a_wrong_scale():
     bad["tok_embeddings_scale"] = bad["tok_embeddings_scale"] * 1.1
     with pytest.raises(AssertionError, match="tok_embeddings"):
         cs.dequantize4({**q, "decoder": bad}, params)
+
+
+# FLASH_ENC_FULL's cases at tiny width: a 64-slot ring holds the window
+# (24) beside the largest chunk (24 rows)
+TINY_FLASH_ENC = dict(n_layers=2, heads=4, head_dim=16, cap=64, window=24,
+                      ts=(4, 16, 20), positions=(0, 30, 300), prefill=40,
+                      splits=((24,), (8, 8, 8), (10, 10, 4)))
+
+
+def test_flash_enc_phase_on_cpu():
+    """The wrapper runs the plain version on CPU tensors, so the
+    comparison reads 0 and the chunking check holds the plain version
+    bitwise."""
+    out = cs.phase_flash_enc("cpu", TINY_FLASH_ENC, batches=(1, 3))
+    assert out == {"max_abs_err": 0.0, "bitwise_invariant": True}
+    assert flash_encode.flash_bulk_attention_batched.launches == 0
+
+
+def test_stream_and_bstream_phases_on_cpu(counted_kernels):
+    cfg = tiny_config(enc_kv_ring=128)
+    params = cs.make_params(cfg, "cpu")
+    st = cs.phase_stream(cfg, params, "cpu", seconds=2.5)
+    assert [r["run"] for r in st["runs"]] == [
+        "1s_at_2s", "0.5s_at_0.5s", "1s_at_2s_unfused"]
+    for r in st["runs"]:
+        assert r["encoder_chunks"] > 0 and r["decode_steps"] > 0
+        assert r["launches"] == {
+            "flash_bulk_attention_batched":
+                cfg.encoder.n_layers * r["encoder_chunks"],
+            "flash_decode": cfg.decoder.n_layers * r["decode_steps"],
+            "banded_attention_batched": 0}
+    # f32 on the CPU: every chunking gives the offline path's ids
+    assert set(st["agreement"].values()) == {1.0}
+    assert st["launches"]["flash_bulk_attention_batched"] == sum(
+        r["launches"]["flash_bulk_attention_batched"] for r in st["runs"])
+
+    bst = cs.phase_bstream(cfg, params, "cpu", n_streams=3, seconds=2.0,
+                           dec_ring=64, interval_frames=48)
+    assert bst["encoder_chunks"] > 0 and bst["decode_steps"] > 0
+    assert bst["launches"] == {
+        "flash_bulk_attention_batched":
+            cfg.encoder.n_layers * bst["encoder_chunks"],
+        "flash_decode": cfg.decoder.n_layers * bst["decode_steps"],
+        "banded_attention_batched": 0}
+    assert bst["compared"] > 0 and 0.0 <= bst["stream0_agree_b1"] <= 1.0

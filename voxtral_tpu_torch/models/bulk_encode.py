@@ -18,10 +18,10 @@ import torch
 
 from ..config import VoxtralConfig
 from ..ops.banded_encode import banded_attention_batched
-from ..ops.norms import gelu, rms_norm, silu
+from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
-from .encoder import _im2col, adapter_forward
-from .quant import matmul_f32, mm
+from .encoder import adapter_forward, conv0_chunk, conv1_chunk
+from .quant import mm
 
 PyTree = Any
 
@@ -30,18 +30,9 @@ def _conv_stem(enc_params: PyTree, cfg: VoxtralConfig, mel: torch.Tensor,
                mel_tail: torch.Tensor, c0_tail: torch.Tensor):
     """conv0 + conv1 over one chunk with explicit boundary tails ->
     (x [B, Tm//2, dim], new_mel_tail, new_c0_tail)."""
-    cdtype = cfg.cdtype
-    xin = torch.cat([mel_tail, mel], dim=-2)
-    c0 = gelu(
-        matmul_f32(_im2col(xin, 3, 1).to(cdtype), enc_params["conv0_w"])
-        + enc_params["conv0_b"]
-    ).to(cdtype)
-    xin1 = torch.cat([c0_tail, c0], dim=-2)
-    x = gelu(
-        matmul_f32(_im2col(xin1, 3, 2).to(cdtype), enc_params["conv1_w"])
-        + enc_params["conv1_b"]
-    ).to(cdtype)
-    return x, xin[..., -2:, :], xin1[..., -2:, :]
+    c0, mel_tail = conv0_chunk(enc_params, mel, mel_tail, cfg.cdtype)
+    x, c0_tail = conv1_chunk(enc_params, c0, c0_tail, cfg.cdtype)
+    return x, mel_tail, c0_tail
 
 
 def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,

@@ -22,8 +22,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "build")
-SOURCES = ("banded_attention.cu", "flash_decode.cu", "int4_mm.cu",
-           "ring_rows_write.cu")
+SOURCES = ("banded_attention.cu", "flash_decode.cu", "flash_encode.cu",
+           "int4_mm.cu", "ring_rows_write.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,7 +98,7 @@ def kernels() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.vt_banded_attention.restype = i
             lib.vt_banded_attention.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,
@@ -106,6 +106,10 @@ def kernels() -> ctypes.CDLL:
             lib.vt_flash_decode.restype = i
             lib.vt_flash_decode.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+            ]
+            lib.vt_flash_encode.restype = i
+            lib.vt_flash_encode.argtypes = [
+                p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, p,
             ]
             lib.vt_int4_mm.restype = i
             lib.vt_int4_mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]

@@ -37,6 +37,8 @@ def to_ring_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
     keeps that on every torch version: torch 2.13 saturates by itself, but
     torch 2.11's CUDA cast (and the JAX package, through ml_dtypes) turns a
     value past 464 into NaN."""
+    if x.dtype == dtype:
+        return x
     if dtype == torch.float8_e4m3fn:
         x = x.clamp(-448.0, 448.0)
     return x.to(dtype)
@@ -64,6 +66,24 @@ def ring_write(ring: torch.Tensor, vals: torch.Tensor,
     bidx = torch.arange(bsz, device=ring.device)[:, None].expand(bsz, t)
     ring[bidx, :, slots, :] = vals        # in place; indexed view is [B,T,KH,D]
     return ring
+
+
+def ring_chunk_write(k_all: torch.Tensor, v_all: torch.Tensor,
+                     k_chunk: torch.Tensor, v_chunk: torch.Tensor, li: int,
+                     pos0: torch.Tensor):
+    """Write a T-row chunk per stream into layer li of the stacked
+    [B, L, KH, cap, D] caches at slots (pos0 .. pos0+T-1) mod cap, IN PLACE.
+
+    k_chunk/v_chunk: [B, T, KH, D]; pos0: int [B].  Returns (k_all, v_all,
+    k_ring, v_ring), the last two the layer's rings [B, KH, cap, D] as views
+    (what attention reads next).  The JAX package's batched form is a
+    one-hot matmul blend, a TPU workaround for a per-stream rotate; the
+    modular index write gives the same rings bit for bit, T > cap included
+    (only the last cap rows survive)."""
+    k_ring, v_ring = k_all[:, li], v_all[:, li]
+    ring_write(k_ring, k_chunk, pos0)
+    ring_write(v_ring, v_chunk, pos0)
+    return k_all, v_all, k_ring, v_ring
 
 
 def ring_rows_write_plain(k_all: torch.Tensor, v_all: torch.Tensor,

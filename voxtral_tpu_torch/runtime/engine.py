@@ -1,25 +1,27 @@
-"""Engine: loaded parameters + the shape-bucket policy, offline subset.
+"""Engine: loaded parameters + the shape-bucket policy.
 
 PyTorch counterpart of voxtral_tpu/runtime/engine.py.  It holds the weights
 on one device and exposes the calls of the offline path (bulk encode,
-prompt prefill, burst decode).  Everything is batched-first: tensors carry
-a leading stream axis B (B=1 for one clip).
+prompt prefill, burst decode) and of the streaming path (conv chunks with
+tails, the ring-cache encoder, the adapter, the fused audio side).
+Everything is batched-first: tensors carry a leading stream axis B (B=1
+for one clip or stream).
 
-Decode bursts keep the JAX package's greedy bucket decomposition, so a clip
-is cut into the same bursts in both packages.  PyTorch runs eagerly and
-needs no per-shape program; the buckets are where CUDA-graph capture sizes
-will go.
+Chunks keep the JAX package's greedy bucket decomposition, so a stream is
+cut into the same calls in both packages.  PyTorch runs eagerly and needs
+no per-shape program; the buckets are where CUDA-graph capture sizes will
+go, and `warmup` builds the kernels and runs each shape once.
 
 `quantize=` ("int8"/True or "int4") quantizes the decoder only, as the JAX
 engine does (models/quant.py); the encoder stays exact.
 
-Not ported yet (ROADMAP.md): the streaming encoder programs (conv chunks,
-ring encoder, fused streaming), Jacobi decoding, encoder weight paging,
-the memory ledger, warm-up.
+Not ported yet (ROADMAP.md): Jacobi decoding, encoder weight paging
+(`offload_encoder`/`restore_encoder`).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,11 +36,17 @@ from ..config import (
     n_right_pad_tokens,
 )
 from ..models import decoder as dec_mod
-from ..models.decoder import KVCache, ada_scales
+from ..models import encoder as enc_mod
+from ..models.decoder import KVCache, _positions, ada_scales
+from ..models.encoder import EncKVCache
 from ..models.quant import embed_rows, quantize_params
 from ..tokenizer import TekkenTokenizer
 
 DEFAULT_BUCKETS = (256, 64, 16, 4, 1)
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def adaptive_dec_ring(cfg: VoxtralConfig, n_samples: int, slack: int = 64) -> int:
@@ -76,7 +84,9 @@ class VoxtralEngine:
         tokenizer: Optional[TekkenTokenizer] = None,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         dec_kv_ring: Optional[int] = None,
+        enc_kv_ring: Optional[int] = None,
         decode_mode: str = "sequential",
+        fused_streaming: bool = True,      # one-call audio side for aligned chunks
         quantize: bool | str = False,      # False | True/"int8" | "int4"
     ):
         if decode_mode != "sequential":
@@ -101,6 +111,21 @@ class VoxtralEngine:
         if self.buckets[-1] != 1:
             raise ValueError(f"buckets must include 1, got {self.buckets}")
         self.dec_kv_ring = dec_kv_ring or cfg.decoder.kv_ring
+        self.fused_streaming = fused_streaming
+        # the encoder ring covers the window plus the largest chunk written
+        # on top: the smallest power of two that does (1024 for the real
+        # config with 64-buckets)
+        min_enc = cfg.encoder.window + self.buckets[0]
+        self.enc_kv_ring = enc_kv_ring or min(cfg.encoder.kv_ring,
+                                              _pow2ceil(min_enc))
+        if self.enc_kv_ring < min_enc:
+            raise ValueError(f"encoder ring {self.enc_kv_ring} < window + "
+                             f"largest bucket ({min_enc})")
+        # fused buckets are MEL frames (an encoder chunk is bucket/2
+        # positions); only sizes the ring holds beside its window
+        self.fused_buckets = tuple(
+            b for b in (1024, 512, 256)
+            if cfg.encoder.window + b // 2 <= self.enc_kv_ring)
         dparams = params["decoder"]
         self.device = dparams["tok_embeddings"].device
 
@@ -128,17 +153,111 @@ class VoxtralEngine:
             self._ada[d] = ada_scales(self.params["decoder"], cfg)
         return self._ada[d]
 
+    # -- memory accounting -----------------------------------------------------
+    def memory_ledger(self) -> dict:
+        """Shape-derived device byte ledger (the vox_metal_memory_used
+        analog, printed at startup voxtral.c:247-249): weights by param
+        group (quantized storage counts its packed bytes), derived
+        constants, and per-stream KV-cache bytes at this engine's ring
+        geometry.  All values are bytes."""
+        def nbytes(tree) -> int:
+            if isinstance(tree, dict):
+                return sum(nbytes(v) for v in tree.values())
+            if isinstance(tree, (list, tuple)):
+                return sum(nbytes(v) for v in tree)
+            return tree.numel() * tree.element_size()
+
+        d, e = self.cfg.decoder, self.cfg.encoder
+        led = {f"params_{k}": nbytes(v) for k, v in self.params.items()}
+        led["derived_consts"] = nbytes(
+            [self.embed_bos, self.embed_pad, list(self._ada.values())])
+        led["params_total"] = sum(
+            v for k, v in led.items() if k.startswith("params_")
+        ) + led["derived_consts"]
+        led["dec_cache_bytes_per_stream"] = (
+            2 * d.n_layers * d.n_kv_heads * self.dec_kv_ring * d.head_dim
+            * self.cfg.kvdtype.itemsize)
+        led["enc_cache_bytes_per_stream"] = (
+            2 * e.n_layers * e.n_kv_heads * self.enc_kv_ring * e.head_dim
+            * self.cfg.enc_kvdtype.itemsize)
+        return led
+
     # -- cache factories -----------------------------------------------------
     def new_dec_cache(self, batch: int = 1) -> KVCache:
         return KVCache.create(self.cfg.decoder, self.cfg.kvdtype,
                               self.dec_kv_ring, batch=batch,
                               device=self.device)
 
+    def new_enc_cache(self, batch: int = 1) -> EncKVCache:
+        return EncKVCache.create(self.cfg.encoder, self.cfg.enc_kvdtype,
+                                 self.enc_kv_ring, batch=batch,
+                                 device=self.device)
+
+    # -- dispatch planning ---------------------------------------------------
+    def fused_sizes(self, q_total: int) -> list[int]:
+        """Dispatch plan (mel-frame chunk sizes) for a quantum-aligned
+        chunk: the power-of-two fused buckets, then ONE exact-size call for
+        the tail, split only where the encoder ring cannot hold window +
+        chunk."""
+        cap = 2 * (self.enc_kv_ring - self.cfg.encoder.window)
+        cap -= cap % 8
+        out = []
+        for b in self.fused_buckets:
+            while q_total >= b:
+                out.append(b)
+                q_total -= b
+        while q_total > 0:
+            q = min(q_total, cap)
+            out.append(q)
+            q_total -= q
+        return out
+
+    def burst_size(self, avail: int) -> int:
+        """Decode-burst size for `avail` pending adapter rows: small
+        backlogs (the steady state at any -I <= 2.5 s) decode in ONE
+        exact-size burst, large ones take the power buckets."""
+        if avail < 32:
+            return avail
+        return next(x for x in self.buckets if x <= avail)
+
     # -- phases ----------------------------------------------------------------
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         return x.to(device=self.device, dtype=dtype)
+
+    # -- streaming encoder calls (batched-first, B = 1 for one stream) ------
+    def conv0(self, mel, tail):
+        """mel [B, T, 128] f32, tail [B, 2, 128] -> ([B, T, 1280], tail)."""
+        return enc_mod.conv0_chunk(self.params["encoder"],
+                                   self._tensor(mel, torch.float32), tail,
+                                   self.cfg.cdtype)
+
+    def conv1(self, feed, tail):
+        """feed [B, 2T, 1280], tail [B, 2, 1280] -> ([B, T, 1280], tail)."""
+        return enc_mod.conv1_chunk(self.params["encoder"], feed, tail,
+                                   self.cfg.cdtype)
+
+    def encode(self, x, cache: EncKVCache, pos0):
+        """Ring-cache encoder over x [B, T, 1280] at pos0 (int or int [B]):
+        (y [B, T, 1280], cache updated in place)."""
+        return enc_mod.encode_chunk(self.params["encoder"], self.cfg, x,
+                                    cache, pos0)
+
+    def adapter(self, enc_out) -> torch.Tensor:
+        """[B, 4G, 1280] -> [B, G, 3072] in the compute dtype."""
+        return enc_mod.adapter_forward(self.params["adapter"], self.cfg,
+                                       enc_out)
+
+    def fused_encode(self, mel, tails, cache: EncKVCache, enc_pos):
+        """One call of conv stem + encoder + adapter for quantum-aligned
+        mel chunks (models/fused_stream.py): (rows, tails, cache)."""
+        from ..models.fused_stream import fused_encode_chunk
+
+        mel = self._tensor(mel, torch.float32)
+        return fused_encode_chunk(
+            self.params["encoder"], self.params["adapter"], self.cfg, mel,
+            tails, cache, _positions(enc_pos, mel.shape[0], self.device))
 
     def encode_clip_bulk(self, mel) -> torch.Tensor:
         """Whole-clip offline encode with NO ring state (the reference's
@@ -179,3 +298,77 @@ class VoxtralEngine:
             self.params["decoder"], self.cfg, self._tensor(adapter_chunk),
             torch.as_tensor(prev_token), cache, pos0, self.ada(), n_alt=n_alt,
         )
+
+    # -- warm-up -------------------------------------------------------------
+    def warmup(self, n_alt: int = 0, progress=None,
+               interval_s: Optional[float] = None) -> float:
+        """Builds the CUDA kernels (on a CUDA device) and runs every bucket
+        shape once, with the JAX engine's progress lines (there it compiles
+        them; here it settles cuBLAS handles and the allocator).  With
+        `interval_s`, also the exact-size fused-encode and decode-burst
+        shapes of the steady streaming state at that interval.  Returns
+        the seconds taken."""
+        from ..models.fused_stream import ConvTails
+
+        cfg, dev = self.cfg, self.device
+        t0 = time.monotonic()
+        if dev.type == "cuda":
+            from ..ops import cuda_lib
+
+            if progress:
+                progress("warmup kernel build")
+            cuda_lib.kernels()
+        enc_cache = self.new_enc_cache()
+        dec_cache = self.new_dec_cache()
+        c0_tail = torch.zeros((1, 2, cfg.encoder.n_mel), device=dev)
+        c1_tail = torch.zeros((1, 2, cfg.encoder.dim), dtype=cfg.cdtype,
+                              device=dev)
+        bos = torch.tensor([TOKEN_BOS], dtype=torch.int32, device=dev)
+        for b in self.buckets:
+            if progress:
+                progress(f"warmup bucket {b} (+{time.monotonic() - t0:.0f}s)")
+            self.conv0(torch.zeros((1, b, cfg.encoder.n_mel), device=dev),
+                       c0_tail)
+            self.conv1(torch.zeros((1, 2 * b, cfg.encoder.dim),
+                                   dtype=cfg.cdtype, device=dev), c1_tail)
+            self.encode(torch.zeros((1, b, cfg.encoder.dim), dtype=cfg.cdtype,
+                                    device=dev), enc_cache, 0)
+            self.adapter(torch.zeros((1, 4 * b, cfg.encoder.dim),
+                                     dtype=cfg.cdtype, device=dev))
+            self.decode_burst(torch.zeros((1, b, cfg.decoder.dim),
+                                          dtype=cfg.cdtype, device=dev),
+                              bos, dec_cache, 0, n_alt=n_alt)
+        if progress:
+            progress(f"warmup prefill (+{time.monotonic() - t0:.0f}s)")
+        self.prefill(torch.zeros((1, self.prompt_len - 1, cfg.decoder.dim),
+                                 device=dev), dec_cache, 0)
+        fused_qs = list(self.fused_buckets)
+        burst_ts = []
+        if interval_s is not None:
+            # steady-state sizes at this interval: a feed carries ~interval
+            # * 100 mel frames; the aligned chunk alternates between q0 and
+            # q0 + 8 as the < 8-frame remainder accumulates
+            q0 = max(8, (int(interval_s * 100) // 8) * 8)
+            fused_qs += [q for q in (q0, q0 + 8) if q not in fused_qs
+                         and cfg.encoder.window + q // 2 <= self.enc_kv_ring]
+            burst_ts = sorted({q0 // 8, q0 // 8 + 1})
+        if self.fused_streaming:
+            tails = ConvTails.create(cfg, device=dev)
+            for q in fused_qs:
+                if progress:
+                    progress(f"warmup fused {q} "
+                             f"(+{time.monotonic() - t0:.0f}s)")
+                _, tails, _ = self.fused_encode(
+                    torch.zeros((1, q, cfg.encoder.n_mel), device=dev), tails,
+                    enc_cache, 0)
+        for t in burst_ts:
+            if t in self.buckets:
+                continue
+            if progress:
+                progress(f"warmup burst {t} (+{time.monotonic() - t0:.0f}s)")
+            self.decode_burst(torch.zeros((1, t, cfg.decoder.dim),
+                                          device=dev),
+                              bos, dec_cache, 0, n_alt=n_alt)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.monotonic() - t0
