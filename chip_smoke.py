@@ -13,16 +13,20 @@ script exits non-zero:
                voxtral_tpu_torch/csrc/*.cu for sm_90a
   3. banded   kernel (A) against its plain PyTorch version at the
                full-width encoder shape (H=KH=32, D=64, window 750), up to
-               the serve phase's B=16 padded 30 s clips
+               the serve phase's B=16 padded 30 s clips, at both tile
+               heights (64 and 128 query rows per block); its times, bound
+               and SDPA's at B=1 T=1500 and at the serve shape
   4. flash    kernel (B) against its plain version at the full-width decoder
                shape (H=32, KH=8, D=128, L=26), with and without the row
                write, bf16 and f32 rings, up to the serve phase's B=16
                rings of 896 slots
   5. flash_enc kernel (E) against its plain version at the full-width
                streaming-encoder shape (H=KH=32, D=64, stacked rings of
-               1024 slots, window 750) for B in {1, 16}, T from 4 to 274,
-               positions at 0, in the first lap and after wraparound; its
-               output bitwise equal across three chunkings of 256 rows
+               1024 and 1000 slots, window 750) for B in {1, 16}, T from 4
+               to 274, positions at 0, in the first lap and after
+               wraparound, at both tile heights; its output bitwise equal
+               across three chunkings of 256 rows at B=1 and B=16; its
+               times at B=16 T=64 and B=1 T=100 by tile height and split
   6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table)
                at 1, 16 and 608 rows
@@ -58,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +83,8 @@ FLASH_ENC_TOL = 2e-2
 # (the WMMA tiles and K splits against cuBLAS), compared relative to max
 # |plain|; measured up to 3.005e-7 on an H100 80GB HBM3 (700 W)
 INT4_REL_TOL = 1e-5
+# kernels built to spill no register (the build phase fails if they do)
+ATTENTION_KERNELS = ("banded_attention_kernel", "flash_encode_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -127,19 +134,22 @@ def device_events(fn, iters: int = 1) -> tuple[list, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    # "Command Buffer Full" marks the host waiting on a full launch queue
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and "Command Buffer Full" not in e.name]
-    if not events:
-        raise AssertionError("torch.profiler recorded no device time")
-    return events, wall
+    for _ in range(3):   # the card's profiler has come back empty at times
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        # "Command Buffer Full" marks the host waiting on a full launch queue
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "Command Buffer Full" not in e.name]
+        if events:
+            return events, wall
+        log("timing", "torch.profiler recorded no device time; again")
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def device_ms(fn, iters: int, with_events: bool = False):
@@ -150,6 +160,36 @@ def device_ms(fn, iters: int, with_events: bool = False):
     events, _ = device_events(fn, iters)
     ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     return (ms, len(events) / iters) if with_events else ms
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Device time of one call of fn() in ms, free of host gaps and of the
+    profiler: `iters` calls captured in one CUDA graph, replayed `reps`
+    times between CUDA events.  (torch.profiler dropped kernel records on
+    the card, or returned none, in some runs.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture, as torch asks
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
 
 
 # the card's published peaks (H100 SXM datasheet): the
@@ -211,10 +251,30 @@ def phase_build() -> None:
     lib_path = cuda_lib.build()
     cuda_lib.kernels()
     log("build", f"{lib_path} in {time.monotonic() - t0:.1f} s")
+    # ptxas -v: one line per kernel with its registers and spill bytes
+    name, stores, spills, attn_spills = None, 0, 0, 0
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
         for line in f:
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log("build", line.strip())
+            if "Compiling entry function" in line:
+                # the mangled name's kernel and template arguments
+                mangled = line.split("'")[1]
+                m = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?E", mangled)
+                name = "".join(m.groups("")) if m else mangled
+            elif "spill stores" in line:
+                spill = line.split("bytes stack frame, ")[1].split(",")
+                stores = int(spill[0].split()[0])
+                n = stores + int(spill[1].split()[0])
+                spills += n
+                if name and name.startswith(ATTENTION_KERNELS):
+                    attn_spills += n
+            elif "Used" in line and "registers" in line and name:
+                log("build", f"{name}: {line.split('Used ')[1].strip()}; "
+                             f"spill stores {stores}")
+                name = None
+    log("build", f"spilled bytes over all kernels: {spills}")
+    if attn_spills:
+        raise AssertionError(f"[build] the attention kernels spill "
+                             f"{attn_spills} bytes")
 
 
 def _randn(gen, shape, dtype, device: str = "cuda"):
@@ -222,6 +282,46 @@ def _randn(gen, shape, dtype, device: str = "cuda"):
 
     return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float32).to(dtype)
+
+
+def _band_mask(t: int, window: int):
+    import torch
+
+    i = torch.arange(t, device="cuda")
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def _banded_times(q, k, v, kv_lo, window: int, plain: bool) -> dict:
+    """Kernel (A) at one shape, bf16 out as on the path: CUDA events and
+    device time, the plain version (B=1 only: its [T, T] scores per head
+    would take 5.9 GB at B=16), SDPA with the band mask, and the bound."""
+    import torch
+
+    from voxtral_tpu_torch.ops.banded_encode import (
+        banded_attention_batched,
+        banded_attention_plain,
+    )
+
+    bsz, t, h, d = q.shape
+
+    def kern():
+        banded_attention_batched(q, k, v, kv_lo, window=window,
+                                 out_dtype=torch.bfloat16)
+
+    out = {"ms": cuda_ms(kern, 20), "device_ms": graph_ms(kern, 10)}
+    if plain:
+        out["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
+            q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
+    # the library call: SDPA with the boolean band mask
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out["library_ms"] = sdpa_ms(qt, kt, vt, _band_mask(t, window), 10)
+    del qt, kt, vt
+    # each row meets min(i + 1, window) keys; q, k, v read, out written once,
+    # bf16
+    pairs = bsz * sum(min(r + 1, window) for r in range(t))
+    out.update(bound(4 * q.numel() * 2, 4 * d * h * pairs))
+    out["tflops"] = 4 * d * h * pairs / out["device_ms"] / 1e9
+    return out
 
 
 def phase_banded() -> dict:
@@ -243,62 +343,44 @@ def phase_banded() -> dict:
         (16, t_serve, [0] * 16),  # the serve phase's B=16 padded 30 s clips
     ]
     worst = 0.0
-    times = None
+    timed = {}
     for bsz, t, lo in cases:
         q = _randn(gen, (bsz, t, h, d), torch.bfloat16)
         k = _randn(gen, (bsz, t, h, d), torch.bfloat16)
         v = _randn(gen, (bsz, t, h, d), torch.bfloat16)
         kv_lo = torch.tensor(lo, dtype=torch.int32, device="cuda")
-        got = banded_attention_batched(q, k, v, kv_lo, window=window,
-                                       out_dtype=torch.float32)
         # the plain version one stream at a time (its [T, T] scores per
         # head would take 5.9 GB at B=16)
         want = torch.cat([banded_attention_plain(
             q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_lo[i:i + 1],
             window=window, out_dtype=torch.float32) for i in range(bsz)])
+        got = banded_attention_batched(q, k, v, kv_lo, window=window,
+                                       out_dtype=torch.float32)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"[banded] non-finite output B={bsz} T={t}")
         err = (got - want).abs().max().item()
         worst = max(worst, err)
         ok = err <= BANDED_TOL
-        log("banded", f"B={bsz} T={t} kv_lo={lo}: max_abs_err {err:.3e} "
+        log("banded", f"B={bsz} T={t} kv_lo={lo[:2]}: max_abs_err {err:.3e} "
                       f"(tol {BANDED_TOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"[banded] B={bsz} T={t} err {err}")
-        if times is None:   # the 30 s clip shape, bf16 out as on the path
-            kern = cuda_ms(lambda: banded_attention_batched(
-                q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 20)
-            plain = cuda_ms(lambda: banded_attention_plain(
-                q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
-            dkern = device_ms(lambda: banded_attention_batched(
-                q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
-            # the library call: SDPA with the boolean band mask
-            i = torch.arange(t, device="cuda")
-            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                                  - window)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = sdpa_ms(qt, kt, vt, band)
-            del qt, kt, vt, band
-            # each row meets min(i + 1, window) keys; q, k, v read, out
-            # written once, bf16
-            pairs = sum(min(r + 1, window) for r in range(t))
-            times = (kern, plain, dkern, lib,
-                     bound(4 * q.numel() * 2, 4 * d * h * pairs))
-            log("banded", f"B=1 T={t}: kernel {kern:.4f} ms (device "
-                          f"{dkern:.4f}), plain {plain:.4f} ms, SDPA "
-                          f"{lib:.4f} ms per call; bound "
-                          f"{times[4]['bound_ms']:.4f} ms "
-                          f"({times[4]['bound_by']})")
-    # the kernel alone at the serve shape (the last case's tensors)
-    kern16 = cuda_ms(lambda: banded_attention_batched(
-        q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 10)
-    log("banded", f"B=16 T={t_serve}: kernel {kern16:.4f} ms per call "
-                  f"(CUDA events)")
+        del got, want
+        if (bsz, t) in ((1, 1500), (16, t_serve)):
+            tm = _banded_times(q, k, v, kv_lo, window, plain=bsz == 1)
+            timed[bsz] = tm
+            log("banded", f"B={bsz} T={t}: kernel {tm['ms']:.4f} ms (device "
+                          f"{tm['device_ms']:.4f}), "
+                          f"{tm['tflops']:.1f} TFLOP/s, plain "
+                          f"{tm.get('plain_ms', float('nan')):.4f} ms, SDPA "
+                          f"{tm['library_ms']:.4f} ms per call; bound "
+                          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+        del q, k, v
     banded_attention_batched.launches = 0
-    return {"max_abs_err": worst, "ms": times[0], "plain_ms": times[1],
-            "device_ms": times[2], "library_ms": times[3], **times[4],
-            "ms_b16": kern16}
+    out = {"max_abs_err": worst, **timed[1]}
+    out.update({f"{key}_b16": val for key, val in timed[16].items()})
+    return out
 
 
 def serve_encoder_len(seconds: float) -> int:
@@ -396,8 +478,10 @@ def phase_flash() -> dict:
             mask = ((lpos >= 0) & (lpos <= pos[:, None])
                     & (lpos > pos[:, None] - window))[:, None, None, :]
             lib = sdpa_ms(q[:, :, None], k_all[:, li], v_all[:, li], mask, 50)
-            dkern = device_ms(lambda: flash_decode(
+            dkern = graph_ms(lambda: flash_decode(
                 q, k_all, v_all, li, pos, k_rows, v_rows, **kw), 20)
+            dkern_attend = graph_ms(lambda: flash_decode(
+                q, k_all, v_all, li, pos, **kw), 20)
             # the live window's K and V rows read once, q read, the new
             # rows and the output written (bf16 ring, f32 rows)
             live = min(p + 1, window, cap)
@@ -405,13 +489,15 @@ def phase_flash() -> dict:
                          + 2 * kh * d * (4 + 2) + h * d * 2,
                          4 * h * d * live)
             log("flash", f"B=1 cap={cap} pos={p}: write+attend device "
-                         f"{dkern:.4f} ms; SDPA (attend) {lib:.4f} ms; "
+                         f"{dkern:.4f} ms, attend device {dkern_attend:.4f} "
+                         f"ms; SDPA (attend) {lib:.4f} ms; "
                          f"bound {b512['bound_ms']:.6f} ms "
                          f"({b512['bound_by']})")
     flash_decode.launches = 0
     out = {"max_abs_err": worst, "ms": times[512, "write+attend"][0],
            "plain_ms": times[512, "write+attend"][1], "device_ms": dkern,
-           "library_ms": lib, **b512}
+           "device_ms_attend_cap512": dkern_attend, "library_ms": lib,
+           **b512}
     for (cap, mode), (kern, plain) in times.items():
         tag = f"{mode.replace('+', '_')}_cap{cap}"
         out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = kern, plain
@@ -577,13 +663,15 @@ def phase_rows() -> dict:
 
 
 # the streaming encoder at full width: stacked rings [B, 32, 32, 1024, 64]
-# (1024 = the engine's ring for buckets (64, 16, 4, 1)), chunks of 4 to 274
-# rows (274 = the largest fused chunk the ring holds beside its window),
-# queries at 0, inside the first lap and after wraparound; the bitwise
-# check writes 256 rows after 800 as one chunk and as two other partitions
+# (1024 = the engine's ring for buckets (64, 16, 4, 1)) and, for the ragged
+# edge, 1000 slots; chunks of 4 to 274 rows (274 = the largest fused chunk
+# the ring holds beside its window), queries at 0, inside the first lap
+# (17, 40: most of the walk's segments hold no written slot) and after
+# wraparound; the bitwise check writes 256 rows after 800 as one chunk and
+# as two other partitions
 FLASH_ENC_FULL = dict(n_layers=32, heads=32, head_dim=64, cap=1024,
-                      window=750, ts=(4, 64, 100, 256, 274),
-                      positions=(0, 300, 5000), prefill=800,
+                      ragged_cap=1000, window=750, ts=(4, 64, 100, 256, 274),
+                      positions=(0, 17, 40, 300, 5000), prefill=800,
                       splits=((256,), (64, 64, 64, 64), (100, 100, 56)))
 
 
@@ -620,6 +708,7 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
     from voxtral_tpu_torch.ops.flash_encode import (
         flash_bulk_attention_batched,
         flash_encode_plain,
+        flash_encode_segments,
     )
     from voxtral_tpu_torch.ops.ring import ring_chunk_write
 
@@ -632,40 +721,54 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
     gen.manual_seed(5)
     kw = dict(window=window, out_dtype=torch.float32)
 
-    def rings(bsz):   # zeros but for layer li, which is what is read
-        k_all, v_all = (torch.zeros((bsz, n_layers, h, cap, d),
+    def rings(bsz, n_slots=cap):   # zeros but for layer li, which is read
+        k_all, v_all = (torch.zeros((bsz, n_layers, h, n_slots, d),
                                     dtype=torch.bfloat16, device=device)
                         for _ in range(2))
-        k_all[:, li] = _randn(gen, (bsz, h, cap, d), torch.bfloat16, device)
-        v_all[:, li] = _randn(gen, (bsz, h, cap, d), torch.bfloat16, device)
+        for x in (k_all, v_all):
+            x[:, li] = _randn(gen, (bsz, h, n_slots, d), torch.bfloat16,
+                              device)
         return k_all, v_all
 
     worst = 0.0
-    for bsz in batches:
-        k_all, v_all = rings(bsz)
-        pos_sets = ([[p] for p in sh["positions"]] if bsz == 1 else
-                    [_stream_positions(sh["positions"], bsz)])
-        for t in sh["ts"]:
-            q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
-            for pos_l in pos_sets:
-                pos = torch.tensor(pos_l, dtype=torch.int32, device=device)
-                got = flash_bulk_attention_batched(
-                    q, k_all[:, li], v_all[:, li], pos, **kw)
-                want = flash_encode_plain(q, k_all[:, li], v_all[:, li], pos,
-                                          **kw)
-                if not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"[flash_enc] non-finite B={bsz} "
-                                         f"T={t} pos={pos_l[:3]}")
-                err = (got - want).abs().max().item()
-                worst = max(worst, err)
-                ok = err <= FLASH_ENC_TOL
-                log("flash_enc", f"B={bsz} T={t} pos={pos_l[:3]}: max_abs_err "
-                                 f"{err:.3e} (tol {FLASH_ENC_TOL}) "
-                                 f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"[flash_enc] B={bsz} T={t} "
-                                         f"pos={pos_l} err {err}")
-        del k_all, v_all
+    for n_slots in (cap, sh["ragged_cap"]):
+        for bsz in batches:
+            k_all, v_all = rings(bsz, n_slots)
+            pos_sets = ([[p] for p in sh["positions"]] if bsz == 1 else
+                        [_stream_positions(sh["positions"], bsz)])
+            for t in sh["ts"]:
+                q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+                for pos_l in pos_sets:
+                    pos = torch.tensor(pos_l, dtype=torch.int32,
+                                       device=device)
+                    want = flash_encode_plain(q, k_all[:, li], v_all[:, li],
+                                              pos, **kw)
+                    # the two mappings of the split walk to blocks agree
+                    # bit for bit (the default takes one of them)
+                    got, walk = (flash_bulk_attention_batched(
+                        q, k_all[:, li], v_all[:, li], pos, split=sp, **kw)
+                        for sp in (True, False))
+                    if not torch.equal(got, walk):
+                        raise AssertionError(
+                            f"[flash_enc] cap={n_slots} B={bsz} T={t} "
+                            f"pos={pos_l[:3]}: the split mappings differ")
+                    del walk
+                    if not bool(torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"[flash_enc] non-finite cap={n_slots} "
+                            f"B={bsz} T={t} pos={pos_l[:3]}")
+                    err = (got - want).abs().max().item()
+                    worst = max(worst, err)
+                    ok = err <= FLASH_ENC_TOL
+                    log("flash_enc", f"cap={n_slots} B={bsz} T={t} "
+                                     f"pos={pos_l[:3]}: max_abs_err "
+                                     f"{err:.3e} (tol {FLASH_ENC_TOL}) "
+                                     f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"[flash_enc] cap={n_slots} B={bsz} T={t} "
+                            f"pos={pos_l} err {err}")
+            del k_all, v_all
 
     # bitwise invariance: `prefill` rows, then n more written and attended
     # as each partition of `splits`, on fresh rings each time
@@ -703,23 +806,32 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
                 raise AssertionError(f"[flash_enc] B={bsz} chunking {sizes} "
                                      "changed the output")
     flash_bulk_attention_batched.launches = 0
+    log("flash_enc", "one block per segment and one block walking every "
+                     "segment: bitwise equal at every case")
     out = {"max_abs_err": worst, "bitwise_invariant": True}
     if not on_gpu:
         return out
 
-    # times at the streaming shapes, bf16 out as on the path, full window
+    # times at the streaming shapes, bf16 out as on the path, full window:
+    # the default, and each mapping of the split forced (the default's
+    # numbers under the plain keys)
+    plan = flash_encode_segments(cap)
     for bsz, t, tag in ((16, 64, ""), (1, 100, "_b1_t100")):
         k_all, v_all = rings(bsz)
         kr, vr = k_all[:, li], v_all[:, li]
         q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
         pos = torch.tensor(_stream_positions((2000, 5000), bsz),
                            dtype=torch.int32, device=device)
+        alts = {}   # device ms by mapping
+        for sp in (None, True, False):
+            def kern():
+                flash_bulk_attention_batched(q, kr, vr, pos, window=window,
+                                             split=sp)
 
-        def kern():
-            flash_bulk_attention_batched(q, kr, vr, pos, window=window)
-
-        ms = cuda_ms(kern, 50)
-        dms = device_ms(kern, 20)
+            mode = {None: "auto", True: "split", False: "walk"}[sp]
+            out[f"ms_{mode}{tag}"] = cuda_ms(kern, 50)
+            out[f"device_ms_{mode}{tag}"] = alts[mode] = graph_ms(kern, 20)
+        ms, dms = out[f"ms_auto{tag}"], out[f"device_ms_auto{tag}"]
         plain = cuda_ms(lambda: flash_encode_plain(q, kr, vr, pos,
                                                    window=window), 5)
         # the library call: SDPA over the layer's ring with the
@@ -736,10 +848,11 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
         out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
                     f"plain_ms{tag}": plain, f"library_ms{tag}": lib,
                     f"bound_ms{tag}": b["bound_ms"],
-                    f"bound_by{tag}": b["bound_by"]})
+                    f"bound_by{tag}": b["bound_by"], "segments": plan})
+        alts = ", ".join(f"{k} {v:.4f}" for k, v in alts.items())
         log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:3]}: kernel "
-                         f"{ms:.4f} ms (device {dms:.4f}), plain {plain:.4f} "
-                         f"ms, SDPA {lib:.4f} ms per call; bound "
+                         f"{ms:.4f} ms (device {dms:.4f}; {alts}), plain "
+                         f"{plain:.4f} ms, SDPA {lib:.4f} ms per call; bound "
                          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         del k_all, v_all, kr, vr
     return out

@@ -23,6 +23,8 @@ from voxtral_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
 from voxtral_tpu_torch.ops.flash_encode import (
     flash_bulk_attention_batched,
     flash_encode_plain,
+    flash_encode_segments,
+    flash_encode_split_plain,
 )
 from voxtral_tpu_torch.ops.quant_mm import int4_mm, int4_mm_plain
 from voxtral_tpu_torch.ops.ring import ring_rows_write, ring_rows_write_plain
@@ -417,3 +419,143 @@ def test_streaming_paths_at_reduced_depth(dev):
     assert flash_bulk_attention_batched.launches == 2 * tr.n_enc_chunk_calls
     assert flash_decode.launches == 2 * tr.decode_steps
     assert toks[0] == toks[1]           # two copies of one clip
+
+
+# --- the two kernels on the shared Hopper attention tile -------------------
+
+@pytest.mark.parametrize("bsz,t,kh,window,kv_lo", [
+    (2, 333, 8, 100, (0, 150)),    # GQA 4, ragged T, kv_lo > 0, a narrow
+                                   # band: tiles inside it and at its edges
+    (1, 1500, 32, 750, (0,)),      # the 30 s clip
+    (2, 200, 32, 750, (0, 250)),   # kv_lo past T: a stream that sees nothing
+])
+def test_banded_kernel_edges_and_gqa(dev, bsz, t, kh, window, kv_lo):
+    gen = torch.Generator(device=dev).manual_seed(t + kh)
+    q = _randn(gen, (bsz, t, 32, 64), torch.bfloat16, dev)
+    k, v = (_randn(gen, (bsz, t, kh, 64), torch.bfloat16, dev)
+            for _ in range(2))
+    lo = torch.tensor(kv_lo, dtype=torch.int32, device=dev)
+    got = banded_attention_batched(q, k, v, lo, window=window,
+                                   out_dtype=torch.float32)
+    want = banded_attention_plain(q, k, v, lo, window=window,
+                                  out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2
+    for i, first in enumerate(kv_lo):   # rows before kv_lo see no key: 0
+        assert not got[i, :first].any()
+
+
+@pytest.mark.parametrize("bsz,t,cap,kh,pos,dtype", [
+    # positions 0-40 in the first lap: most segments hold no written slot
+    (1, 41, 1024, 32, [0], torch.bfloat16),
+    (2, 24, 1024, 32, [17, 40], torch.float32),
+    # cap not a multiple of 64, GQA 4, wrapped
+    (1, 100, 1000, 8, [2000], torch.bfloat16),
+    (3, 64, 1000, 32, [0, 500, 3000], torch.float32),
+    # T > cap: the first rows' slots were overwritten, they see no key
+    (2, 300, 200, 32, [0, 50], torch.bfloat16),
+    # three ring blocks, the last one ragged
+    (1, 64, 130, 32, [17], torch.float32),
+])
+def test_flash_encode_kernel_edges_and_split(dev, bsz, t, cap, kh, pos,
+                                             dtype):
+    """Against the plain version and the plain model of the kernel's split
+    (flash_encode_split_plain, the same segment plan), 2e-2; rows that see
+    no key are exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(t + cap)
+    shape = (bsz, 2, kh, cap, 64)
+    k_all, v_all = (_randn(gen, shape, dtype, dev) for _ in range(2))
+    q = _randn(gen, (bsz, t, 32, 64), torch.bfloat16, dev)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(window=750, out_dtype=torch.float32)
+    got = flash_bulk_attention_batched(q, k_all[:, 1], v_all[:, 1], p, **kw)
+    want = flash_encode_plain(q, k_all[:, 1], v_all[:, 1], p, **kw)
+    split = flash_encode_split_plain(q, k_all[:, 1], v_all[:, 1], p, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2
+    assert (got - split).abs().max().item() <= 2e-2
+    dead = max(0, t - cap)      # rows at or before pos_hi - cap
+    assert not got[:, :dead].any() and not want[:, :dead].any()
+
+
+def test_flash_encode_kernel_chunking_invariant_bitwise_b16(dev):
+    """B=16, the walk split into flash_encode_segments(1024) = 4 segments:
+    after 800 positions, 256 more written and attended as [256], [64] * 4
+    and [100, 100, 56] give bit-identical outputs, whichever way the
+    segments are mapped to blocks."""
+    from voxtral_tpu_torch.ops.ring import ring_chunk_write
+
+    assert flash_encode_segments(1024) == 4
+    gen = torch.Generator(device=dev).manual_seed(64)
+    bsz, n0, n = 16, 800, 256
+    kv = _randn(gen, (bsz, n0 + n, 32, 64), torch.bfloat16, dev)
+    vv = _randn(gen, (bsz, n0 + n, 32, 64), torch.bfloat16, dev)
+    qq = _randn(gen, (bsz, n, 32, 64), torch.bfloat16, dev)
+
+    def run(sizes, split=None):
+        k_all, v_all = (torch.zeros((bsz, 2, 32, 1024, 64),
+                                    dtype=torch.bfloat16, device=dev)
+                        for _ in range(2))
+        zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
+        ring_chunk_write(k_all, v_all, kv[:, :n0], vv[:, :n0], 1, zero)
+        outs, at = [], 0
+        for s in sizes:
+            p = torch.full((bsz,), n0 + at, dtype=torch.int32, device=dev)
+            _, _, kr, vr = ring_chunk_write(
+                k_all, v_all, kv[:, n0 + at: n0 + at + s],
+                vv[:, n0 + at: n0 + at + s], 1, p)
+            outs.append(flash_bulk_attention_batched(
+                qq[:, at: at + s], kr, vr, p, window=750, split=split))
+            at += s
+        return torch.cat(outs, dim=1)
+
+    a = run([256])
+    assert torch.equal(a, run([64] * 4))
+    assert torch.equal(a, run([100, 100, 56]))
+    assert torch.equal(a, run([64] * 4, split=True))
+    assert torch.equal(a, run([256], split=False))
+
+
+def test_tile_wrappers_refuse(dev):
+    q = torch.zeros((1, 8, 32, 64), dtype=torch.bfloat16, device=dev)
+    ring = torch.zeros((1, 32, 128, 64), dtype=torch.bfloat16, device=dev)
+    p = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shapes"):        # H % KH != 0
+        banded_attention_batched(q, q[:, :, :5], q[:, :, :5], window=8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        banded_attention_batched(q, q, q, window=8, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        flash_bulk_attention_batched(q, ring, ring, p, window=750,
+                                     out_dtype=torch.float16)
+    flat = torch.zeros(ring.numel() + 1, dtype=torch.bfloat16, device=dev)
+    odd = flat[1:].view(ring.shape)                         # 2-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bulk_attention_batched(q, odd, odd, p, window=750)
+
+
+@pytest.mark.parametrize("bsz,t,cap,pos,dtype", [
+    (1, 100, 1024, [2000], torch.bfloat16),
+    (16, 64, 1024, None, torch.bfloat16),
+    (1, 41, 1024, [0], torch.float32),         # first lap: empty segments
+    (3, 100, 1000, [0, 500, 3000], torch.bfloat16),
+    (2, 300, 200, [0, 50], torch.float32),     # rows that see no key
+])
+def test_flash_encode_split_mappings_bitwise_equal(dev, bsz, t, cap, pos,
+                                                   dtype):
+    """One block per segment (a cluster folding through distributed shared
+    memory) and one block walking every segment (folding in shared memory)
+    give the same output bit for bit, and the default is one of them."""
+    gen = torch.Generator(device=dev).manual_seed(t + cap)
+    shape = (bsz, 2, 32, cap, 64)
+    k_all, v_all = (_randn(gen, shape, dtype, dev) for _ in range(2))
+    q = _randn(gen, (bsz, t, 32, 64), torch.bfloat16, dev)
+    pos = pos or [(97 * i) % 3000 for i in range(bsz)]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    outs = [flash_bulk_attention_batched(q, k_all[:, 1], v_all[:, 1], p,
+                                         window=750, split=split)
+            for split in (None, True, False)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])

@@ -25,8 +25,11 @@ from voxtral_tpu_torch.config import tiny_config
 from voxtral_tpu_torch.models import encoder as enc_mod
 from voxtral_tpu_torch.models.params import from_jax_numpy
 from voxtral_tpu_torch.ops.flash_encode import (
+    MAX_SEGMENTS,
     flash_bulk_attention_batched,
     flash_encode_plain,
+    flash_encode_segments,
+    flash_encode_split_plain,
 )
 from voxtral_tpu_torch.ops.ring import ring_chunk_write, ring_write
 
@@ -183,6 +186,86 @@ def test_encoder_attention_dispatch(monkeypatch, params_np, impl, enc_kv, t,
     other = "ring" if route == "flash" else "flash"
     assert calls[route] == 2 * cfg.encoder.n_layers
     assert calls[other] == 0
+
+
+# --- the kernel's split walk (segments of ring blocks, combined in order) --
+
+def test_segment_plan_depends_on_cap_only():
+    """The plan takes cap and nothing else (B, T and the positions cannot
+    change a row's rounding), splits the 1024-slot streaming ring into 4
+    segments of 4 blocks, and never asks for more segments than blocks or
+    than one cluster holds."""
+    import inspect
+
+    assert list(inspect.signature(flash_encode_segments).parameters) == ["cap"]
+    assert flash_encode_segments(1024) == 4
+    for cap in range(1, 3000):
+        n_blocks = -(-cap // 64)
+        s = flash_encode_segments(cap)
+        assert 1 <= s <= min(MAX_SEGMENTS, n_blocks)
+        assert s == flash_encode_segments(cap)
+
+
+@pytest.mark.parametrize("case", [
+    # (cap, window, pos0, t, segments): positions 0-40 in the first lap,
+    # where the segments past pos_hi hold no written slot
+    (512, 48, 0, 8, None),
+    (512, 48, 17, 24, None),
+    (512, 48, 40, 16, 3),
+    # wraparound, a ragged segment split, GQA in every case
+    (512, 300, 700, 40, None),
+    (512, 300, 1000, 33, 5),
+    # T > cap: the first rows' slots are overwritten, they see no key
+    (64, 48, 0, 100, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_plain_and_pallas(case, dtype):
+    """Segment partials in plain PyTorch, combined in segment order, give
+    flash_encode_plain and the Pallas kernel (interpret mode): f32 within
+    2e-5; bf16, where the probabilities round against the segment's max
+    rather than the row's, within the kernels' 2e-2.  Rows that see no key
+    are exactly 0 in all three."""
+    cap, window, pos0, t, segments = case
+    rng = np.random.default_rng(cap + pos0 + t)
+    kh, g, d = 2, 2, 8
+    _, _, (tk, tv), (jk, jv) = _rings(rng, pos0 + t, kh, cap, d)
+    q = rng.standard_normal((t, kh * g, d)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    tq, tk, tv = (x.to(tdt) for x in (torch.from_numpy(q)[None], tk, tv))
+    p = torch.tensor([pos0])
+    got = flash_encode_split_plain(tq, tk, tv, p, window=window,
+                                   segments=segments, out_dtype=torch.float32)
+    plain = flash_encode_plain(tq, tk, tv, p, window=window,
+                               out_dtype=torch.float32)
+    want = np.asarray(j_flash(jnp.asarray(q).astype(jdt), jk.astype(jdt),
+                              jv.astype(jdt), jnp.int32(pos0), window=window,
+                              block=64, bq=16).astype(jnp.float32))
+    tol = TOL if dtype == "float32" else dict(rtol=0, atol=2e-2)
+    np.testing.assert_allclose(got[0].numpy(), plain[0].numpy(), **tol)
+    np.testing.assert_allclose(got[0].numpy(), want, **tol)
+    dead = max(0, t - cap)      # rows whose own slot was overwritten
+    if dead:
+        assert not got[0, :dead].any() and not plain[0, :dead].any()
+        assert not np.any(want[:dead])
+    assert got[0, dead:].abs().amax(dim=(1, 2)).min() > 0
+
+
+def test_split_plain_empty_segments_add_exactly_zero():
+    """In the first lap the segments past pos_hi hold no written slot: the
+    split over 8 segments equals the split over the segments that hold
+    one, bit for bit, at every position 0-40."""
+    rng = np.random.default_rng(5)
+    cap, kh, d = 1024, 2, 8
+    for pos0 in range(0, 41, 8):
+        _, _, (tk, tv), _ = _rings(rng, pos0 + 24, kh, cap, d)
+        q = torch.from_numpy(
+            rng.standard_normal((1, 24, kh, d)).astype(np.float32))
+        p = torch.tensor([pos0])
+        a = flash_encode_split_plain(q, tk, tv, p, window=750, segments=8)
+        # slots 0..127 form segment 0 of 8; the rest is never written
+        b = flash_encode_split_plain(q, tk[:, :, :128], tv[:, :, :128], p,
+                                     window=750, segments=1)
+        assert torch.equal(a, b)
 
 
 # --- ring_chunk_write against JAX (tests/test_batched.py's cases) ----------

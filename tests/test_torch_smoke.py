@@ -105,9 +105,10 @@ def test_dequantize4_rejects_a_wrong_scale():
 
 
 # FLASH_ENC_FULL's cases at tiny width: a 64-slot ring holds the window
-# (24) beside the largest chunk (24 rows)
-TINY_FLASH_ENC = dict(n_layers=2, heads=4, head_dim=16, cap=64, window=24,
-                      ts=(4, 16, 20), positions=(0, 30, 300), prefill=40,
+# (24) beside the largest chunk (24 rows); 60 slots for the ragged edge
+TINY_FLASH_ENC = dict(n_layers=2, heads=4, head_dim=16, cap=64,
+                      ragged_cap=60, window=24, ts=(4, 16, 20),
+                      positions=(0, 7, 30, 300), prefill=40,
                       splits=((24,), (8, 8, 8), (10, 10, 4)))
 
 

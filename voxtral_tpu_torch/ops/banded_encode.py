@@ -11,8 +11,10 @@ gets 0.
   * CUDA tensors launch the hand-written kernel
     `voxtral_tpu_torch/csrc/banded_attention.cu` (which replaces the Pallas
     kernel voxtral_tpu/ops/banded_encode.py:_kernel; its header says what
-    bounds it on the H100 and how it is laid out).  It takes bf16 q/k/v with
-    head_dim 64 and raises on anything else; there is no fallback.
+    bounds it on the H100 and how it is laid out; its core is the attention
+    tile `csrc/attn_tile.cuh`, shared with the flash-encode kernel).  It
+    takes bf16 q/k/v with head_dim 64 and raises on anything else; there is
+    no fallback.
   * CPU tensors take `banded_attention_plain`, the same function in plain
     PyTorch.  The CPU tests hold it against the JAX kernel, and the GPU
     smoke run holds the kernel against it.
@@ -25,7 +27,6 @@ import math
 import torch
 
 from . import cuda_lib
-
 
 def banded_attention_plain(q, k, v, kv_lo=None, *, window: int,
                            out_dtype=None):
@@ -88,7 +89,8 @@ def banded_attention_batched(q, k, v, kv_lo=None, *, window: int,
     err = lib.vt_banded_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lo.data_ptr(),
         out.data_ptr(), bsz, t, h, kh, d, window,
-        int(out_dtype == torch.float32), cuda_lib.stream_handle(q.device),
+        int(out_dtype == torch.float32),
+        cuda_lib.stream_handle(q.device),
     )
     cuda_lib.check(err, "banded_attention")
     banded_attention_batched.launches += 1

@@ -1,10 +1,14 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
-The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points.
-On first use each is compiled with `nvcc` for `sm_90a` (Hopper), all at
-once in parallel, and linked into one shared library under
-`voxtral_tpu_torch/build/<source hash>/` (ignored by git), then loaded with
-ctypes; a later process with the same sources reuses the library.  Nothing
+The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points;
+headers there (`*.cuh`, e.g. `attn_tile.cuh`, the attention tile shared by
+the banded and flash-encode kernels) are included, not linked.  On first
+use each `.cu` is compiled with `nvcc` for `sm_90a` (Hopper) into its own
+object, all at once in parallel, and linked into one shared library under
+`voxtral_tpu_torch/build/<digest>/` (ignored by git), then loaded with
+ctypes; a later process with the same sources reuses the library.  The
+digest covers every `.cu` and `.cuh` file under `csrc/` and the flags, so
+an edit to a shared header rebuilds every kernel.  Nothing
 here runs at import time: the CPU tests import every module of the package
 on machines with no CUDA toolkit.
 """
@@ -12,6 +16,7 @@ on machines with no CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,8 +27,6 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "build")
-SOURCES = ("banded_attention.cu", "flash_decode.cu", "flash_encode.cu",
-           "int4_mm.cu", "ring_rows_write.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,10 +50,18 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def sources(csrc: str = CSRC) -> list[str]:
+    """The compiled sources: every `.cu` file under `csrc`, sorted."""
+    return sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+
+
+def _digest(csrc: str = CSRC) -> str:
+    """Hash of the flags and of every `.cu` and `.cuh` file under `csrc`
+    (names and contents), which names the build directory."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for name in sorted(n for n in os.listdir(csrc)
+                       if n.endswith((".cu", ".cuh"))):
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
@@ -65,9 +76,10 @@ def build() -> str:
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
+    srcs = sources()
+    objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in srcs]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
-            for s, o in zip(SOURCES, objs)]
+            for s, o in zip(srcs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]                  # one nvcc per source, together
@@ -109,7 +121,8 @@ def kernels() -> ctypes.CDLL:
             ]
             lib.vt_flash_encode.restype = i
             lib.vt_flash_encode.argtypes = [
-                p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, p,
+                p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, i, i,
+                p,
             ]
             lib.vt_int4_mm.restype = i
             lib.vt_int4_mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
@@ -127,6 +140,15 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card `device` (read once per
+    device: kernels that size their grid by it are on host-bound paths)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_handle(device) -> int:
