@@ -13,20 +13,23 @@ script exits non-zero:
                voxtral_tpu_torch/csrc/*.cu for sm_90a
   3. banded   kernel (A) against its plain PyTorch version at the
                full-width encoder shape (H=KH=32, D=64, window 750), up to
-               the serve phase's B=16 padded 30 s clips, at both tile
-               heights (64 and 128 query rows per block); its times, bound
+               the serve phase's B=16 padded 30 s clips; its times, bound
                and SDPA's at B=1 T=1500 and at the serve shape
   4. flash    kernel (B) against its plain version at the full-width decoder
                shape (H=32, KH=8, D=128, L=26), with and without the row
-               write, bf16 and f32 rings, up to the serve phase's B=16
-               rings of 896 slots
+               write, fp8, bf16 and f32 rings (bit-equal rings), up to the
+               serve phase's B=16 rings of 896 slots, two calls bitwise
+               equal; its times, bound and SDPA's at the slice shape (B=1
+               cap 512 pos 300) and the serve shape (B=16 cap 896, mixed
+               positions around 500) in bf16 and fp8
   5. flash_enc kernel (E) against its plain version at the full-width
                streaming-encoder shape (H=KH=32, D=64, stacked rings of
                1024 and 1000 slots, window 750) for B in {1, 16}, T from 4
                to 274, positions at 0, in the first lap and after
-               wraparound, at both tile heights; its output bitwise equal
-               across three chunkings of 256 rows at B=1 and B=16; its
-               times at B=16 T=64 and B=1 T=100 by tile height and split
+               wraparound, under both mappings of its split walk (bitwise
+               equal); its output bitwise equal across three chunkings of
+               256 rows at B=1 and B=16; its times at B=16 T=64 and B=1
+               T=100 by mapping
   6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table)
                at 1, 16 and 608 rows
@@ -38,9 +41,11 @@ script exits non-zero:
   9. serve    the batched serving pipeline at B=16 (bulk encode of all
                streams, bprefill, bdecode_burst bursts), once per rung of
                the dtype ladder bf16 / fp8kv / int8 / int4, with launch
-               counts, timings, decode ms/step at mid-clip fill and checks;
-               then once on the int4 weights dequantized to bf16 (plain
-               matmuls), whose ids must agree with the int4 rung's
+               counts, timings, decode ms/step at mid-clip fill and checks
+               (on fp8kv also the plain attention path, attn_impl "xla",
+               timed beside the kernel's and counted for the row-write
+               kernel); then once on the int4 weights dequantized to bf16
+               (plain matmuls), whose ids must agree with the int4 rung's
  10. stream   VoxStream at B=1 on an 11 s clip fed 1 s at a time (2 s
                interval), 0.5 s at a time (-I 0.5) and unfused: exact
                launch counts, id agreement among the runs and with the
@@ -84,7 +89,8 @@ FLASH_ENC_TOL = 2e-2
 # |plain|; measured up to 3.005e-7 on an H100 80GB HBM3 (700 W)
 INT4_REL_TOL = 1e-5
 # kernels built to spill no register (the build phase fails if they do)
-ATTENTION_KERNELS = ("banded_attention_kernel", "flash_encode_kernel")
+ATTENTION_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
+                     "flash_decode_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -395,7 +401,18 @@ def serve_encoder_len(seconds: float) -> int:
     return padded_clip_mel(eng, make_audio(seconds, seed=0)).shape[0] // 2
 
 
-def phase_flash() -> dict:
+def _flash_live(pos_l, cap: int, window: int) -> int:
+    """Live window slots summed over the streams at these positions."""
+    return sum(min(p + 1, window, cap) for p in pos_l)
+
+
+def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int) -> dict:
+    """Kernel (B) at one shape of the decode path (bf16 q and output, f32
+    rows, a `rdt` ring, layer 25 of 26): CUDA-event and device (graph
+    replay) times with the row write (write+attend, the path's mode) and
+    without it (attend), the plain version's, SDPA's over the layer's
+    ring with the logical-position mask for bf16 rings (none takes fp8),
+    and the bound."""
     import torch
 
     from voxtral_tpu_torch.ops.flash_decode import (
@@ -403,6 +420,52 @@ def phase_flash() -> dict:
         flash_decode_plain,
     )
     from voxtral_tpu_torch.ops.ring import slot_logical_positions
+
+    h, kh, d, n_layers = 32, 8, 128, 26
+    li = n_layers - 1
+    shape = (bsz, n_layers, kh, cap, d)
+    k_all = _randn(gen, shape, rdt)
+    v_all = _randn(gen, shape, rdt)
+    q = _randn(gen, (bsz, h, d), torch.bfloat16)
+    rows = (_randn(gen, (bsz, kh, d), torch.float32),
+            _randn(gen, (bsz, kh, d), torch.float32))
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    kw = dict(window=window, out_dtype=torch.bfloat16)
+    out = {}
+    for mode, r in (("", rows), ("_attend", ())):
+        def kern():
+            flash_decode(q, k_all, v_all, li, pos, *r, **kw)
+
+        out[f"ms{mode}"] = cuda_ms(kern, 50)
+        out[f"device_ms{mode}"] = graph_ms(kern, 20)
+        out[f"plain_ms{mode}"] = cuda_ms(lambda: flash_decode_plain(
+            q, k_all, v_all, li, pos, *r, **kw), 10)
+    out["library_ms"] = None       # SDPA takes no fp8 operands
+    if rdt == torch.bfloat16:      # SDPA attends only
+        lpos = slot_logical_positions(pos, cap)
+        mask = ((lpos >= 0) & (lpos <= pos[:, None])
+                & (lpos > pos[:, None] - window))[:, None, None, :]
+        out["library_ms"] = sdpa_ms(q[:, :, None], k_all[:, li],
+                                    v_all[:, li], mask, 50)
+    # the live window's K and V rows read once at the ring's element size,
+    # q read, the f32 rows read and written into the ring, the bf16 output
+    # written; 4 D operations per (head, live slot)
+    live, elt = _flash_live(pos_l, cap, window), rdt.itemsize
+    out.update(bound(2 * live * kh * d * elt + q.numel() * 2
+                     + 2 * bsz * kh * d * (4 + elt) + bsz * h * d * 2,
+                     4 * h * d * live))
+    del k_all, v_all
+    return out
+
+
+def phase_flash() -> dict:
+    import torch
+
+    from voxtral_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_plain,
+        flash_decode_splits,
+    )
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -417,90 +480,76 @@ def phase_flash() -> dict:
     cases.append((16, 896, [0, 448, 896 + 123]
                   + [(97 * i) % (3 * 896) for i in range(3, 16)]))
     worst = 0.0
-    for rdt in (torch.bfloat16, torch.float32):
+    for rdt in (torch.float8_e4m3fn, torch.bfloat16, torch.float32):
+        # q in the ring's compute dtype, as the decoder passes it
+        qdt = torch.float32 if rdt == torch.float32 else torch.bfloat16
         for bsz, cap, pos_l in cases:
             shape = (bsz, n_layers, kh, cap, d)
             k_all = _randn(gen, shape, rdt)
             v_all = _randn(gen, shape, rdt)
-            q = _randn(gen, (bsz, h, d), torch.float32)
+            q = _randn(gen, (bsz, h, d), qdt)
             k_rows = _randn(gen, (bsz, kh, d), torch.float32)
             v_rows = _randn(gen, (bsz, kh, d), torch.float32)
             pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
             kw = dict(window=window, out_dtype=torch.float32)
-            # attention only (the function of Pallas #2/#3)
+            # attention only (the function of Pallas #2/#3), twice
             got = flash_decode(q, k_all, v_all, li, pos, **kw)
+            again = flash_decode(q, k_all, v_all, li, pos, **kw)
             want = flash_decode_plain(q, k_all, v_all, li, pos, **kw)
-            # row write + attention (Pallas #4), each on its own ring copy
+            # row write + attention (Pallas #4), each on its own ring copy,
+            # the kernel twice
             kk, vk = k_all.clone(), v_all.clone()
+            kk2, vk2 = k_all.clone(), v_all.clone()
             kp, vp = k_all, v_all
             got_w = flash_decode(q, kk, vk, li, pos, k_rows, v_rows, **kw)
+            again_w = flash_decode(q, kk2, vk2, li, pos, k_rows, v_rows,
+                                   **kw)
             want_w = flash_decode_plain(q, kp, vp, li, pos, k_rows, v_rows,
                                         **kw)
             torch.cuda.synchronize()
             err = max((got - want).abs().max().item(),
                       (got_w - want_w).abs().max().item())
-            rings_equal = torch.equal(kk, kp) and torch.equal(vk, vp)
+            rings_equal = all(
+                torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in ((kk, kp), (vk, vp), (kk2, kp), (vk2, vp)))
+            same = torch.equal(got, again) and torch.equal(got_w, again_w)
             worst = max(worst, err)
-            ok = err <= FLASH_TOL and rings_equal
-            log("flash", f"{str(rdt)[6:]} B={bsz} cap={cap} pos={pos_l[:3]}: "
-                         f"max_abs_err {err:.3e} (tol {FLASH_TOL}), rings "
-                         f"{'equal' if rings_equal else 'DIFFER'} "
+            ok = err <= FLASH_TOL and rings_equal and same
+            log("flash", f"{str(rdt)[6:]} B={bsz} cap={cap} pos={pos_l[:3]} "
+                         f"splits={flash_decode_splits(min(cap, window), bsz, kh)}"
+                         f": max_abs_err {err:.3e} (tol {FLASH_TOL}), rings "
+                         f"{'bit-equal' if rings_equal else 'DIFFER'}, two "
+                         f"calls {'bitwise equal' if same else 'DIFFER'} "
                          f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"[flash] {rdt} B={bsz} cap={cap} "
-                                     f"pos={pos_l} err {err}")
-            del k_all, v_all, kk, vk, kp, vp
-    # times at slice shapes: B=1 bf16, a 30 s clip's ring (512) mid-clip and
-    # a full 8192 window
-    times = {}
-    for cap, p in ((512, 300), (8192, 8191)):
-        shape = (1, n_layers, kh, cap, d)
-        k_all = _randn(gen, shape, torch.bfloat16)
-        v_all = _randn(gen, shape, torch.bfloat16)
-        q = _randn(gen, (1, h, d), torch.bfloat16)
-        k_rows = _randn(gen, (1, kh, d), torch.float32)
-        v_rows = _randn(gen, (1, kh, d), torch.float32)
-        pos = torch.tensor([p], dtype=torch.int32, device="cuda")
-        kw = dict(window=window, out_dtype=torch.bfloat16)
-        for mode, rows in (("write+attend", (k_rows, v_rows)),
-                           ("attend", ())):
-            kern = cuda_ms(lambda: flash_decode(
-                q, k_all, v_all, li, pos, *rows, **kw), 50)
-            plain = cuda_ms(lambda: flash_decode_plain(
-                q, k_all, v_all, li, pos, *rows, **kw), 20)
-            times[cap, mode] = (kern, plain)
-            log("flash", f"B=1 bf16 cap={cap} pos={p} {mode}: kernel "
-                         f"{kern:.4f} ms, plain {plain:.4f} ms per call")
-        if cap == 512:
-            # the library call (attention only: SDPA over the layer's ring
-            # with the logical-position mask, GQA) and the device times
-            lpos = slot_logical_positions(pos, cap)
-            mask = ((lpos >= 0) & (lpos <= pos[:, None])
-                    & (lpos > pos[:, None] - window))[:, None, None, :]
-            lib = sdpa_ms(q[:, :, None], k_all[:, li], v_all[:, li], mask, 50)
-            dkern = graph_ms(lambda: flash_decode(
-                q, k_all, v_all, li, pos, k_rows, v_rows, **kw), 20)
-            dkern_attend = graph_ms(lambda: flash_decode(
-                q, k_all, v_all, li, pos, **kw), 20)
-            # the live window's K and V rows read once, q read, the new
-            # rows and the output written (bf16 ring, f32 rows)
-            live = min(p + 1, window, cap)
-            b512 = bound(2 * live * kh * d * 2 + q.numel() * 2
-                         + 2 * kh * d * (4 + 2) + h * d * 2,
-                         4 * h * d * live)
-            log("flash", f"B=1 cap={cap} pos={p}: write+attend device "
-                         f"{dkern:.4f} ms, attend device {dkern_attend:.4f} "
-                         f"ms; SDPA (attend) {lib:.4f} ms; "
-                         f"bound {b512['bound_ms']:.6f} ms "
-                         f"({b512['bound_by']})")
+                                     f"pos={pos_l} err {err} rings "
+                                     f"{rings_equal} deterministic {same}")
+            del k_all, v_all, kk, vk, kk2, vk2, kp, vp
+    # times: the slice shape (B=1, a 30 s clip's ring of 512 mid-clip, bf16)
+    # and the serve shape (B=16, ring 896, positions around 500) in bf16 and
+    # fp8
+    serve_pos = [500 + 13 * (i - 8) for i in range(16)]
+    shapes = {"": (1, 512, [300], torch.bfloat16),
+              "_b16_bf16": (16, 896, serve_pos, torch.bfloat16),
+              "_b16_fp8": (16, 896, serve_pos, torch.float8_e4m3fn)}
+    out = {"max_abs_err": worst, "deterministic": True,
+           "replaces_also": ["voxtral_tpu/ops/flash_decode.py:44",
+                             "voxtral_tpu/ops/flash_decode.py:124"]}
+    for tag, (bsz, cap, pos_l, rdt) in shapes.items():
+        tm = _flash_times(gen, bsz, cap, pos_l, rdt, window)
+        out.update({f"{k}{tag}": v for k, v in tm.items()})
+        out[f"splits{tag}"] = flash_decode_splits(min(cap, window), bsz, kh)
+        lib = tm["library_ms"]
+        log("flash", f"B={bsz} {str(rdt)[6:]} cap={cap} pos={pos_l[:3]}..: "
+                     f"write+attend kernel {tm['ms']:.4f} ms (device "
+                     f"{tm['device_ms']:.4f}), plain {tm['plain_ms']:.4f}; "
+                     f"attend kernel {tm['ms_attend']:.4f} (device "
+                     f"{tm['device_ms_attend']:.4f}), plain "
+                     f"{tm['plain_ms_attend']:.4f}; SDPA (attend) "
+                     f"{'none' if lib is None else f'{lib:.4f}'} ms; bound "
+                     f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
     flash_decode.launches = 0
-    out = {"max_abs_err": worst, "ms": times[512, "write+attend"][0],
-           "plain_ms": times[512, "write+attend"][1], "device_ms": dkern,
-           "device_ms_attend_cap512": dkern_attend, "library_ms": lib,
-           **b512}
-    for (cap, mode), (kern, plain) in times.items():
-        tag = f"{mode.replace('+', '_')}_cap{cap}"
-        out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = kern, plain
     return out
 
 
@@ -1095,15 +1144,22 @@ def dequantize4(qparams, params):
     return {**qparams, "decoder": dq}, worst
 
 
+# serve rungs run once (the others twice, the second timed and checked
+# for the same ids): the depth the script's time limit allows
+SERVE_ONCE = ("int8", "int4deq")
+
+
 def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                 dec_ring: int, rungs=SERVE_RUNGS,
-                extra_steps: int = 64) -> dict:
+                extra_steps: int = 32) -> dict:
     """The batched serving pipeline (bench.py run_once): B lockstep
     streams of `seconds` synthetic audio, each from its own seed, through
     bulk encode of all streams -> bprefill -> bdecode_burst bursts of
     (64, 16, 4, 1), once per rung on its own engine built from `params`.
     The "dequant4" rung runs the int4 weights dequantized (dequantize4) and
-    must agree with the int4 rung on DEQUANT_AGREE_MIN of its ids.
+    must agree with the int4 rung on DEQUANT_AGREE_MIN of its ids.  On the
+    fp8kv rung the mid-fill decode also runs with attn_impl "xla" (the
+    plain attention path and the row-write kernel), timed beside "auto".
     main() runs it at full width on the card; a tiny CPU config rehearses
     it (with the plain functions counted, as for phase_slice)."""
     import torch
@@ -1204,19 +1260,25 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             return ids, rows, st
 
         # the first run warms the allocator and cuBLAS for these shapes;
-        # the second is timed and must give the same ids
+        # the second is timed and must give the same ids (the SERVE_ONCE
+        # rungs report their first)
         ids, rows, first = run_once()
-        again, _, st = run_once()
-        if again != ids:
-            raise AssertionError(f"[serve] {name}: second run gave other ids")
+        st = first
+        if name not in SERVE_ONCE:
+            again, _, st = run_once()
+            if again != ids:
+                raise AssertionError(f"[serve] {name}: second run gave other "
+                                     "ids")
         steps = st["decode_steps"]
         dur = len(clips[0]) / SAMPLE_RATE
         st["x_realtime_aggregate"] = n_streams * dur / st["wall_s"]
-        # checks: launch counts of both runs, id range, finite adapter rows
+        st["runs"] = 1 if name in SERVE_ONCE else 2
+        # checks: launch counts of both runs, id range, finite adapter rows;
+        # every rung decodes through flash-decode (fp8 rings included)
         want = {
             "banded_attention_batched": cfg.encoder.n_layers,
-            "flash_decode": n_layers * steps if kv is None else 0,
-            "ring_rows_write": 0 if kv is None else n_layers * steps,
+            "flash_decode": n_layers * steps,
+            "ring_rows_write": 0,
             "int4_mm": (4 * n_layers + (4 * n_layers + 1) * steps
                         if quantize == "int4" else 0),
         }
@@ -1231,30 +1293,58 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         if not bool(torch.isfinite(rows).all()):
             raise AssertionError(f"[serve] {name}: NaN/inf adapter rows")
 
-        # decode ms/step at mid-clip fill (bench.py step_extra): 4 bursts
-        # of 64 steps at position 500 from a fresh cache, CUDA events
-        xcache = sv.batched_dec_cache(rcfg, n_streams, engine.dec_kv_ring,
-                                      device=device)
-        xchunk = torch.zeros((n_streams, extra_steps, cfg.decoder.dim),
-                             device=device)
-        xprev = torch.full((n_streams,), 32, dtype=torch.int32,
-                           device=device)
-        xpos = torch.full((n_streams,), 500, dtype=torch.int32,
-                          device=device)
+        # decode ms/step at mid-clip fill (bench.py step_extra): 2 bursts
+        # of `extra_steps` steps at position 500 from a fresh cache, CUDA
+        # events; on fp8kv with each attention path, counted
+        for impl in ("auto", "xla") if name == "fp8kv" else ("auto",):
+            icfg = rcfg.replace(decoder=dataclasses.replace(
+                rcfg.decoder, attn_impl=impl))
+            xcache = sv.batched_dec_cache(icfg, n_streams,
+                                          engine.dec_kv_ring, device=device)
+            xchunk = torch.zeros((n_streams, extra_steps, cfg.decoder.dim),
+                                 device=device)
+            xprev = torch.full((n_streams,), 32, dtype=torch.int32,
+                               device=device)
+            xpos = torch.full((n_streams,), 500, dtype=torch.int32,
+                              device=device)
 
-        def burst():
-            sv.bdecode_burst(dp, rcfg, xchunk, xprev, xcache, xpos,
-                             engine.ada())
+            ran = [0]   # decode steps run, for the exact launch counts
 
-        if on_gpu:
-            st["step_ms_mid_fill"] = cuda_ms(burst, 4, warmup=1) / extra_steps
-            xchunk = xchunk[:, :8]    # device time over 8 profiled steps
-            dms, n_ev = device_ms(burst, 1, with_events=True)
-            st["device_ms_per_step_mid_fill"] = dms / 8
-            st["device_events_per_step_mid_fill"] = n_ev / 8
-            st["busy_mid_fill"] = (st["device_ms_per_step_mid_fill"]
-                                   / st["step_ms_mid_fill"])
-        del xcache
+            def burst():
+                sv.bdecode_burst(dp, icfg, xchunk, xprev, xcache, xpos,
+                                 engine.ada())
+                ran[0] += xchunk.shape[1]
+
+            for f in counters:
+                f.launches = 0
+            tag = "" if impl == "auto" else "_xla"
+            if on_gpu:
+                st[f"step_ms_mid_fill{tag}"] = (cuda_ms(burst, 2, warmup=1)
+                                                / extra_steps)
+                xchunk = xchunk[:, :8]   # device time over 8 profiled steps
+                dms, n_ev = device_ms(burst, 1, with_events=True)
+                st[f"device_ms_per_step_mid_fill{tag}"] = dms / 8
+                st[f"device_events_per_step_mid_fill{tag}"] = n_ev / 8
+                st[f"busy_mid_fill{tag}"] = (
+                    st[f"device_ms_per_step_mid_fill{tag}"]
+                    / st[f"step_ms_mid_fill{tag}"])
+            else:
+                burst()
+            sync()
+            n_steps = ran[0]
+            got = {f.__name__: f.launches for f in counters}
+            want_x = {"banded_attention_batched": 0, "int4_mm": 0,
+                      "flash_decode": n_layers * n_steps * (impl == "auto"),
+                      "ring_rows_write": n_layers * n_steps * (impl == "xla")}
+            if quantize == "int4":
+                want_x["int4_mm"] = (4 * n_layers + 1) * n_steps
+            if got != want_x:
+                raise AssertionError(f"[serve] {name} {impl} mid-fill "
+                                     f"launches {got} != {want_x}")
+            if impl == "xla":   # the row-write kernel's main-path launches
+                st["launches_xla_mid_fill"] = got
+                launch_totals["ring_rows_write"] += got["ring_rows_write"]
+            del xcache
 
         # one decoder step (+ logits) through the kernel path and the plain
         # path from the same prefilled cache
@@ -1310,6 +1400,10 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         extras = "".join(f", {k} {st[k]:.3f}" for k in
                          ("step_ms_mid_fill", "device_ms_per_step_mid_fill",
                           "device_events_per_step_mid_fill", "busy_mid_fill",
+                          "step_ms_mid_fill_xla",
+                          "device_ms_per_step_mid_fill_xla",
+                          "device_events_per_step_mid_fill_xla",
+                          "busy_mid_fill_xla",
                           "stream0_agree_b1", "agree_bf16", "agree_int4")
                          if k in st)
         log("serve", f"{name}: B={n_streams} x {dur:.1f} s, {steps} decode "
@@ -1319,7 +1413,9 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                      f"{st['decode_ms_per_step']:.3f} ms/step, "
                      f"{st['x_realtime_aggregate']:.2f}x realtime aggregate, "
                      f"peak {st['peak_gib']:.2f} GiB{extras}; launches "
-                     f"{st['launches']}; second run identical ids")
+                     f"{st['launches']}"
+                     + ("" if name in SERVE_ONCE
+                        else "; second run identical ids"))
         del engine, dp, rows
         if on_gpu:
             torch.cuda.empty_cache()
@@ -1686,20 +1782,26 @@ def phase_profile(cfg, params, n_streams: int = 16, steps: int = 16,
         prev = torch.full((n_streams,), 32, dtype=torch.int32, device="cuda")
         pos = torch.full((n_streams,), 500, dtype=torch.int32, device="cuda")
 
-        def burst():
-            sv.bdecode_burst(dp, rcfg, chunk, prev, cache, pos, eng.ada())
+        # fp8kv: the kernel's attention (auto) and the plain path (xla)
+        for impl in ("auto", "xla") if name == "fp8kv" else ("auto",):
+            icfg = rcfg.replace(decoder=dataclasses.replace(
+                rcfg.decoder, attn_impl=impl))
 
-        burst()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        burst()
-        torch.cuda.synchronize()
-        plain_wall = time.monotonic() - t0
-        log("profile", f"{name}: unprofiled {plain_wall * 1e3 / steps:.3f} "
-                       f"ms/step")
-        ev, wall = device_events(burst)
-        _print_profile(f"{name} decode B={n_streams} pos 500", ev, wall,
-                       steps)
+            def burst():
+                sv.bdecode_burst(dp, icfg, chunk, prev, cache, pos, eng.ada())
+
+            burst()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            burst()
+            torch.cuda.synchronize()
+            plain_wall = time.monotonic() - t0
+            tag = name if impl == "auto" else f"{name} ({impl})"
+            log("profile", f"{tag}: unprofiled "
+                           f"{plain_wall * 1e3 / steps:.3f} ms/step")
+            ev, wall = device_events(burst)
+            _print_profile(f"{tag} decode B={n_streams} pos 500", ev, wall,
+                           steps)
         del eng, dp, cache
         torch.cuda.empty_cache()
 
@@ -1757,7 +1859,13 @@ def main(argv: list[str]) -> int:
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
          "launches": (sl["launches"][1] + served["flash_decode"]
-                      + streamed["flash_decode"]), **flash},
+                      + streamed["flash_decode"]),
+         "launches_by_path": {
+             "slice": sl["launches"][1],
+             **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
+                for r in sv["rungs"]},
+             "stream": st["launches"]["flash_decode"],
+             "bstream": bst["launches"]["flash_decode"]}, **flash},
         {"name": "flash_encode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
@@ -1777,6 +1885,9 @@ def main(argv: list[str]) -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
+    idle = [p for p, n in kernels[1]["launches_by_path"].items() if n <= 0]
+    if idle:   # every rung decodes through it, the fp8 ones included
+        raise AssertionError(f"flash_decode: no launch on {idle}")
     if not (kernels[2]["launches_stream"] > 0
             and kernels[2]["launches_bstream"] > 0):
         raise AssertionError("flash_encode: no launch on stream or bstream")

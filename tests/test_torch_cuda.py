@@ -67,30 +67,123 @@ def test_banded_kernel_matches_plain(dev, t, kv_lo):
                            torch.zeros_like(got[-1, : kv_lo[-1]]))
 
 
+def _flash_case(dev, seed, bsz, cap, dtype, q_dtype=torch.float32,
+                rows_scale=1.0):
+    """Full-width decoder rings [B, 26, 8, cap, 128] of random rows, q
+    [B, 32, 128] and f32 rows [B, 8, 128] (scaled by rows_scale)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kk = _randn(gen, (bsz, 26, 8, cap, 128), dtype, dev)
+    vk = _randn(gen, (bsz, 26, 8, cap, 128), dtype, dev)
+    q = _randn(gen, (bsz, 32, 128), q_dtype, dev)
+    rows = tuple(_randn(gen, (bsz, 8, 128), torch.float32, dev) * rows_scale
+                 for _ in range(2))
+    return kk, vk, q, rows
+
+
+def _bits(x):
+    return x.view(torch.uint8)
+
+
+def _check_flash(dev, kk, vk, q, rows, pos, window=8192,
+                 out_dtype=torch.float32, tol=1e-4):
+    """flash_decode against flash_decode_plain on copies of the rings:
+    outputs within `tol`, rings bit for bit, one launch."""
+    kp, vp = kk.clone(), vk.clone()
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n0 = flash_decode.launches
+    got = flash_decode(q, kk, vk, 25, p, *rows, window=window,
+                       out_dtype=out_dtype)
+    want = flash_decode_plain(q, kp, vp, 25, p, *rows, window=window,
+                              out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == n0 + 1
+    assert got.dtype == out_dtype and bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(_bits(kk), _bits(kp)) and torch.equal(_bits(vk),
+                                                             _bits(vp))
+    return got
+
+
 @pytest.mark.parametrize("bsz,cap,pos", [(1, 896, [0]), (1, 896, [1019]),
                                          (3, 8192, [0, 4103, 16389])])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float8_e4m3fn])
 @pytest.mark.parametrize("write", [False, True])
 def test_flash_decode_kernel_matches_plain(dev, bsz, cap, pos, dtype, write):
     """Full-width decoder shape (H=32, KH=8, D=128, L=26): the same output
     to f32 rounding (1e-4 abs), the same rings bit for bit."""
-    gen = torch.Generator(device=dev).manual_seed(cap + bsz)
-    kk = _randn(gen, (bsz, 26, 8, cap, 128), dtype, dev)
-    vk = _randn(gen, (bsz, 26, 8, cap, 128), dtype, dev)
-    kp, vp = kk.clone(), vk.clone()
-    q = _randn(gen, (bsz, 32, 128), torch.float32, dev)
-    rows = ((_randn(gen, (bsz, 8, 128), torch.float32, dev),
-             _randn(gen, (bsz, 8, 128), torch.float32, dev)) if write else ())
-    p = torch.tensor(pos, device=dev)
-    n0 = flash_decode.launches
-    got = flash_decode(q, kk, vk, 25, p, *rows, window=8192,
-                       out_dtype=torch.float32)
-    want = flash_decode_plain(q, kp, vp, 25, p, *rows, window=8192,
-                              out_dtype=torch.float32)
+    kk, vk, q, rows = _flash_case(dev, cap + bsz, bsz, cap, dtype)
+    _check_flash(dev, kk, vk, q, rows if write else (), pos)
+
+
+@pytest.mark.parametrize("bsz,cap,pos,window", [
+    (1, 512, [63], 8192),      # 8 splits of 64: the window is split 0 alone
+    (1, 512, [64], 8192),      # one slot into split 1
+    (1, 512, [511], 8192),     # every split full
+    (1, 896, [2000], 64),      # window 64: one split, wrapped
+    (1, 8192, [8191], 8192),   # the full 8192 window, 8 splits of 1024
+    (1, 8192, [20000], 8192),  # the full window after wraparound
+    (16, 896, [0, 63, 64, 447, 448, 895, 896, 1019]
+     + [(97 * i) % (3 * 896) for i in range(8, 16)], 8192),  # B=16 mixed
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_flash_decode_kernel_split_edges(dev, bsz, cap, pos, window, dtype):
+    """The split plan's edges (flash_decode_splits): windows ending at and
+    one past a split's end, one split, the full window, B=16 with mixed
+    positions; bf16 q and output as on the decode path, with the row
+    write (2e-2: one bf16 step of outputs below 4, where the two versions'
+    f32 results fall on either side of a rounding boundary)."""
+    kk, vk, q, rows = _flash_case(dev, cap + pos[0], bsz, cap, dtype,
+                                  q_dtype=torch.bfloat16)
+    _check_flash(dev, kk, vk, q, rows, pos, window=window,
+                 out_dtype=torch.bfloat16, tol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_flash_decode_kernel_saturates_fp8_rows(dev, dtype):
+    """Rows up to |x| ~ 4000: the kernel casts them as to_ring_dtype does
+    (fp8 saturates at +-448), stores them bit for bit as the plain version
+    does and attends over the stored values."""
+    kk, vk, q, rows = _flash_case(dev, 9, 3, 896, dtype, rows_scale=1000.0)
+    pos = [0, 448, 896 + 123]
+    _check_flash(dev, kk, vk, q, rows, pos, tol=1e-4 * 1000)
+    if dtype == torch.float8_e4m3fn:
+        assert kk[:, 25, :, [0, 448, 123]].float().abs().max().item() == 448.0
+
+
+def test_flash_decode_kernel_reads_strided_rows(dev):
+    """The new rows as the decoder passes them: v a slice of a wider
+    product (3 x 8 x 128 elements between streams), read in place; the same
+    output and rings as the plain version's."""
+    kk, vk, q, (k_rows, v_rows) = _flash_case(dev, 5, 3, 896,
+                                              torch.float8_e4m3fn,
+                                              q_dtype=torch.bfloat16)
+    wide = torch.zeros((3, 3, 8, 128), device=dev)
+    wide[:, 2] = v_rows
+    assert not wide[:, 2].is_contiguous()
+    _check_flash(dev, kk, vk, q, (k_rows, wide[:, 2]), [0, 448, 1019])
+
+
+@pytest.mark.parametrize("bsz,cap,dtype", [(1, 8192, torch.bfloat16),
+                                           (16, 896, torch.float8_e4m3fn)])
+def test_flash_decode_kernel_deterministic(dev, bsz, cap, dtype):
+    """Two calls give the same output bit for bit: the splits' partials are
+    folded in split order (attend only, and write + attend on two copies
+    of the rings)."""
+    kk, vk, q, rows = _flash_case(dev, 11, bsz, cap, dtype,
+                                  q_dtype=torch.bfloat16)
+    pos = [10000] if bsz == 1 else [(4099 * i + 700) % (2 * cap)
+                                    for i in range(bsz)]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(window=8192, out_dtype=torch.float32)
+    a = flash_decode(q, kk, vk, 25, p, **kw)
+    b = flash_decode(q, kk, vk, 25, p, **kw)
+    k2, v2 = kk.clone(), vk.clone()
+    c = flash_decode(q, kk, vk, 25, p, *rows, **kw)
+    d = flash_decode(q, k2, v2, 25, p, *rows, **kw)
     torch.cuda.synchronize()
-    assert flash_decode.launches == n0 + 1
-    assert (got - want).abs().max().item() <= 1e-4
-    assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert torch.equal(_bits(kk), _bits(k2))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -99,10 +192,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         banded_attention_batched(q, q, q, window=8)
     with pytest.raises(ValueError, match="bf16"):
         banded_attention_batched(q.float(), q.float(), q.float(), window=8)
-    ring = torch.zeros((1, 2, 8, 64, 128), device=dev).to(torch.float8_e4m3fn)
+    # fp8 rings are taken; other ring types, D != 128 and non-contiguous
+    # caches are not
+    q = torch.zeros((1, 32, 128), device=dev)
+    p = torch.tensor([3], device=dev)
+    ring = torch.zeros((1, 2, 8, 64, 128), device=dev)
+    f8 = ring.to(torch.float8_e4m3fn)
+    out = flash_decode(q, f8, f8, 0, p, window=64)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and not out.any()
     with pytest.raises(ValueError, match="rings"):
-        flash_decode(torch.zeros((1, 32, 128), device=dev), ring, ring, 0,
-                     torch.tensor([3], device=dev), window=64)
+        flash_decode(q, ring.half(), ring.half(), 0, p, window=64)
+    with pytest.raises(ValueError, match="rings"):
+        flash_decode(q, ring.to(torch.float8_e5m2),
+                     ring.to(torch.float8_e5m2), 0, p, window=64)
+    with pytest.raises(ValueError, match="D=64"):
+        flash_decode(q[..., :64].contiguous(), ring[..., :64].contiguous(),
+                     ring[..., :64].contiguous(), 0, p, window=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        r2 = ring.transpose(3, 4)
+        flash_decode(q, r2, r2, 0, p, window=64)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        flash_decode(q.half(), ring, ring, 0, p, window=64)
+    with pytest.raises(ValueError, match="k_rows"):
+        rows = torch.zeros((1, 8, 128), dtype=torch.float16, device=dev)
+        flash_decode(q, f8, f8, 0, p, rows, rows, window=64)
 
 
 def test_offline_path_at_reduced_depth(dev):
@@ -252,7 +366,8 @@ def test_int4_and_rows_wrappers_refuse(dev):
 def test_int4_fp8_serving_at_reduced_depth(dev):
     """Full widths, 2 encoder and 2 decoder layers, int4 decoder and fp8
     rings, B=2: bulk encode, batched prefill and decode bursts launch every
-    kernel exactly where they should."""
+    kernel exactly where they should (flash-decode on every decode step,
+    the fp8 rings included)."""
     from voxtral_tpu_torch.models.params import init_params
     from voxtral_tpu_torch.parallel import serving as sv
     from voxtral_tpu_torch.runtime.engine import VoxtralEngine, decompose
@@ -288,8 +403,8 @@ def test_int4_fp8_serving_at_reduced_depth(dev):
     torch.cuda.synchronize()
     assert 0 <= int(toks.min()) and int(toks.max()) < cfg.decoder.vocab_size
     assert banded_attention_batched.launches == 2
-    assert flash_decode.launches == 0
-    assert ring_rows_write.launches == 2 * steps
+    assert flash_decode.launches == 2 * steps     # fp8 rings take the kernel
+    assert ring_rows_write.launches == 0
     assert int4_mm.launches == 2 * 4 + (2 * 4 + 1) * steps
 
 

@@ -288,3 +288,78 @@ def test_cli_from_mic(model_dir, capsys, monkeypatch, tmp_path):
     assert cli.main(["-d", str(model_dir), "--from-mic", "--device", "cpu"],
                     cfg=tiny_config(**CLI_CFG)) == 1
     assert "No mic capture backend" in capsys.readouterr().err
+
+
+# --- the JAX CLI's flags on the port's parser ---------------------------------
+
+def _jax_parser():
+    """The JAX CLI's parser, caught as its main() is about to parse."""
+    import argparse
+
+    from voxtral_tpu import cli as jcli
+
+    class Caught(Exception):
+        pass
+
+    def grab(self, *args, **kwargs):
+        raise Caught(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(Caught) as caught:
+            jcli.main([])
+    return caught.value.args[0]
+
+
+def test_cli_parses_every_jax_option():
+    """Every option string of voxtral_tpu.cli parses on the port's parser
+    (a JAX command line never exits 2 there as unrecognized), into the
+    same destination."""
+    port = cli.build_parser()
+    n = 0
+    for act in _jax_parser()._actions:
+        for opt in act.option_strings:
+            if opt in ("-h", "--help"):
+                continue
+            argv = [] if "-d" in act.option_strings else ["-d", "m"]
+            argv.append(opt)
+            if act.nargs != 0:
+                argv.append("1" if act.type in (int, float) else "x")
+            ns = port.parse_args(argv)
+            assert hasattr(ns, act.dest), opt
+            n += 1
+    assert n >= 20
+
+
+@pytest.mark.parametrize("extra", [["--bulk-encode"], []])
+def test_cli_profile_writes_a_trace(model_dir, capsys, tmp_path, extra):
+    """--profile DIR: the offline (--bulk-encode) and the streaming run
+    each write one torch.profiler Chrome trace of the transcription into
+    DIR."""
+    trace_dir = tmp_path / "trace"
+    rc = cli.main(["-d", str(model_dir), "-i", str(model_dir / "clip.wav"),
+                   "--device", "cpu", "--profile", str(trace_dir)] + extra,
+                  cfg=tiny_config(**CLI_CFG))
+    err = capsys.readouterr().err
+    assert rc == 0
+    files = list(trace_dir.glob("*.json"))
+    assert len(files) == 1 and f"Profile trace: {files[0]}" in err
+    assert json.loads(files[0].read_text())["traceEvents"]
+
+
+def test_cli_compile_cache_flags_change_nothing(model_dir, capsys, tmp_path):
+    """--compile-cache DIR and --no-compile-cache are accepted, say once
+    each that the port has no XLA compile cache, create nothing and leave
+    the transcript as it is."""
+    argv = ["-d", str(model_dir), "-i", str(model_dir / "clip.wav"),
+            "--bulk-encode", "--device", "cpu"]
+    assert cli.main(argv, cfg=tiny_config(**CLI_CFG)) == 0
+    plain = capsys.readouterr()
+    cache = tmp_path / "cache"
+    assert cli.main(argv + ["--compile-cache", str(cache),
+                            "--no-compile-cache"],
+                    cfg=tiny_config(**CLI_CFG)) == 0
+    out = capsys.readouterr()
+    assert out.out == plain.out and out.out.strip()
+    assert out.err.count("no XLA compile cache") == 2
+    assert not cache.exists()

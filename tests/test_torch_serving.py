@@ -224,20 +224,22 @@ def test_batched_rows_equal_single_stream(params, params_np, rung):
 
 
 def test_bdecode_burst_attention_paths_agree(params_np):
-    """The fp8 ring takes the plain path and the f32 ring the flash path
-    under attn_impl="auto"; forcing "xla" on the f32 ring gives the same
-    ids (the two paths compute the same function)."""
+    """The f32 and the fp8 ring both take the flash path under
+    attn_impl="auto" (the port's rule: fp8 rings take the kernel too);
+    forcing "xla" on either ring gives the same ids (the two paths compute
+    the same function)."""
     tp = from_jax_numpy(params_np)["decoder"]
-    base = tiny_config()
-    ids = {}
-    for impl in ("auto", "xla"):
-        cfg = base.replace(decoder=dataclasses.replace(base.decoder,
-                                                       attn_impl=impl))
-        ids[impl] = _run_port(cfg, tp)[0]
-    np.testing.assert_array_equal(ids["auto"], ids["xla"])
-    assert tdec._use_flash(base.decoder, torch.zeros(1))
-    assert not tdec._use_flash(base.decoder,
-                               torch.zeros(1, dtype=torch.float8_e4m3fn))
+    for kv in ("float32", "float8_e4m3fn"):
+        base = tiny_config().replace(kv_dtype=kv)
+        ids = {}
+        for impl in ("auto", "xla"):
+            cfg = base.replace(decoder=dataclasses.replace(base.decoder,
+                                                           attn_impl=impl))
+            ids[impl] = _run_port(cfg, tp)[0]
+        np.testing.assert_array_equal(ids["auto"], ids["xla"])
+    for dt in (torch.float32, torch.float8_e4m3fn):
+        assert tdec._use_flash(base.decoder, torch.zeros(1, dtype=dt),
+                               fp8=True)
 
 
 # --- the lockstep batched streaming transcriber at B=3 ----------------------

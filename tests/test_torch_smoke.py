@@ -72,14 +72,20 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
                         dec_ring=64, extra_steps=4)
     rungs = {r["rung"]: r for r in sv["rungs"]}
     assert list(rungs) == ["bf16", "fp8kv", "int8", "int4", "int4deq"]
+    assert [r["runs"] for r in rungs.values()] == [2, 2, 1, 2, 1]
     steps = rungs["bf16"]["decode_steps"]
+    # every rung decodes through flash-decode, fp8 rings included; the
+    # row-write kernel runs in the fp8kv rung's "xla" mid-fill burst
     assert sv["launches"] == {
         "banded_attention_batched": 5 * cfg.encoder.n_layers,
-        "flash_decode": cfg.decoder.n_layers * steps,
-        "ring_rows_write": 4 * cfg.decoder.n_layers * steps,
+        "flash_decode": 5 * cfg.decoder.n_layers * steps,
+        "ring_rows_write": cfg.decoder.n_layers * 4,
         "int4_mm": 4 * cfg.decoder.n_layers
         + (4 * cfg.decoder.n_layers + 1) * steps,
     }
+    assert rungs["fp8kv"]["launches_xla_mid_fill"] == {
+        "banded_attention_batched": 0, "flash_decode": 0,
+        "ring_rows_write": cfg.decoder.n_layers * 4, "int4_mm": 0}
     assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
     for name in ("fp8kv", "int8", "int4", "int4deq"):
         assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0

@@ -4,7 +4,7 @@
   python -m voxtral_tpu_torch.cli -d <model_dir>
       (-i file.wav [--bulk-encode] | --stdin | --from-mic)
       [-I seconds] [--alt cutoff] [--delay ms] [--monitor] [--debug]
-      [--silent] [--int8 | --int4] [--device cuda|cpu]
+      [--silent] [--int8 | --int4] [--device cuda|cpu] [--profile DIR]
 
 The model dir holds the reference's consolidated.safetensors and
 tekken.json.  Tokens stream to stdout as they are generated; metrics go to
@@ -19,12 +19,17 @@ kernel runs its plain PyTorch version.  --int8 and --int4 quantize the
 decoder's weights (models/quant.py), and VOXTRAL_KV_DTYPE=float8_e4m3fn
 stores the KV rings in fp8.  Decoding is sequential greedy: the JAX CLI's
 default "auto" mode takes Jacobi bursts, which are not ported, and
---jacobi exits with status 2.
+--jacobi exits with status 2.  --profile DIR writes a torch.profiler trace
+(Chrome JSON) of the transcription into DIR.  The JAX CLI's
+--compile-cache DIR and --no-compile-cache are accepted and change nothing:
+the port keeps no XLA compile cache (its CUDA kernels are built once per
+source set, ops/cuda_lib.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -76,9 +81,28 @@ def _drain(stream, state, alt_mode: bool):
     sys.stdout.flush()
 
 
-def main(argv=None, cfg=None) -> int:
-    """Runs the CLI; `cfg` (default full_config()) lets tests drive a small
-    model directory."""
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """torch.profiler over the block (and the card's kernels on CUDA), its
+    Chrome trace written into `trace_dir`; nothing when it is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(trace_dir, f"voxtral_trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    print(f"Profile trace: {path}", file=sys.stderr)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: every option of the JAX CLI's, and --device."""
     p = argparse.ArgumentParser(prog="voxtral-tpu-torch",
                                 description=__doc__.splitlines()[0])
     p.add_argument("-d", "--model-dir", required=True)
@@ -110,8 +134,29 @@ def main(argv=None, cfg=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default cuda; cpu runs the "
                         "plain PyTorch versions of the kernels)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of the "
+                        "run to DIR")
+    p.add_argument("--compile-cache", metavar="DIR", default=None,
+                   help="accepted for the JAX CLI's sake; the port has no "
+                        "XLA compile cache")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="accepted for the JAX CLI's sake; the port has no "
+                        "XLA compile cache")
+    return p
+
+
+def main(argv=None, cfg=None) -> int:
+    """Runs the CLI; `cfg` (default full_config()) lets tests drive a small
+    model directory."""
+    p = build_parser()
     args = p.parse_args(argv)
 
+    for flag, given in (("--compile-cache", args.compile_cache is not None),
+                        ("--no-compile-cache", args.no_compile_cache)):
+        if given:
+            print(f"{flag}: nothing to do, the PyTorch port has no XLA "
+                  "compile cache", file=sys.stderr)
     for attr, flag in _NOT_PORTED.items():
         if getattr(args, attr):
             print(f"{flag}: not ported yet (ROADMAP.md)", file=sys.stderr)
@@ -190,7 +235,8 @@ def main(argv=None, cfg=None) -> int:
         from .runtime.offline import transcribe_offline
 
         t0 = time.monotonic()
-        text = transcribe_offline(engine, samples)
+        with _profiled(args.profile, device):
+            text = transcribe_offline(engine, samples)
         sys.stdout.write(text + "\n")
         if v:
             dur = len(samples) / SAMPLE_RATE
@@ -218,8 +264,16 @@ def main(argv=None, cfg=None) -> int:
     )
     if v:
         print(f"Warm-up done in {time.monotonic() - t0:.1f}s", file=sys.stderr)
+    with _profiled(args.profile, device):
+        _stream(args, VoxStream(engine), samples, stdin_head, v)
+    return 0
 
-    s = VoxStream(engine)
+
+def _stream(args, s, samples, stdin_head, v: int) -> None:
+    """Feeds the input through the VoxStream `s`, printing tokens as they
+    come (main.c:109-118 and the continuous modes), then its stats."""
+    from .config import SAMPLE_RATE
+
     if args.interval is not None:
         s.set_processing_interval(args.interval)
     if args.alt is not None:
@@ -272,7 +326,6 @@ def main(argv=None, cfg=None) -> int:
     drain()
     sys.stdout.write("\n")
     s.print_stats()
-    return 0
 
 
 if __name__ == "__main__":

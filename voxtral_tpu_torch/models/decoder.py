@@ -20,14 +20,17 @@ Single-token decode attention (DecoderConfig.attn_impl):
   - "xla":   the plain path: ring_rows_write (in-place row write: the
     hand-written CUDA kernel for CUDA tensors), then ring_attention over
     the whole ring with a mask;
-  - "auto":  "flash" whenever the ring is a float type of >= 2 bytes, at
-    any B and any ring capacity; fp8 rings take "xla".  The JAX package
-    takes flash at B=1 only above FLASH_RING_THRESHOLD ring slots, a TPU
-    measurement; on the GPU that rule would keep the kernel off every clip
-    shorter than about 72 s, so the port applies the rule the JAX batched
-    serving path already uses (parallel/serving.py).
+  - "auto":  "flash" whenever the ring is a float type of >= 2 bytes or
+    fp8 e4m3fn, at any B and any ring capacity.  The JAX package takes
+    flash at B=1 only above FLASH_RING_THRESHOLD ring slots, and never on
+    fp8 rings; both are TPU measurements (its decoder.py:116-130).  On the
+    GPU the first would keep the kernel off every clip shorter than about
+    72 s, and the second would widen the whole fp8 ring to f32 on every
+    step, where the kernel reads only the live window at one byte per
+    element (H100 timings of both paths: PERF.md section 6).
 Both paths compute the same function; they differ only in the order of
-float operations.
+float operations (and the plain path rounds its probabilities to the
+matmul dtype).
 
 Numerics follow python_simple_implementation.py:522-664: RMSNorm, RoPE,
 softmax and logits in float32; matmuls take compute-dtype operands and
@@ -95,13 +98,17 @@ def ada_scales(dec_params: PyTree, cfg: VoxtralConfig) -> torch.Tensor:
     return torch.einsum("la,lda->ld", hid, lp["ada_up"].float())
 
 
-def _use_flash(cfg: DecoderConfig, ring: torch.Tensor) -> bool:
-    """The single-token attention path for this ring (module docstring)."""
+def _use_flash(cfg, ring: torch.Tensor, fp8: bool = False) -> bool:
+    """Whether cfg.attn_impl takes the kernel path for this ring (module
+    docstring): float rings of >= 2 bytes, and fp8 e4m3fn rings where the
+    kernel reads them (`fp8`: the decoder's flash-decode does, unlike the
+    JAX package's; the encoder's flash-encode does not)."""
     if cfg.attn_impl == "xla":
         return False
     if cfg.attn_impl not in ("flash", "auto"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    # fp8 or other byte-wide storage stays on the plain path, as in JAX
+    if ring.dtype == torch.float8_e4m3fn:
+        return fp8
     return ring.dtype.is_floating_point and ring.element_size() >= 2
 
 
@@ -130,7 +137,7 @@ def _layer_step(
     q = apply_rope_interleaved(q, cos, sin)
     k = apply_rope_interleaved(k, cos, sin)
 
-    if t == 1 and _use_flash(cfg, cache.k):
+    if t == 1 and _use_flash(cfg, cache.k, fp8=True):
         # one call writes the row at pos % cap of layer li (in place) and
         # attends over the live window: one kernel launch per layer per step
         attn = flash_decode(

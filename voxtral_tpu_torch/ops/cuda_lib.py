@@ -117,7 +117,8 @@ def kernels() -> ctypes.CDLL:
             ]
             lib.vt_flash_decode.restype = i
             lib.vt_flash_decode.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
+                ll, ll, i, p,
             ]
             lib.vt_flash_encode.restype = i
             lib.vt_flash_encode.argtypes = [

@@ -98,8 +98,8 @@ def ring_rows_write_plain(k_all: torch.Tensor, v_all: torch.Tensor,
     return k_all, v_all
 
 
-# ring dtype -> ring_kind of csrc/ring_rows_write.cu
-_RING_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+# ring dtype -> ring_kind of csrc/ring_rows_write.cu and csrc/flash_decode.cu
+RING_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
 def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
@@ -120,7 +120,7 @@ def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
     if k_all.device.type != "cuda":
         raise NotImplementedError(f"ring_rows_write on {k_all.device}")
     bsz, n_layers, kh, cap, d = k_all.shape
-    kind = _RING_KINDS.get(k_all.dtype)
+    kind = RING_KINDS.get(k_all.dtype)
     if kind is None or v_all.dtype != k_all.dtype:
         raise ValueError("rows-write kernel takes f32, bf16 or fp8 e4m3fn "
                          f"rings, got {k_all.dtype}, {v_all.dtype}")

@@ -14,10 +14,11 @@ already serves the whole batch.  The JAX bprefill's unrolled layer loop
 (which keeps XLA's vmapped cache updates in place) has no counterpart:
 the port's layer loop is eager and its cache updates are in place.
 
-Attention dispatch of `bdecode_burst` is the JAX rule: the flash-decode
-kernel for rings of a >= 2-byte float type, the plain path
-(`ring_rows_write` + `ring_attention`) for fp8 rings; the port's
-attn_impl="auto" already resolves so at every B.  The batched streaming
+Attention dispatch of `bdecode_burst` is the port's attn_impl="auto"
+(models/decoder.py): the flash-decode kernel at every B, for rings of a
+>= 2-byte float type and for fp8 rings, where the JAX batched path sends
+fp8 rings to the plain `ring_rows_write` + `ring_attention` (a TPU
+measurement; attn_impl="xla" keeps that path).  The batched streaming
 encoder (`bencode`) takes the flash-encode kernel for every chunk of
 T > 1 rows on such rings (models/encoder.py).
 
