@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py              # all phases below
     python3 chip_smoke.py --profile    # device, build, then the profile
+    python3 chip_smoke.py --int4 [ROOT]  # device, build, int4, rows only
+                                         # (ROOT: the package of another
+                                         # checkout, for an A/B in one call)
 
 Phases, in order, each printing its own lines; any failure raises and the
 script exits non-zero:
@@ -31,10 +34,15 @@ script exits non-zero:
                256 rows at B=1 and B=16; its times at B=16 T=64 and B=1
                T=100 by mapping
   6. int4     kernel (C) against its plain version at the five
-               full-width int4 matrices (wqkv, wo, w13, w2, logits table)
-               at 1, 16 and 608 rows
+               full-width int4 matrices (wqkv, wo, w13, w2, logits table;
+               26-layer stacks, read at layer 25) at 1, 16 and 608 rows, two
+               calls bitwise equal; its plans and the card's occupancy for
+               them; graph-replay times at 16 and 608 rows of the kernel,
+               plain and the bf16 yardstick, and of one decode step's 105
+               products (26 layers + the table, 1.71 GB packed)
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
-               128] rings in fp8, bf16 and f32 (bit-equal rings)
+               128] rings in fp8, bf16 and f32 (bit-equal rings); its
+               graph-replay time beside the card's launch floor
   8. slice    full_config() bf16 with seeded random weights: three
                synthetic clips through transcribe_offline_ids on one
                VoxtralEngine, with launch counts, timings and checks
@@ -85,12 +93,12 @@ FLASH_TOL = 1e-4
 #      running max, the plain version's row max)
 FLASH_ENC_TOL = 2e-2
 # (C): bf16 x int4 products are exact; only the f32 summation order differs
-# (the WMMA tiles and K splits against cuBLAS), compared relative to max
-# |plain|; measured up to 3.005e-7 on an H100 80GB HBM3 (700 W)
+# (the mma tiles and the cluster's K split against cuBLAS), compared
+# relative to max |plain|
 INT4_REL_TOL = 1e-5
 # kernels built to spill no register (the build phase fails if they do)
-ATTENTION_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
-                     "flash_decode_kernel")
+NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
+                    "flash_decode_kernel", "int4_mm_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -248,6 +256,24 @@ def phase_device() -> str:
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and template arguments in an Itanium-mangled
+    symbol: the length-prefixed identifier that ends in "_kernel" (the
+    anonymous namespace's hashed name before it is skipped by its length),
+    then its "I...E" arguments."""
+    pos = 0
+    while True:
+        m = re.compile(r"\d+").search(mangled, pos)
+        if not m:
+            return mangled
+        end = m.end() + int(m.group())
+        ident = mangled[m.end():end]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I.*?E", mangled[end:])
+            return ident + (args.group() if args else "")
+        pos = end if ident.isidentifier() else m.end()
+
+
 def phase_build() -> None:
     import os
 
@@ -258,29 +284,26 @@ def phase_build() -> None:
     cuda_lib.kernels()
     log("build", f"{lib_path} in {time.monotonic() - t0:.1f} s")
     # ptxas -v: one line per kernel with its registers and spill bytes
-    name, stores, spills, attn_spills = None, 0, 0, 0
+    name, stores, spills, kept_spills = None, 0, 0, 0
     with open(os.path.join(os.path.dirname(lib_path), "build.log")) as f:
         for line in f:
             if "Compiling entry function" in line:
-                # the mangled name's kernel and template arguments
-                mangled = line.split("'")[1]
-                m = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?E", mangled)
-                name = "".join(m.groups("")) if m else mangled
+                name = _kernel_name(line.split("'")[1])
             elif "spill stores" in line:
                 spill = line.split("bytes stack frame, ")[1].split(",")
                 stores = int(spill[0].split()[0])
                 n = stores + int(spill[1].split()[0])
                 spills += n
-                if name and name.startswith(ATTENTION_KERNELS):
-                    attn_spills += n
+                if name and name.startswith(NO_SPILL_KERNELS):
+                    kept_spills += n
             elif "Used" in line and "registers" in line and name:
                 log("build", f"{name}: {line.split('Used ')[1].strip()}; "
                              f"spill stores {stores}")
                 name = None
     log("build", f"spilled bytes over all kernels: {spills}")
-    if attn_spills:
-        raise AssertionError(f"[build] the attention kernels spill "
-                             f"{attn_spills} bytes")
+    if kept_spills:
+        raise AssertionError(f"[build] the kernels of {NO_SPILL_KERNELS} "
+                             f"spill {kept_spills} bytes")
 
 
 def _randn(gen, shape, dtype, device: str = "cuda"):
@@ -554,81 +577,191 @@ def phase_flash() -> dict:
 
 
 # full-width int4 matrices: (out, in) of the decoder's four layer weights
-# and the tied logits table
+# and the tied logits table, in the decode step's order (four products a
+# layer, then the table)
 INT4_SHAPES = {"wqkv": (6144, 3072), "wo": (3072, 4096),
                "w13": (18432, 3072), "w2": (3072, 9216),
                "logits": (131072, 3072)}
+INT4_LAYERS = 26            # the decoder's depth: full stacks, 1.71 GB packed
+INT4_ROWS = (16, 608)       # B=16 decode, B=16 x 38 prefill
+
+
+def _int4_bound(shapes, rows: int) -> dict:
+    """bound of int4 products [(out, in)] at `rows`: packed weights, scales
+    and x read once, f32 y written once; 2 operations per weight and row."""
+    n_bytes = sum(o * i // 2 + o * 2 * 4 + rows * i * 2 + rows * o * 4
+                  for o, i in shapes)
+    return bound(n_bytes, sum(2 * rows * o * i for o, i in shapes))
+
+
+def _dequant_bf16(p, s):
+    """The packed layer [out, in/2] with its scales [out, 2] as the bf16
+    [out, in] weight (the yardstick's operand, made before any timing)."""
+    import torch
+
+    from voxtral_tpu_torch.models.quant import _unpack4
+
+    lo, hi = _unpack4(p, torch.float32)
+    return torch.cat([lo * s[:, :1], hi * s[:, 1:]], dim=-1).bfloat16()
+
+
+def _rotating(fn, n: int):
+    """fn(i) for i = 0, 1, .. mod n on successive calls: graph_ms then
+    replays calls over n layers, so a product's weights come from device
+    memory, as in a decode step, not from the previous call's L2 lines."""
+    import itertools
+
+    count = itertools.count()
+    return lambda: fn(next(count) % n)
 
 
 def phase_int4() -> dict:
+    """Kernel (C) on full 26-layer stacks of random packed bytes (every
+    byte is a valid pair of int4 weights) and the table: within
+    INT4_REL_TOL of plain and bitwise repeatable at 1, 16 and 608 rows on
+    layer 25 of each product; graph-replay times at 16 and 608 rows (layers
+    rotating) of the kernel, plain and the bf16 yardstick (torch.mm on the
+    weight dequantized to bf16 beforehand: four times the bytes, so not
+    the library call of this function); the decode step's 105 products at
+    16 rows in decode order."""
     import torch
 
-    from voxtral_tpu_torch.models.quant import quantize_layer_stack
     from voxtral_tpu_torch.ops.quant_mm import int4_mm, int4_mm_plain
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    worst_abs, worst_rel = 0.0, 0.0
-    times = {}
+    stacks = {}
     for name, (out_dim, in_dim) in INT4_SHAPES.items():
-        # a 2-layer stack read at layer 1 (the table: one layer)
-        n_layers = 1 if name == "logits" else 2
-        w = _randn(gen, (n_layers, out_dim, in_dim), torch.bfloat16)
-        q = quantize_layer_stack({"wqkv": w}, bits=4)
-        p, sc = q["wqkv"], q["wqkv_scale"]
-        del w, q
-        li = n_layers - 1
-        for rows in (1, 16, 608):
+        n_layers = 1 if name == "logits" else INT4_LAYERS
+        stacks[name] = (
+            torch.randint(-128, 128, (n_layers, out_dim, in_dim // 2),
+                          generator=gen, device="cuda", dtype=torch.int8),
+            torch.rand((n_layers, out_dim, 2), generator=gen,
+                       device="cuda") * 0.02 + 0.001)
+    packed = sum(p.numel() for p, _ in stacks.values())
+    log("int4", f"stacks: {INT4_LAYERS} layers + table, "
+                f"{packed / 1e9:.3f} GB packed")
+    _int4_plans()
+    worst_abs, worst_rel, out = 0.0, 0.0, {"library_ms": None}
+    for name, (out_dim, in_dim) in INT4_SHAPES.items():
+        p, s = stacks[name]
+        n_layers = p.shape[0]
+        wd = [_dequant_bf16(p[li], s[li]) for li in range(min(4, n_layers))]
+        for rows in (1,) + INT4_ROWS:
             x = _randn(gen, (rows, in_dim), torch.bfloat16)
-            got = int4_mm(x, p, sc, li)
-            want = int4_mm_plain(x, p, sc, li)
+            got = int4_mm(x, p, s, n_layers - 1)
+            again = int4_mm(x, p, s, n_layers - 1)
+            want = int4_mm_plain(x, p, s, n_layers - 1)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"[int4] non-finite {name} rows={rows}")
+            same = torch.equal(got, again)
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-            ok = rel <= INT4_REL_TOL
-            log("int4", f"{name} [{out_dim}x{in_dim}] rows={rows}: max_abs_err "
-                        f"{err:.3e}, rel {rel:.3e} (tol {INT4_REL_TOL}) "
+            ok = rel <= INT4_REL_TOL and same
+            log("int4", f"{name} [{out_dim}x{in_dim}] rows={rows} layer "
+                        f"{n_layers - 1}: max_abs_err {err:.3e}, rel "
+                        f"{rel:.3e} (tol {INT4_REL_TOL}), two calls "
+                        f"{'bitwise equal' if same else 'DIFFER'} "
                         f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"[int4] {name} rows={rows} rel {rel}")
-            if rows in (16, 608):
-                kern = cuda_ms(lambda: int4_mm(x, p, sc, li), 20)
-                plain = cuda_ms(lambda: int4_mm_plain(x, p, sc, li), 5)
-                dkern = device_ms(lambda: int4_mm(x, p, sc, li), 10)
-                dplain = device_ms(lambda: int4_mm_plain(x, p, sc, li), 5)
-                times[name, rows] = (kern, plain, dkern, dplain)
-                gbs = p[li].numel() / dkern / 1e6
-                log("int4", f"{name} rows={rows}: kernel {kern:.4f} ms, "
-                            f"plain {plain:.4f} ms per call (CUDA events); "
-                            f"device kernel {dkern:.4f} ms ({gbs:.0f} GB/s "
-                            f"of packed weights), plain {dplain:.4f} ms "
-                            f"(profiler)")
-        del p, sc
+                raise AssertionError(f"[int4] {name} rows={rows} rel {rel} "
+                                     f"repeatable {same}")
+            del got, again, want
+            if rows == 1:
+                continue
+            tm = {
+                "ms": graph_ms(_rotating(
+                    lambda li: int4_mm(x, p, s, li), n_layers),
+                    min(n_layers, INT4_LAYERS)),
+                "plain_ms": graph_ms(_rotating(
+                    lambda li: int4_mm_plain(x, p, s, li), len(wd)), len(wd)),
+                "bf16_mm_ms": graph_ms(_rotating(
+                    lambda li: torch.mm(x, wd[li].t(),
+                                        out_dtype=torch.float32), len(wd)),
+                    len(wd)),
+                **_int4_bound([(out_dim, in_dim)], rows)}
+            for k, v in tm.items():
+                out[f"{k}_{name}_rows{rows}"] = v
+            log("int4", f"{name} rows={rows}: kernel {tm['ms']:.4f} ms, "
+                        f"plain {tm['plain_ms']:.4f}, bf16 mm (yardstick) "
+                        f"{tm['bf16_mm_ms']:.4f} ms (graph replay, layers "
+                        f"rotating); {p[0].numel() / tm['ms'] / 1e6:.0f} "
+                        f"GB/s of packed weights; bound {tm['bound_ms']:.4f} "
+                        f"ms ({tm['bound_by']})")
+        del wd
+    # the decode step: 4 products a layer over 26 layers, then the table,
+    # at 16 rows, each x made once
+    xs = {i: _randn(gen, (16, i), torch.bfloat16)
+          for _, i in INT4_SHAPES.values()}
+
+    def step():
+        for li in range(INT4_LAYERS):
+            for name in ("wqkv", "wo", "w13", "w2"):
+                int4_mm(xs[INT4_SHAPES[name][1]], *stacks[name], li)
+        int4_mm(xs[INT4_SHAPES["logits"][1]], *stacks["logits"], 0)
+
+    step_shapes = [INT4_SHAPES[n] for n in ("wqkv", "wo", "w13", "w2")
+                   for _ in range(INT4_LAYERS)] + [INT4_SHAPES["logits"]]
+    sb = _int4_bound(step_shapes, 16)
+    out.update({"step_ms": graph_ms(step, 2), "step_bound_ms": sb["bound_ms"],
+                "step_products": len(step_shapes)})
+    log("int4", f"decode step, {len(step_shapes)} products at 16 rows over "
+                f"{INT4_LAYERS} layers + table: {out['step_ms']:.4f} ms "
+                f"(graph replay); bound {sb['bound_ms']:.4f} ms "
+                f"({sb['bound_by']})")
+    del stacks, xs
+    torch.cuda.empty_cache()
     int4_mm.launches = 0
-    # the summary times: one call of each of the five matrices at 16 rows
-    # (the B=16 decode shape)
-    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+    # the summary: the five products at 16 rows (the B=16 decode shape);
     # no single PyTorch call takes this nibble-half packing with per-half
-    # scales
-    out = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
-           "library_ms": None}
-    for i, k in enumerate(keys):
-        out[k] = sum(times[n, 16][i] for n in INT4_SHAPES)
-    # the five products at 16 rows: packed weights, scales and x read once,
-    # f32 out written once; 2 operations per weight and row
-    n_bytes = sum(o * i // 2 + o * 2 * 4 + 16 * i * 2 + 16 * o * 4
-                  for o, i in INT4_SHAPES.values())
-    out.update(bound(n_bytes, sum(2 * 16 * o * i
-                                  for o, i in INT4_SHAPES.values())))
-    log("int4", f"five products at 16 rows: bound {out['bound_ms']:.4f} ms "
-                f"({out['bound_by']}), kernel device {out['device_ms']:.4f} ms")
-    for (name, rows), vals in times.items():
-        for k, v in zip(keys, vals):
-            out[f"{k}_{name}_rows{rows}"] = v
+    # scales, so library_ms is None
+    out.update({"max_abs_err": worst_abs, "max_rel_err": worst_rel})
+    for k in ("ms", "plain_ms", "bf16_mm_ms"):
+        out[k] = sum(out[f"{k}_{n}_rows16"] for n in INT4_SHAPES)
+        out[f"{k}_layers_rows608"] = sum(out[f"{k}_{n}_rows608"]
+                                         for n in INT4_SHAPES if n != "logits")
+    out.update(_int4_bound(INT4_SHAPES.values(), 16))
+    b608 = _int4_bound([INT4_SHAPES[n] for n in INT4_SHAPES
+                        if n != "logits"], 608)
+    out["bound_ms_layers_rows608"] = b608["bound_ms"]
+    log("int4", f"five products at 16 rows: kernel {out['ms']:.4f} ms, bound "
+                f"{out['bound_ms']:.4f} ms ({out['bound_by']}); four layer "
+                f"products at 608 rows: kernel "
+                f"{out['ms_layers_rows608']:.4f} ms, plain "
+                f"{out['plain_ms_layers_rows608']:.4f}, bf16 mm "
+                f"{out['bf16_mm_ms_layers_rows608']:.4f}, bound "
+                f"{b608['bound_ms']:.4f} ms ({b608['bound_by']})")
     return out
+
+
+def _int4_plans() -> None:
+    """The kernel's plan for each product at 16 and 608 rows, and the
+    blocks per SM the plan assumes against the card's occupancy query
+    (fails if the plan assumes more: it would launch past one wave)."""
+    from voxtral_tpu_torch.ops import cuda_lib, quant_mm
+
+    if not hasattr(quant_mm, "int4_mm_plan"):   # an older tree (A/B runs)
+        return
+    lib = cuda_lib.kernels()
+    for nj in (2, 4, 16):
+        for cs in ((1,) if nj == 16 else (1, 2)):
+            assumed = quant_mm.int4_mm_blocks_per_sm(nj, cs)
+            got = lib.vt_int4_mm_occupancy(nj, cs)
+            smem = quant_mm.int4_mm_smem(nj, cs)
+            log("int4", f"tile nj={nj} split={cs > 1}: {smem} bytes of "
+                        f"shared memory, {got} blocks per SM (plan assumes "
+                        f"{assumed})")
+            if got < assumed:
+                raise AssertionError(f"[int4] nj={nj} cs={cs}: the card "
+                                     f"holds {got} blocks per SM, the plan "
+                                     f"assumes {assumed}")
+    sms = cuda_lib.sm_count(0)
+    for rows in INT4_ROWS:
+        for name, (out_dim, in_dim) in INT4_SHAPES.items():
+            plan = quant_mm.int4_mm_plan(rows, out_dim, in_dim // 2, sms)
+            log("int4", f"plan {name} rows={rows}: {plan}")
 
 
 def phase_rows() -> dict:
@@ -647,6 +780,12 @@ def phase_rows() -> dict:
                          device="cuda")
     log("rows", f"torch cuda .to(float8_e4m3fn) of {probe.tolist()}: "
                 f"{probe.to(torch.float8_e4m3fn).float().tolist()}")
+    # the card's fixed cost of one launch: a one-element zero_() in graph
+    # replay (the floor of a kernel this small)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda: one.zero_(), 50)
+    log("rows", f"launch floor: one-element zero_() {floor_ms:.6f} ms "
+                f"(graph replay)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     bsz, n_layers, kh, cap, d = 16, 26, 8, 896, 128
@@ -674,6 +813,7 @@ def phase_rows() -> dict:
                     f"rings {'bit-equal' if same else 'DIFFER'}")
         if not same:
             raise AssertionError(f"[rows] {rdt}: rings differ")
+
         def kern_call():
             ring_rows_write(kk, vk, k_rows, v_rows, 7, pos)
 
@@ -688,23 +828,22 @@ def phase_rows() -> dict:
             kp[bidx, 7, :, slots, :] = kr
             vp[bidx, 7, :, slots, :] = vr
 
-        times[rdt] = (cuda_ms(kern_call, 50), cuda_ms(plain_call, 50),
-                      device_ms(kern_call, 20), device_ms(plain_call, 20),
-                      cuda_ms(library_call, 50))
-        log("rows", f"{str(rdt)[6:]} B={bsz}: kernel {times[rdt][0]:.4f} ms, "
-                    f"plain {times[rdt][1]:.4f} ms per call (CUDA events); "
-                    f"device kernel {times[rdt][2]:.4f} ms, plain "
-                    f"{times[rdt][3]:.4f} ms (profiler)")
+        times[rdt] = (graph_ms(kern_call, 50), graph_ms(plain_call, 20),
+                      graph_ms(library_call, 20))
+        log("rows", f"{str(rdt)[6:]} B={bsz}: kernel {times[rdt][0]:.6f} ms, "
+                    f"plain {times[rdt][1]:.6f} ms, index assignment "
+                    f"{times[rdt][2]:.6f} ms per call (graph replay)")
         del kk, vk, kp, vp
     ring_rows_write.launches = 0
     # the summary times: fp8 rings, as the fp8 rungs write them
-    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "library_ms")
+    keys = ("ms", "plain_ms", "library_ms")
     # fp8: f32 rows read once, one byte per element written, K and V
-    out = {"max_abs_err": 0.0,
+    out = {"max_abs_err": 0.0, "launch_floor_ms": floor_ms,
            **dict(zip(keys, times[torch.float8_e4m3fn])),
            **bound(2 * bsz * kh * d * (4 + 1), 0)}
-    log("rows", f"fp8 B={bsz}: index assignment {out['library_ms']:.4f} ms; "
-                f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    log("rows", f"fp8 B={bsz}: kernel {out['ms']:.6f} ms against a launch "
+                f"floor of {floor_ms:.6f} ms and a bound of "
+                f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
     for rdt, vals in times.items():
         for k, v in zip(keys, vals):
             out[f"{k}_{str(rdt)[6:]}"] = v
@@ -1817,12 +1956,23 @@ def _leaves(tree):
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--profile"]):
-        raise SystemExit(f"usage: {sys.argv[0]} [--profile]")
+    if not (argv in ([], ["--profile"])
+            or (argv[:1] == ["--int4"] and len(argv) <= 2)):
+        raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT]]")
+    if argv[1:2] and argv[0] == "--int4":
+        # the package of another checkout (an A/B of two trees in one call)
+        sys.path.insert(0, argv[1])
     t_start = time.monotonic()
     smi = phase_device()
     log("device", f"nvidia-smi: {smi}")
     phase_build()
+    if argv[:1] == ["--int4"]:
+        import voxtral_tpu_torch
+
+        log("device", f"package {voxtral_tpu_torch.__file__}")
+        print(json.dumps({"int4": phase_int4(), "rows": phase_rows(),
+                          "total_s": time.monotonic() - t_start}))
+        return 0
     if argv == ["--profile"]:
         from voxtral_tpu_torch.config import full_config
 

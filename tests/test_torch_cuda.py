@@ -274,7 +274,7 @@ def test_int4_kernel_matches_plain(dev, name, rows):
     """bf16 x against nibble-packed weights (layer 1 of a 2-layer stack,
     one layer for the table): the products are exact, only the f32
     summation order differs, so max abs error <= 1e-5 x max |plain|
-    (chip_smoke.py's INT4_REL_TOL; measured up to 3.005e-7 on an H100)."""
+    (chip_smoke.py's INT4_REL_TOL)."""
     from voxtral_tpu_torch.models.quant import quantize_layer_stack
 
     out_dim, in_dim = INT4_SHAPES[name]
@@ -361,6 +361,157 @@ def test_int4_and_rows_wrappers_refuse(dev):
     with pytest.raises(ValueError, match="contiguous"):
         r2 = ring.transpose(3, 4)
         ring_rows_write(r2, r2, rows, rows, 0, pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        r3 = torch.zeros((2, 3, 8, 64, 12), device=dev)
+        ring_rows_write(r3, r3, rows[..., :12].contiguous(),
+                        rows[..., :12].contiguous(), 0, pos)
+
+
+# rows that cross every tile boundary of the int4 kernel's plans (16-, 32-
+# and 64-row tiles) up to 64 and past it, and the prefill shapes of B=16
+# and B=32 (38 rows a stream)
+INT4_ROWS = (1, 2, 7, 8, 9, 15, 16, 17, 24, 31, 32, 33, 40, 47, 48, 49, 63,
+             64, 65, 96, 127, 128, 129, 608, 1216)
+
+
+@pytest.fixture(scope="module")
+def int4_stacks():
+    """Layer 25 of a 26-layer wo stack (3072 x 4096: split K at decode) and
+    the ragged one-layer [200, 3104] (packed 1552 = 24 x 64 + 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from voxtral_tpu_torch.models.quant import quantize_layer_stack
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for name, (n_layers, out_dim, in_dim) in (("wo26", (26, 3072, 4096)),
+                                              ("ragged", (1, 200, 3104))):
+        w = _randn(gen, (n_layers, out_dim, in_dim), torch.bfloat16, "cuda")
+        q = quantize_layer_stack({"wqkv": w}, bits=4)
+        out[name] = (q["wqkv"], q["wqkv_scale"], n_layers - 1)
+        del w, q
+    return out
+
+
+@pytest.mark.parametrize("rows", INT4_ROWS)
+@pytest.mark.parametrize("name", ["wo26", "ragged"])
+def test_int4_kernel_rows_sweep(dev, int4_stacks, name, rows):
+    """Every row count's plan (tile width, K split over a cluster, tiles
+    walked by fewer clusters) against the plain version, 1e-5 x max
+    |plain|, one launch; a second call is bitwise equal."""
+    p, s, li = int4_stacks[name]
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _randn(gen, (rows, 2 * p.shape[-1]), torch.bfloat16, dev)
+    n0 = int4_mm.launches
+    got = int4_mm(x, p, s, li)
+    again = int4_mm(x, p, s, li)
+    want = int4_mm_plain(x, p, s, li)
+    torch.cuda.synchronize()
+    assert int4_mm.launches == n0 + 2
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rows", [16, 608])
+@pytest.mark.parametrize("name", list(INT4_SHAPES))
+def test_int4_kernel_bitwise_repeatable(dev, name, rows):
+    """The full-width products at the decode and prefill row counts: two
+    calls give the same bits (the K split folds in rank order)."""
+    from voxtral_tpu_torch.models.quant import quantize_layer_stack
+
+    out_dim, in_dim = INT4_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(in_dim + rows)
+    w = _randn(gen, (1, out_dim, in_dim), torch.bfloat16, dev)
+    q = quantize_layer_stack({"wqkv": w}, bits=4)
+    del w
+    x = _randn(gen, (rows, in_dim), torch.bfloat16, dev)
+    a = int4_mm(x, q["wqkv"], q["wqkv_scale"], 0)
+    b = int4_mm(x, q["wqkv"], q["wqkv_scale"], 0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows", [5, 40, 100, 129])
+@pytest.mark.parametrize("nj,cs,clusters", [(2, 1, 1), (2, 5, 2), (4, 1, 3),
+                                            (4, 8, 1), (16, 1, 1),
+                                            (16, 1, 2)])
+def test_int4_kernel_every_tile_on_ragged_edges(dev, int4_stacks, nj, cs,
+                                                clusters, rows):
+    """Each tile of the kernel forced onto the ragged [200, 3104] product
+    (the plan would give it another): the decode tiles with and without a
+    K split, the wgmma prefill tile, with clusters that walk several tiles
+    each; against the plain version, 1e-5 x max |plain|."""
+    from voxtral_tpu_torch.ops import cuda_lib
+
+    p, s, li = int4_stacks["ragged"]
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _randn(gen, (rows, 2 * p.shape[-1]), torch.bfloat16, dev)
+    got = torch.full((rows, p.shape[1]), float("nan"), device=dev)
+    cuda_lib.check(cuda_lib.kernels().vt_int4_mm(
+        x.data_ptr(), p.data_ptr(), s.data_ptr(), got.data_ptr(), rows,
+        p.shape[1], p.shape[-1], li, nj, cs, clusters,
+        cuda_lib.stream_handle(dev)), "int4_mm")
+    want = int4_mm_plain(x, p, s, li)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("nj,cs", [(2, 1), (2, 8), (4, 1), (4, 8), (16, 1)])
+def test_int4_plan_residency_fits_the_card(dev, nj, cs):
+    """The plan's blocks per SM (it launches at most that many a SM) are no
+    more than the card's occupancy query gives for the kernel."""
+    from voxtral_tpu_torch.ops import cuda_lib
+    from voxtral_tpu_torch.ops.quant_mm import int4_mm_blocks_per_sm
+
+    got = cuda_lib.kernels().vt_int4_mm_occupancy(nj, cs)
+    assert got >= int4_mm_blocks_per_sm(nj, cs) >= 1, got
+
+
+@pytest.mark.parametrize("bsz", [1, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.bfloat16,
+                                   torch.float32])
+def test_ring_rows_write_kernel_bit_equal_batches(dev, dtype, bsz):
+    """Rings [B, 26, 8, 160, 128] at B = 1, 16, 64: positions 0, mid-ring,
+    wrapped and spread; rows up to |x| ~ 4000 on every other stream, so fp8
+    saturates; layers 0 and 25.  Rings bit for bit those of plain."""
+    gen = torch.Generator(device=dev).manual_seed(bsz)
+    cap = 160
+    shape = (bsz, 26, 8, cap, 128)
+    kk = _randn(gen, shape, torch.float32, dev).to(dtype)
+    vk = _randn(gen, shape, torch.float32, dev).to(dtype)
+    kp, vp = kk.clone(), vk.clone()
+    k_rows = _randn(gen, (bsz, 8, 128), torch.float32, dev)
+    v_rows = _randn(gen, (bsz, 8, 128), torch.float32, dev)
+    k_rows[::2] *= 1000.0
+    v_rows[1::2] *= 1000.0
+    pos = torch.tensor([(0, cap // 2, cap + 7)[i] if i < 3 else 37 * i
+                        for i in range(bsz)], device=dev)
+    n0 = ring_rows_write.launches
+    for li in (0, 25):
+        ring_rows_write(kk, vk, k_rows, v_rows, li, pos)
+        ring_rows_write_plain(kp, vp, k_rows, v_rows, li, pos)
+    torch.cuda.synchronize()
+    assert ring_rows_write.launches == n0 + 2
+    assert torch.equal(kk.view(torch.uint8), kp.view(torch.uint8))
+    assert torch.equal(vk.view(torch.uint8), vp.view(torch.uint8))
+
+
+def test_ring_rows_write_reads_offset_rows(dev):
+    """Rows that are a contiguous view starting 4 bytes off a 16-byte
+    boundary (the kernel's loads are 16 bytes) are written as plain does."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kk = _randn(gen, (1, 2, 8, 64, 128), torch.float32, dev).bfloat16()
+    vk, kp, vp = kk.clone(), kk.clone(), kk.clone()
+    buf = _randn(gen, (1 + 2 * 8 * 128,), torch.float32, dev)
+    k_rows = buf[1: 1 + 1024].view(1, 8, 128)
+    v_rows = buf[1 + 1024:].view(1, 8, 128)
+    pos = torch.tensor([70], device=dev)
+    ring_rows_write(kk, vk, k_rows, v_rows, 1, pos)
+    ring_rows_write_plain(kp, vp, k_rows, v_rows, 1, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, kp) and torch.equal(vk, vp)
 
 
 def test_int4_fp8_serving_at_reduced_depth(dev):

@@ -126,9 +126,9 @@ def kernels() -> ctypes.CDLL:
                 p,
             ]
             lib.vt_int4_mm.restype = i
-            lib.vt_int4_mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-            lib.vt_int4_mm_k_split.restype = i
-            lib.vt_int4_mm_k_split.argtypes = [i, i, i]
+            lib.vt_int4_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.vt_int4_mm_occupancy.restype = i
+            lib.vt_int4_mm_occupancy.argtypes = [i, i]
             lib.vt_ring_rows_write.restype = i
             lib.vt_ring_rows_write.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,

@@ -131,6 +131,11 @@ def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
                          "(they are written in place)")
     if not 0 <= li < n_layers:
         raise ValueError(f"rows-write kernel: layer {li} of {n_layers}")
+    if d % 8 or kh * d > 4096:
+        raise ValueError(f"rows-write kernel: [{kh}, {d}] rows (needs "
+                         "head_dim % 8 == 0 and heads x head_dim <= 4096)")
+    if k_all.data_ptr() % 16 or v_all.data_ptr() % 16:
+        raise ValueError("rows-write kernel: caches not 16-byte aligned")
     for name, r in (("k_rows", k_rows), ("v_rows", v_rows)):
         if r.dtype != torch.float32 or r.shape != (bsz, kh, d):
             raise ValueError(f"rows-write kernel: {name} must be f32 "
@@ -138,7 +143,11 @@ def ring_rows_write(k_all: torch.Tensor, v_all: torch.Tensor,
                              f"{tuple(r.shape)}")
         if r.device != k_all.device:
             raise ValueError(f"rows-write kernel: {name} on {r.device}")
+    # the kernel reads the rows 16 bytes at a time: a contiguous view that
+    # starts off that alignment (a slice of a wider row) is copied
     k_rows, v_rows = k_rows.contiguous(), v_rows.contiguous()
+    k_rows, v_rows = (r.clone() if r.data_ptr() % 16 else r
+                      for r in (k_rows, v_rows))
     pos32 = pos.to(device=k_all.device, dtype=torch.int32).reshape(bsz)
     pos32 = pos32.contiguous()
     lib = cuda_lib.kernels()
