@@ -6,6 +6,8 @@
     python3 chip_smoke.py --int4 [ROOT]  # device, build, int4, rows only
                                          # (ROOT: the package of another
                                          # checkout, for an A/B in one call)
+    python3 chip_smoke.py --only jacobi,pool_ring  # device, build, then the
+                                         # named phases (ONLY_PHASES)
 
 Phases, in order, each printing its own lines; any failure raises and the
 script exits non-zero:
@@ -16,8 +18,9 @@ script exits non-zero:
                voxtral_tpu_torch/csrc/*.cu for sm_90a
   3. banded   kernel (A) against its plain PyTorch version at the
                full-width encoder shape (H=KH=32, D=64, window 750), up to
-               the serve phase's B=16 padded 30 s clips; its times, bound
-               and SDPA's at B=1 T=1500 and at the serve shape
+               the serve phase's B=16 padded 30 s clips and the window
+               pool's B=32 T=852 with mixed kv_lo; its times, bound and
+               SDPA's at B=1 T=1500, at the serve shape and the pool's
   4. flash    kernel (B) against its plain version at the full-width decoder
                shape (H=32, KH=8, D=128, L=26), with and without the row
                write, fp8, bf16 and f32 rings (bit-equal rings), up to the
@@ -32,12 +35,14 @@ script exits non-zero:
                wraparound, under both mappings of its split walk (bitwise
                equal); its output bitwise equal across three chunkings of
                256 rows at B=1 and B=16; its times at B=16 T=64 and B=1
-               T=100 by mapping
+               T=100 by mapping, and at the ring pool's B=8 T=24 (checked
+               there too)
   6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table;
-               26-layer stacks, read at layer 25) at 1, 16 and 608 rows, two
-               calls bitwise equal; its plans and the card's occupancy for
-               them; graph-replay times at 16 and 608 rows of the kernel,
+               26-layer stacks, read at layer 25) at 1, 16, 64 and 608 rows,
+               two calls bitwise equal; its plans and the card's occupancy
+               for them; graph-replay times at 16, 64 (a Jacobi window) and
+               608 rows of the kernel,
                plain and the bf16 yardstick, and of one decode step's 105
                products (26 layers + the table, 1.71 GB packed)
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
@@ -61,9 +66,25 @@ script exits non-zero:
  11. bstream  BatchedTranscriber at B=16 x 30 s, 200-frame intervals,
                decoder ring 896: exact launch counts, aggregate x realtime,
                stream 0 against a B=1 VoxStream
+ 12. jacobi   the 30 s clip of the slice through transcribe_offline_ids at
+               B=1 with decode_mode "auto" (Jacobi for the 64-row bursts)
+               and "sequential": exact launch counts, tokens per
+               iteration, decode ms per token, the share of equal ids; then
+               a small f32 config, where Jacobi ids must equal sequential
+               ones up to a near-tie (JACOBI_TIE_REL)
+ 13. pool_ring the StreamPool in ring mode: 8 continuous slots, bf16
+               encoder ring 1024 (flash-encode), decoder ring 896, -I 0.5
+               with a 0.4 s gate, 2 rounds of 16 ticks, one slot churning:
+               exact launch counts, tick p50/p90, tokens and bursts per
+               tick, the encode/decode split, peak memory, slot 0 against a
+               B=1 VoxStream fed the same audio
+ 14. pool_window the StreamPool in window mode: 32 slots, fp8 decoder ring
+               1024, -I 2.0, 2 rounds of 8 ticks, the same churn (banded
+               attention at B=32 with per-slot kv_lo); slot 0 against the
+               ring pool's
 
 The line before the last is a JSON object with one entry per kernel (and
-the slice, serve, stream and bstream tables); the last line is
+the slice, serve, stream, bstream, jacobi and pool tables); the last line is
 {"ok": true, "device": {...}}.  `--profile` instead prints
 torch.profiler's breakdown of the serve pipeline at B=16 (encode,
 prefill, decode per rung) and of the streaming paths at steady state (a
@@ -115,6 +136,10 @@ DEQUANT_AGREE_MIN = 0.5
 # and cuBLAS picks its GEMM algorithm by row count, so other chunkings
 # round differently on the card)
 STREAM_AGREE_MIN = 0.5
+# jacobi: where f32 Jacobi ids first differ from sequential ones, a
+# sequential top-2 logit gap below this share of max |logit| is a near-tie
+# (f32 products in another order); any other difference fails
+JACOBI_TIE_REL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -341,13 +366,20 @@ def _banded_times(q, k, v, kv_lo, window: int, plain: bool) -> dict:
     if plain:
         out["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
             q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
-    # the library call: SDPA with the boolean band mask
+    # the library call: SDPA with the boolean band mask (and each stream's
+    # leading keys hidden below its kv_lo)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out["library_ms"] = sdpa_ms(qt, kt, vt, _band_mask(t, window), 10)
-    del qt, kt, vt
-    # each row meets min(i + 1, window) keys; q, k, v read, out written once,
-    # bf16
-    pairs = bsz * sum(min(r + 1, window) for r in range(t))
+    mask = _band_mask(t, window)
+    if bool(kv_lo.any()):
+        keys = torch.arange(t, device="cuda")
+        mask = (mask[None] & (keys >= kv_lo[:, None, None]))[:, None]
+    out["library_ms"] = sdpa_ms(qt, kt, vt, mask, 10)
+    del qt, kt, vt, mask
+    # row r meets the keys in [max(r - window + 1, kv_lo), r]; q, k, v
+    # read, out written once, bf16
+    rr = np.arange(t)
+    pairs = int(sum(np.maximum(rr - np.maximum(rr - window + 1, lo) + 1,
+                               0).sum() for lo in kv_lo.tolist()))
     out.update(bound(4 * q.numel() * 2, 4 * d * h * pairs))
     out["tflops"] = 4 * d * h * pairs / out["device_ms"] / 1e9
     return out
@@ -370,6 +402,9 @@ def phase_banded() -> dict:
         (1, 1013, [0]),          # ragged: not a multiple of the 64-row tile
         (2, 777, [0, 300]),      # leading keys hidden for stream 1
         (16, t_serve, [0] * 16),  # the serve phase's B=16 padded 30 s clips
+        # the window-mode pool's tick at 32 slots: 752 context rows + 100
+        # new (-I 2.0), every slot hiding its own stale context
+        (32, 852, [(0, 300, 752, 0, 100)[i % 5] for i in range(32)]),
     ]
     worst = 0.0
     timed = {}
@@ -396,9 +431,11 @@ def phase_banded() -> dict:
         if not ok:
             raise AssertionError(f"[banded] B={bsz} T={t} err {err}")
         del got, want
-        if (bsz, t) in ((1, 1500), (16, t_serve)):
+        if (bsz, t) in ((1, 1500), (16, t_serve), (32, 852)):
             tm = _banded_times(q, k, v, kv_lo, window, plain=bsz == 1)
             timed[bsz] = tm
+            if bsz == 32:
+                tm["max_abs_err"] = err
             log("banded", f"B={bsz} T={t}: kernel {tm['ms']:.4f} ms (device "
                           f"{tm['device_ms']:.4f}), "
                           f"{tm['tflops']:.1f} TFLOP/s, plain "
@@ -409,6 +446,7 @@ def phase_banded() -> dict:
     banded_attention_batched.launches = 0
     out = {"max_abs_err": worst, **timed[1]}
     out.update({f"{key}_b16": val for key, val in timed[16].items()})
+    out.update({f"{key}_pool_window": val for key, val in timed[32].items()})
     return out
 
 
@@ -583,7 +621,9 @@ INT4_SHAPES = {"wqkv": (6144, 3072), "wo": (3072, 4096),
                "w13": (18432, 3072), "w2": (3072, 9216),
                "logits": (131072, 3072)}
 INT4_LAYERS = 26            # the decoder's depth: full stacks, 1.71 GB packed
-INT4_ROWS = (16, 608)       # B=16 decode, B=16 x 38 prefill
+# B=16 decode, a B=1 Jacobi window (64 rows through every product of the
+# window's pass), B=16 x 38 prefill
+INT4_ROWS = (16, 64, 608)
 
 
 def _int4_bound(shapes, rows: int) -> dict:
@@ -733,6 +773,15 @@ def phase_int4() -> dict:
                 f"{out['plain_ms_layers_rows608']:.4f}, bf16 mm "
                 f"{out['bf16_mm_ms_layers_rows608']:.4f}, bound "
                 f"{b608['bound_ms']:.4f} ms ({b608['bound_by']})")
+    # a Jacobi window's pass: the five products at 64 rows
+    for k in ("ms", "plain_ms", "bf16_mm_ms"):
+        out[f"{k}_rows64"] = sum(out[f"{k}_{n}_rows64"] for n in INT4_SHAPES)
+    b64 = _int4_bound(INT4_SHAPES.values(), 64)
+    out["bound_ms_rows64"] = b64["bound_ms"]
+    log("int4", f"five products at 64 rows: kernel {out['ms_rows64']:.4f} "
+                f"ms, plain {out['plain_ms_rows64']:.4f}, bf16 mm "
+                f"{out['bf16_mm_ms_rows64']:.4f}, bound "
+                f"{b64['bound_ms']:.4f} ms ({b64['bound_by']})")
     return out
 
 
@@ -1004,12 +1053,26 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
     # the default, and each mapping of the split forced (the default's
     # numbers under the plain keys)
     plan = flash_encode_segments(cap)
-    for bsz, t, tag in ((16, 64, ""), (1, 100, "_b1_t100")):
+    # B=16 T=64, the batched transcriber's chunk; B=1 T=100, the 2 s fused
+    # chunk; B=8 T=24, the ring-mode pool's tick at -I 0.5 (a 0.4 s gate:
+    # 48 mel frames), its slots at their own positions
+    for bsz, t, tag, at in ((16, 64, "", (2000, 5000)),
+                            (1, 100, "_b1_t100", (2000, 5000)),
+                            (8, 24, "_pool_ring", (40, 300, 2000, 5000))):
         k_all, v_all = rings(bsz)
         kr, vr = k_all[:, li], v_all[:, li]
         q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
-        pos = torch.tensor(_stream_positions((2000, 5000), bsz),
+        pos = torch.tensor(_stream_positions(at, bsz),
                            dtype=torch.int32, device=device)
+        if tag == "_pool_ring":
+            err = (flash_bulk_attention_batched(q, kr, vr, pos, **kw)
+                   - flash_encode_plain(q, kr, vr, pos, **kw)).abs().max()
+            err = err.item()
+            out["max_abs_err_pool_ring"] = err
+            log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:4]}: "
+                             f"max_abs_err {err:.3e} (tol {FLASH_ENC_TOL})")
+            if not err <= FLASH_ENC_TOL:
+                raise AssertionError(f"[flash_enc] pool ring shape err {err}")
         alts = {}   # device ms by mapping
         for sp in (None, True, False):
             def kern():
@@ -1576,7 +1639,8 @@ def _check_stream_launches(phase: str, cfg, launches: dict, enc_calls: int,
                            steps: int) -> None:
     """Exact launch counts of a streaming run: flash encode once per
     encoder layer for each encoder call of T > 1 rows, flash decode once
-    per decoder layer per decode step, the bulk encoder's kernel never."""
+    per decoder layer per sequential decode step (`steps`), the bulk
+    encoder's kernel never."""
     want = {"flash_bulk_attention_batched": cfg.encoder.n_layers * enc_calls,
             "flash_decode": cfg.decoder.n_layers * steps,
             "banded_attention_batched": 0}
@@ -1592,7 +1656,8 @@ def _percentile(xs, q: float) -> float:
 def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     """Drives the streaming path at B=1: VoxStream on an engine built as
     the CLI builds it (buckets (64, 16, 4, 1), adaptive decoder ring, the
-    encoder ring the engine sizes, the CLI's warm-up), one synthetic clip
+    encoder ring the engine sizes, decode_mode "auto", the CLI's warm-up),
+    one synthetic clip
     fed three ways: 1 s at a time at the default 2 s interval, 0.5 s at a
     time at -I 0.5, and 1 s at a time with fused_streaming=False.  Checks
     the exact launch counts of each run and the id agreement of the runs
@@ -1624,6 +1689,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     ring = adaptive_dec_ring(cfg, len(clip))
     engines = {fused: VoxtralEngine(cfg, params, tokenizer=tok,
                                     dec_kv_ring=ring, buckets=(64, 16, 4, 1),
+                                    decode_mode="auto",
                                     fused_streaming=fused)
                for fused in (True, False)}
     eng = engines[True]
@@ -1642,6 +1708,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
             torch.cuda.reset_peak_memory_stats()
         s = VoxStream(engines[fused])
         s.record_ids = True
+        js0 = engines[fused].jacobi_steps
         if interval is not None:
             s.set_processing_interval(interval)
         feed_walls = []
@@ -1656,8 +1723,11 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
         sync()
         wall = time.monotonic() - w0
         launches = {f.__name__: f.launches for f in counters}
+        # Jacobi bursts ("auto" takes bursts of >= 64 rows) run the plain
+        # ring path: only the sequential steps launch flash-decode
+        j_steps = engines[fused].jacobi_steps - js0
         _check_stream_launches("stream", cfg, launches, s.n_enc_chunk_calls,
-                               s.n_decode_steps)
+                               s.n_decode_steps - j_steps)
         vocab = cfg.decoder.vocab_size
         if not s.generated_ids or not all(0 <= t < vocab
                                           for t in s.generated_ids):
@@ -1676,7 +1746,8 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
             "prefill_ms": s.prefill_ms,
             "decode_ms_per_step": ((s.decoder_ms - s.prefill_ms)
                                    / max(s.n_decode_steps, 1)),
-            "decode_steps": s.n_decode_steps, "ids": len(s.generated_ids),
+            "decode_steps": s.n_decode_steps, "jacobi_steps": j_steps,
+            "ids": len(s.generated_ids),
             "text_tokens": s.n_text_tokens,
             "encoder_chunks": s.n_enc_chunk_calls,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
@@ -1802,6 +1873,358 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
                    f"ids; peak {rec['peak_gib']:.2f} GiB; launches {launches}")
     for f in counters:
         f.launches = 0
+    return rec
+
+
+def small_config(compute_dtype: str = "float32"):
+    """A few layers at narrow widths with the full-width head dims the
+    kernels take (encoder 4 x 64, decoder 4q/2kv x 128): the config of the
+    f32 Jacobi check here and of the tests' pool runs on the card."""
+    from voxtral_tpu_torch.config import tiny_config
+
+    c = tiny_config(compute_dtype=compute_dtype, dec_kv_ring=256,
+                    enc_kv_ring=128, enc_window=64, dec_window=256)
+    return c.replace(
+        encoder=dataclasses.replace(c.encoder, dim=256, n_heads=4,
+                                    head_dim=64, n_kv_heads=4, hidden=512),
+        decoder=dataclasses.replace(c.decoder, dim=256, n_heads=4,
+                                    head_dim=128, n_kv_heads=2, hidden=512),
+        adapter_hidden=256)
+
+
+def jacobi_vs_sequential(params, cfg, rows, ada, window: int) -> dict:
+    """One stream's burst over adapter rows [1, T, dim] decoded from a
+    fresh cache sequentially and by Jacobi (window `window`).  Where the
+    ids first differ, the sequential top-2 logit gap there is read; the
+    difference is a near-tie when that gap is below
+    JACOBI_TIE_REL x max |logit|.  Returns the comparison."""
+    import torch
+
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models.jacobi import decode_burst_jacobi
+
+    dev = rows.device
+    dparams, d = params["decoder"], cfg.decoder
+    prev = torch.tensor([32], dtype=torch.int32, device=dev)
+
+    def cache():
+        return dec_mod.KVCache.create(d, cfg.kvdtype, 256, device=dev)
+
+    seq = dec_mod.decode_burst(dparams, cfg, rows, prev, cache(), 0, ada)[0]
+    jac, _, _, _, _, iters = decode_burst_jacobi(dparams, cfg, rows, prev,
+                                                 cache(), 0, ada,
+                                                 window=window)
+    seq, jac = seq[0].tolist(), jac[0].tolist()
+    out = {"t": len(seq), "window": window, "iters": iters,
+           "first_diff": None, "near_tie": None}
+    j = next((i for i, (a, b) in enumerate(zip(seq, jac)) if a != b), None)
+    if j is None:
+        return out
+    # the sequential logits at position j: replay j steps, then one more
+    c = cache()
+    if j:
+        dec_mod.decode_burst(dparams, cfg, rows[:, :j], prev, c, 0, ada)
+    p_j = torch.tensor([seq[j - 1]] if j else [32], dtype=torch.int32,
+                       device=dev)
+    emb = (rows[:, j].float()
+           + dec_mod.quant.embed_rows(dparams, p_j))[:, None]
+    x, _ = dec_mod.decoder_forward(dparams, cfg, emb, c, j, ada)
+    logits = dec_mod.final_logits(dparams, cfg, x)[0, 0]
+    top2 = torch.topk(logits, 2).values
+    gap = (top2[0] - top2[1]).item()
+    scale = logits.abs().max().item()
+    out.update(first_diff=j, gap=gap, scale=scale,
+               near_tie=gap < JACOBI_TIE_REL * scale)
+    return out
+
+
+def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
+    """Jacobi decoding at B=1: the slice's 30 s clip through
+    transcribe_offline_ids on two engines over the same weights,
+    decode_mode "auto" (the CLI's default: Jacobi for the 64-row bursts)
+    and "sequential", with exact launch counts (a Jacobi window of 64
+    rows runs the plain ring path, so only sequential steps launch
+    flash-decode), tokens per iteration, decode ms per token and the share
+    of equal ids.  Then the small f32 config (small_config) on `device`:
+    Jacobi ids equal sequential ids at every position up to a near-tie
+    (jacobi_vs_sequential).  main() runs it at full width on the card; a
+    tiny CPU config rehearses it."""
+    import torch
+
+    from voxtral_tpu_torch.config import SAMPLE_RATE
+    from voxtral_tpu_torch.models.decoder import ada_scales
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.ops.banded_encode import banded_attention_batched
+    from voxtral_tpu_torch.ops.flash_decode import flash_decode
+    from voxtral_tpu_torch.runtime.engine import (
+        VoxtralEngine,
+        adaptive_dec_ring,
+    )
+    from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
+
+    on_gpu = device == "cuda"
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    clip = make_audio(seconds, seed=2)     # phase_slice's 30 s clip
+    ring = adaptive_dec_ring(cfg, len(clip))
+    engines = {m: VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=ring,
+                                buckets=(64, 16, 4, 1), decode_mode=m)
+               for m in ("auto", "sequential")}
+    for eng in engines.values():   # warm: a 64-row burst on each engine
+        transcribe_offline_ids(eng, clip[: 6 * SAMPLE_RATE])
+    runs, ids = {}, {}
+    for mode, eng in engines.items():
+        banded_attention_batched.launches = flash_decode.launches = 0
+        it0, js0 = len(eng.jacobi_iters), eng.jacobi_steps
+        stats: dict = {}
+        ids[mode] = transcribe_offline_ids(eng, clip, timings=stats)
+        steps = stats["decode_steps"]
+        iters = sum(eng.jacobi_iters[it0:])
+        j_steps = eng.jacobi_steps - js0
+        launches = {"banded_attention_batched":
+                    banded_attention_batched.launches,
+                    "flash_decode": flash_decode.launches}
+        want = {"banded_attention_batched": cfg.encoder.n_layers,
+                "flash_decode": cfg.decoder.n_layers * (steps - j_steps)}
+        if launches != want or (mode == "auto") != (j_steps > 0):
+            raise AssertionError(f"[jacobi] {mode}: launches {launches} != "
+                                 f"{want} ({steps} steps, {j_steps} by "
+                                 "Jacobi)")
+        if not all(0 <= t < cfg.decoder.vocab_size for t in ids[mode]):
+            raise AssertionError(f"[jacobi] {mode}: id out of range")
+        rec = {"decode_steps": steps, "jacobi_steps": j_steps,
+               "jacobi_iters": iters,
+               "tokens_per_iter": j_steps / iters if iters else None,
+               "decode_ms_per_token": stats["decode_s"] * 1e3 / max(steps, 1),
+               "ids": len(ids[mode]), "launches": launches}
+        runs[mode] = rec
+        log("jacobi", f"{mode}: {steps} decode steps ({j_steps} in "
+                      f"{len(eng.jacobi_iters) - it0} Jacobi bursts, {iters} "
+                      f"iterations"
+                      + (f", {rec['tokens_per_iter']:.3f} tokens/iter"
+                         if iters else "")
+                      + f"), decode {rec['decode_ms_per_token']:.3f} "
+                      f"ms/token, {len(ids[mode])} ids; launches {launches}")
+    agree = _agreement(ids["auto"], ids["sequential"])
+    first = next((i for i, (a, b) in enumerate(zip(ids["auto"],
+                                                   ids["sequential"]))
+                  if a != b), min(len(ids["auto"]), len(ids["sequential"])))
+    log("jacobi", f"auto vs sequential ids (bf16): {agree:.4f} equal, first "
+                  f"differs at {first}")
+
+    # the f32 check: decoder only, on random adapter rows
+    scfg = small_config("float32")
+    sparams = init_params(scfg, seed=0, device=device)
+    sada = ada_scales(sparams["decoder"], scfg)
+    rng = np.random.default_rng(6)
+    checks = []
+    for t, w in ((64, 64), (96, 32)):
+        rows = torch.from_numpy((rng.standard_normal(
+            (1, t, scfg.decoder.dim)) * 0.5).astype(np.float32)).to(device)
+        res = jacobi_vs_sequential(sparams, scfg, rows, sada, w)
+        checks.append(res)
+        if res["first_diff"] is None:
+            verdict = "ids equal to sequential"
+        else:
+            verdict = (f"first differs at {res['first_diff']}: top-2 gap "
+                       f"{res['gap']:.3e} vs {JACOBI_TIE_REL} x "
+                       f"{res['scale']:.3e} ("
+                       + ("near-tie" if res["near_tie"] else "FAIL") + ")")
+        log("jacobi", f"f32 small config T={t} W={w}: {res['iters']} "
+                      f"iterations; {verdict}")
+        if res["first_diff"] is not None and not res["near_tie"]:
+            raise AssertionError(f"[jacobi] f32 Jacobi ids differ from "
+                                 f"sequential at {res['first_diff']}, not a "
+                                 f"near-tie: {res}")
+    flash_decode.launches = banded_attention_batched.launches = 0
+    if on_gpu:
+        torch.cuda.empty_cache()
+    return {"clip_s": seconds, "runs": runs, "agree": agree,
+            "first_diff": first, "f32_checks": checks,
+            "launches_flash_decode": sum(r["launches"]["flash_decode"]
+                                         for r in runs.values()),
+            "launches_banded": sum(r["launches"]["banded_attention_batched"]
+                                   for r in runs.values())}
+
+
+# bench.py's load rows: the ring pool (8 slots, bf16 encoder ring 1024 so
+# flash-encode runs, decoder ring 896) at -I 0.5, the window pool (32
+# slots, fp8 decoder ring 1024) at -I 2.0
+POOL_RING = dict(tag="pool_ring", n_slots=8, enc_mode="ring", interval_s=0.5,
+                 n_ticks=16, dec_ring=896)
+POOL_WINDOW = dict(tag="pool_window", n_slots=32, enc_mode="window",
+                   interval_s=2.0, n_ticks=8, dec_ring=1024,
+                   dec_kv_dtype="float8_e4m3fn")
+
+
+def _pool_counters():
+    from voxtral_tpu_torch.ops.quant_mm import int4_mm
+    from voxtral_tpu_torch.ops.ring import ring_rows_write
+
+    return _stream_counters() + (int4_mm, ring_rows_write)
+
+
+def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
+               enc_mode: str, interval_s: float, n_ticks: int,
+               dec_ring: int, dec_kv_dtype=None, ref_ids=None) -> dict:
+    """Drives the StreamPool as bench.py's load rows do: `n_slots`
+    continuous slots, each fed its own synthetic audio 1x realtime,
+    `interval_s` per tick with a 0.8x encode gate (the gate fires every
+    tick), two rounds of `n_ticks` ticks, the last slot leaving and
+    joining mid round 1.  Each tick runs its encoder half, a device sync,
+    then its decoder half, so the split is device time.  Checks the exact
+    launch counts (ring mode: flash-encode per encoder layer per encode
+    call, window mode: banded; flash-decode per decoder layer per decoded
+    row, parked rows included) and the ids; reports tick p50/p90, tokens
+    per tick, the split, bursts per tick, peak memory, and slot 0's id
+    agreement with a B=1 VoxStream fed the same audio (ring mode) or with
+    `ref_ids` (window mode, the ring pool's slot 0).  main() runs it at
+    full width on the card; a tiny CPU config rehearses it."""
+    import torch
+
+    from voxtral_tpu_torch.config import SAMPLE_RATE
+    from voxtral_tpu_torch.parallel.scheduler import StreamPool
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    on_gpu = device == "cuda"
+    counters = _pool_counters()
+
+    def sync():
+        if on_gpu:
+            torch.cuda.synchronize()
+
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
+                           buckets=(64, 16, 4, 1))
+    gate = 0.8 * interval_s
+    feed_n = int(interval_s * SAMPLE_RATE)
+    clips = [make_audio(2 * n_ticks * interval_s, seed=200 + i)
+             for i in range(n_slots)]
+
+    def new_pool():
+        pool = StreamPool(engine, n_slots, dec_kv_ring=dec_ring,
+                          enc_mode=enc_mode, dec_kv_dtype=dec_kv_dtype)
+        pool.record_ids = True
+        return pool
+
+    def start(pool, i):
+        pool.set_processing_interval(i, gate)
+        pool.set_continuous(i, True)
+
+    # a short warm pool (allocator, cuBLAS handles for these shapes)
+    warm = new_pool()
+    for i in range(n_slots):
+        start(warm, warm.add_stream())
+    for ti in range(3):
+        for i in range(n_slots):
+            warm.feed(i, clips[i][ti * feed_n: (ti + 1) * feed_n])
+        warm.tick()
+    del warm
+    sync()
+
+    pool = new_pool()
+    slots = []
+    for _ in range(n_slots):
+        slots.append(pool.add_stream())
+        start(pool, slots[-1])
+    for f in counters:
+        f.launches = 0
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    e0, b0, r0 = pool.n_enc_calls, pool.n_bursts, pool.burst_rows
+    ticks, enc_ms, dec_ms, toks, bursts = [], [], [], [], []
+    w0 = time.monotonic()
+    for rnd in range(2):
+        for ti in range(n_ticks):
+            if rnd and ti == n_ticks // 2:      # the last slot churns
+                pool.close(slots[-1])
+                slots[-1] = pool.add_stream()
+                start(pool, slots[-1])
+            at = (rnd * n_ticks + ti) * feed_n
+            gen0 = sum(s.n_generated for s in pool.slots)
+            nb0 = pool.n_bursts
+            t1 = time.monotonic()
+            for i, sidx in enumerate(slots):
+                pool.feed(sidx, clips[i][at: at + feed_n])
+            pool._tick_encoder()
+            sync()
+            t_mid = time.monotonic()
+            pool._tick_decoder()
+            pool._mon_flush()
+            t2 = time.monotonic()
+            ticks.append((t2 - t1) * 1e3)
+            enc_ms.append((t_mid - t1) * 1e3)
+            dec_ms.append((t2 - t_mid) * 1e3)
+            toks.append(sum(s.n_generated for s in pool.slots) - gen0)
+            bursts.append(pool.n_bursts - nb0)
+            for sidx in slots:
+                pool.get(sidx)
+    sync()
+    wall = time.monotonic() - w0
+    launches = {f.__name__: f.launches for f in counters}
+    n_enc, rows = pool.n_enc_calls - e0, pool.burst_rows - r0
+    want = {"flash_bulk_attention_batched":
+            cfg.encoder.n_layers * n_enc * (enc_mode == "ring"),
+            "banded_attention_batched":
+            cfg.encoder.n_layers * n_enc * (enc_mode == "window"),
+            "flash_decode": cfg.decoder.n_layers * rows,
+            "int4_mm": 0, "ring_rows_write": 0}
+    if launches != want or n_enc <= 0 or rows <= 0:
+        raise AssertionError(f"[{tag}] launches {launches} != {want} ({n_enc} "
+                             f"encode calls, {rows} decoded rows)")
+    ids0 = pool.slots[0].generated_ids
+    vocab = cfg.decoder.vocab_size
+    if not ids0 or not all(0 <= t < vocab for s in pool.slots
+                           for t in s.generated_ids):
+        raise AssertionError(f"[{tag}] no ids on slot 0, or ids out of "
+                             "range")
+    if ref_ids is None:   # slot 0's audio through a B=1 VoxStream
+        s = VoxStream(engine)
+        s.record_ids = True
+        s.set_processing_interval(gate)
+        s.set_continuous(True)
+        for at in range(0, 2 * n_ticks * feed_n, feed_n):
+            s.feed(clips[0][at: at + feed_n])
+        ref_ids, ref = s.generated_ids, "b1_voxstream"
+    else:
+        ref = "pool_ring"
+    m = min(len(ids0), len(ref_ids))
+    agree = _agreement(ids0[:m], ref_ids[:m])
+    n_t = len(ticks)
+    rec = {"slots": n_slots, "enc_mode": pool.enc_mode,
+           "interval_s": interval_s, "gate_s": gate, "ticks": n_t,
+           "dec_ring": dec_ring,
+           "dec_kv_dtype": str(pool.dec_cache.k.dtype)[6:],
+           "tick_p50_ms": _percentile(ticks, 50),
+           "tick_p90_ms": _percentile(ticks, 90),
+           "encode_p50_ms": _percentile(enc_ms, 50),
+           "decode_p50_ms": _percentile(dec_ms, 50),
+           "encode_ms_mean": float(np.mean(enc_ms)),
+           "decode_ms_mean": float(np.mean(dec_ms)),
+           "tokens_per_tick": float(np.mean(toks)),
+           "bursts_per_tick": float(np.mean(bursts)),
+           "encode_calls": n_enc, "decoded_rows": rows, "wall_s": wall,
+           "restarts": sum(s.n_restarts for s in pool.slots),
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if on_gpu else 0.0),
+           "pool_gib": pool.memory_ledger()["pool_total"] / 2**30,
+           f"slot0_agree_{ref}": agree, "compared": m,
+           "launches": launches}
+    log(tag, f"{n_slots} slots {pool.enc_mode}, -I {interval_s} (gate "
+             f"{gate:.1f}), {n_t} ticks in {wall:.2f} s: tick p50 "
+             f"{rec['tick_p50_ms']:.1f} p90 {rec['tick_p90_ms']:.1f} ms "
+             f"(encode p50 {rec['encode_p50_ms']:.1f}, decode p50 "
+             f"{rec['decode_p50_ms']:.1f}), {rec['tokens_per_tick']:.1f} "
+             f"tokens and {rec['bursts_per_tick']:.2f} bursts per tick, "
+             f"{rec['restarts']} restarts; peak {rec['peak_gib']:.2f} GiB "
+             f"(pool {rec['pool_gib']:.2f}); slot 0 vs {ref} {agree:.3f} "
+             f"over {m} ids; launches {launches}")
+    for f in counters:
+        f.launches = 0
+    rec["slot0_ids"] = ids0
+    del pool
+    if on_gpu:
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1953,12 +2376,46 @@ def _leaves(tree):
         yield tree
 
 
+# the phases `--only` runs by name (after device and build), in this order
+ONLY_PHASES = ("banded", "flash", "flash_enc", "int4", "rows", "jacobi",
+               "pool_ring", "pool_window")
+
+
+def run_only(names) -> dict:
+    """The named phases alone (a quick check of some phases on the card;
+    the full run is what proves the port)."""
+    from voxtral_tpu_torch.config import full_config
+
+    out, cfg, params = {}, full_config(), None
+    for name in ONLY_PHASES:
+        if name not in names:
+            continue
+        if name in ("jacobi", "pool_ring", "pool_window") and params is None:
+            params = make_params(cfg, "cuda")
+        if name == "jacobi":
+            out[name] = phase_jacobi(cfg, params, "cuda")
+        elif name == "pool_ring":
+            out[name] = phase_pool(cfg, params, "cuda", **POOL_RING)
+        elif name == "pool_window":
+            out[name] = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
+                                   ref_ids=out.get("pool_ring", {}).get(
+                                       "slot0_ids"))
+        else:
+            out[name] = globals()[f"phase_{name}"]()
+    for rec in out.values():
+        rec.pop("slot0_ids", None)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     if not (argv in ([], ["--profile"])
-            or (argv[:1] == ["--int4"] and len(argv) <= 2)):
-        raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT]]")
+            or (argv[:1] == ["--int4"] and len(argv) <= 2)
+            or (argv[:1] == ["--only"] and len(argv) == 2
+                and set(argv[1].split(",")) <= set(ONLY_PHASES))):
+        raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT] "
+                         f"| --only PHASE[,PHASE..] of {ONLY_PHASES}]")
     if argv[1:2] and argv[0] == "--int4":
         # the package of another checkout (an A/B of two trees in one call)
         sys.path.insert(0, argv[1])
@@ -1972,6 +2429,9 @@ def main(argv: list[str]) -> int:
         log("device", f"package {voxtral_tpu_torch.__file__}")
         print(json.dumps({"int4": phase_int4(), "rows": phase_rows(),
                           "total_s": time.monotonic() - t_start}))
+        return 0
+    if argv[:1] == ["--only"]:
+        print(json.dumps(run_only(argv[1].split(","))))
         return 0
     if argv == ["--profile"]:
         from voxtral_tpu_torch.config import full_config
@@ -1999,29 +2459,44 @@ def main(argv: list[str]) -> int:
     bst = phase_bstream(cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
                 for k in st["launches"]}
+    jac = phase_jacobi(cfg, params, "cuda")
+    pr = phase_pool(cfg, params, "cuda", **POOL_RING)
+    pw = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
+                    ref_ids=pr.pop("slot0_ids"))
+    pw.pop("slot0_ids")
     kernels = [
         {"name": "banded_attention", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/banded_attention.cu",
          "replaces": "voxtral_tpu/ops/banded_encode.py:56",
-         "launches": sl["launches"][0] + served["banded_attention_batched"],
+         "launches": (sl["launches"][0] + served["banded_attention_batched"]
+                      + jac["launches_banded"]
+                      + pw["launches"]["banded_attention_batched"]),
+         "launches_pool_window": pw["launches"]["banded_attention_batched"],
          **banded},
         {"name": "flash_decode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
          "launches": (sl["launches"][1] + served["flash_decode"]
-                      + streamed["flash_decode"]),
+                      + streamed["flash_decode"] + jac["launches_flash_decode"]
+                      + pr["launches"]["flash_decode"]
+                      + pw["launches"]["flash_decode"]),
          "launches_by_path": {
              "slice": sl["launches"][1],
              **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
                 for r in sv["rungs"]},
              "stream": st["launches"]["flash_decode"],
-             "bstream": bst["launches"]["flash_decode"]}, **flash},
+             "bstream": bst["launches"]["flash_decode"],
+             "jacobi": jac["launches_flash_decode"],
+             "pool_ring": pr["launches"]["flash_decode"],
+             "pool_window": pw["launches"]["flash_decode"]}, **flash},
         {"name": "flash_encode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
-         "launches": streamed["flash_bulk_attention_batched"],
+         "launches": (streamed["flash_bulk_attention_batched"]
+                      + pr["launches"]["flash_bulk_attention_batched"]),
          "launches_stream": st["launches"]["flash_bulk_attention_batched"],
          "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
+         "launches_pool_ring": pr["launches"]["flash_bulk_attention_batched"],
          **flash_enc},
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
@@ -2039,14 +2514,19 @@ def main(argv: list[str]) -> int:
     if idle:   # every rung decodes through it, the fp8 ones included
         raise AssertionError(f"flash_decode: no launch on {idle}")
     if not (kernels[2]["launches_stream"] > 0
-            and kernels[2]["launches_bstream"] > 0):
-        raise AssertionError("flash_encode: no launch on stream or bstream")
+            and kernels[2]["launches_bstream"] > 0
+            and kernels[2]["launches_pool_ring"] > 0):
+        raise AssertionError("flash_encode: no launch on stream, bstream or "
+                             "pool_ring")
+    if not kernels[0]["launches_pool_window"] > 0:
+        raise AssertionError("banded_attention: no launch on pool_window")
     total_s = time.monotonic() - t_start
     log("done", f"all phases in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
                       "step_rel_err": sl["step_rel_err"],
                       "serve": sv["rungs"], "stream": st,
-                      "bstream": bst, "total_s": total_s}))
+                      "bstream": bst, "jacobi": jac, "pool_ring": pr,
+                      "pool_window": pw, "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -825,3 +825,117 @@ def test_flash_encode_split_mappings_bitwise_equal(dev, bsz, t, cap, pos,
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], outs[2])
+
+
+# --- Jacobi decoding and the StreamPool on the card -------------------------
+
+def test_banded_kernel_at_the_window_pool_shape(dev):
+    """#1 at the window-mode pool's tick: B=32 slots of 752 context rows +
+    100 new ones, each slot hiding its own stale context (kv_lo 0 to
+    752), against the plain version one slot at a time."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    kv_lo = [(0, 300, 752, 0, 100)[i % 5] for i in range(32)]
+    q, k, v = (_randn(gen, (32, 852, 32, 64), torch.bfloat16, dev)
+               for _ in range(3))
+    lo = torch.tensor(kv_lo, dtype=torch.int32, device=dev)
+    got = banded_attention_batched(q, k, v, lo, window=750,
+                                   out_dtype=torch.float32)
+    want = torch.cat([banded_attention_plain(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], lo[i:i + 1], window=750,
+        out_dtype=torch.float32) for i in range(32)])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2
+    for i, first in enumerate(kv_lo):
+        assert not got[i, :first].any()
+
+
+@pytest.mark.parametrize("t,window", [(64, 64), (96, 32)])
+def test_jacobi_equals_sequential_f32(dev, t, window):
+    """Jacobi against the sequential burst in f32 on the card (the
+    sequential steps through flash-decode, the Jacobi windows through the
+    plain ring path): equal ids, or a first difference at a near-tie
+    (chip_smoke.jacobi_vs_sequential, JACOBI_TIE_REL)."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch.models.decoder import ada_scales
+    from voxtral_tpu_torch.models.params import init_params
+
+    cfg = cs.small_config("float32")
+    params = init_params(cfg, seed=0, device=dev)
+    rows = (torch.randn((1, t, cfg.decoder.dim),
+                        generator=torch.Generator().manual_seed(t)) * 0.5)
+    flash_decode.launches = 0
+    res = cs.jacobi_vs_sequential(params, cfg, rows.to(dev),
+                                  ada_scales(params["decoder"], cfg), window)
+    assert flash_decode.launches >= cfg.decoder.n_layers * t
+    assert res["iters"] >= t // window
+    assert res["first_diff"] is None or res["near_tie"], res
+
+
+def _pool_ticks(engine, mode, audios, ticks):
+    """A 4-slot pool fed 0.5 s per slot per tick: each tick's new ids per
+    slot, and the pool."""
+    from voxtral_tpu_torch.parallel.scheduler import StreamPool
+
+    pool = StreamPool(engine, 4, dec_kv_ring=256, enc_mode=mode)
+    pool.record_ids = True
+    for _ in audios:
+        i = pool.add_stream()
+        pool.set_processing_interval(i, 0.4)
+        pool.set_continuous(i, True)
+    out = []
+    for ti in range(ticks):
+        for i, a in enumerate(audios):
+            pool.feed(i, a[ti * 8000: (ti + 1) * 8000])
+        seen = [len(s.generated_ids) for s in pool.slots]
+        pool.tick()
+        out.append([s.generated_ids[n:] for s, n in zip(pool.slots, seen)])
+    return out, pool
+
+
+@pytest.mark.parametrize("mode", ["ring", "window"])
+def test_pool_on_the_card_against_the_cpu(dev, mode):
+    """4-slot pools at a small bf16 config (the kernels' head dims): ring
+    mode launches flash-encode and flash-decode, window mode banded and
+    flash-decode; the adapter rows the encoder wrote agree with the same
+    pool's on the CPU (the plain versions) within 5e-2 of their largest
+    magnitude, every id is in range, and each tick's ids equal the CPU
+    run's in ring mode.  In window mode they agree on at least half per
+    slot: the banded kernel and its plain version round the probabilities
+    to bf16 against different maxima (BANDED_TOL), and on these random
+    weights that flips a near-tie of slot 3's first ids on the card."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = cs.small_config("bfloat16")
+    tok = cs.byte_tokenizer(cfg.decoder.vocab_size)
+    audios = [cs.make_audio(4.0, seed=300 + i) for i in range(4)]
+    params = init_params(cfg, seed=0, device=dev)
+    cpu = {g: {k: (v.cpu() if isinstance(v, torch.Tensor)
+                   else {kk: vv.cpu() for kk, vv in v.items()})
+               for k, v in grp.items()} for g, grp in params.items()}
+    kw = dict(tokenizer=tok, buckets=(16, 4, 1), enc_kv_ring=128,
+              dec_kv_ring=256)
+    for fn in (flash_bulk_attention_batched, banded_attention_batched,
+               flash_decode):
+        fn.launches = 0
+    got, gpool = _pool_ticks(VoxtralEngine(cfg, params, **kw), mode, audios,
+                             8)
+    torch.cuda.synchronize()
+    enc = (flash_bulk_attention_batched if mode == "ring"
+           else banded_attention_batched)
+    assert enc.launches > 0 and flash_decode.launches > 0
+    want, cpool = _pool_ticks(VoxtralEngine(cfg, cpu, **kw), mode, audios, 8)
+    rows, ref = gpool.row_ring.cpu(), cpool.row_ring
+    assert ((rows - ref).abs().max() / ref.abs().max()).item() <= 5e-2
+    assert sum(len(ids) for tick in got for ids in tick) > 20
+    assert all(0 <= t < cfg.decoder.vocab_size
+               for tick in got for ids in tick for t in ids)
+    if mode == "ring":
+        assert got == want
+    for i in range(4):
+        a, b = gpool.slots[i].generated_ids, cpool.slots[i].generated_ids
+        assert a and b
+        assert sum(x == y for x, y in zip(a, b)) / max(len(a), len(b)) \
+            >= 0.5, (i, a, b)

@@ -140,13 +140,71 @@ def test_cli_quantized_prints_the_jax_transcript(model_dir, capsys, flag,
     assert out.out == want + "\n"
 
 
-@pytest.mark.parametrize("extra", [
-    ["-i", "x.wav", "--bulk-encode", "--jacobi"],
-    ["-i", "x.wav", "--jacobi"],
-    ["--stdin", "--jacobi", "--device", "cpu"]])
-def test_cli_unported_modes_exit_2(model_dir, capsys, extra):
-    assert cli.main(["-d", str(model_dir)] + extra, cfg=tiny_config()) == 2
-    assert "not ported" in capsys.readouterr().err
+# the JAX CLI's decode mode for each of its flags (voxtral_tpu/cli.py)
+JAX_MODE = {"--jacobi": "jacobi", "--no-jacobi": "sequential", None: "auto"}
+_JAX_OUT: dict = {}
+
+
+def _long_clip(model_dir):
+    """A 5 s clip: the offline path then decodes a 64-row burst, which
+    "auto" takes as a Jacobi burst."""
+    path = model_dir / "clip5.wav"
+    if not path.exists():
+        write_wav(str(path), make_audio(5.0, seed=32))
+    return str(path)
+
+
+def _jax_cli_out(model_dir, wav, source, flag):
+    """What the JAX CLI prints for `wav` with this decode flag: -i
+    --bulk-encode through its engine and transcribe_offline, -i and
+    --stdin (WAV bytes) through its stream and _drain."""
+    from voxtral_tpu.io.wav import load_wav
+
+    key = (wav, source == "bulk", flag)
+    if key not in _JAX_OUT:
+        samples = load_wav(wav)
+        if source == "bulk":
+            jcfg = jax_tiny()
+            jengine = jeng.VoxtralEngine(
+                jcfg, jax_load(str(model_dir), jcfg),
+                tokenizer=JTok.load(str(model_dir / "tekken.json")),
+                buckets=(64, 16, 4, 1), enc_kv_ring=128,
+                dec_kv_ring=jeng.adaptive_dec_ring(jcfg, len(samples)),
+                decode_mode=JAX_MODE[flag])
+            _JAX_OUT[key] = joff.transcribe_offline(jengine, samples) + "\n"
+        else:
+            _JAX_OUT[key] = _jax_stream_out(
+                model_dir, samples, _second_feeds(len(samples)),
+                decode_mode=JAX_MODE[flag])
+    return _JAX_OUT[key]
+
+
+@pytest.mark.parametrize("flag", ["--jacobi", "--no-jacobi", None],
+                         ids=["jacobi", "no-jacobi", "auto"])
+@pytest.mark.parametrize("source", ["bulk", "stream", "stdin"])
+def test_cli_decode_modes_print_the_jax_transcript(model_dir, capsys,
+                                                   monkeypatch, source, flag):
+    """--jacobi, --no-jacobi and the default "auto", offline with and
+    without --bulk-encode and on --stdin (WAV bytes): stdout equals what
+    the JAX CLI prints with the same flag, and stderr names the mode."""
+    import types
+
+    wav = _long_clip(model_dir)
+    want = _jax_cli_out(model_dir, wav, source, flag)
+    assert want.strip()
+    argv = ["-d", str(model_dir), "--device", "cpu"] + ([flag] if flag
+                                                        else [])
+    if source == "stdin":
+        monkeypatch.setattr(sys, "stdin", types.SimpleNamespace(
+            buffer=io.BytesIO(open(wav, "rb").read())))
+        argv.append("--stdin")
+    else:
+        argv += ["-i", wav] + (["--bulk-encode"] if source == "bulk" else [])
+    rc = cli.main(argv, cfg=tiny_config(**CLI_CFG))
+    out = capsys.readouterr()
+    assert rc == 0
+    assert out.out == want
+    assert f"Decoding: greedy, {JAX_MODE[flag]}" in out.err
 
 
 def test_cli_refuses_without_cuda(model_dir, capsys, monkeypatch):
@@ -165,10 +223,11 @@ def test_cli_refuses_without_cuda(model_dir, capsys, monkeypatch):
 # --- the streaming modes ----------------------------------------------------
 
 def _jax_stream_out(model_dir, samples, feeds, *, continuous=False,
-                    interval=None, alt=None, delay=None):
+                    interval=None, alt=None, delay=None,
+                    decode_mode="auto"):
     """What the JAX CLI prints for a stream fed `feeds` (sample counts):
-    its engine built as its CLI builds it, sequential decoding, and its
-    own `_drain`."""
+    its engine built as its CLI builds it (decode mode "auto" unless its
+    flags say otherwise), and its own `_drain`."""
     import contextlib
     import io
 
@@ -181,7 +240,7 @@ def _jax_stream_out(model_dir, samples, feeds, *, continuous=False,
     eng = jeng.VoxtralEngine(
         jcfg, jax_load(str(model_dir), jcfg),
         tokenizer=JTok.load(str(model_dir / "tekken.json")),
-        dec_kv_ring=ring, buckets=(64, 16, 4, 1), decode_mode="sequential")
+        dec_kv_ring=ring, buckets=(64, 16, 4, 1), decode_mode=decode_mode)
     if delay is not None:
         eng.set_delay(delay)
     s = JStream(eng)

@@ -154,3 +154,78 @@ def test_stream_and_bstream_phases_on_cpu(counted_kernels):
         "flash_decode": cfg.decoder.n_layers * bst["decode_steps"],
         "banded_attention_batched": 0}
     assert bst["compared"] > 0 and 0.0 <= bst["stream0_agree_b1"] <= 1.0
+
+
+def test_jacobi_phase_on_cpu(counted_kernels):
+    """The jacobi phase at tiny size: "auto" takes Jacobi for the 64-row
+    bursts (which launch no flash-decode), the counts are exact, f32 ids
+    equal the sequential ones, and the small config's check passes.  The
+    decoder window (256) lets the clip's adaptive ring hold every position,
+    as the full config's does: a 64-row window written into a ring that
+    wraps within the attention window would overwrite keys its own first
+    rows attend."""
+    cfg = tiny_config(enc_kv_ring=128, dec_window=256, dec_kv_ring=256)
+    params = cs.make_params(cfg, "cpu")
+    jac = cs.phase_jacobi(cfg, params, "cpu", seconds=8.0)
+    auto, seq = jac["runs"]["auto"], jac["runs"]["sequential"]
+    assert auto["jacobi_steps"] >= 64 and seq["jacobi_steps"] == 0
+    assert auto["jacobi_iters"] >= auto["jacobi_steps"] // 64
+    assert auto["launches"]["flash_decode"] == cfg.decoder.n_layers * (
+        auto["decode_steps"] - auto["jacobi_steps"])
+    assert jac["agree"] == 1.0 and auto["ids"] == seq["ids"]
+    assert [c["first_diff"] for c in jac["f32_checks"]] == [None, None]
+    assert jac["launches_banded"] == 2 * cfg.encoder.n_layers
+
+
+def test_jacobi_near_tie_rule():
+    """jacobi_vs_sequential reads the sequential top-2 gap where the ids
+    part: equal ids pass, and a real difference is no near-tie."""
+    cfg = cs.small_config("float32")
+    params = cs.make_params(cfg, "cpu")
+    from voxtral_tpu_torch.models import jacobi
+    from voxtral_tpu_torch.models.decoder import ada_scales
+
+    ada = ada_scales(params["decoder"], cfg)
+    rows = torch.randn((1, 16, cfg.decoder.dim),
+                       generator=torch.Generator().manual_seed(1))
+    assert cs.jacobi_vs_sequential(params, cfg, rows, ada, 8)[
+        "first_diff"] is None
+    # the Jacobi side decodes with the final norm negated: its argmaxes
+    # differ from the first position on, far from a tie
+    bumped = dict(params["decoder"])
+    bumped["final_norm"] = -bumped["final_norm"]
+    real = jacobi.decode_burst_jacobi
+    jacobi.decode_burst_jacobi = lambda p, *a, **kw: real(bumped, *a, **kw)
+    try:
+        res = cs.jacobi_vs_sequential(params, cfg, rows, ada, 8)
+    finally:
+        jacobi.decode_burst_jacobi = real
+    assert res["first_diff"] == 0 and res["near_tie"] is False
+    assert res["gap"] > 0
+
+
+def test_pool_phases_on_cpu(counted_kernels):
+    """pool_ring and pool_window at tiny size: exact launch counts (the
+    flash-encode stand-in per encoder layer per ring-mode encode call, the
+    banded one per window-mode call, flash-decode per decoded row), the
+    tick table, and slot 0 against the B=1 VoxStream (f32: equal)."""
+    cfg = tiny_config(enc_kv_ring=128)
+    params = cs.make_params(cfg, "cpu")
+    pr = cs.phase_pool(cfg, params, "cpu", "pool_ring", 3, "ring", 0.5, 6,
+                       dec_ring=64)
+    assert pr["enc_mode"] == "ring" and pr["ticks"] == 12
+    assert pr["launches"]["flash_bulk_attention_batched"] == \
+        cfg.encoder.n_layers * pr["encode_calls"] > 0
+    assert pr["launches"]["flash_decode"] == \
+        cfg.decoder.n_layers * pr["decoded_rows"] > 0
+    assert pr["launches"]["banded_attention_batched"] == 0
+    assert pr["slot0_agree_b1_voxstream"] == 1.0 and pr["compared"] > 0
+    assert pr["tokens_per_tick"] > 0 and pr["bursts_per_tick"] > 0
+    pw = cs.phase_pool(cfg, params, "cpu", "pool_window", 4, "window", 1.0,
+                       3, dec_ring=64, dec_kv_dtype="float8_e4m3fn",
+                       ref_ids=pr.pop("slot0_ids"))
+    assert pw["enc_mode"] == "window" and pw["dec_kv_dtype"] == "float8_e4m3fn"
+    assert pw["launches"]["banded_attention_batched"] == \
+        cfg.encoder.n_layers * pw["encode_calls"] > 0
+    assert pw["launches"]["flash_bulk_attention_batched"] == 0
+    assert 0.0 <= pw["slot0_agree_pool_ring"] <= 1.0

@@ -4,7 +4,8 @@
   python -m voxtral_tpu_torch.cli -d <model_dir>
       (-i file.wav [--bulk-encode] | --stdin | --from-mic)
       [-I seconds] [--alt cutoff] [--delay ms] [--monitor] [--debug]
-      [--silent] [--int8 | --int4] [--device cuda|cpu] [--profile DIR]
+      [--silent] [--int8 | --int4] [--jacobi | --no-jacobi]
+      [--device cuda|cpu] [--profile DIR]
 
 The model dir holds the reference's consolidated.safetensors and
 tekken.json.  Tokens stream to stdout as they are generated; metrics go to
@@ -17,10 +18,11 @@ The weights load onto the GPU (`--device cuda`, the default); with no CUDA
 device the CLI refuses unless it is given `--device cpu`, where every
 kernel runs its plain PyTorch version.  --int8 and --int4 quantize the
 decoder's weights (models/quant.py), and VOXTRAL_KV_DTYPE=float8_e4m3fn
-stores the KV rings in fp8.  Decoding is sequential greedy: the JAX CLI's
-default "auto" mode takes Jacobi bursts, which are not ported, and
---jacobi exits with status 2.  --profile DIR writes a torch.profiler trace
-(Chrome JSON) of the transcription into DIR.  The JAX CLI's
+stores the KV rings in fp8.  Decoding is greedy in the JAX CLI's default
+"auto" mode: Jacobi fixpoint bursts (models/jacobi.py) for bursts of 64
+rows or more, sequential steps for shorter ones; --jacobi takes Jacobi for
+every burst and --no-jacobi none.  --profile DIR writes a torch.profiler
+trace (Chrome JSON) of the transcription into DIR.  The JAX CLI's
 --compile-cache DIR and --no-compile-cache are accepted and change nothing:
 the port keeps no XLA compile cache (its CUDA kernels are built once per
 source set, ops/cuda_lib.py).
@@ -37,8 +39,6 @@ import time
 
 import numpy as np
 import torch
-
-_NOT_PORTED = {"jacobi": "--jacobi"}
 
 # mic capture commands, in order of preference (main.c mic mode analog)
 MIC_COMMANDS = (
@@ -123,9 +123,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--silent", action="store_true")
     p.add_argument("--bulk-encode", action="store_true",
                    help="offline -i only: whole-clip no-ring batch encoder")
-    p.add_argument("--jacobi", action="store_true")
+    p.add_argument("--jacobi", action="store_true",
+                   help="Jacobi fixpoint decoding for every burst (greedy "
+                        "tokens up to bf16 near-ties); the default, auto, "
+                        "takes it for bursts of 64 rows or more")
     p.add_argument("--no-jacobi", action="store_true",
-                   help="sequential decoding (the port's only mode)")
+                   help="sequential decoding for every burst")
     p.add_argument("--int8", action="store_true",
                    help="int8 weight-only decoder")
     p.add_argument("--int4", action="store_true",
@@ -157,10 +160,6 @@ def main(argv=None, cfg=None) -> int:
         if given:
             print(f"{flag}: nothing to do, the PyTorch port has no XLA "
                   "compile cache", file=sys.stderr)
-    for attr, flag in _NOT_PORTED.items():
-        if getattr(args, attr):
-            print(f"{flag}: not ported yet (ROADMAP.md)", file=sys.stderr)
-            return 2
     if not (args.input or args.stdin or args.from_mic):
         p.error("one of -i, --stdin, --from-mic is required")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -215,6 +214,9 @@ def main(argv=None, cfg=None) -> int:
     # the 2 s default), so the 256-bucket is not needed
     engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
                            buckets=(64, 16, 4, 1),
+                           decode_mode=("jacobi" if args.jacobi
+                                        else "sequential" if args.no_jacobi
+                                        else "auto"),
                            quantize="int4" if args.int4 else args.int8)
     if args.delay is not None:
         engine.set_delay(args.delay)
@@ -228,8 +230,11 @@ def main(argv=None, cfg=None) -> int:
               f"{engine.dec_kv_ring}) + "
               f"{led['enc_cache_bytes_per_stream'] / 2**20:.0f} MiB/stream "
               f"(enc ring {engine.enc_kv_ring})", file=sys.stderr)
-        print("Decoding: sequential greedy (Jacobi bursts are not ported)",
-              file=sys.stderr)
+        mode = {"auto": f"auto (Jacobi for bursts of >= "
+                        f"{engine.jacobi_window} rows, sequential below)",
+                "jacobi": f"jacobi (window {engine.jacobi_window})",
+                "sequential": "sequential"}[engine.decode_mode]
+        print(f"Decoding: greedy, {mode}", file=sys.stderr)
 
     if args.input and args.bulk_encode:
         from .runtime.offline import transcribe_offline

@@ -7,6 +7,11 @@ plain [B, T, KH, D] activations and attention is the static-band op of
 ops/banded_encode.py (the hand-written CUDA kernel on the GPU).  The conv
 stem stays two im2col matmuls, as in the JAX package.
 
+`window_encode_chunk` is the StreamPool's window-recompute streaming mode
+(parallel/scheduler.py): the same no-ring transformer over a per-stream
+context window, each stream's stale leading context hidden by its own
+`kv_lo`.
+
 Everything is batched-first ([B, ...], B=1 for one clip).
 """
 
@@ -93,3 +98,61 @@ def bulk_encode_clip(
     )
     y = bulk_transformer(enc_params, cfg, x)
     return adapter_forward(adapter_params, cfg, y).float()
+
+
+# the batched whole-clip encode under the JAX package's name: the port's
+# bulk_encode_clip is batched-first already (one banded launch per layer
+# for all clips)
+bulk_encode_clips = bulk_encode_clip
+
+
+def window_pad(cfg: VoxtralConfig, extra: int = 0) -> int:
+    """Rows of encoder-INPUT context the window-recompute mode keeps
+    (8-aligned).  The minimum (extra=0) is window - 1: every kept query
+    sees its full layer-1 window.  Layer l reaches l * (window - 1) inputs
+    back, so the recompute truncates deeper layers' receptive fields; each
+    `extra` window of context makes it exact one attention hop deeper
+    (through layer 1 + extra)."""
+    return -(-((1 + extra) * (cfg.encoder.window - 1)) // 8) * 8
+
+
+@torch.no_grad()
+def window_encode_chunk(
+    enc_params: PyTree,
+    adapter_params: PyTree,
+    cfg: VoxtralConfig,
+    mel: torch.Tensor,        # [B, Q, 128], Q % 8 == 0
+    mel_tail: torch.Tensor,   # [B, 2, 128]
+    c0_tail: torch.Tensor,    # [B, 2, dim]
+    xwin: torch.Tensor,       # [B, Wp, dim] last Wp conv outputs
+    n_ctx: torch.Tensor,      # int [B]: valid rows at the END of xwin
+):
+    """Window-RECOMPUTE streaming encode: instead of a per-stream encoder
+    KV ring, keep only the last Wp encoder INPUTS per stream and re-run the
+    transformer over [context + chunk] each call, keeping the chunk's
+    outputs.  Each stream's leading stale context is hidden by its own
+    kv_lo = max(Wp - n_ctx, 0), so one batched banded call per layer
+    serves every stream.
+
+    The block-streaming APPROXIMATION of the JAX function: kept queries
+    see their full layer-1 window, deeper layers see truncated context
+    (size xwin with window_pad(cfg, extra=k) to push the truncation k hops
+    deeper).  RoPE is relative, so the position shift adds nothing beyond
+    reduction order.
+
+    Returns (rows [B, Q//8, 3072] f32, new_mel_tail, new_c0_tail,
+    new_xwin, new_n_ctx)."""
+    if mel.dim() != 3 or mel.shape[1] % 8:
+        raise ValueError(f"mel must be [B, Q, 128] with Q % 8 == 0, got "
+                         f"{tuple(mel.shape)}")
+    wp = xwin.shape[1]
+    c1, new_mel_tail, new_c0_tail = _conv_stem(enc_params, cfg, mel,
+                                               mel_tail, c0_tail)
+    t = c1.shape[1]
+    x_full = torch.cat([xwin, c1.to(xwin.dtype)], dim=1)   # [B, Wp + t, dim]
+    n_ctx = n_ctx.to(device=mel.device, dtype=torch.int32)
+    kv_lo = torch.clamp(wp - n_ctx, min=0)
+    y = bulk_transformer(enc_params, cfg, x_full, kv_lo)[:, wp:]
+    rows = adapter_forward(adapter_params, cfg, y).float()
+    return (rows, new_mel_tail, new_c0_tail, x_full[:, t:],
+            torch.clamp(n_ctx + t, max=wp))

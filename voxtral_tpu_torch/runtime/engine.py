@@ -15,7 +15,12 @@ go, and `warmup` builds the kernels and runs each shape once.
 `quantize=` ("int8"/True or "int4") quantizes the decoder only, as the JAX
 engine does (models/quant.py); the encoder stays exact.
 
-Not ported yet (ROADMAP.md): Jacobi decoding, encoder weight paging
+`decode_mode` picks the decode of each burst as the JAX engine does:
+"sequential" (the default), "jacobi" (models/jacobi.py) or "auto" (Jacobi
+for bursts of at least `jacobi_window` rows).  Jacobi runs one stream: at
+B > 1 "auto" decodes sequentially and "jacobi" raises.
+
+Not ported (ROADMAP.md): encoder weight paging
 (`offload_encoder`/`restore_encoder`).
 """
 
@@ -85,14 +90,13 @@ class VoxtralEngine:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         dec_kv_ring: Optional[int] = None,
         enc_kv_ring: Optional[int] = None,
-        decode_mode: str = "sequential",
+        decode_mode: str = "sequential",   # | "jacobi" | "auto"
+        jacobi_window: int = 64,
         fused_streaming: bool = True,      # one-call audio side for aligned chunks
         quantize: bool | str = False,      # False | True/"int8" | "int4"
     ):
-        if decode_mode != "sequential":
-            raise NotImplementedError(
-                f"decode_mode={decode_mode!r}: Jacobi decoding is not ported "
-                "yet (ROADMAP.md queue 1, models/jacobi.py)")
+        if decode_mode not in ("sequential", "jacobi", "auto"):
+            raise ValueError(f"decode_mode {decode_mode!r}")
         # float32 products stay float32 on the card (the reference
         # numerics); both flags are process-wide torch settings
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,6 +111,11 @@ class VoxtralEngine:
         self.params = params
         self.tokenizer = tokenizer
         self.decode_mode = decode_mode
+        self.jacobi_window = jacobi_window
+        # per Jacobi burst: its iteration count; and the rows decoded by
+        # Jacobi bursts (their windows launch no flash-decode)
+        self.jacobi_iters: list[int] = []
+        self.jacobi_steps = 0
         self.buckets = tuple(sorted(buckets, reverse=True))
         if self.buckets[-1] != 1:
             raise ValueError(f"buckets must include 1, got {self.buckets}")
@@ -293,9 +302,38 @@ class VoxtralEngine:
     def decode_burst(self, adapter_chunk, prev_token, cache: KVCache, pos0,
                      n_alt: int = 0):
         """Greedy burst: (tokens [B, T], alt_ids, alt_probs, best_probs,
-        cache), all left on the device; the cache is updated in place."""
+        cache), all left on the device; the cache is updated in place.
+
+        The burst's decode follows `decode_mode`: "auto" takes Jacobi for
+        bursts of at least `jacobi_window` rows at B=1 (sequential at
+        B > 1, and for shorter bursts); "jacobi" takes it for every burst
+        and raises ValueError at B > 1.  A Jacobi burst's window is the
+        largest divisor of T within `jacobi_window`.  Both give the greedy
+        tokens (up to near-tied logits in bf16)."""
+        chunk = self._tensor(adapter_chunk)
+        bsz, t = chunk.shape[:2]
+        mode = self.decode_mode
+        if mode == "auto":
+            mode = ("jacobi" if t >= self.jacobi_window and bsz == 1
+                    else "sequential")
+        if mode == "jacobi":
+            from ..models.jacobi import decode_burst_jacobi
+
+            if bsz != 1:
+                raise ValueError(f"decode_mode 'jacobi' decodes one stream, "
+                                 f"got a burst of B={bsz}")
+            w = min(self.jacobi_window, t)
+            while t % w:
+                w -= 1
+            toks, ai, ap, bp, cache, iters = decode_burst_jacobi(
+                self.params["decoder"], self.cfg, chunk,
+                torch.as_tensor(prev_token), cache, pos0, self.ada(),
+                n_alt=n_alt, window=w)
+            self.jacobi_iters.append(iters)
+            self.jacobi_steps += t
+            return toks, ai, ap, bp, cache
         return dec_mod.decode_burst(
-            self.params["decoder"], self.cfg, self._tensor(adapter_chunk),
+            self.params["decoder"], self.cfg, chunk,
             torch.as_tensor(prev_token), cache, pos0, self.ada(), n_alt=n_alt,
         )
 
@@ -306,8 +344,10 @@ class VoxtralEngine:
         shape once, with the JAX engine's progress lines (there it compiles
         them; here it settles cuBLAS handles and the allocator).  With
         `interval_s`, also the exact-size fused-encode and decode-burst
-        shapes of the steady streaming state at that interval.  Returns
-        the seconds taken."""
+        shapes of the steady streaming state at that interval.  The bursts
+        go through `decode_burst`, so under "auto" or "jacobi" the bucket
+        shapes it sends to Jacobi run as Jacobi bursts, as in the JAX
+        warm-up.  Returns the seconds taken."""
         from ..models.fused_stream import ConvTails
 
         cfg, dev = self.cfg, self.device
