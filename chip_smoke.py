@@ -82,9 +82,26 @@ script exits non-zero:
                1024, -I 2.0, 2 rounds of 8 ticks, the same churn (banded
                attention at B=32 with per-slot kv_lo); slot 0 against the
                ring pool's
+ 15. mesh     multi-device serving with ranks spawned on this one card,
+               joined over gloo (NCCL takes one card per rank): (a) the
+               full-width serve pipeline (bulk encode, batched prefill,
+               decode bursts) of 4 x 10 s clips at dp 1 x tp 2 against the
+               same clips unsharded: exact launches per rank (banded at 16
+               heads, flash-decode at 16q/4kv), the prefill's last hidden
+               state against an f32 witness of the same clips within
+               MESH_HIDDEN_REL_TOL and MESH_WITNESS_FACTOR x the tp-1
+               run's error, ids' agreement printed;
+               (b) small_config at dp 2 x tp 2: f32 serving and ring pool
+               ids exactly equal to the unsharded runs', then the pool in
+               bf16 through flash-encode; (c) kernels #1, #4, #7 at one tp
+               rank's serve shapes against plain, their graph-replay times,
+               bounds and SDPA's, and flash-decode at the two pool shapes
+ 16. mel_device audio/mel_device.py on B=16 x 30 s clips against the host
+               mel (3e-4), both times
 
 The line before the last is a JSON object with one entry per kernel (and
-the slice, serve, stream, bstream, jacobi and pool tables); the last line is
+the slice, serve, stream, bstream, jacobi, pool, mesh and mel_device
+tables); the last line is
 {"ok": true, "device": {...}}.  `--profile` instead prints
 torch.profiler's breakdown of the serve pipeline at B=16 (encode,
 prefill, decode per rung) and of the streaming paths at steady state (a
@@ -467,13 +484,15 @@ def _flash_live(pos_l, cap: int, window: int) -> int:
     return sum(min(p + 1, window, cap) for p in pos_l)
 
 
-def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int) -> dict:
+def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int,
+                 h: int = 32, kh: int = 8) -> dict:
     """Kernel (B) at one shape of the decode path (bf16 q and output, f32
-    rows, a `rdt` ring, layer 25 of 26): CUDA-event and device (graph
-    replay) times with the row write (write+attend, the path's mode) and
-    without it (attend), the plain version's, SDPA's over the layer's
-    ring with the logical-position mask for bf16 rings (none takes fp8),
-    and the bound."""
+    rows, a `rdt` ring, layer 25 of 26, h query and kh KV heads: the full
+    width's, or one tp rank's): CUDA-event and device (graph replay) times
+    with the row write (write+attend, the path's mode) and without it
+    (attend), the plain version's, SDPA's over the layer's ring with the
+    logical-position mask for bf16 rings (none takes fp8), and the
+    bound."""
     import torch
 
     from voxtral_tpu_torch.ops.flash_decode import (
@@ -482,7 +501,7 @@ def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int) -> dict:
     )
     from voxtral_tpu_torch.ops.ring import slot_logical_positions
 
-    h, kh, d, n_layers = 32, 8, 128, 26
+    d, n_layers = 128, 26
     li = n_layers - 1
     shape = (bsz, n_layers, kh, cap, d)
     k_all = _randn(gen, shape, rdt)
@@ -1274,19 +1293,25 @@ def make_params(cfg, device: str):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Routes the decoder's int4 products and decode-step row writes to
-    their plain PyTorch versions for the duration (the reference side of
-    a kernel-path check; attn_impl="xla" keeps flash-decode off)."""
+    """Routes the decoder's int4 products and decode-step row writes, and
+    the bulk encoder's banded attention, to their plain PyTorch versions
+    for the duration (the reference side of a kernel-path check;
+    attn_impl="xla" keeps flash-decode and flash-encode off)."""
+    from voxtral_tpu_torch.models import bulk_encode as bulk_mod
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.ops import quant_mm, ring
+    from voxtral_tpu_torch.ops.banded_encode import banded_attention_plain
 
-    saved = quant_mm.int4_mm, dec_mod.ring_rows_write
+    saved = (quant_mm.int4_mm, dec_mod.ring_rows_write,
+             bulk_mod.banded_attention_batched)
     quant_mm.int4_mm = quant_mm.int4_mm_plain
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
+    bulk_mod.banded_attention_batched = banded_attention_plain
     try:
         yield
     finally:
-        quant_mm.int4_mm, dec_mod.ring_rows_write = saved
+        (quant_mm.int4_mm, dec_mod.ring_rows_write,
+         bulk_mod.banded_attention_batched) = saved
 
 
 def _agreement(a, b) -> float:
@@ -1354,10 +1379,11 @@ SERVE_ONCE = ("int8", "int4deq")
 def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                 dec_ring: int, rungs=SERVE_RUNGS,
                 extra_steps: int = 32) -> dict:
-    """The batched serving pipeline (bench.py run_once): B lockstep
-    streams of `seconds` synthetic audio, each from its own seed, through
-    bulk encode of all streams -> bprefill -> bdecode_burst bursts of
-    (64, 16, 4, 1), once per rung on its own engine built from `params`.
+    """The batched serving pipeline (bench.py run_once, the port's
+    serving.serve_clips): B lockstep streams of `seconds` synthetic audio,
+    each from its own seed, through bulk encode of all streams -> prefill
+    -> bdecode_burst bursts of (64, 16, 4, 1), once per rung on its own
+    engine built from `params`.
     The "dequant4" rung runs the int4 weights dequantized (dequantize4) and
     must agree with the int4 rung on DEQUANT_AGREE_MIN of its ids.  On the
     fp8kv rung the mid-fill decode also runs with attn_impl "xla" (the
@@ -1366,7 +1392,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
     it (with the plain functions counted, as for phase_slice)."""
     import torch
 
-    from voxtral_tpu_torch.config import SAMPLE_RATE, TOKEN_EOS
+    from voxtral_tpu_torch.config import SAMPLE_RATE
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.models.quant import embed_rows, quantize_params
     from voxtral_tpu_torch.ops.banded_encode import banded_attention_batched
@@ -1374,7 +1400,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
     from voxtral_tpu_torch.ops.quant_mm import int4_mm
     from voxtral_tpu_torch.ops.ring import ring_rows_write
     from voxtral_tpu_torch.parallel import serving as sv
-    from voxtral_tpu_torch.runtime.engine import VoxtralEngine, decompose
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
     from voxtral_tpu_torch.runtime.offline import (
         padded_clip_mel,
         transcribe_offline_ids,
@@ -1424,42 +1450,18 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                 f.launches = 0
             if on_gpu:
                 torch.cuda.reset_peak_memory_stats()
-            sync()
-            w0 = time.monotonic()
-            rows = engine.encode_clips_bulk(mel)         # [B, n, dim] f32
-            sync()
-            w1 = time.monotonic()
-            n_audio = rows.shape[1]
-            cache = sv.batched_dec_cache(rcfg, n_streams, engine.dec_kv_ring,
-                                         device=device)
-            prompt = engine.prompt_embeds(rows[:, :plen])
-            sv.bprefill(dp, rcfg, prompt[:, : plen - 1], cache,
-                        torch.zeros(n_streams, dtype=torch.int32,
-                                    device=device), engine.ada())
-            sync()
-            w2 = time.monotonic()
-            prev = torch.full((n_streams,), 32, dtype=torch.int32,
-                              device=device)
-            pos, steps, parts = plen - 1, 0, []
-            for b in decompose(n_audio - pos, (64, 16, 4, 1)):
-                toks, _, _, _, cache = sv.bdecode_burst(
-                    dp, rcfg, rows[:, pos: pos + b], prev, cache,
-                    torch.full((n_streams,), pos, dtype=torch.int32,
-                               device=device), engine.ada())
-                parts.append(toks)
-                prev = toks[:, -1]
-                pos, steps = pos + b, steps + b
-            all_toks = torch.cat(parts, dim=1).tolist()   # one fetch
-            w3 = time.monotonic()
-            ids = [t[: t.index(TOKEN_EOS)] if TOKEN_EOS in t else t
-                   for t in all_toks]
-            st = {"encode_ms": (w1 - w0) * 1e3, "prefill_ms": (w2 - w1) * 1e3,
-                  "decode_ms_per_step": (w3 - w2) * 1e3 / max(steps, 1),
-                  "wall_s": w3 - w0, "decode_steps": steps,
+            ids, run = sv.serve_clips(engine, mel)
+            steps = run["decode_steps"]
+            st = {"encode_ms": run["encode_s"] * 1e3,
+                  "prefill_ms": run["prefill_s"] * 1e3,
+                  "decode_ms_per_step": (run["decode_s"] * 1e3
+                                         / max(steps, 1)),
+                  "wall_s": run["encode_s"] + run["prefill_s"]
+                  + run["decode_s"], "decode_steps": steps,
                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                                if on_gpu else 0.0),
                   "launches": {f.__name__: f.launches for f in counters}}
-            return ids, rows, st
+            return ids, run["adapter_rows"], st
 
         # the first run warms the allocator and cuBLAS for these shapes;
         # the second is timed and must give the same ids (the SERVE_ONCE
@@ -2368,6 +2370,430 @@ def phase_profile(cfg, params, n_streams: int = 16, steps: int = 16,
         torch.cuda.empty_cache()
 
 
+# the mesh phase: (a) full width at tp 2, (b) a small f32 config at
+# dp 2 x tp 2, (c) the kernels at one tp rank's shapes
+MESH_TP = 2
+# (a): the hidden state the tp-2 bf16 pipeline's prompt prefill ends in,
+# held, norm-wise (||h - h_ref|| / ||h_ref||), against a witness: the
+# same clips unsharded in float32 (the same bf16-valued weights widened,
+# every product and attention on its plain path).  The tp partial sums
+# reach each bf16 cast in another order of f32 additions, so the tp-2 run
+# may differ from the tp-1 bf16 run by rounding, which 58 bf16 layers on
+# random weights amplify to the order of 1e-2; both runs' errors against
+# the witness must then be of one size: the tp-2 error within
+# MESH_HIDDEN_REL_TOL and within MESH_WITNESS_FACTOR times the tp-1 error.
+# Printed beside them, unbounded: the max-abs ratios
+# (max |h - h_ref| / max |h_ref|) and tp 2 against tp 1 directly.
+MESH_HIDDEN_REL_TOL = 2e-2
+MESH_WITNESS_FACTOR = 2.0
+
+
+def _rel_errs(h, ref) -> tuple[float, float]:
+    """(norm-wise, max-abs) relative error of h against ref."""
+    d = (h - ref).astype(np.float64)
+    r = ref.astype(np.float64)
+    return (float(np.linalg.norm(d) / np.linalg.norm(r)),
+            float(np.abs(d).max() / np.abs(r).max()))
+
+
+def _first_diff(a, b) -> int:
+    """The first index where two id sequences differ (-1: none)."""
+    n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return -1 if n is None and len(a) == len(b) else (
+        min(len(a), len(b)) if n is None else n)
+
+
+def _check_rank_launches(tag: str, outs, want_fn) -> None:
+    """Every rank's launches against want_fn(rank's result)."""
+    for o in outs:
+        want = want_fn(o)
+        if o["launches"] != want:
+            raise AssertionError(f"[mesh] {tag} rank {o['rank']}: launches "
+                                 f"{o['launches']} != {want}")
+
+
+def _launch_dict(banded=0, flash=0, enc=0, int4=0) -> dict:
+    return {"banded_attention_batched": banded, "flash_decode": flash,
+            "flash_bulk_attention_batched": enc, "int4_mm": int4}
+
+
+def _float_tree(tree):
+    """`tree` with every floating-point leaf widened to float32."""
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _mesh_full_width(cfg, params, device: str, seconds: float,
+                     n_streams: int) -> dict:
+    """(a): B synthetic clips through serving.serve_clips unsharded here
+    (on `params`, init_params(seed=0) on `device`), once more unsharded as
+    the float32 witness (MESH_HIDDEN_REL_TOL), and at dp 1 x tp 2 in two
+    spawned ranks sharing the device over gloo, each rebuilding
+    init_params(seed=0) on the device, slicing it and freeing it.  The
+    bf16 runs serve the clips twice (the second timed)."""
+    import torch
+
+    from voxtral_tpu_torch import dryrun
+    from voxtral_tpu_torch.parallel.mesh import run_ranks
+    from voxtral_tpu_torch.runtime.engine import (
+        VoxtralEngine,
+        adaptive_dec_ring,
+    )
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    on_gpu = device == "cuda"
+    clips = [make_audio(seconds, seed=400 + i) for i in range(n_streams)]
+    kw = dict(dec_kv_ring=adaptive_dec_ring(cfg, len(clips[0])),
+              buckets=(64, 16, 4, 1))
+    eng = VoxtralEngine(cfg, params, **kw)
+    mel = np.stack([padded_clip_mel(eng, c) for c in clips])
+    dryrun.run_serving(eng, mel, clips=True)          # warm
+    ref = dryrun.run_serving(eng, mel, clips=True)
+    del eng
+    wcfg = cfg.replace(
+        param_dtype="float32", compute_dtype="float32", kv_dtype="float32",
+        encoder=dataclasses.replace(cfg.encoder, attn_impl="xla"),
+        decoder=dataclasses.replace(cfg.decoder, attn_impl="xla"))
+    with plain_kernels():
+        weng = VoxtralEngine(wcfg, _float_tree(params), **kw)
+        wit = dryrun.run_serving(weng, mel, clips=True)
+    del weng
+    if on_gpu:
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    outs = run_ranks(dryrun.mesh_serve, MESH_TP,
+                     (1, MESH_TP, cfg, 0, mel, kw, device, "gloo", True,
+                      False, 2),
+                     device=device, backend="gloo")
+    spawn_s = time.monotonic() - t0
+    steps = ref["decode_steps"]
+    n_enc, n_dec = cfg.encoder.n_layers, cfg.decoder.n_layers
+    want = _launch_dict(banded=n_enc, flash=n_dec * steps) if on_gpu \
+        else _launch_dict()
+    if ref["launches"] != want:
+        raise AssertionError(f"[mesh] tp 1: launches {ref['launches']} != "
+                             f"{want}")
+    _check_rank_launches("tp 2", outs, lambda o: want)
+    h0 = outs[0]["prefill_last_hidden"]
+    if not all(np.array_equal(o["prefill_last_hidden"], h0) for o in outs):
+        raise AssertionError("[mesh] tp 2: the ranks' hidden states differ")
+    if not all(o["tokens"] == outs[0]["tokens"] for o in outs):
+        raise AssertionError("[mesh] tp 2: the ranks' ids differ")
+    href, hw = ref["prefill_last_hidden"], wit["prefill_last_hidden"]
+    if not (np.isfinite(h0).all() and np.isfinite(hw).all()
+            and h0.shape == href.shape == hw.shape):
+        raise AssertionError(f"[mesh] tp 2: hidden state {h0.shape}")
+    rel, rel_max = _rel_errs(h0, hw)
+    rel1, rel1_max = _rel_errs(href, hw)
+    e2e, e2e_max = _rel_errs(h0, href)
+    vocab = cfg.decoder.vocab_size
+    ids, ids_ref, ids_w = outs[0]["tokens"], ref["tokens"], wit["tokens"]
+    if not all(0 <= t < vocab for s_ids in ids for t in s_ids):
+        raise AssertionError("[mesh] tp 2: token id out of range")
+    agree = [_agreement(a, b) for a, b in zip(ids, ids_ref)]
+    first = [_first_diff(a, b) for a, b in zip(ids, ids_ref)]
+    agree_w = {tag: [_agreement(a, b) for a, b in zip(got, ids_w)]
+               for tag, got in (("tp1", ids_ref), ("tp2", ids))}
+    rec = {"tp": MESH_TP, "streams": n_streams, "clip_s": seconds,
+           "decode_steps": steps, "hidden_rel_err": rel,
+           "hidden_rel_tol": MESH_HIDDEN_REL_TOL,
+           "hidden_max_rel_err": rel_max,
+           "tp1_hidden_rel_err": rel1, "tp1_hidden_max_rel_err": rel1_max,
+           "witness_factor": rel / rel1 if rel1 else float("inf"),
+           "witness_factor_tol": MESH_WITNESS_FACTOR,
+           "tp2_vs_tp1_hidden_rel_err": e2e,
+           "tp2_vs_tp1_hidden_max_rel_err": e2e_max,
+           "ids_agree": agree, "first_diff": first,
+           "ids_agree_witness": agree_w,
+           "tokens": sum(len(t) for t in ids), "spawn_s": spawn_s,
+           "launches_per_rank": outs[0]["launches"],
+           "launches": {k: sum(o["launches"][k] for o in outs)
+                        for k in outs[0]["launches"]}}
+    for tag, r in (("tp1", ref), ("tp2", outs[0])):
+        rec[f"encode_ms_{tag}"] = r["encode_s"] * 1e3
+        rec[f"prefill_ms_{tag}"] = r["prefill_s"] * 1e3
+        rec[f"decode_ms_per_step_{tag}"] = (r["decode_s"] * 1e3
+                                            / max(r["decode_steps"], 1))
+    log("mesh", f"(a) full width, dp 1 x tp {MESH_TP} over gloo on one "
+                f"card, B={n_streams} x {seconds:.0f} s: prefill last hidden "
+                f"state against the f32 witness, norm-wise tp 2 {rel:.3e} "
+                f"(tol {MESH_HIDDEN_REL_TOL}), tp 1 {rel1:.3e}, ratio "
+                f"{rec['witness_factor']:.3f} (tol {MESH_WITNESS_FACTOR}); "
+                f"max-abs tp 2 {rel_max:.3e}, tp 1 {rel1_max:.3e}; tp 2 "
+                f"against tp 1 {e2e:.3e} / {e2e_max:.3e}; ids agree "
+                f"{[round(a, 3) for a in agree]} with tp 1, first "
+                f"difference at {first}, with the witness tp 1 "
+                f"{[round(a, 3) for a in agree_w['tp1']]}, tp 2 "
+                f"{[round(a, 3) for a in agree_w['tp2']]}; per-rank "
+                f"launches {outs[0]['launches']} ({steps} decode steps); "
+                f"encode {rec['encode_ms_tp1']:.1f} -> "
+                f"{rec['encode_ms_tp2']:.1f} ms, prefill "
+                f"{rec['prefill_ms_tp1']:.1f} -> {rec['prefill_ms_tp2']:.1f} "
+                f"ms, decode {rec['decode_ms_per_step_tp1']:.2f} -> "
+                f"{rec['decode_ms_per_step_tp2']:.2f} ms/step (tp 1 -> tp 2)")
+    if not rel <= MESH_HIDDEN_REL_TOL:
+        raise AssertionError(f"[mesh] tp 2 hidden state rel err {rel} "
+                             "against the f32 witness")
+    if not rel <= MESH_WITNESS_FACTOR * rel1:
+        raise AssertionError(f"[mesh] tp 2 hidden state rel err {rel} > "
+                             f"{MESH_WITNESS_FACTOR} x tp 1's {rel1}")
+    return rec
+
+
+def _mesh_small(device: str, seconds: float = 4.0) -> dict:
+    """(b): small_config at dp 2 x tp 2 in four spawned ranks over gloo,
+    against the same runs unsharded here (init_params(seed=0) on
+    `device` in every process): in float32 the streaming
+    BatchedTranscriber and a ring-mode StreamPool, ids exactly equal (the
+    encoder's attention on its plain path: the flash-encode kernel takes
+    bf16 queries only); then the pool in bf16, where flash-encode
+    launches, its ids' agreement printed."""
+    import torch
+
+    from voxtral_tpu_torch import dryrun
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.parallel.mesh import run_ranks
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    on_gpu = device == "cuda"
+    dp, tp = 2, MESH_TP
+    kw = dict(buckets=(16, 4, 1), enc_kv_ring=128, dec_kv_ring=256)
+    pool_kw = dict(dec_kv_ring=256, enc_mode="ring")
+    audios = [make_audio(seconds, seed=500 + i) for i in range(2 * dp)]
+    f32 = small_config("float32")
+    f32 = f32.replace(encoder=dataclasses.replace(f32.encoder,
+                                                  attn_impl="xla"))
+    rec = {"dp": dp, "tp": tp}
+    for tag, cfg in (("f32", f32), ("bf16", small_config("bfloat16"))):
+        n_enc, n_dec = cfg.encoder.n_layers, cfg.decoder.n_layers
+        eng = VoxtralEngine(cfg, init_params(cfg, seed=0, device=device),
+                            tokenizer=dryrun._tokenizer(), **kw)
+        runs = []
+        if tag == "f32":
+            mel = np.stack([padded_clip_mel(eng, a) for a in audios])
+            ref = dryrun.run_serving(eng, mel)
+            outs = run_ranks(dryrun.mesh_serve, dp * tp,
+                             (dp, tp, cfg, 0, mel, kw, device, "gloo"),
+                             device=device, backend="gloo")
+            steps = outs[0]["decode_steps"]
+            _check_rank_launches(
+                f"{tag} serve", outs, lambda o: _launch_dict(
+                    flash=n_dec * o["decode_steps"] * on_gpu))
+            runs.append(("serve", ref["tokens"], outs))
+            rec["serve_decode_steps_per_rank"] = steps
+        ref = dryrun.run_pool(eng, audios, pool_kw)
+        outs = run_ranks(dryrun.mesh_pool, dp * tp,
+                         (dp, tp, cfg, 0, audios, kw, pool_kw, device,
+                          "gloo"),
+                         device=device, backend="gloo")
+        _check_rank_launches(
+            f"{tag} pool", outs, lambda o: _launch_dict(
+                flash=n_dec * o["burst_rows"] * on_gpu,
+                enc=n_enc * o["enc_calls"] * on_gpu * (tag == "bf16")))
+        runs.append(("pool", ref["ids"], outs))
+        del eng
+        for name, want, outs in runs:
+            got = outs[0]["tokens" if name == "serve" else "ids"]
+            if not all(o["tokens" if name == "serve" else "ids"] == got
+                       for o in outs):
+                raise AssertionError(f"[mesh] {tag} {name}: ranks differ")
+            agree = [_agreement(a, b) for a, b in zip(got, want)]
+            rec[f"{name}_{tag}_agree"] = agree
+            rec[f"{name}_{tag}_tokens"] = sum(len(t) for t in got)
+            rec[f"{name}_{tag}_launches"] = {
+                k: sum(o["launches"][k] for o in outs)
+                for k in outs[0]["launches"]}
+            log("mesh", f"(b) small_config {tag} dp {dp} x tp {tp}, {name}: "
+                        f"{rec[f'{name}_{tag}_tokens']} ids, agree "
+                        f"{[round(a, 3) for a in agree]} with the unsharded "
+                        f"run; launches {rec[f'{name}_{tag}_launches']}")
+            if tag == "f32" and got != want:
+                raise AssertionError(f"[mesh] f32 {name}: ids differ from "
+                                     f"the unsharded run's ({agree})")
+            if not rec[f"{name}_{tag}_tokens"] > 0:
+                raise AssertionError(f"[mesh] {tag} {name}: no ids")
+        if on_gpu:
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _rank_shape_times() -> dict:
+    """(c): kernels #1, #4 and #7 at one tp-2 rank's serve shapes against
+    their plain versions, then graph-replay times beside the bound and
+    SDPA: banded at B=16 T=1696 with 16 heads; flash-decode at B=16 cap
+    896 with 16q/4kv in bf16 and fp8; flash-encode at B=16 T=64 with 16
+    heads.  Also flash-decode at the two pool shapes of full width that
+    the pool phases launch: B=8 cap 896 bf16 (ring mode) and B=32 cap
+    1024 fp8 (window mode)."""
+    import torch
+
+    from voxtral_tpu_torch.ops.banded_encode import (
+        banded_attention_batched,
+        banded_attention_plain,
+    )
+    from voxtral_tpu_torch.ops.flash_decode import (
+        flash_decode,
+        flash_decode_plain,
+        flash_decode_splits,
+    )
+    from voxtral_tpu_torch.ops.flash_encode import (
+        flash_bulk_attention_batched,
+        flash_encode_plain,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    out = {}
+    h_enc, h_dec, kh_dec = 32 // MESH_TP, 32 // MESH_TP, 8 // MESH_TP
+    # #1: the bulk encoder's attention at one rank's heads
+    t = serve_encoder_len(30.0)
+    q, k, v = (_randn(gen, (16, t, h_enc, 64), torch.bfloat16)
+               for _ in range(3))
+    lo = torch.zeros(16, dtype=torch.int32, device="cuda")
+    got = banded_attention_batched(q, k, v, lo, window=750,
+                                   out_dtype=torch.float32)
+    err = max((got[i] - banded_attention_plain(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], lo[i:i + 1], window=750,
+        out_dtype=torch.float32)[0]).abs().max().item() for i in range(16))
+    if not err <= BANDED_TOL:
+        raise AssertionError(f"[mesh] banded at {h_enc} heads: err {err}")
+    tm = _banded_times(q, k, v, lo, 750, plain=False)
+    tm["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
+        q[:1], k[:1], v[:1], lo[:1], window=750,
+        out_dtype=torch.bfloat16), 3) * 16   # one stream at a time
+    out["banded"] = {"shape": f"B=16 T={t} H=KH={h_enc}",
+                     "max_abs_err": err, **tm}
+    del q, k, v, got
+    # #4 at one rank's heads, then the two full-width pool shapes
+    serve_pos = [500 + 13 * (i - 8) for i in range(16)]
+    cases = (("rank_bf16", 16, 896, serve_pos, torch.bfloat16, h_dec, kh_dec),
+             ("rank_fp8", 16, 896, serve_pos, torch.float8_e4m3fn, h_dec,
+              kh_dec),
+             ("pool_ring", 8, 896, [300 + 41 * i for i in range(8)],
+              torch.bfloat16, 32, 8),
+             ("pool_window", 32, 1024, [200 + 23 * i for i in range(32)],
+              torch.float8_e4m3fn, 32, 8))
+    for tag, bsz, cap, pos_l, rdt, h, kh in cases:
+        kk = _randn(gen, (bsz, 26, kh, cap, 128), rdt)
+        vv = _randn(gen, (bsz, 26, kh, cap, 128), rdt)
+        qq = _randn(gen, (bsz, h, 128), torch.bfloat16)
+        rows = [_randn(gen, (bsz, kh, 128), torch.float32) for _ in range(2)]
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        kw = dict(window=8192, out_dtype=torch.float32)
+        k2, v2 = kk.clone(), vv.clone()
+        got = flash_decode(qq, kk, vv, 25, pos, *rows, **kw)
+        again = flash_decode(qq, k2, v2, 25, pos, *rows, **kw)
+        want = flash_decode_plain(qq, kk.clone(), vv.clone(), 25, pos,
+                                  *rows, **kw)
+        err = (got - want).abs().max().item()
+        if not (err <= FLASH_TOL and torch.equal(got, again)
+                and torch.equal(kk.view(torch.uint8), k2.view(torch.uint8))):
+            raise AssertionError(f"[mesh] flash-decode {tag}: err {err}")
+        del kk, vv, k2, v2
+        tm = _flash_times(gen, bsz, cap, pos_l, rdt, 8192, h=h, kh=kh)
+        out[f"flash_decode_{tag}"] = {
+            "shape": f"B={bsz} cap={cap} {h}q/{kh}kv {str(rdt)[6:]}",
+            "splits": flash_decode_splits(cap, bsz, kh), "max_abs_err": err,
+            **tm}
+    # #7 at one rank's heads
+    cap, t = 1024, 64
+    kr, vr = (_randn(gen, (16, h_enc, cap, 64), torch.bfloat16)
+              for _ in range(2))
+    q = _randn(gen, (16, t, h_enc, 64), torch.bfloat16)
+    pos = torch.tensor(_stream_positions((2000, 5000), 16), dtype=torch.int32,
+                       device="cuda")
+    kw = dict(window=750, out_dtype=torch.float32)
+    got, walk = (flash_bulk_attention_batched(q, kr, vr, pos, split=sp, **kw)
+                 for sp in (True, False))
+    err = (got - flash_encode_plain(q, kr, vr, pos, **kw)).abs().max().item()
+    if not (err <= FLASH_ENC_TOL and torch.equal(got, walk)):
+        raise AssertionError(f"[mesh] flash-encode at {h_enc} heads: err "
+                             f"{err}")
+
+    def kern():
+        flash_bulk_attention_batched(q, kr, vr, pos, window=750)
+
+    valid = _enc_mask(pos, t, cap, 750)
+    n_slots = int(valid.any(dim=1).sum())
+    out["flash_encode"] = {
+        "shape": f"B=16 T={t} H=KH={h_enc} cap {cap}", "max_abs_err": err,
+        "split_mappings_bitwise_equal": True,
+        "ms": cuda_ms(kern, 50), "device_ms": graph_ms(kern, 20),
+        "plain_ms": cuda_ms(lambda: flash_encode_plain(q, kr, vr, pos,
+                                                       window=750), 5),
+        "library_ms": sdpa_ms(q.transpose(1, 2).contiguous(), kr, vr,
+                              valid[:, None]),
+        **bound(2 * n_slots * h_enc * 64 * 2 + 2 * q.numel() * 2,
+                4 * 64 * h_enc * int(valid.sum()))}
+    for fn in (banded_attention_batched, flash_decode,
+               flash_bulk_attention_batched):
+        fn.launches = 0
+    for name, r in out.items():
+        log("mesh", f"(c) {name} {r['shape']}: max_abs_err "
+                    f"{r['max_abs_err']:.3e}; device {r['device_ms']:.4f} ms "
+                    f"(events {r['ms']:.4f}), plain {r['plain_ms']:.4f}, "
+                    f"SDPA {r['library_ms'] or float('nan'):.4f}; bound "
+                    f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return out
+
+
+def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 10.0,
+               n_streams: int = 4) -> dict:
+    """Multi-device serving on one card: ranks spawned by
+    parallel/mesh.py run_ranks share it over gloo (NCCL takes one card per
+    rank).  (a) `cfg` with `params` (init_params(seed=0) on `device`) at
+    dp 1 x tp 2 against the same clips unsharded: exact per-rank launch
+    counts (banded once per layer of the bulk encode at 16 heads,
+    flash-decode once per layer per step at 16q/4kv), the prefill's last
+    hidden state against an f32 witness (MESH_HIDDEN_REL_TOL,
+    MESH_WITNESS_FACTOR), the ids' agreement printed;
+    (b) small_config at dp 2 x tp 2 (_mesh_small); (c) on the card, the
+    kernels at one rank's shapes (_rank_shape_times).  main() runs it at
+    full width on the card; a tiny config rehearses it on the CPU (no
+    kernel launches there, none expected)."""
+    out = {"full_width": _mesh_full_width(cfg, params, device, seconds,
+                                          n_streams),
+           "small": _mesh_small(device)}
+    if device == "cuda":
+        out["rank_shapes"] = _rank_shape_times()
+    return out
+
+
+def phase_mel_device(device: str = "cuda", n_clips: int = 16,
+                     seconds: float = 30.0) -> dict:
+    """audio/mel_device.py on `device` against the host mel
+    (audio/mel.py) on B clips: within 3e-4, and both times (the host's
+    wall for all clips one by one, the device's CUDA-event time of one
+    batched call)."""
+    import torch
+
+    from voxtral_tpu_torch.audio.mel import mel_spectrogram
+    from voxtral_tpu_torch.audio.mel_device import mel_spectrogram_device
+
+    clips = np.stack([make_audio(seconds, seed=600 + i)
+                      for i in range(n_clips)])
+    t0 = time.monotonic()
+    ref = np.stack([mel_spectrogram(c) for c in clips])
+    host_ms = (time.monotonic() - t0) * 1e3
+    x = torch.from_numpy(clips).to(device)
+    got = mel_spectrogram_device(x)
+    err = float(np.abs(got.cpu().numpy() - ref).max())
+    rec = {"clips": n_clips, "clip_s": seconds, "frames": ref.shape[1],
+           "max_abs_err": err, "tol": 3e-4, "host_ms": host_ms}
+    if device == "cuda":
+        rec["device_ms"] = cuda_ms(lambda: mel_spectrogram_device(x), 10)
+    log("mel_device", f"B={n_clips} x {seconds:.0f} s ({ref.shape[1]} "
+                      f"frames): max_abs_err {err:.3e} against the host mel "
+                      f"(tol 3e-4); host {host_ms:.1f} ms, device "
+                      f"{rec.get('device_ms', float('nan')):.3f} ms")
+    if not (got.shape == ref.shape and err <= 3e-4):
+        raise AssertionError(f"[mel_device] err {err}, shape "
+                             f"{tuple(got.shape)}")
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2378,7 +2804,7 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "int4", "rows", "jacobi",
-               "pool_ring", "pool_window")
+               "pool_ring", "pool_window", "mesh", "mel_device")
 
 
 def run_only(names) -> dict:
@@ -2390,9 +2816,12 @@ def run_only(names) -> dict:
     for name in ONLY_PHASES:
         if name not in names:
             continue
-        if name in ("jacobi", "pool_ring", "pool_window") and params is None:
+        if name in ("jacobi", "pool_ring", "pool_window", "mesh") \
+                and params is None:
             params = make_params(cfg, "cuda")
-        if name == "jacobi":
+        if name == "mesh":
+            out[name] = phase_mesh(cfg, params, "cuda")
+        elif name == "jacobi":
             out[name] = phase_jacobi(cfg, params, "cuda")
         elif name == "pool_ring":
             out[name] = phase_pool(cfg, params, "cuda", **POOL_RING)
@@ -2464,22 +2893,37 @@ def main(argv: list[str]) -> int:
     pw = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
                     ref_ids=pr.pop("slot0_ids"))
     pw.pop("slot0_ids")
+    ms = phase_mesh(cfg, params, "cuda")
+    mel_dev = phase_mel_device("cuda")
+    # the mesh path's launches: every rank's, (a) and (b)
+    fw, small, shapes = ms["full_width"], ms["small"], ms["rank_shapes"]
+    meshed = {k: fw["launches"][k] + sum(
+        small[f"{run}_launches"][k]
+        for run in ("serve_f32", "pool_f32", "pool_bf16"))
+        for k in fw["launches"]}
+
+    def rank_keys(rec, tag):
+        return {f"{k}_{tag}": v for k, v in rec.items()}
+
     kernels = [
         {"name": "banded_attention", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/banded_attention.cu",
          "replaces": "voxtral_tpu/ops/banded_encode.py:56",
          "launches": (sl["launches"][0] + served["banded_attention_batched"]
                       + jac["launches_banded"]
-                      + pw["launches"]["banded_attention_batched"]),
+                      + pw["launches"]["banded_attention_batched"]
+                      + meshed["banded_attention_batched"]),
          "launches_pool_window": pw["launches"]["banded_attention_batched"],
-         **banded},
+         "launches_mesh": meshed["banded_attention_batched"],
+         **banded, **rank_keys(shapes["banded"], "tp2_rank")},
         {"name": "flash_decode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
          "launches": (sl["launches"][1] + served["flash_decode"]
                       + streamed["flash_decode"] + jac["launches_flash_decode"]
                       + pr["launches"]["flash_decode"]
-                      + pw["launches"]["flash_decode"]),
+                      + pw["launches"]["flash_decode"]
+                      + meshed["flash_decode"]),
          "launches_by_path": {
              "slice": sl["launches"][1],
              **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
@@ -2488,16 +2932,23 @@ def main(argv: list[str]) -> int:
              "bstream": bst["launches"]["flash_decode"],
              "jacobi": jac["launches_flash_decode"],
              "pool_ring": pr["launches"]["flash_decode"],
-             "pool_window": pw["launches"]["flash_decode"]}, **flash},
+             "pool_window": pw["launches"]["flash_decode"],
+             "mesh": meshed["flash_decode"]}, **flash,
+         **{k2: v for tag in ("rank_bf16", "rank_fp8", "pool_ring",
+                              "pool_window")
+            for k2, v in rank_keys(shapes[f"flash_decode_{tag}"],
+                                   tag).items()}},
         {"name": "flash_encode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
          "launches": (streamed["flash_bulk_attention_batched"]
-                      + pr["launches"]["flash_bulk_attention_batched"]),
+                      + pr["launches"]["flash_bulk_attention_batched"]
+                      + meshed["flash_bulk_attention_batched"]),
+         "launches_mesh": meshed["flash_bulk_attention_batched"],
          "launches_stream": st["launches"]["flash_bulk_attention_batched"],
          "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
          "launches_pool_ring": pr["launches"]["flash_bulk_attention_batched"],
-         **flash_enc},
+         **flash_enc, **rank_keys(shapes["flash_encode"], "tp2_rank")},
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
          "replaces": "voxtral_tpu/ops/quant_mm.py:44",
@@ -2520,13 +2971,16 @@ def main(argv: list[str]) -> int:
                              "pool_ring")
     if not kernels[0]["launches_pool_window"] > 0:
         raise AssertionError("banded_attention: no launch on pool_window")
+    if not (kernels[0]["launches_mesh"] > 0 and kernels[2]["launches_mesh"] > 0):
+        raise AssertionError("banded or flash_encode: no launch on mesh")
     total_s = time.monotonic() - t_start
     log("done", f"all phases in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
                       "step_rel_err": sl["step_rel_err"],
                       "serve": sv["rungs"], "stream": st,
                       "bstream": bst, "jacobi": jac, "pool_ring": pr,
-                      "pool_window": pw, "total_s": total_s}))
+                      "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
+                      "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

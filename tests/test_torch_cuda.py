@@ -939,3 +939,77 @@ def test_pool_on_the_card_against_the_cpu(dev, mode):
         assert a and b
         assert sum(x == y for x, y in zip(a, b)) / max(len(a), len(b)) \
             >= 0.5, (i, a, b)
+
+
+@pytest.mark.parametrize("rdt", [torch.bfloat16, torch.float8_e4m3fn])
+def test_kernels_at_tp2_rank_shapes(dev, rdt):
+    """One tp-2 rank's head counts (parallel/mesh.py rank_config): banded
+    at H=KH=16 (B=2 T=1696), flash-decode with the row write at 16q/4kv
+    (B=16 cap 896, mixed positions; 2 splits where 8 KV heads take 1) and
+    flash-encode at 16 heads (B=16 T=64) against their plain versions,
+    with the rings bit-equal and flash-encode's two split mappings
+    bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (_randn(gen, (2, 1696, 16, 64), torch.bfloat16, dev)
+               for _ in range(3))
+    lo = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = banded_attention_batched(q, k, v, lo, window=750,
+                                   out_dtype=torch.float32)
+    want = banded_attention_plain(q, k, v, lo, window=750,
+                                  out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 2e-2
+    pos = torch.tensor([0, 448, 1019] + [(97 * i) % 2688 for i in range(3, 16)],
+                       dtype=torch.int32, device=dev)
+    kk, vk = (_randn(gen, (16, 26, 4, 896, 128), rdt, dev) for _ in range(2))
+    qq = _randn(gen, (16, 16, 128), torch.bfloat16, dev)
+    rows = [_randn(gen, (16, 4, 128), torch.float32, dev) for _ in range(2)]
+    kp, vp = kk.clone(), vk.clone()
+    got = flash_decode(qq, kk, vk, 25, pos, *rows, window=8192,
+                       out_dtype=torch.float32)
+    want = flash_decode_plain(qq, kp, vp, 25, pos, *rows, window=8192,
+                              out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(kk.view(torch.uint8), kp.view(torch.uint8))
+    assert torch.equal(vk.view(torch.uint8), vp.view(torch.uint8))
+    kr, vr = (_randn(gen, (16, 16, 1024, 64), torch.bfloat16, dev)
+              for _ in range(2))
+    q = _randn(gen, (16, 64, 16, 64), torch.bfloat16, dev)
+    p0 = torch.tensor([2000 + 37 * i for i in range(16)], dtype=torch.int32,
+                      device=dev)
+    a, b = (flash_bulk_attention_batched(q, kr, vr, p0, window=750,
+                                         out_dtype=torch.float32, split=sp)
+            for sp in (True, False))
+    assert torch.equal(a, b)
+    want = flash_encode_plain(q, kr, vr, p0, window=750,
+                              out_dtype=torch.float32)
+    assert (a - want).abs().max().item() <= 2e-2
+
+
+def test_tp2_mesh_on_one_card_over_gloo(dev, tmp_path):
+    """Two ranks share the card over gloo (NCCL would refuse: one card per
+    rank): small_config float32 serving (the encoder's attention on its
+    plain path, flash-encode taking bf16 queries only) at dp 1 x tp 2
+    gives the unsharded run's ids, and flash-decode launches on every
+    rank, once per layer per step."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch import dryrun
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.parallel.mesh import run_ranks
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    cfg = cs.small_config("float32")
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  attn_impl="xla"))
+    kw = dict(buckets=(16, 4, 1), enc_kv_ring=128, dec_kv_ring=256)
+    eng = VoxtralEngine(cfg, init_params(cfg, seed=0, device=dev), **kw)
+    mel = np.stack([padded_clip_mel(eng, cs.make_audio(3.0, seed=i))
+                    for i in range(2)])
+    want = dryrun.run_serving(eng, mel)
+    outs = run_ranks(dryrun.mesh_serve, 2,
+                     (1, 2, cfg, 0, mel, kw, "cuda", "gloo"),
+                     device="cuda", backend="gloo", workdir=str(tmp_path))
+    for o in outs:
+        assert o["tokens"] == want["tokens"]
+        assert o["launches"]["flash_decode"] == \
+            cfg.decoder.n_layers * o["decode_steps"] > 0

@@ -65,7 +65,7 @@ def test_cpu_run_launches_no_kernel():
     from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
 
     cfg = tiny_config()
-    engine = VoxtralEngine(cfg, init_params(cfg, seed=1), dec_kv_ring=64,
+    engine = VoxtralEngine(cfg, init_params(cfg, seed=1, device="cpu"), dec_kv_ring=64,
                            buckets=(16, 4, 1))
     banded_attention_batched.launches = 0
     flash_decode.launches = 0
@@ -105,7 +105,7 @@ def test_streaming_modules_import_alone_and_launch_no_kernel_on_cpu():
     flash_decode.launches = 0
     audio = make_audio(1.0, seed=4)
     for fused in (True, False):
-        engine = VoxtralEngine(cfg, init_params(cfg, seed=1), tokenizer=tok,
+        engine = VoxtralEngine(cfg, init_params(cfg, seed=1, device="cpu"), tokenizer=tok,
                                enc_kv_ring=64, dec_kv_ring=64,
                                buckets=(16, 4, 1), fused_streaming=fused)
         s = VoxStream(engine)
@@ -118,3 +118,24 @@ def test_streaming_modules_import_alone_and_launch_no_kernel_on_cpu():
     assert tr.n_enc_chunk_calls > 0 and tr.decode_steps > 0
     assert flash_bulk_attention_batched.launches == 0
     assert flash_decode.launches == 0
+
+
+def test_mesh_modules_and_spawned_ranks_import_no_jax(tmp_path):
+    """The mesh slice's modules are among those the probe imports, and a
+    world of spawned ranks (parallel/mesh.py run_ranks, as the mesh tests
+    and the dry run start them from this JAX-loaded process) loads no JAX
+    and no module of the JAX package."""
+    import torch_rank_tasks
+    from voxtral_tpu_torch.parallel.mesh import run_ranks
+
+    names = {m.name for m in pkgutil.walk_packages(
+        voxtral_tpu_torch.__path__, "voxtral_tpu_torch.")}
+    assert {"voxtral_tpu_torch.parallel.mesh", "voxtral_tpu_torch.dryrun",
+            "voxtral_tpu_torch.audio.mel_device"} <= names
+    mods = run_ranks(torch_rank_tasks.rank_modules, 2, device="cpu", backend="gloo",
+                     workdir=tmp_path)
+    for m in mods:
+        assert "torch.distributed" in m
+        bad = [x for x in m if x.split(".")[0]
+               in ("jax", "jaxlib", "voxtral_tpu", "ml_dtypes")]
+        assert bad == [], bad

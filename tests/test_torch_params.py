@@ -59,7 +59,7 @@ def test_load_params_matches_jax(tmp_path):
     write_safetensors(str(tmp_path / "consolidated.safetensors"), tensors)
     jp = _flat(jax_load(str(tmp_path), jcfg))
     tcfg = tiny_config(compute_dtype="float32").replace(param_dtype="bfloat16")
-    tp = _flat(load_params(str(tmp_path), tcfg))
+    tp = _flat(load_params(str(tmp_path), tcfg, device="cpu"))
     assert tp.keys() == jp.keys()
     for name, leaf in jp.items():
         assert str(tp[name].dtype) == "torch." + leaf.dtype.name, name
@@ -72,14 +72,15 @@ def test_init_params_layout_matches_jax():
     come from another generator), and the same values for the same seed."""
     for dtype in ("float32", "bfloat16"):
         jp = _flat(jax_init(jax_tiny(compute_dtype=dtype), seed=0))
-        tp = _flat(init_params(tiny_config(compute_dtype=dtype), seed=0))
+        tp = _flat(init_params(tiny_config(compute_dtype=dtype), seed=0,
+                               device="cpu"))
         assert tp.keys() == jp.keys()
         for name, leaf in jp.items():
             assert tuple(tp[name].shape) == leaf.shape, name
             assert str(tp[name].dtype) == "torch." + leaf.dtype.name, name
-    a = _flat(init_params(tiny_config(), seed=5))
-    b = _flat(init_params(tiny_config(), seed=5))
-    c = _flat(init_params(tiny_config(), seed=6))
+    a = _flat(init_params(tiny_config(), seed=5, device="cpu"))
+    b = _flat(init_params(tiny_config(), seed=5, device="cpu"))
+    c = _flat(init_params(tiny_config(), seed=6, device="cpu"))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["decoder/layers/wqkv"], c["decoder/layers/wqkv"])
     # constant leaves match exactly (norms, biases)

@@ -1,5 +1,5 @@
-"""chip_smoke.py's slice, serve, flash_enc, stream and bstream phases
-rehearsed on the CPU at tiny size.
+"""chip_smoke.py's slice, serve, flash_enc, stream, bstream, jacobi, pool,
+mesh and mel_device phases rehearsed on the CPU at tiny size.
 CPU tensors launch no kernel, so the plain functions stand in for the
 kernels and count as their launches; the phases' own checks (exact launch
 counts per rung, ids in range, identical second runs, kernel path against
@@ -229,3 +229,24 @@ def test_pool_phases_on_cpu(counted_kernels):
         cfg.encoder.n_layers * pw["encode_calls"] > 0
     assert pw["launches"]["flash_bulk_attention_batched"] == 0
     assert 0.0 <= pw["slot0_agree_pool_ring"] <= 1.0
+
+
+def test_mesh_and_mel_device_phases_on_cpu():
+    """The mesh phase at tiny width: its spawned gloo ranks (tp 2 in
+    bf16 as on the card, then dp 2 x tp 2) against the unsharded runs and
+    the f32 witness, with its checks (no kernel launches on the CPU); and
+    the device mel against the host mel."""
+    from voxtral_tpu_torch.models.params import init_params
+
+    cfg = tiny_config(compute_dtype="bfloat16", enc_kv_ring=128)
+    out = cs.phase_mesh(cfg, init_params(cfg, seed=0, device="cpu"), "cpu",
+                        seconds=3.0, n_streams=2)
+    fw, small = out["full_width"], out["small"]
+    assert fw["hidden_rel_err"] <= cs.MESH_HIDDEN_REL_TOL
+    assert 0 < fw["hidden_rel_err"] <= cs.MESH_WITNESS_FACTOR * \
+        fw["tp1_hidden_rel_err"]
+    assert fw["tokens"] > 0 and len(fw["ids_agree"]) == 2
+    assert small["serve_f32_agree"] == small["pool_f32_agree"] == [1.0] * 4
+    assert "rank_shapes" not in out
+    mel = cs.phase_mel_device("cpu", n_clips=2, seconds=3.0)
+    assert mel["max_abs_err"] <= 3e-4 and mel["frames"] == 300

@@ -25,6 +25,7 @@ from ..config import VoxtralConfig
 from ..ops.banded_encode import banded_attention_batched
 from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..parallel.mesh import tp_sum
 from .encoder import adapter_forward, conv0_chunk, conv1_chunk
 from .quant import mm
 
@@ -44,7 +45,8 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
                      kv_lo=None) -> torch.Tensor:
     """32-layer no-ring transformer over [B, T, dim] at positions 0..T-1
     (banded attention), final-normed.  `kv_lo` (int [B]) hides leading
-    positions.  One banded-attention launch per layer."""
+    positions.  One banded-attention launch per layer, at the config's
+    (per-rank, on a tp mesh) head count."""
     e = cfg.encoder
     cdtype = cfg.cdtype
     bsz, t, _ = x.shape
@@ -66,11 +68,13 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
             q.to(cdtype), k.to(cdtype), v.to(cdtype), kv_lo,
             window=e.window, out_dtype=cdtype,
         ).reshape(bsz, t, qkv_dim)
-        x = x + (mm(attn, lp, "wo") + lp["bo"]).to(x.dtype)
+        # row-parallel products: on a tp mesh, summed over the ranks in
+        # f32, the bias added once after the sum (parallel/mesh.py)
+        x = x + (tp_sum(mm(attn, lp, "wo"), e) + lp["bo"]).to(x.dtype)
         hn = rms_norm(x, lp["ffn_norm"], e.norm_eps).to(cdtype)
         g13 = mm(hn, lp, "w13")
         gate = silu(g13[..., : e.hidden]) * g13[..., e.hidden:]
-        ffn = mm(gate.to(cdtype), lp, "w2") + lp["b2"]
+        ffn = tp_sum(mm(gate.to(cdtype), lp, "w2"), e) + lp["b2"]
         x = x + ffn.to(x.dtype)
     return rms_norm(x, enc_params["final_norm"], e.norm_eps).to(cdtype)
 

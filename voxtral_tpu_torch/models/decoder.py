@@ -52,6 +52,7 @@ from ..ops.flash_decode import flash_decode
 from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..parallel.mesh import tp_of, tp_sum
 from . import quant
 
 PyTree = Any
@@ -156,14 +157,16 @@ def _layer_step(
             out_dtype=cdtype,
         ).reshape(bsz, t, q_dim)
 
-    x = x + quant.mm(attn, lp, "wo").to(x.dtype)
+    # row-parallel products: on a tp mesh, summed over the ranks in f32
+    # before the cast (parallel/mesh.py)
+    x = x + tp_sum(quant.mm(attn, lp, "wo"), cfg).to(x.dtype)
 
     # ada-RMSNorm (python:607-616): the norm rounds to x's dtype first
     hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).float()
     hn = (hn * (1.0 + ada)).to(cdtype)
     g13 = quant.mm(hn, lp, "w13")
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
-    ffn = quant.mm(gate.to(cdtype), lp, "w2")
+    ffn = tp_sum(quant.mm(gate.to(cdtype), lp, "w2"), cfg)
     return x + ffn.to(x.dtype)
 
 
@@ -196,7 +199,8 @@ def final_logits(params: PyTree, cfg: VoxtralConfig,
                  x: torch.Tensor) -> torch.Tensor:
     """RMSNorm + tied-embedding logits with f32 accumulation (python:657-664).
     Operands stay in the embedding dtype; int8 and int4 tables take bf16
-    activations.  x: [..., dim] -> [..., vocab] f32."""
+    activations.  x: [..., dim] -> [..., vocab] f32; on a tp mesh, this
+    rank's slice of the vocab [..., vocab / tp] (parallel/mesh.py)."""
     emb = params["tok_embeddings"]
     s = params.get("tok_embeddings_scale")
     xn = rms_norm(x, params["final_norm"], cfg.decoder.norm_eps)
@@ -267,17 +271,22 @@ def decode_burst(
     dev = adapter_chunk.device
     pos0 = _positions(pos0, bsz, dev)
     prev = prev_token.to(device=dev, dtype=torch.int32).reshape(-1).expand(bsz)
+    tp = tp_of(cfg)
     toks, alt_i, alt_p, best_p = [], [], [], []
     for t in range(t_total):
         embed = (adapter_chunk[:, t].float()
-                 + quant.embed_rows(params, prev))[:, None]
+                 + quant.embed_rows(params, prev, tp=tp))[:, None]
         x, _ = decoder_forward(params, cfg, embed, cache, pos0 + t, ada)
         logits = final_logits(params, cfg, x)[:, 0]
         if n_alt > 0:
+            if tp is not None:
+                logits = tp.gather_last(logits)
             prev, bp, ai, ap = _alts_from_logits(logits, n_alt)
             best_p.append(bp)
             alt_i.append(ai)
             alt_p.append(ap)
+        elif tp is not None:
+            prev = tp.argmax(logits)
         else:
             prev = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(prev)

@@ -44,6 +44,7 @@ from ..ops.flash_encode import flash_bulk_attention_batched
 from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..parallel.mesh import tp_sum
 from .decoder import _positions, _use_flash
 from .quant import matmul_f32, mm
 
@@ -146,12 +147,14 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
         attn = ring_attention(q.to(cdtype), k_ring, v_ring, pos0,
                               window=cfg.window, out_dtype=cdtype)
     attn = attn.reshape(bsz, t, qkv_dim)
-    x = x + (mm(attn, lp, "wo") + lp["bo"]).to(x.dtype)
+    # row-parallel products: on a tp mesh, summed over the ranks in f32,
+    # the bias added once after the sum (parallel/mesh.py)
+    x = x + (tp_sum(mm(attn, lp, "wo"), cfg) + lp["bo"]).to(x.dtype)
 
     hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(cdtype)
     g13 = mm(hn, lp, "w13")
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
-    ffn = mm(gate.to(cdtype), lp, "w2") + lp["b2"]
+    ffn = tp_sum(mm(gate.to(cdtype), lp, "w2"), cfg) + lp["b2"]
     return x + ffn.to(x.dtype)
 
 
@@ -187,10 +190,11 @@ def adapter_forward(adapter_params: PyTree, cfg: VoxtralConfig,
                     enc_out: torch.Tensor) -> torch.Tensor:
     """[B, 4G, 1280] -> 4x downsample reshape -> MLP -> [B, G, 3072] in the
     compute dtype (voxtral_encoder.c:642-674, python:446-463).  No
-    normalization."""
+    normalization.  On a tp mesh w0 is column- and w1 row-parallel, with
+    one sum over the ranks (parallel/mesh.py)."""
     cdtype = cfg.cdtype
     *lead, t, dim = enc_out.shape
     g = t // DOWNSAMPLE_FACTOR
     ds = enc_out.reshape(*lead, g, DOWNSAMPLE_FACTOR * dim).to(cdtype)
     h = gelu(mm(ds, adapter_params, "w0")).to(cdtype)
-    return mm(h, adapter_params, "w1").to(cdtype)
+    return tp_sum(mm(h, adapter_params, "w1"), cfg).to(cdtype)

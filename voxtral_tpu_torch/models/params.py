@@ -119,10 +119,12 @@ def init_decoder_params(cfg: VoxtralConfig, gen, device) -> PyTree:
 
 
 @torch.no_grad()
-def init_params(cfg: VoxtralConfig, seed: int = 0, device="cpu") -> PyTree:
-    """Seeded random weights in the engine layout, made on `device` with a
-    torch.Generator (they differ from the JAX package's init_params; use
-    from_jax_numpy to run both packages on the same weights)."""
+def init_params(cfg: VoxtralConfig, seed: int = 0, device="cuda") -> PyTree:
+    """Seeded random weights in the engine layout, made on `device` (the
+    card unless the caller asks for the CPU) with a torch.Generator there:
+    the draws depend on the device type, and they differ from the JAX
+    package's init_params (use from_jax_numpy to run both packages on the
+    same weights)."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -282,10 +284,11 @@ def load_decoder_params(sf: SafetensorsFile, cfg: VoxtralConfig, device) -> PyTr
 
 
 @torch.no_grad()
-def load_params(model_dir: str, cfg: VoxtralConfig, device="cpu",
+def load_params(model_dir: str, cfg: VoxtralConfig, device="cuda",
                 verbose: bool = False) -> PyTree:
     """consolidated.safetensors (the reference's names and layouts) -> the
-    engine tree on `device`, one stacked tensor at a time."""
+    engine tree on `device` (the card unless the caller asks for the CPU),
+    one stacked tensor at a time."""
     device = torch.device(device)
     t0 = time.monotonic()
 

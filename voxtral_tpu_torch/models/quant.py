@@ -162,11 +162,24 @@ def stack_is_packed4(layers: PyTree) -> bool:
             and s.shape[-1] == 2)
 
 
-def embed_rows(dparams: PyTree, ids: torch.Tensor) -> torch.Tensor:
+def embed_rows(dparams: PyTree, ids: torch.Tensor, tp=None) -> torch.Tensor:
     """tok_embeddings[ids] -> f32 for bf16/f32, int8 and int4 tables.
-    ids: any integer shape; returns ids.shape + [dim]."""
+    ids: any integer shape; returns ids.shape + [dim].
+
+    With `tp` (parallel/mesh.py TensorParallel), the float table is this
+    rank's block of the vocab: each rank looks up the ids it holds, zeros
+    for the others, and the ranks' rows are summed (one row plus zeros:
+    exact)."""
     emb = dparams["tok_embeddings"]
     s = dparams.get("tok_embeddings_scale")
+    if tp is not None:
+        if s is not None:
+            raise ValueError("a quantized table does not split over tp")
+        n = emb.shape[0]
+        local = ids.long() - tp.rank * n
+        held = (local >= 0) & (local < n)
+        rows = emb[local.clamp(0, n - 1)].float()
+        return tp.sum(torch.where(held[..., None], rows, 0.0))
     if _is_packed4(emb, s):
         lo, hi = _unpack4(emb[ids], torch.float32)
         rows = torch.cat([lo, hi], dim=-1)                    # [.., dim]

@@ -29,6 +29,13 @@ Two encoder modes:
   above.  That rule was reasoned for a 16 GB TPU; the H100's rule is an
   open question (ROADMAP.md).
 
+On a dp x tp mesh (the engine's `mesh`, parallel/mesh.py) each rank's pool
+holds its dp group's n_slots/dp slots at the engine's per-rank head
+counts; the caller feeds each dp group its own streams and the same audio
+to every tp rank of a group, whose host logic then runs on the same ids
+(the wall clock is read for accounting only).  `enc_mode` must be given
+("ring"; the window mode is not ported to a mesh, ROADMAP.md).
+
 Riders: slots that do not take part in a call still ride along in it.
 The JAX functions restore their state with masked selects; here the caches
 are written in place, so
@@ -75,6 +82,7 @@ from ..runtime import stream as stream_mod
 from ..runtime.engine import VoxtralEngine
 from ..tokenizer import TekkenTokenizer
 from . import serving as sv
+from .mesh import batch_shardings
 
 
 # --------------------------------------------------------------------------
@@ -234,6 +242,13 @@ class StreamPool:
         self.tok: TekkenTokenizer = engine.tokenizer
         self.cfg = cfg = engine.cfg
         dev = self.device = engine.device
+        if engine.mesh is not None:
+            if enc_mode != "ring":
+                raise ValueError(f"enc_mode {enc_mode!r} on a mesh: pass "
+                                 "'ring' (window mode is not ported to a "
+                                 "mesh)")
+            part = batch_shardings(engine.mesh, n_slots)
+            n_slots = part.stop - part.start
         self.b = n_slots
         self.dec_ring = dec_kv_ring
         self.row_r = row_ring

@@ -23,7 +23,16 @@ encoder (`bencode`) takes the flash-encode kernel for every chunk of
 T > 1 rows on such rings (models/encoder.py).
 
 `BatchedTranscriber` feeds B equal-schedule streams through the streaming
-encoder and the decoder in lockstep.
+encoder and the decoder in lockstep; `serve_clips` runs B whole clips
+through the offline pipeline bench.py measures (bulk encode, batched
+prefill, decode bursts).
+
+On a dp x tp mesh (the engine's `mesh`, parallel/mesh.py) both take all B
+streams' input on every rank and serve this rank's contiguous block of
+B/dp streams (the JAX P("dp") split), at the engine's per-rank head
+counts: the caches hold KH/tp heads.  The ranks of a tp group run the same
+host logic on the same ids; `gather_streams` concatenates the blocks'
+results in dp order into the B-stream results.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from ..models.decoder import KVCache
 from ..models.encoder import EncKVCache
 from ..runtime.engine import decompose
 from ..runtime.stream import _take_rows
+from .mesh import batch_shardings, gather_streams
 
 PyTree = Any
 
@@ -106,14 +116,70 @@ def bdecode_burst(dec_params: PyTree, cfg: VoxtralConfig, chunks, prev,
                                 ada, n_alt=n_alt)
 
 
+@torch.no_grad()
+def serve_clips(engine, mel):
+    """The B=N offline serving pipeline (bench.py run_once) over padded
+    clips of one length, mel [B, Tm, 128] for every stream: bulk encode of
+    this rank's streams, batched prompt prefill, then greedy bursts of the
+    engine's bucket sizes up to the last adapter row.  Returns (ids of this rank's
+    streams, each cut at EOS, stats), where stats holds the host walls of
+    the three parts (each ends with a device sync) in seconds, the decode
+    steps, `adapter_rows`, this rank's bulk-encoded rows [b, n, dim] f32,
+    and `prefill_last_hidden`, the prefill's hidden state at its last
+    position [b, dim] (replicated over tp)."""
+    cfg, dev = engine.cfg, engine.device
+    streams = batch_shardings(engine.mesh, mel.shape[0])
+    mel = engine._tensor(mel[streams], torch.float32)
+    bsz = mel.shape[0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    dparams, plen = engine.params["decoder"], engine.prompt_len
+    sync()
+    t0 = time.monotonic()
+    rows = engine.encode_clips_bulk(mel)                  # [b, n, dim] f32
+    sync()
+    t1 = time.monotonic()
+    cache = batched_dec_cache(cfg, bsz, engine.dec_kv_ring, device=dev)
+    prompt = engine.prompt_embeds(rows[:, : plen - 1])
+    zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    x, _ = dec_mod.decoder_forward(dparams, cfg, prompt, cache, zero,
+                                   engine.ada())
+    sync()
+    t2 = time.monotonic()
+    prev = torch.full((bsz,), TOKEN_STREAMING_PAD, dtype=torch.int32,
+                      device=dev)
+    pos, parts = plen - 1, []
+    for b in decompose(rows.shape[1] - pos, engine.buckets):
+        toks, _, _, _, cache = bdecode_burst(
+            dparams, cfg, rows[:, pos: pos + b], prev, cache,
+            torch.full((bsz,), pos, dtype=torch.int32, device=dev),
+            engine.ada())
+        parts.append(toks)
+        prev = toks[:, -1]
+        pos += b
+    host = torch.cat(parts, dim=1).tolist() if parts else [[]] * bsz
+    t3 = time.monotonic()
+    ids = [t[: t.index(TOKEN_EOS)] if TOKEN_EOS in t else t for t in host]
+    return ids, {"encode_s": t1 - t0, "prefill_s": t2 - t1,
+                 "decode_s": t3 - t2, "decode_steps": pos - (plen - 1),
+                 "adapter_rows": rows, "prefill_last_hidden": x[:, -1]}
+
+
 class BatchedTranscriber:
     """Lockstep batched streaming transcription of B equal-schedule streams
-    (the 16-streams-per-device serving shape)."""
+    (the 16-streams-per-device serving shape).  On a mesh, this rank's
+    block of the B streams (module docstring): `b` streams of them,
+    `tokens` theirs, `all_tokens()` every stream's."""
 
     def __init__(self, engine, batch: int, dec_kv_ring: Optional[int] = None):
         self.eng = engine
         self.cfg = cfg = engine.cfg
-        self.b = batch
+        self.batch = batch
+        self.streams = batch_shardings(engine.mesh, batch)
+        self.b = batch = self.streams.stop - self.streams.start
         dev = self.device = engine.device
         self.dec_ring = dec_kv_ring or engine.dec_kv_ring
         self.enc_cache = batched_enc_cache(cfg, batch, engine.enc_kv_ring,
@@ -143,11 +209,20 @@ class BatchedTranscriber:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def all_tokens(self) -> list[list[int]]:
+        """Every stream's tokens (all ranks' blocks, in dp order)."""
+        return gather_streams(self.eng.mesh, self.tokens)
+
     def feed_mel(self, mel):
-        """mel: [B, T, 128] new frames for every stream (lockstep)."""
+        """mel: [B, T, 128] new frames for every stream (lockstep); this
+        rank takes its block."""
         eng, cfg = self.eng, self.cfg
         encp = eng.params["encoder"]
         t0 = time.monotonic()
+        if mel.shape[0] != self.batch:
+            raise ValueError(f"mel for {mel.shape[0]} streams, the "
+                             f"transcriber serves {self.batch}")
+        mel = mel[self.streams]
         if isinstance(mel, np.ndarray):
             mel = torch.from_numpy(mel)
         mel = mel.to(device=self.device, dtype=torch.float32)

@@ -20,6 +20,15 @@ engine does (models/quant.py); the encoder stays exact.
 for bursts of at least `jacobi_window` rows).  Jacobi runs one stream: at
 B > 1 "auto" decodes sequentially and "jacobi" raises.
 
+`mesh=` (parallel/mesh.py `make_mesh`) serves on a dp x tp mesh of
+processes: the engine keeps this rank's slices of the weights and runs at
+the per-rank head counts of `rank_config`, the model code summing its
+row-parallel products over tp; the callers (BatchedTranscriber, the
+StreamPool) take this rank's block of the streams.  Without a mesh nothing
+changes: no collective, no extra launch.  At tp > 1 the quantized rungs and
+Jacobi decoding raise (not ported to a mesh, ROADMAP.md); at tp = 1 the
+quantized weights are replicated and the streams split over dp.
+
 Not ported (ROADMAP.md): encoder weight paging
 (`offload_encoder`/`restore_encoder`).
 """
@@ -45,6 +54,7 @@ from ..models import encoder as enc_mod
 from ..models.decoder import KVCache, _positions, ada_scales
 from ..models.encoder import EncKVCache
 from ..models.quant import embed_rows, quantize_params
+from ..parallel.mesh import rank_config, shard_params, tensor_parallel
 from ..tokenizer import TekkenTokenizer
 
 DEFAULT_BUCKETS = (256, 64, 16, 4, 1)
@@ -94,13 +104,28 @@ class VoxtralEngine:
         jacobi_window: int = 64,
         fused_streaming: bool = True,      # one-call audio side for aligned chunks
         quantize: bool | str = False,      # False | True/"int8" | "int4"
+        mesh=None,                         # parallel/mesh.py make_mesh
     ):
         if decode_mode not in ("sequential", "jacobi", "auto"):
             raise ValueError(f"decode_mode {decode_mode!r}")
+        tp = tensor_parallel(mesh)
+        if tp is not None and quantize:
+            raise ValueError(f"quantize={quantize!r} at tp={tp.size}: the "
+                             "int8/int4 layouts do not split by heads "
+                             "(run the quantized rungs at tp = 1)")
+        if tp is not None and decode_mode != "sequential":
+            raise ValueError(f"decode_mode {decode_mode!r} at tp={tp.size}: "
+                             "Jacobi decoding is not ported to a mesh")
         # float32 products stay float32 on the card (the reference
         # numerics); both flags are process-wide torch settings
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.mesh = mesh
+        if mesh is not None:
+            # this rank's slices (the caller may free the full tree)
+            params = shard_params(params, cfg, mesh)
+        if tp is not None:
+            cfg = rank_config(cfg, tp)
         self.cfg = cfg
         if quantize:
             # decoder only (where decode reads its bytes); a new tree, so
@@ -142,9 +167,10 @@ class VoxtralEngine:
         self._ada = {self.delay_tokens: ada_scales(dparams, cfg)}
         # [dim] f32, on the device
         self.embed_bos = embed_rows(
-            dparams, torch.tensor(TOKEN_BOS, device=self.device))
+            dparams, torch.tensor(TOKEN_BOS, device=self.device), tp=tp)
         self.embed_pad = embed_rows(
-            dparams, torch.tensor(TOKEN_STREAMING_PAD, device=self.device))
+            dparams, torch.tensor(TOKEN_STREAMING_PAD, device=self.device),
+            tp=tp)
 
     # -- config ------------------------------------------------------------
     @property

@@ -70,11 +70,15 @@ def _take_rows(backlog: list, n: int) -> torch.Tensor:
 
 
 class VoxStream:
-    """One live transcription (vox_stream_init/feed/finish/get analogs)."""
+    """One live transcription (vox_stream_init/feed/finish/get analogs).
+    Not ported to a mesh: an engine with one raises (ROADMAP.md)."""
 
     def __init__(self, engine: VoxtralEngine):
         self.engine = engine
         self.cfg = engine.cfg
+        if engine.mesh is not None:
+            raise ValueError("VoxStream is not ported to a mesh; serve "
+                             "streams there with a StreamPool")
         if engine.tokenizer is None:
             raise ValueError("engine has no tokenizer (tekken.json not loaded)")
         self.tok: TekkenTokenizer = engine.tokenizer
