@@ -98,10 +98,28 @@ script exits non-zero:
                bounds and SDPA's, and flash-decode at the two pool shapes
  16. mel_device audio/mel_device.py on B=16 x 30 s clips against the host
                mel (3e-4), both times
+ 17. ckpt     the checkpoint path through the tools a user runs
+               (phase_ckpt): make_fake_ckpt writes a full-width
+               checkpoint cut to CKPT_LAYERS (4 + 4 layers, 2.0 GB) into a
+               temporary directory; the CLI loads it with -d and
+               transcribes an 11 s clip offline (--bulk-encode), streaming
+               and with --int4 (load seconds, GiB, x realtime, the metric
+               lines); fidelity_check PASSes against the independent f32
+               oracle; make_golden record + check finds equal ids;
+               int8_ab with AB_BITS=4 prints the differing positions;
+               banded, flash-decode, flash-encode and int4 all launch
+Besides, after flash_enc, f32_auto drives the f32 encoder path
+(f32_encoder_auto): a float32 small_config under attn_impl "auto" runs
+the banded and flash-encode kernels' f32 instantiation (csrc/attn_f32.cuh)
+and equals the plain path within F32_ENCODER_REL_TOL; each f32 kernel is
+held against its plain version (F32_ATTN_TOL) and timed at full width.  `--only ckpt_full` runs
+the CLI's offline load and the fidelity check on the full-depth (32 + 26
+layers, 8.9 GB) checkpoint.  Each phase's seconds are in `phase_s`.
 
-The line before the last is a JSON object with one entry per kernel (and
-the slice, serve, stream, bstream, jacobi, pool, mesh and mel_device
-tables); the last line is
+The line before the last but one is a JSON object with one entry per
+kernel (and the slice, serve, stream, bstream, jacobi, pool, mesh,
+mel_device, f32_auto and ckpt tables), the line before the last the card's
+name and power limit; the last line is
 {"ok": true, "device": {...}}.  `--profile` instead prints
 torch.profiler's breakdown of the serve pipeline at B=16 (encode,
 prefill, decode per rung) and of the streaming paths at steady state (a
@@ -113,6 +131,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -130,13 +149,21 @@ FLASH_TOL = 1e-4
 #      before the PV product, against different maxima (the kernel's
 #      running max, the plain version's row max)
 FLASH_ENC_TOL = 2e-2
+# (F): #1 and #7 on float32 queries (csrc/attn_f32.cuh): f32 throughout,
+#      only the order of the f32 operations differs
+F32_ATTN_TOL = 1e-5
+# a float32 small_config's streaming and bulk encoder outputs under "auto"
+# (both kernels' f32 walk) against "xla" (the plain functions), norm-wise
+# relative: (F) through four layers
+F32_ENCODER_REL_TOL = 1e-4
 # (C): bf16 x int4 products are exact; only the f32 summation order differs
 # (the mma tiles and the cluster's K split against cuBLAS), compared
 # relative to max |plain|
 INT4_REL_TOL = 1e-5
 # kernels built to spill no register (the build phase fails if they do)
 NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
-                    "flash_decode_kernel", "int4_mm_kernel")
+                    "flash_decode_kernel", "int4_mm_kernel",
+                    "banded_attention_f32_kernel", "flash_encode_f32_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -253,13 +280,14 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
 # rate and its operations over the bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12     # float32 outside the tensor cores
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, rate: float = BF16_FLOPS) -> dict:
     """bound_ms and bound_by for work that must move `n_bytes` (each input
-    read once, each output written once) and do `n_flops`."""
+    read once, each output written once) and do `n_flops` at `rate`."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS * 1e3
+    t_ops = n_flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1293,25 +1321,20 @@ def make_params(cfg, device: str):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Routes the decoder's int4 products and decode-step row writes, and
-    the bulk encoder's banded attention, to their plain PyTorch versions
-    for the duration (the reference side of a kernel-path check;
-    attn_impl="xla" keeps flash-decode and flash-encode off)."""
-    from voxtral_tpu_torch.models import bulk_encode as bulk_mod
+    """Routes the decoder's int4 products and decode-step row writes to
+    their plain PyTorch versions for the duration (the reference side of a
+    kernel-path check; attn_impl="xla" keeps flash-decode, flash-encode
+    and the bulk encoder's banded kernel off)."""
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.ops import quant_mm, ring
-    from voxtral_tpu_torch.ops.banded_encode import banded_attention_plain
 
-    saved = (quant_mm.int4_mm, dec_mod.ring_rows_write,
-             bulk_mod.banded_attention_batched)
+    saved = (quant_mm.int4_mm, dec_mod.ring_rows_write)
     quant_mm.int4_mm = quant_mm.int4_mm_plain
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
-    bulk_mod.banded_attention_batched = banded_attention_plain
     try:
         yield
     finally:
-        (quant_mm.int4_mm, dec_mod.ring_rows_write,
-         bulk_mod.banded_attention_batched) = saved
+        quant_mm.int4_mm, dec_mod.ring_rows_write = saved
 
 
 def _agreement(a, b) -> float:
@@ -1371,9 +1394,13 @@ def dequantize4(qparams, params):
     return {**qparams, "decoder": dq}, worst
 
 
-# serve rungs run once (the others twice, the second timed and checked
-# for the same ids): the depth the script's time limit allows
-SERVE_ONCE = ("int8", "int4deq")
+# serve rungs run once (bf16 twice, the second timed and checked for the
+# same ids): the depth the script's time limit allows.  A single run's
+# times hold its first-call costs, so they go under their own names
+# (first_run_*), never under the warm second run's
+SERVE_ONCE = ("fp8kv", "int8", "int4", "int4deq")
+SERVE_TIMES = ("encode_ms", "prefill_ms", "decode_ms_per_step", "wall_s",
+               "x_realtime_aggregate")
 
 
 def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
@@ -1611,8 +1638,9 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                           "stream0_agree_b1", "agree_bf16", "agree_int4")
                          if k in st)
         log("serve", f"{name}: B={n_streams} x {dur:.1f} s, {steps} decode "
-                     f"steps, {st['tokens']} ids; encode "
-                     f"{st['encode_ms']:.2f} ms, prefill "
+                     f"steps, {st['tokens']} ids; "
+                     + ("first run: " if name in SERVE_ONCE else "")
+                     + f"encode {st['encode_ms']:.2f} ms, prefill "
                      f"{st['prefill_ms']:.2f} ms, decode "
                      f"{st['decode_ms_per_step']:.3f} ms/step, "
                      f"{st['x_realtime_aggregate']:.2f}x realtime aggregate, "
@@ -1620,6 +1648,9 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                      f"{st['launches']}"
                      + ("" if name in SERVE_ONCE
                         else "; second run identical ids"))
+        if name in SERVE_ONCE:
+            for key in SERVE_TIMES:
+                st[f"first_run_{key}"] = st.pop(key)
         del engine, dp, rows
         if on_gpu:
             torch.cuda.empty_cache()
@@ -2430,8 +2461,9 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
     (on `params`, init_params(seed=0) on `device`), once more unsharded as
     the float32 witness (MESH_HIDDEN_REL_TOL), and at dp 1 x tp 2 in two
     spawned ranks sharing the device over gloo, each rebuilding
-    init_params(seed=0) on the device, slicing it and freeing it.  The
-    bf16 runs serve the clips twice (the second timed)."""
+    init_params(seed=0) on the device, slicing it and freeing it.  Each
+    run serves the clips once (its wall includes its first-call costs: the
+    depth the script's time limit allows)."""
     import torch
 
     from voxtral_tpu_torch import dryrun
@@ -2448,7 +2480,6 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
               buckets=(64, 16, 4, 1))
     eng = VoxtralEngine(cfg, params, **kw)
     mel = np.stack([padded_clip_mel(eng, c) for c in clips])
-    dryrun.run_serving(eng, mel, clips=True)          # warm
     ref = dryrun.run_serving(eng, mel, clips=True)
     del eng
     wcfg = cfg.replace(
@@ -2463,8 +2494,7 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
         torch.cuda.empty_cache()
     t0 = time.monotonic()
     outs = run_ranks(dryrun.mesh_serve, MESH_TP,
-                     (1, MESH_TP, cfg, 0, mel, kw, device, "gloo", True,
-                      False, 2),
+                     (1, MESH_TP, cfg, 0, mel, kw, device, "gloo", True),
                      device=device, backend="gloo")
     spawn_s = time.monotonic() - t0
     steps = ref["decode_steps"]
@@ -2510,11 +2540,13 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
            "launches_per_rank": outs[0]["launches"],
            "launches": {k: sum(o["launches"][k] for o in outs)
                         for k in outs[0]["launches"]}}
+    # one cold run a side: its times hold the first-call costs, under
+    # their own names (first_run_*), never those of a warm run
     for tag, r in (("tp1", ref), ("tp2", outs[0])):
-        rec[f"encode_ms_{tag}"] = r["encode_s"] * 1e3
-        rec[f"prefill_ms_{tag}"] = r["prefill_s"] * 1e3
-        rec[f"decode_ms_per_step_{tag}"] = (r["decode_s"] * 1e3
-                                            / max(r["decode_steps"], 1))
+        rec[f"first_run_encode_ms_{tag}"] = r["encode_s"] * 1e3
+        rec[f"first_run_prefill_ms_{tag}"] = r["prefill_s"] * 1e3
+        rec[f"first_run_decode_ms_per_step_{tag}"] = (
+            r["decode_s"] * 1e3 / max(r["decode_steps"], 1))
     log("mesh", f"(a) full width, dp 1 x tp {MESH_TP} over gloo on one "
                 f"card, B={n_streams} x {seconds:.0f} s: prefill last hidden "
                 f"state against the f32 witness, norm-wise tp 2 {rel:.3e} "
@@ -2527,11 +2559,13 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
                 f"{[round(a, 3) for a in agree_w['tp1']]}, tp 2 "
                 f"{[round(a, 3) for a in agree_w['tp2']]}; per-rank "
                 f"launches {outs[0]['launches']} ({steps} decode steps); "
-                f"encode {rec['encode_ms_tp1']:.1f} -> "
-                f"{rec['encode_ms_tp2']:.1f} ms, prefill "
-                f"{rec['prefill_ms_tp1']:.1f} -> {rec['prefill_ms_tp2']:.1f} "
-                f"ms, decode {rec['decode_ms_per_step_tp1']:.2f} -> "
-                f"{rec['decode_ms_per_step_tp2']:.2f} ms/step (tp 1 -> tp 2)")
+                f"first runs: encode {rec['first_run_encode_ms_tp1']:.1f} -> "
+                f"{rec['first_run_encode_ms_tp2']:.1f} ms, prefill "
+                f"{rec['first_run_prefill_ms_tp1']:.1f} -> "
+                f"{rec['first_run_prefill_ms_tp2']:.1f} ms, decode "
+                f"{rec['first_run_decode_ms_per_step_tp1']:.2f} -> "
+                f"{rec['first_run_decode_ms_per_step_tp2']:.2f} ms/step "
+                f"(tp 1 -> tp 2)")
     if not rel <= MESH_HIDDEN_REL_TOL:
         raise AssertionError(f"[mesh] tp 2 hidden state rel err {rel} "
                              "against the f32 witness")
@@ -2546,9 +2580,8 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
     against the same runs unsharded here (init_params(seed=0) on
     `device` in every process): in float32 the streaming
     BatchedTranscriber and a ring-mode StreamPool, ids exactly equal (the
-    encoder's attention on its plain path: the flash-encode kernel takes
-    bf16 queries only); then the pool in bf16, where flash-encode
-    launches, its ids' agreement printed."""
+    encoder kernels' f32 walk is the same for a row at any head count);
+    then the pool in bf16, its ids' agreement printed."""
     import torch
 
     from voxtral_tpu_torch import dryrun
@@ -2562,11 +2595,9 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
     kw = dict(buckets=(16, 4, 1), enc_kv_ring=128, dec_kv_ring=256)
     pool_kw = dict(dec_kv_ring=256, enc_mode="ring")
     audios = [make_audio(seconds, seed=500 + i) for i in range(2 * dp)]
-    f32 = small_config("float32")
-    f32 = f32.replace(encoder=dataclasses.replace(f32.encoder,
-                                                  attn_impl="xla"))
     rec = {"dp": dp, "tp": tp}
-    for tag, cfg in (("f32", f32), ("bf16", small_config("bfloat16"))):
+    for tag, cfg in (("f32", small_config("float32")),
+                     ("bf16", small_config("bfloat16"))):
         n_enc, n_dec = cfg.encoder.n_layers, cfg.decoder.n_layers
         eng = VoxtralEngine(cfg, init_params(cfg, seed=0, device=device),
                             tokenizer=dryrun._tokenizer(), **kw)
@@ -2580,7 +2611,8 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
             steps = outs[0]["decode_steps"]
             _check_rank_launches(
                 f"{tag} serve", outs, lambda o: _launch_dict(
-                    flash=n_dec * o["decode_steps"] * on_gpu))
+                    flash=n_dec * o["decode_steps"] * on_gpu,
+                    enc=n_enc * o["enc_chunk_calls"] * on_gpu))
             runs.append(("serve", ref["tokens"], outs))
             rec["serve_decode_steps_per_rank"] = steps
         ref = dryrun.run_pool(eng, audios, pool_kw)
@@ -2591,7 +2623,7 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
         _check_rank_launches(
             f"{tag} pool", outs, lambda o: _launch_dict(
                 flash=n_dec * o["burst_rows"] * on_gpu,
-                enc=n_enc * o["enc_calls"] * on_gpu * (tag == "bf16")))
+                enc=n_enc * o["enc_calls"] * on_gpu))
         runs.append(("pool", ref["ids"], outs))
         del eng
         for name, want, outs in runs:
@@ -2794,6 +2826,384 @@ def phase_mel_device(device: str = "cuda", n_clips: int = 16,
     return rec
 
 
+def _f32_kernels(device: str = "cuda") -> dict:
+    """#1 and #7 on float32 queries against their plain versions on the
+    card: at the f32 path's shapes (small_config's bulk encode of 96 mel
+    frames, its 24-row chunks over a 128-slot ring) and at full width
+    (H = 32, window 750: a 30 s clip and a 777-row one hiding 300 leading
+    keys; the 2 s chunk of 100 rows over the 2048-slot ring, f32 and bf16
+    rings, past its wrap), timed at full width with the f32 bound."""
+    import torch
+
+    from voxtral_tpu_torch.ops.banded_encode import (
+        banded_attention_batched,
+        banded_attention_plain,
+    )
+    from voxtral_tpu_torch.ops.flash_encode import (
+        flash_bulk_attention_batched,
+        flash_encode_plain,
+    )
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    f32, d = torch.float32, 64
+    out = {"banded": {"max_abs_err": 0.0}, "flash_encode": {"max_abs_err": 0.0}}
+
+    def check(name, got, want, shape):
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= F32_ATTN_TOL
+        log("f32_auto", f"{name} f32 {shape}: max_abs_err {err:.3e} (tol "
+                        f"{F32_ATTN_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[f32_auto] {name} {shape} err {err}")
+        rec = out[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    for bsz, t, h, window, lo in ((2, 48, 4, 64, [0, 0]),
+                                  (2, 777, 32, 750, [0, 300]),
+                                  (1, 1500, 32, 750, [0])):
+        q, k, v = (_randn(gen, (bsz, t, h, d), f32, device) for _ in range(3))
+        kv_lo = torch.tensor(lo, dtype=torch.int32, device=device)
+        kw = dict(window=window, out_dtype=f32)
+        check("banded", banded_attention_batched(q, k, v, kv_lo, **kw),
+              banded_attention_plain(q, k, v, kv_lo, **kw),
+              f"B={bsz} T={t} H={h} kv_lo={lo}")
+        if t == 1500:
+            rec = out["banded"]
+            rec["ms"] = cuda_ms(lambda: banded_attention_batched(
+                q, k, v, kv_lo, **kw), 10)
+            rec["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
+                q, k, v, kv_lo, **kw), 3)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            rec["library_ms"] = sdpa_ms(qt, kt, vt, _band_mask(t, window), 5)
+            del qt, kt, vt
+            rr = np.arange(t)
+            pairs = int((rr - np.maximum(rr - window + 1, 0) + 1).sum())
+            rec.update(bound(4 * q.numel() * 4, 4 * d * h * pairs, F32_FLOPS))
+        del q, k, v
+    for bsz, t, h, cap, window, pos_l, rdt in (
+            (2, 24, 4, 128, 64, [0, 24], f32),
+            (2, 24, 4, 128, 64, [100, 200], f32),
+            (1, 100, 32, 2048, 750, [2400], f32),
+            (1, 100, 32, 2048, 750, [2400], torch.bfloat16)):
+        q = _randn(gen, (bsz, t, h, d), f32, device)
+        kr, vr = (_randn(gen, (bsz, h, cap, d), f32, device).to(rdt)
+                  for _ in range(2))
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=device)
+        kw = dict(window=window, out_dtype=f32)
+        check("flash_encode",
+              flash_bulk_attention_batched(q, kr, vr, pos, **kw),
+              flash_encode_plain(q, kr, vr, pos, **kw),
+              f"B={bsz} T={t} H={h} cap={cap} pos={pos_l} "
+              f"ring {str(rdt)[6:]}")
+        if cap == 2048 and rdt == f32:
+            rec = out["flash_encode"]
+            rec["ms"] = cuda_ms(lambda: flash_bulk_attention_batched(
+                q, kr, vr, pos, **kw), 20)
+            rec["plain_ms"] = cuda_ms(lambda: flash_encode_plain(
+                q, kr, vr, pos, **kw), 5)
+            valid = _enc_mask(pos, t, cap, window)
+            rec["library_ms"] = sdpa_ms(q.transpose(1, 2).contiguous(), kr,
+                                        vr, valid[:, None], 10)
+            n_slots = int(valid.any(dim=1).sum())
+            rec.update(bound(2 * n_slots * h * d * 4 + 2 * q.numel() * 4,
+                             4 * d * h * int(valid.sum()), F32_FLOPS))
+        del q, kr, vr
+    for name, rec in out.items():
+        log("f32_auto", f"{name} f32 at full width: kernel {rec['ms']:.4f} "
+                        f"ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+                        f"{rec['library_ms']:.4f} ms per call; bound "
+                        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    banded_attention_batched.launches = 0
+    flash_bulk_attention_batched.launches = 0
+    return out
+
+
+def f32_encoder_auto(device: str = "cuda") -> dict:
+    """The f32 encoder path on `device`: small_config in float32 under
+    attn_impl "auto" runs the streaming encoder (two chunks of 24 rows)
+    and the bulk encoder on both encoder kernels' f32 instantiation
+    (flash-encode once per layer per chunk, banded once per layer, as in
+    bf16) and equals the plain path ("xla") within F32_ENCODER_REL_TOL;
+    on the card the kernels are also held against their plain versions
+    directly (_f32_kernels)."""
+    import torch
+
+    from voxtral_tpu_torch.models import bulk_encode as bulk_mod
+    from voxtral_tpu_torch.models import encoder as enc_mod
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.ops.banded_encode import banded_attention_batched
+    from voxtral_tpu_torch.ops.flash_encode import (
+        flash_bulk_attention_batched,
+    )
+
+    kernels = (flash_bulk_attention_batched, banded_attention_batched)
+    gen = torch.Generator().manual_seed(7)
+    mel = torch.randn((2, 96, 128), generator=gen).to(device)
+    x = torch.randn((2, 48, 256), generator=gen).to(device)
+
+    def run(cfg, impl):
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                      attn_impl=impl))
+        params = init_params(cfg, seed=0, device=device)
+        cache = enc_mod.EncKVCache.create(cfg.encoder, cfg.enc_kvdtype, 128,
+                                          batch=2, device=device)
+        for f in kernels:
+            f.launches = 0
+        ys = [enc_mod.encode_chunk(params["encoder"], cfg, x[:, i: i + 24],
+                                   cache, i)[0] for i in (0, 24)]
+        rows = bulk_mod.bulk_encode_clip(params["encoder"], params["adapter"],
+                                         cfg, mel)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return torch.cat(ys, dim=1), rows, [f.launches for f in kernels]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    f32 = small_config("float32")
+    y, rows, launches = run(f32, "auto")
+    y_x, rows_x, _ = run(f32, "xla")
+    n = f32.encoder.n_layers
+    _, _, bf16_launches = run(small_config("bfloat16"), "auto")
+    for f in kernels:
+        f.launches = 0
+    rec = {"f32_launches": launches, "bf16_launches": bf16_launches,
+           "f32_rel_err_stream": rel(y, y_x),
+           "f32_rel_err_bulk": rel(rows, rows_x)}
+    log("f32_auto", f"small_config f32 under attn_impl auto against the "
+                    f"plain path: streaming {rec['f32_rel_err_stream']:.3e}, "
+                    f"bulk {rec['f32_rel_err_bulk']:.3e} norm-wise (tol "
+                    f"{F32_ENCODER_REL_TOL}); launches (flash-encode, "
+                    f"banded) f32 {launches}, bf16 {bf16_launches}")
+    on_gpu = device == "cuda"
+    want = [2 * n * on_gpu, n * on_gpu]
+    if not (rec["f32_rel_err_stream"] <= F32_ENCODER_REL_TOL
+            and rec["f32_rel_err_bulk"] <= F32_ENCODER_REL_TOL
+            and launches == want and bf16_launches == want):
+        raise AssertionError(f"[f32_auto] {rec}")
+    if on_gpu:
+        rec["kernels"] = _f32_kernels(device)
+    return rec
+
+
+# the cut-depth checkpoint of the ckpt phase: full widths, 4 encoder and 4
+# decoder layers (1.0 B parameters, 2.0 GB in bf16)
+CKPT_LAYERS = (4, 4)
+
+
+def ckpt_config(layers=CKPT_LAYERS):
+    """full_config() at `layers` (encoder, decoder) depth, or at full depth
+    when `layers` is None."""
+    from voxtral_tpu_torch.config import full_config
+
+    cfg = full_config()
+    if layers is None:
+        return cfg
+    return cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder, n_layers=layers[0]),
+        decoder=dataclasses.replace(cfg.decoder, n_layers=layers[1]))
+
+
+def _ckpt_counters() -> dict:
+    """The ckpt phase's kernels (flash-encode, flash-decode, banded, int4)
+    by name."""
+    return {f.__name__: f for f in _pool_counters()[:4]}
+
+
+def _counted_run(fn):
+    """fn()'s result and the kernel launches it made (counters set to 0
+    before, read after) and its wall in seconds."""
+    counters = _ckpt_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.monotonic()
+    out = fn()
+    wall = time.monotonic() - t0
+    return out, {k: f.launches for k, f in counters.items()}, wall
+
+
+def _captured(fn):
+    """fn()'s result, stdout and stderr."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn()
+    return res, out.getvalue(), err.getvalue()
+
+
+CKPT_STEPS = ("offline", "stream", "int4", "fidelity", "golden", "int4_ab")
+
+
+def phase_ckpt(cfg, device: str = "cuda", tag: str = "ckpt",
+               steps=CKPT_STEPS, clip_seconds: float = 11.0,
+               fidelity_seconds: float = 7.0) -> dict:
+    """The checkpoint path through the tools a user runs, on `device`:
+    make_fake_ckpt writes a synthetic checkpoint of `cfg` (seed 0) into a
+    temporary directory (deleted at the end; the phase fails when the disk
+    lacks the room), then, on one synthetic clip:
+      offline  the CLI (-d, -i, --bulk-encode): banded once per encoder
+               layer, flash-decode
+      stream   the CLI (-d, -i): flash-encode, flash-decode, no banded
+      int4     the CLI (-d, -i, --int4): the int4 kernel, flash-encode
+      fidelity fidelity_check against the independent f32 oracle: PASS
+               under the JAX tool's gates; flash-decode once per decoder
+               layer per step
+      golden   make_golden record, then check: equal ids
+      int4_ab  int8_ab with AB_BITS=4: the differing positions
+    Each CLI run's load seconds, weights GiB, x realtime and metric lines
+    are parsed (tools/benchmark.py's regexes).  Every kernel of the path
+    (banded, flash-decode, flash-encode, int4) must launch.  main() runs it
+    on the card at CKPT_LAYERS; a tiny config rehearses it on the CPU, with
+    the plain functions counted as the kernels."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from voxtral_tpu_torch.io.wav import write_wav
+    from voxtral_tpu_torch.tools import (
+        benchmark,
+        fidelity_check,
+        int8_ab,
+        make_fake_ckpt,
+        make_golden,
+    )
+
+    specs = make_fake_ckpt.tensor_specs(cfg)
+    need = make_fake_ckpt.checkpoint_bytes(specs)
+    n_params = sum(int(np.prod(shape)) for _, shape, _ in specs)
+    root = tempfile.mkdtemp(prefix="voxtral_ckpt_")
+    rec = {"encoder_layers": cfg.encoder.n_layers,
+           "decoder_layers": cfg.decoder.n_layers, "params": n_params,
+           "checkpoint_bytes": need}
+    try:
+        free = shutil.disk_usage(root).free
+        rec["disk_free_bytes"] = free
+        log(tag, f"checkpoint of {cfg.encoder.n_layers} + "
+                 f"{cfg.decoder.n_layers} layers at full width: "
+                 f"{n_params / 1e9:.3f} B params, {need / 1e9:.2f} GB; "
+                 f"{free / 1e9:.1f} GB free under {root}")
+        if free < need + (1 << 30):
+            raise AssertionError(f"[{tag}] {free / 1e9:.1f} GB free under "
+                                 f"{root}, the checkpoint needs "
+                                 f"{need / 1e9:.2f} GB and 1 GiB more")
+        model = os.path.join(root, "model")
+        t0 = time.monotonic()
+        _captured(lambda: make_fake_ckpt.main([model, "0"], cfg=cfg))
+        rec["write_s"] = time.monotonic() - t0
+        wav = os.path.join(root, "clip.wav")
+        write_wav(wav, make_audio(clip_seconds, seed=700))
+        log(tag, f"make_fake_ckpt wrote {model} in {rec['write_s']:.1f} s; "
+                 f"{clip_seconds:.0f} s clip")
+        base = ["-d", model, "-i", wav, "--device", device]
+        launches = {}
+        for name, extra in (("offline", ["--bulk-encode"]), ("stream", []),
+                            ("int4", ["--int4"])):
+            if name not in steps:
+                continue
+            (rc, err), n, wall = _counted_run(
+                lambda: benchmark.run_cli(base + extra, cfg))
+            m = benchmark.parse_metrics(err)
+            load = re.search(r"Model loaded in ([0-9.]+)s", err)
+            gib = re.search(r"Device memory: ([0-9.]+) GiB", err)
+            if rc != 0 or m is None or not load or not gib:
+                raise AssertionError(f"[{tag}] CLI {name}: rc {rc}\n"
+                                     f"{err[-3000:]}")
+            proc_s = (m["encoder_ms"] + m["decoder_ms"]) / 1e3
+            run = {"rc": rc, "wall_s": wall, "load_s": float(load.group(1)),
+                   "weights_gib": float(gib.group(1)),
+                   "x_realtime": m["audio_sec"] / proc_s, "launches": n,
+                   **m, "lines": [ln for ln in err.splitlines()
+                                  if ln.startswith(("Audio:", "Encoder:",
+                                                    "Decoder:", "Offline",
+                                                    "Device memory:",
+                                                    "Model loaded"))]}
+            rec[f"cli_{name}"] = run
+            launches[f"cli_{name}"] = n
+            log(tag, f"CLI {' '.join(extra) or '(streaming)'}: load "
+                     f"{run['load_s']:.1f} s, {run['weights_gib']:.2f} GiB "
+                     f"weights, {run['x_realtime']:.2f}x realtime, wall "
+                     f"{wall:.1f} s; launches {n}; "
+                     + " | ".join(run["lines"]))
+        nd, ne = cfg.decoder.n_layers, cfg.encoder.n_layers
+        if "fidelity" in steps:
+            (res, _, ferr), n, wall = _counted_run(lambda: _captured(
+                lambda: fidelity_check.fidelity(model, fidelity_seconds,
+                                                torch.device(device), cfg)))
+            res["flips"] = [list(f) for f in res["flips"]]
+            rec["fidelity"] = {**res, "verdict": fidelity_check.verdict(res),
+                               "wall_s": wall, "launches": n}
+            launches["fidelity"] = n
+            log(tag, f"{fidelity_check.verdict(res)}; adapter rel err "
+                     f"{res['adapter_rel_err']:.4f} (tol "
+                     f"{fidelity_check.ADAPTER_REL_TOL}); flips "
+                     f"(step, engine, oracle, gap) {res['flips']}; load "
+                     f"{res['load_s']:.1f} s, {res['weights_gib']:.2f} GiB; "
+                     f"{wall:.1f} s; launches {n}")
+            if not res["ok"]:
+                raise AssertionError(f"[{tag}] {fidelity_check.verdict(res)}"
+                                     f"\n{ferr[-3000:]}")
+            if (n["flash_decode"] != nd * res["steps"]
+                    or n["flash_bulk_attention_batched"] <= 0):
+                raise AssertionError(f"[{tag}] fidelity launches {n}")
+        if "golden" in steps:
+            fixdir = os.path.join(root, "golden")
+            common = ["-d", model, "--fixtures", fixdir, "--device", device]
+            ((rc1, out1, _), (rc2, out2, _)), n, wall = _counted_run(lambda: (
+                _captured(lambda: make_golden.main(["record"] + common + [wav],
+                                                   cfg=cfg)),
+                _captured(lambda: make_golden.main(
+                    ["check"] + common + ["--wav-dir", root], cfg=cfg))))
+            ok_line = [ln for ln in out2.splitlines()
+                       if "clip.torch_engine.json" in ln]
+            rec["golden"] = {"record": out1.strip(), "check": ok_line,
+                             "rc": [rc1, rc2], "wall_s": wall,
+                             "launches": n}
+            launches["golden"] = n
+            log(tag, f"make_golden record: {out1.strip()}; check: "
+                     f"{ok_line} (rc {rc1}, {rc2}), {wall:.1f} s; launches "
+                     f"{n}")
+            if rc1 or rc2 or not ok_line or not ok_line[0].startswith("OK"):
+                raise AssertionError(f"[{tag}] make_golden: {out1}{out2}")
+        if "int4_ab" in steps:
+            os.environ["AB_BITS"] = "4"
+            try:
+                (rc, out, _), n, wall = _counted_run(lambda: _captured(
+                    lambda: int8_ab.main([model, wav, "--device", device],
+                                         cfg=cfg)))
+            finally:
+                del os.environ["AB_BITS"]
+            lines = out.strip().splitlines()
+            rec["int4_ab"] = {"lines": lines, "wall_s": wall, "launches": n}
+            launches["int4_ab"] = n
+            log(tag, f"int8_ab AB_BITS=4: {' | '.join(lines)}; {wall:.1f} "
+                     f"s; launches {n}")
+            if rc or not lines or not lines[0].startswith("QUANT-AB: "):
+                raise AssertionError(f"[{tag}] int8_ab: rc {rc} {out}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(n[k] for n in launches.values())
+             for k in _ckpt_counters()}
+    rec["launches"] = total
+    log(tag, f"launches in the phase {total}")
+    want = {"banded_attention_batched": "offline",
+            "flash_bulk_attention_batched": "stream",
+            "flash_decode": "offline", "int4_mm": "int4"}
+    idle = [k for k, step in want.items() if step in steps and total[k] <= 0]
+    if idle:
+        raise AssertionError(f"[{tag}] no launch of {idle}")
+    if "offline" in steps and launches["cli_offline"][
+            "banded_attention_batched"] != ne:
+        raise AssertionError(f"[{tag}] offline banded launches "
+                             f"{launches['cli_offline']}")
+    if "stream" in steps and launches["cli_stream"][
+            "banded_attention_batched"]:
+        raise AssertionError(f"[{tag}] streaming launched banded")
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2803,8 +3213,9 @@ def _leaves(tree):
 
 
 # the phases `--only` runs by name (after device and build), in this order
-ONLY_PHASES = ("banded", "flash", "flash_enc", "int4", "rows", "jacobi",
-               "pool_ring", "pool_window", "mesh", "mel_device")
+ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "rows",
+               "jacobi", "pool_ring", "pool_window", "mesh", "mel_device",
+               "ckpt", "ckpt_full")
 
 
 def run_only(names) -> dict:
@@ -2829,6 +3240,15 @@ def run_only(names) -> dict:
             out[name] = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
                                    ref_ids=out.get("pool_ring", {}).get(
                                        "slot0_ids"))
+        elif name == "f32_auto":
+            out[name] = f32_encoder_auto("cuda")
+        elif name == "ckpt":
+            out[name] = phase_ckpt(ckpt_config(), "cuda")
+        elif name == "ckpt_full":
+            # the full-depth checkpoint (8.9 GB): the CLI's load and the
+            # fidelity check only
+            out[name] = phase_ckpt(ckpt_config(None), "cuda", tag=name,
+                                   steps=("offline", "fidelity"))
         else:
             out[name] = globals()[f"phase_{name}"]()
     for rec in out.values():
@@ -2870,31 +3290,45 @@ def main(argv: list[str]) -> int:
         phase_profile(cfg, params)
         profile_streaming(cfg, params)
         return 0
-    banded = phase_banded()
-    flash = phase_flash()
-    flash_enc = phase_flash_enc()
+    phase_s = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        phase_s[name] = time.monotonic() - t0
+        log("time", f"{name} {phase_s[name]:.1f} s")
+        return out
+
+    banded = timed("banded", phase_banded)
+    flash = timed("flash", phase_flash)
+    flash_enc = timed("flash_enc", phase_flash_enc)
+    f32_auto = timed("f32_auto", f32_encoder_auto, "cuda")
     from voxtral_tpu_torch.config import full_config
 
-    int4 = phase_int4()
-    rows = phase_rows()
+    int4 = timed("int4", phase_int4)
+    rows = timed("rows", phase_rows)
     cfg = full_config()
-    params = make_params(cfg, "cuda")
-    sl = phase_slice(cfg, params, "cuda", (4.0, 11.0, 30.0))
+    params = timed("params", make_params, cfg, "cuda")
+    sl = timed("slice", phase_slice, cfg, params, "cuda", (4.0, 11.0, 30.0))
     # bench.py's serving shape: decoder ring 896, bursts (64, 16, 4, 1)
-    sv = phase_serve(cfg, params, "cuda", n_streams=16, seconds=30.0,
-                     dec_ring=896)
+    sv = timed("serve", phase_serve, cfg, params, "cuda", n_streams=16,
+               seconds=30.0, dec_ring=896)
     served = sv["launches"]
-    st = phase_stream(cfg, params, "cuda")
-    bst = phase_bstream(cfg, params, "cuda")
+    st = timed("stream", phase_stream, cfg, params, "cuda")
+    bst = timed("bstream", phase_bstream, cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
                 for k in st["launches"]}
-    jac = phase_jacobi(cfg, params, "cuda")
-    pr = phase_pool(cfg, params, "cuda", **POOL_RING)
-    pw = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
-                    ref_ids=pr.pop("slot0_ids"))
+    jac = timed("jacobi", phase_jacobi, cfg, params, "cuda")
+    pr = timed("pool_ring", phase_pool, cfg, params, "cuda", **POOL_RING)
+    pw = timed("pool_window", phase_pool, cfg, params, "cuda", **POOL_WINDOW,
+               ref_ids=pr.pop("slot0_ids"))
     pw.pop("slot0_ids")
-    ms = phase_mesh(cfg, params, "cuda")
-    mel_dev = phase_mel_device("cuda")
+    ms = timed("mesh", phase_mesh, cfg, params, "cuda")
+    mel_dev = timed("mel_device", phase_mel_device, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    ck = timed("ckpt", phase_ckpt, ckpt_config(), "cuda")
+    ckpt = ck["launches"]
     # the mesh path's launches: every rank's, (a) and (b)
     fw, small, shapes = ms["full_width"], ms["small"], ms["rank_shapes"]
     meshed = {k: fw["launches"][k] + sum(
@@ -2905,6 +3339,13 @@ def main(argv: list[str]) -> int:
     def rank_keys(rec, tag):
         return {f"{k}_{tag}": v for k, v in rec.items()}
 
+    # the f32 path (f32_auto): launches, and the f32 instantiations' checks
+    f32_banded, f32_enc = (
+        {"launches_f32": n, **{f"f32_{k}": v
+                               for k, v in f32_auto["kernels"][name].items()}}
+        for name, n in (("banded", f32_auto["f32_launches"][1]),
+                        ("flash_encode", f32_auto["f32_launches"][0])))
+
     kernels = [
         {"name": "banded_attention", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/banded_attention.cu",
@@ -2912,10 +3353,13 @@ def main(argv: list[str]) -> int:
          "launches": (sl["launches"][0] + served["banded_attention_batched"]
                       + jac["launches_banded"]
                       + pw["launches"]["banded_attention_batched"]
-                      + meshed["banded_attention_batched"]),
+                      + meshed["banded_attention_batched"]
+                      + ckpt["banded_attention_batched"]
+                      + f32_banded["launches_f32"]),
          "launches_pool_window": pw["launches"]["banded_attention_batched"],
          "launches_mesh": meshed["banded_attention_batched"],
-         **banded, **rank_keys(shapes["banded"], "tp2_rank")},
+         "launches_ckpt": ckpt["banded_attention_batched"],
+         **banded, **rank_keys(shapes["banded"], "tp2_rank"), **f32_banded},
         {"name": "flash_decode", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
@@ -2923,7 +3367,7 @@ def main(argv: list[str]) -> int:
                       + streamed["flash_decode"] + jac["launches_flash_decode"]
                       + pr["launches"]["flash_decode"]
                       + pw["launches"]["flash_decode"]
-                      + meshed["flash_decode"]),
+                      + meshed["flash_decode"] + ckpt["flash_decode"]),
          "launches_by_path": {
              "slice": sl["launches"][1],
              **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
@@ -2933,7 +3377,8 @@ def main(argv: list[str]) -> int:
              "jacobi": jac["launches_flash_decode"],
              "pool_ring": pr["launches"]["flash_decode"],
              "pool_window": pw["launches"]["flash_decode"],
-             "mesh": meshed["flash_decode"]}, **flash,
+             "mesh": meshed["flash_decode"],
+             "ckpt": ckpt["flash_decode"]}, **flash,
          **{k2: v for tag in ("rank_bf16", "rank_fp8", "pool_ring",
                               "pool_window")
             for k2, v in rank_keys(shapes[f"flash_decode_{tag}"],
@@ -2943,16 +3388,21 @@ def main(argv: list[str]) -> int:
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
          "launches": (streamed["flash_bulk_attention_batched"]
                       + pr["launches"]["flash_bulk_attention_batched"]
-                      + meshed["flash_bulk_attention_batched"]),
+                      + meshed["flash_bulk_attention_batched"]
+                      + ckpt["flash_bulk_attention_batched"]
+                      + f32_enc["launches_f32"]),
          "launches_mesh": meshed["flash_bulk_attention_batched"],
+         "launches_ckpt": ckpt["flash_bulk_attention_batched"],
          "launches_stream": st["launches"]["flash_bulk_attention_batched"],
          "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
          "launches_pool_ring": pr["launches"]["flash_bulk_attention_batched"],
-         **flash_enc, **rank_keys(shapes["flash_encode"], "tp2_rank")},
+         **flash_enc, **rank_keys(shapes["flash_encode"], "tp2_rank"),
+         **f32_enc},
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
          "replaces": "voxtral_tpu/ops/quant_mm.py:44",
-         "launches": served["int4_mm"], **int4},
+         "launches": served["int4_mm"] + ckpt["int4_mm"],
+         "launches_ckpt": ckpt["int4_mm"], **int4},
         {"name": "ring_rows_write", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/ring_rows_write.cu",
          "replaces": "voxtral_tpu/ops/ring.py:88",
@@ -2973,6 +3423,12 @@ def main(argv: list[str]) -> int:
         raise AssertionError("banded_attention: no launch on pool_window")
     if not (kernels[0]["launches_mesh"] > 0 and kernels[2]["launches_mesh"] > 0):
         raise AssertionError("banded or flash_encode: no launch on mesh")
+    idle = [k["name"] for k in kernels if k.get("launches_f32") == 0]
+    if idle:
+        raise AssertionError(f"{idle}: no launch on the f32 encoder path")
+    idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
+    if idle:   # flash_decode's "ckpt" path is checked above
+        raise AssertionError(f"{idle}: no launch on ckpt")
     total_s = time.monotonic() - t_start
     log("done", f"all phases in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
@@ -2980,6 +3436,7 @@ def main(argv: list[str]) -> int:
                       "serve": sv["rungs"], "stream": st,
                       "bstream": bst, "jacobi": jac, "pool_ring": pr,
                       "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
+                      "f32_auto": f32_auto, "ckpt": ck, "phase_s": phase_s,
                       "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

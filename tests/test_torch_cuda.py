@@ -190,8 +190,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 16, 4, 32), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         banded_attention_batched(q, q, q, window=8)
-    with pytest.raises(ValueError, match="bf16"):
-        banded_attention_batched(q.float(), q.float(), q.float(), window=8)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        banded_attention_batched(q.half(), q.half(), q.half(), window=8)
     # fp8 rings are taken; other ring types, D != 128 and non-contiguous
     # caches are not
     q = torch.zeros((1, 32, 128), device=dev)
@@ -628,8 +628,8 @@ def test_flash_encode_wrapper_refuses(dev):
     q = torch.zeros((1, 8, 32, 64), dtype=torch.bfloat16, device=dev)
     ring = torch.zeros((1, 32, 128, 64), dtype=torch.bfloat16, device=dev)
     p = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="bf16"):
-        flash_bulk_attention_batched(q.float(), ring, ring, p, window=750)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        flash_bulk_attention_batched(q.half(), ring, ring, p, window=750)
     f8 = ring.to(torch.float8_e4m3fn)
     with pytest.raises(ValueError, match="rings"):
         flash_bulk_attention_batched(q, f8, f8, p, window=750)
@@ -987,10 +987,9 @@ def test_kernels_at_tp2_rank_shapes(dev, rdt):
 
 def test_tp2_mesh_on_one_card_over_gloo(dev, tmp_path):
     """Two ranks share the card over gloo (NCCL would refuse: one card per
-    rank): small_config float32 serving (the encoder's attention on its
-    plain path, flash-encode taking bf16 queries only) at dp 1 x tp 2
-    gives the unsharded run's ids, and flash-decode launches on every
-    rank, once per layer per step."""
+    rank): small_config float32 serving at dp 1 x tp 2 gives the
+    unsharded run's ids, and flash-decode launches on every rank, once per
+    layer per step."""
     import chip_smoke as cs
     from voxtral_tpu_torch import dryrun
     from voxtral_tpu_torch.models.params import init_params
@@ -1013,3 +1012,71 @@ def test_tp2_mesh_on_one_card_over_gloo(dev, tmp_path):
         assert o["tokens"] == want["tokens"]
         assert o["launches"]["flash_decode"] == \
             cfg.decoder.n_layers * o["decode_steps"] > 0
+
+
+def test_f32_encoder_under_auto_on_the_card(dev):
+    """small_config in float32 under "auto" runs the streaming and bulk
+    encoders on both encoder kernels' f32 instantiation, launching them as
+    often as in bf16, within F32_ENCODER_REL_TOL of the plain path; each
+    f32 kernel is within F32_ATTN_TOL of its plain version at the path's
+    and at full-width shapes (chip_smoke.f32_encoder_auto)."""
+    import chip_smoke as cs
+
+    rec = cs.f32_encoder_auto("cuda")
+    n = cs.small_config().encoder.n_layers
+    assert rec["f32_launches"] == rec["bf16_launches"] == [2 * n, n]
+    assert rec["f32_rel_err_stream"] <= cs.F32_ENCODER_REL_TOL
+    assert rec["f32_rel_err_bulk"] <= cs.F32_ENCODER_REL_TOL
+    for name in ("banded", "flash_encode"):
+        assert rec["kernels"][name]["max_abs_err"] <= cs.F32_ATTN_TOL
+
+
+def test_f32_flash_encode_is_chunking_invariant_on_the_card(dev):
+    """The f32 walk visits the ring's tiles in slot order and skips, per
+    row, the tiles with no key for it: the rows of 48 positions written
+    and attended as one chunk or as chunks of 24 and 24 (or 8, 16, 24) are
+    equal bit for bit, past the ring's wrap too."""
+    from voxtral_tpu_torch.ops.ring import ring_chunk_write
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    h, d, cap, window, total = 4, 64, 128, 64, 240
+    q, k, v = (_randn(gen, (1, total, h, d), torch.float32, dev)
+               for _ in range(3))
+    outs = []
+    for sizes in ((48,) * 5, (24, 24) * 5, (8, 16, 24) * 5):
+        kc = torch.zeros((1, 1, h, cap, d), device=dev)
+        vc = torch.zeros_like(kc)
+        rows, p = [], 0
+        for n in sizes:
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            _, _, kr, vr = ring_chunk_write(kc, vc, k[:, p:p + n],
+                                            v[:, p:p + n], 0, pos)
+            rows.append(flash_bulk_attention_batched(
+                q[:, p:p + n], kr, vr, pos, window=window,
+                out_dtype=torch.float32))
+            p += n
+        outs.append(torch.cat(rows, dim=1))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_checkpoint_tools_on_the_card(dev):
+    """chip_smoke's ckpt phase at small_config in bf16 (the kernels' head
+    dims, 2 + 2 layers): make_fake_ckpt's checkpoint through the CLI
+    offline, fidelity_check PASS on the card against the f32 oracle,
+    make_golden record + check with equal ids (both streaming, on
+    flash-encode); banded, flash-encode and flash-decode launch, with the
+    phase's exact checks.  (The streaming CLI is left to the phase's
+    full-width run: on this small random model it decodes no text token,
+    so it prints no Decoder: line, as the reference's CLI does not.)"""
+    import chip_smoke as cs
+
+    cfg = cs.small_config("bfloat16")
+    # make_golden's engine takes the default buckets (up to 256)
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, kv_ring=512))
+    rec = cs.phase_ckpt(cfg, "cuda", clip_seconds=5.0,
+                        steps=("offline", "fidelity", "golden"))
+    assert rec["fidelity"]["ok"]
+    assert rec["golden"]["check"][0].startswith("OK")
+    assert rec["launches"]["banded_attention_batched"] == cfg.encoder.n_layers
+    assert rec["launches"]["flash_bulk_attention_batched"] > 0

@@ -144,9 +144,8 @@ def test_entry_decode_step():
 
 def test_dryrun_config_takes_the_kernels_head_dims_on_cuda():
     """On the CPU the dry run runs mid_config as the JAX package's does; on
-    CUDA the same lattice at the kernels' head dims, f32 with the encoder
-    on its plain attention (flash-encode takes bf16 queries), and bf16 for
-    the int4 case (the int4 kernel takes bf16 activations)."""
+    CUDA the same lattice at the kernels' head dims, in f32, and in bf16
+    for the int4 case (the int4 kernel takes bf16 activations)."""
     assert dryrun.dryrun_config("cpu") == mid_config(enc_kv_ring=64,
                                                      dec_kv_ring=64)
     f32, bf16 = (dryrun.dryrun_config("cuda", dt)
@@ -156,5 +155,6 @@ def test_dryrun_config_takes_the_kernels_head_dims_on_cuda():
             == (32, 32, 64)
         assert (c.decoder.n_layers, c.decoder.n_heads, c.decoder.n_kv_heads,
                 c.decoder.head_dim) == (26, 32, 8, 128)
-    assert f32.cdtype == torch.float32 and f32.encoder.attn_impl == "xla"
+    # "auto" everywhere: the encoder kernels take float32 queries too
+    assert f32.cdtype == torch.float32 and f32.encoder.attn_impl == "auto"
     assert bf16.cdtype == torch.bfloat16 and bf16.encoder.attn_impl == "auto"

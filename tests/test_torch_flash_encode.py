@@ -23,7 +23,7 @@ from voxtral_tpu.ops.ring import ring_chunk_write as j_chunk_write
 from voxtral_tpu.ops.ring import ring_write as j_ring_write
 from voxtral_tpu_torch.config import tiny_config
 from voxtral_tpu_torch.models import encoder as enc_mod
-from voxtral_tpu_torch.models.params import from_jax_numpy
+from voxtral_tpu_torch.models.params import from_jax_numpy, init_params
 from voxtral_tpu_torch.ops.flash_encode import (
     MAX_SEGMENTS,
     flash_bulk_attention_batched,
@@ -157,23 +157,27 @@ def _counting(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("impl,enc_kv,t,route", [
-    ("auto", "float32", 8, "flash"),
-    ("auto", "bfloat16", 8, "flash"),
-    ("flash", "float32", 8, "flash"),
-    ("auto", "float8_e4m3fn", 8, "ring"),     # byte-wide ring: plain path
-    ("xla", "float32", 8, "ring"),
-    ("auto", "float32", 1, "ring"),           # T == 1: direct slot write
+@pytest.mark.parametrize("impl,cdt,enc_kv,t,route", [
+    ("auto", "bfloat16", "bfloat16", 8, "flash"),
+    ("auto", "bfloat16", "float32", 8, "flash"),
+    # float32 queries take the kernel's f32 instantiation
+    ("auto", "float32", "float32", 8, "flash"),
+    ("auto", "float32", "bfloat16", 8, "flash"),
+    ("flash", "float32", "float32", 8, "flash"),
+    ("auto", "bfloat16", "float8_e4m3fn", 8, "ring"),  # byte-wide ring
+    ("xla", "bfloat16", "bfloat16", 8, "ring"),
+    ("auto", "bfloat16", "bfloat16", 1, "ring"),  # T == 1: direct slot write
 ])
-def test_encoder_attention_dispatch(monkeypatch, params_np, impl, enc_kv, t,
-                                    route):
+def test_encoder_attention_dispatch(monkeypatch, impl, cdt, enc_kv, t, route):
     """attn_impl "auto" takes the flash-encode wrapper for every chunk of
-    T > 1 rows on a float ring of >= 2 bytes, at any B; fp8 rings, "xla"
-    and T == 1 chunks take the plain ring_attention."""
-    cfg = tiny_config(enc_kv_ring=64).replace(enc_kv_dtype=enc_kv)
+    T > 1 rows on a float ring of >= 2 bytes, at any B and for bf16 and
+    float32 queries alike; fp8 rings, "xla" and T == 1 chunks take the
+    plain ring_attention."""
+    cfg = tiny_config(enc_kv_ring=64, compute_dtype=cdt).replace(
+        enc_kv_dtype=enc_kv)
     cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
                                                   attn_impl=impl))
-    encp = from_jax_numpy(params_np)["encoder"]
+    encp = init_params(cfg, seed=0, device="cpu")["encoder"]
     calls = _counting(monkeypatch)
     for bsz in (1, 2):
         cache = enc_mod.EncKVCache.create(cfg.encoder, cfg.enc_kvdtype, 64,
@@ -186,6 +190,61 @@ def test_encoder_attention_dispatch(monkeypatch, params_np, impl, enc_kv, t,
     other = "ring" if route == "flash" else "flash"
     assert calls[route] == 2 * cfg.encoder.n_layers
     assert calls[other] == 0
+
+
+@pytest.mark.parametrize("impl,cdt,route", [
+    ("auto", "bfloat16", "kernel"),
+    ("auto", "float32", "kernel"),
+    ("flash", "float32", "kernel"),
+    ("xla", "bfloat16", "plain"),
+    ("xla", "float32", "plain"),
+])
+def test_bulk_encoder_attention_dispatch(monkeypatch, impl, cdt, route):
+    """The bulk encoder's attn_impl follows the streaming encoder's rule
+    (decoder._use_flash with no ring): "auto" and "flash" take the banded
+    wrapper (the kernel for CUDA tensors) at both compute dtypes, "xla"
+    banded_attention_plain; one call per layer (on the CPU the wrapper
+    runs the plain version)."""
+    from voxtral_tpu_torch.models import bulk_encode as bulk_mod
+
+    cfg = tiny_config(compute_dtype=cdt)
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  attn_impl=impl))
+    params = init_params(cfg, seed=0, device="cpu")
+    calls = {"kernel": 0, "plain": 0}
+    real_kernel = bulk_mod.banded_attention_batched
+    real_plain = bulk_mod.banded_attention_plain
+
+    def counted(tag, fn):
+        def call(*a, **k):
+            calls[tag] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(bulk_mod, "banded_attention_batched",
+                        counted("kernel", real_kernel))
+    monkeypatch.setattr(bulk_mod, "banded_attention_plain",
+                        counted("plain", real_plain))
+    mel = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 48, cfg.encoder.n_mel)).astype(np.float32))
+    rows = bulk_mod.bulk_encode_clip(params["encoder"], params["adapter"],
+                                     cfg, mel)
+    assert rows.shape == (2, 6, cfg.decoder.dim)
+    assert bool(torch.isfinite(rows).all())
+    assert calls[route] == cfg.encoder.n_layers
+    assert calls["plain" if route == "kernel" else "kernel"] == 0
+
+
+def test_bulk_encoder_rejects_unknown_attn_impl():
+    from voxtral_tpu_torch.models import bulk_encode as bulk_mod
+
+    cfg = tiny_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  attn_impl="sdpa"))
+    params = init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="attn_impl"):
+        bulk_mod.bulk_encode_clip(params["encoder"], params["adapter"], cfg,
+                                  torch.zeros((1, 16, cfg.encoder.n_mel)))
 
 
 # --- the kernel's split walk (segments of ring blocks, combined in order) --

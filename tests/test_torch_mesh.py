@@ -177,6 +177,23 @@ def test_backend_is_explicit_and_nccl_refuses_shared_cards(monkeypatch):
     tmesh.check_cards("cuda", "gloo", 8)
 
 
+def test_spawned_world_has_a_time_limit(tmp_path):
+    """A world of ranks still running past run_ranks' `timeout` is killed
+    and the call raises TimeoutError, well before the ranks would end, and
+    leaves no rank behind."""
+    import multiprocessing
+    import time
+
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="still running"):
+        tmesh.run_ranks(torch_rank_tasks.rank_sleep, 2, (600.0,),
+                        device="cpu", backend="gloo", workdir=tmp_path,
+                        timeout=20)
+    assert time.monotonic() - t0 < 120
+    assert not [p for p in multiprocessing.active_children()
+                if p.name.startswith("SpawnProcess")]
+
+
 # --- spawned meshes against JAX --------------------------------------------
 
 def _jax_tokens(engine, mel):

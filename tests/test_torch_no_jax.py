@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of voxtral_tpu_torch loads
-neither JAX nor the JAX package (nor ml_dtypes), and running the offline
-path on CPU tensors launches no kernel."""
+neither JAX nor the JAX package (nor ml_dtypes, nor any module of tests/,
+whose oracle the port's fidelity check has its own copy of), and running
+the offline path on CPU tensors launches no kernel."""
 
 import os
 import pkgutil
@@ -17,13 +18,15 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import voxtral_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "voxtral_tpu", "ml_dtypes"))
+tests = os.path.join(os.getcwd(), "tests") + os.sep
+bad = sorted(m for m, mod in list(sys.modules.items())
+             if m.split(".")[0] in ("jax", "jaxlib", "voxtral_tpu", "ml_dtypes")
+             or (getattr(mod, "__file__", None) or "").startswith(tests))
 print(len(names), bad)
 """
 
@@ -37,6 +40,10 @@ def test_port_imports_no_jax():
     expected = [m.name for m in pkgutil.walk_packages(
         voxtral_tpu_torch.__path__, "voxtral_tpu_torch.")]
     assert int(n) == len(expected) >= 20
+    # the checkpoint tools, the oracle among them, are walked too
+    assert {f"voxtral_tpu_torch.tools.{t}" for t in (
+        "make_fake_ckpt", "inspect_weights", "oracle", "fidelity_check",
+        "make_golden", "benchmark", "int8_ab", "window_ab")} <= set(expected)
     assert bad == "[]", bad
 
 
@@ -132,8 +139,8 @@ def test_mesh_modules_and_spawned_ranks_import_no_jax(tmp_path):
         voxtral_tpu_torch.__path__, "voxtral_tpu_torch.")}
     assert {"voxtral_tpu_torch.parallel.mesh", "voxtral_tpu_torch.dryrun",
             "voxtral_tpu_torch.audio.mel_device"} <= names
-    mods = run_ranks(torch_rank_tasks.rank_modules, 2, device="cpu", backend="gloo",
-                     workdir=tmp_path)
+    mods = run_ranks(torch_rank_tasks.rank_modules, 2, device="cpu",
+                     backend="gloo", workdir=tmp_path, timeout=240)
     for m in mods:
         assert "torch.distributed" in m
         bad = [x for x in m if x.split(".")[0]

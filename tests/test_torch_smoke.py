@@ -72,7 +72,7 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
                         dec_ring=64, extra_steps=4)
     rungs = {r["rung"]: r for r in sv["rungs"]}
     assert list(rungs) == ["bf16", "fp8kv", "int8", "int4", "int4deq"]
-    assert [r["runs"] for r in rungs.values()] == [2, 2, 1, 2, 1]
+    assert [r["runs"] for r in rungs.values()] == [2, 1, 1, 1, 1]
     steps = rungs["bf16"]["decode_steps"]
     # every rung decodes through flash-decode, fp8 rings included; the
     # row-write kernel runs in the fp8kv rung's "xla" mid-fill burst
@@ -250,3 +250,62 @@ def test_mesh_and_mel_device_phases_on_cpu():
     assert "rank_shapes" not in out
     mel = cs.phase_mel_device("cpu", n_clips=2, seconds=3.0)
     assert mel["max_abs_err"] <= 3e-4 and mel["frames"] == 300
+
+
+def test_ckpt_phase_on_cpu(counted_kernels):
+    """The ckpt phase at tiny size: make_fake_ckpt's checkpoint through the
+    CLI (offline, streaming, --int4), fidelity_check (PASS in float32),
+    make_golden record + check (equal ids) and int8_ab with AB_BITS=4,
+    with its exact launch checks; the directory is gone afterwards."""
+    import glob
+    import os
+    import tempfile
+
+    before = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                        "voxtral_ckpt_*")))
+    # make_golden's engine takes the default buckets (up to 256): the
+    # encoder ring holds the window (24) plus 256
+    rec = cs.phase_ckpt(tiny_config(enc_kv_ring=512), "cpu",
+                        clip_seconds=5.0)
+    assert set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                      "voxtral_ckpt_*"))) == before
+    n_enc, n_dec = 2, 2
+    assert rec["cli_offline"]["launches"]["banded_attention_batched"] == n_enc
+    assert rec["cli_offline"]["mode"] == "offline"
+    assert rec["cli_stream"]["mode"] == "stream"
+    assert rec["cli_stream"]["launches"]["banded_attention_batched"] == 0
+    assert rec["cli_stream"]["launches"]["flash_bulk_attention_batched"] > 0
+    assert rec["cli_int4"]["launches"]["int4_mm"] > 0
+    for name in ("cli_offline", "cli_stream", "cli_int4"):
+        assert rec[name]["load_s"] >= 0 and rec[name]["weights_gib"] >= 0
+        assert rec[name]["x_realtime"] > 0
+    fid = rec["fidelity"]
+    assert fid["ok"] and fid["agree"] == fid["steps"] >= 50
+    assert fid["launches"]["flash_decode"] == n_dec * fid["steps"]
+    assert rec["golden"]["rc"] == [0, 0]
+    assert rec["golden"]["check"][0].startswith("OK   clip.torch_engine.json")
+    assert rec["int4_ab"]["lines"][0].startswith("QUANT-AB: bf16 ")
+    assert rec["int4_ab"]["launches"]["int4_mm"] > 0
+    assert all(v > 0 for v in rec["launches"].values())
+
+
+def test_ckpt_phase_refuses_a_full_disk(monkeypatch):
+    """Too little room for the checkpoint fails the phase with a message
+    (it never skips) and leaves nothing behind."""
+    import shutil
+
+    monkeypatch.setattr(shutil, "disk_usage",
+                        lambda p: shutil._ntuple_diskusage(10**12, 10**12, 1000))
+    with pytest.raises(AssertionError, match="GB free under"):
+        cs.phase_ckpt(tiny_config(enc_kv_ring=128), "cpu")
+
+
+def test_f32_encoder_auto_on_cpu():
+    """The f32 encoder check at its shapes on the CPU, where the kernels'
+    wrappers run their plain versions: "auto" and "xla" agree and no kernel
+    launches."""
+    rec = cs.f32_encoder_auto("cpu")
+    assert rec["f32_launches"] == rec["bf16_launches"] == [0, 0]
+    assert rec["f32_rel_err_stream"] <= cs.F32_ENCODER_REL_TOL
+    assert rec["f32_rel_err_bulk"] <= cs.F32_ENCODER_REL_TOL
+    assert "kernels" not in rec

@@ -5,6 +5,7 @@ by this name from the tests directory, which the test run puts on
 sys.path."""
 
 import sys
+import time
 
 import torch
 
@@ -27,6 +28,11 @@ def rank_modules(rank: int) -> list:
     """The modules a spawned rank has loaded (what the tests read to show
     that the ranks import no JAX)."""
     return sorted(sys.modules)
+
+
+def rank_sleep(rank: int, seconds: float) -> None:
+    """A rank that outlives its world's time limit."""
+    time.sleep(seconds)
 
 
 def mesh_layers(rank: int, tp: int, cfg, params, inputs: dict,

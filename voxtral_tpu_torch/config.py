@@ -89,9 +89,10 @@ class EncoderConfig:
     # 750 + 512 with headroom; ring semantics replace the memmove compaction of
     # the reference (voxtral_encoder.c:388-406).
     kv_ring: int = 2048
-    # Streaming-encoder attention choice of the JAX package.  The port's
-    # offline encoder always runs the banded kernel (ops/banded_encode.py);
-    # the streaming ring encoder that reads this field is not ported yet.
+    # Encoder attention: "auto" | "flash" | "xla", read by the streaming
+    # ring encoder (flash-encode, models/encoder.py) and the bulk encoder
+    # (banded, models/bulk_encode.py); the rule is models/decoder.py
+    # _use_flash.
     attn_impl: str = "auto"
 
     @property

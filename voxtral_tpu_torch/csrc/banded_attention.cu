@@ -25,7 +25,12 @@
 // rows past T are not stored), so the caller pads nothing.  A row that sees
 // no valid key (q < kv_lo) gets 0, not garbage.  GQA (H % KH == 0) is
 // accepted.
+//
+// Float32 q/k/v (a float32 config, whose TPU kernel computes in f32) take
+// the f32 row walk of attn_f32.cuh over the same band, in 32-key tiles of
+// ascending position: CUDA-core FMA, not the bf16 tile.
 
+#include "attn_f32.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -119,6 +124,75 @@ banded_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// the f32 walk's view of the band (attn_f32.cuh): a block of BQ rows
+// walks the 32-key tiles of [max(0, q0 - window + 1, lo), q_last]
+struct BandPolicyF32 {
+  const float* k;  // key row 0 of this (stream, kv head)
+  const float* v;
+  int kv_stride, n_keys, window, lo, q0, j_first, j_last;
+
+  __device__ int first() const { return j_first <= j_last ? j_first : -1; }
+  __device__ int next(int j) const { return j < j_last ? j + 1 : -1; }
+  __device__ const float* k_row(int key) const {
+    return k + (long long)key * kv_stride;
+  }
+  __device__ const float* v_row(int key) const {
+    return v + (long long)key * kv_stride;
+  }
+  __device__ int kpos(int key) const {
+    return key < n_keys ? key : attn32::NO_KEY;
+  }
+  __device__ int row_lo(int r) const {
+    return max(lo, q0 + r - window + 1);
+  }
+  __device__ int row_hi(int r) const { return q0 + r; }
+};
+
+template <typename OutT>
+__global__ void __launch_bounds__(attn32::NT)
+banded_attention_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const int* __restrict__ kv_lo,
+                            OutT* __restrict__ out, int T, int H, int KH,
+                            int window) {
+  const int q0 = blockIdx.x * attn32::BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int qrow = H * D, krow = KH * D;
+  const int q_last = min(q0 + attn32::BQ, T) - 1;
+
+  BandPolicyF32 pol;
+  pol.k = k + (long long)b * T * krow + kh * D;
+  pol.v = v + (long long)b * T * krow + kh * D;
+  pol.kv_stride = krow;
+  pol.n_keys = T;
+  pol.window = window;
+  pol.lo = max(0, kv_lo[b]);
+  pol.q0 = q0;
+  pol.j_first = max(max(0, q0 - window + 1), pol.lo) / attn32::BK;
+  pol.j_last = pol.lo > q_last ? -1 : q_last / attn32::BK;
+
+  const int row = q0 + (threadIdx.x >> 5);
+  const long long off = ((long long)b * T + row) * qrow + h * D;
+  const bool live = row < T;
+  attn32::attend<float>(pol, live ? q + off : nullptr,
+                        live ? out + off : nullptr);
+}
+
+template <typename OutT>
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* kv_lo, void* out, int B, int T, int H, int KH,
+               int window, cudaStream_t stream) {
+  dim3 grid((T + attn32::BQ - 1) / attn32::BQ, H, B);
+  banded_attention_f32_kernel<OutT><<<grid, attn32::NT, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(kv_lo),
+      static_cast<OutT*>(out), T, H, KH, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename OutT>
 int launch(const void* q, const void* k, const void* v, const void* kv_lo,
            void* out, int B, int T, int H, int KH, int window,
@@ -138,17 +212,23 @@ int launch(const void* q, const void* k, const void* v, const void* kv_lo,
 
 }  // namespace
 
-// q [B,T,H,D], k/v [B,T,KH,D] bf16 contiguous; kv_lo [B] int32; out
-// [B,T,H,D] in f32 (out_f32 != 0) or bf16.  Returns a cudaError_t code.
+// q [B,T,H,D], k/v [B,T,KH,D] contiguous, bf16 or (q_f32 != 0) f32 with
+// 16-byte aligned bases; kv_lo [B] int32; out [B,T,H,D] in f32
+// (out_f32 != 0) or bf16.  Returns a cudaError_t code.
 extern "C" int vt_banded_attention(const void* q, const void* k,
                                    const void* v, const void* kv_lo,
                                    void* out, int B, int T, int H, int KH,
-                                   int head_dim, int window, int out_f32,
-                                   void* stream) {
+                                   int head_dim, int window, int q_f32,
+                                   int out_f32, void* stream) {
   if (head_dim != D || KH <= 0 || H % KH != 0 || T <= 0 || B <= 0 ||
       window <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_f32)
+    return out_f32
+               ? launch_f32<float>(q, k, v, kv_lo, out, B, T, H, KH, window, s)
+               : launch_f32<__nv_bfloat16>(q, k, v, kv_lo, out, B, T, H, KH,
+                                           window, s);
   return out_f32 ? launch<float>(q, k, v, kv_lo, out, B, T, H, KH, window, s)
                  : launch<__nv_bfloat16>(q, k, v, kv_lo, out, B, T, H, KH,
                                          window, s);

@@ -50,9 +50,16 @@
 // rounded to bf16 as they are loaded (the compute dtype of the query, as in
 // the TPU kernel); f32 tiles go through registers, since cp.async cannot
 // convert.
+//
+// Float32 queries (a float32 config, whose TPU kernel computes in f32) take
+// the f32 row walk of attn_f32.cuh: the ring's live 32-slot tiles in
+// ascending slot order, bf16 or f32 rings read as f32, CUDA-core FMA, no
+// split; a row's output is again bitwise the same however the feed was
+// chunked (attn_f32.cuh, row independence).
 
 #include <cooperative_groups.h>
 
+#include "attn_f32.cuh"
 #include "attn_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -327,6 +334,93 @@ flash_encode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// the f32 walk's view of the ring (attn_f32.cuh): the 32-slot tiles that
+// hold a position some row of the block sees, in slot order.  Slots
+// 0..rr hold positions base .. pos_hi and slots rr+1..cap-1 positions
+// base - cap + rr + 1 .. base - 1 (RingPolicy above): one interval of
+// slots per run, [a0, a1] and [b0, b1] as tiles.
+template <typename RingT>
+struct RingPolicyF32 {
+  const RingT* k;  // slot 0 of this (stream, kv head)
+  const RingT* v;
+  long long kv_stride;
+  int n_keys, base, rr, qf, window, a0, a1, b0, b1;
+
+  __device__ void plan(int ql) {
+    constexpr int BK32 = attn32::BK;
+    const int lo = max(0, qf - window + 1);
+    const int x0 = max(0, lo - base), x1 = min(rr, ql - base);
+    const int y0 = max(rr + 1, lo - base + n_keys);
+    const int y1 = min(n_keys - 1, ql - base + n_keys);
+    a0 = x0 / BK32;
+    a1 = x0 <= x1 ? x1 / BK32 : -1;
+    b0 = y0 / BK32;
+    b1 = y0 <= y1 ? y1 / BK32 : -1;
+  }
+  __device__ int next(int j) const {
+    const int c = j + 1;
+    if (c <= a1) return max(c, a0);
+    if (c <= b1) return max(c, b0);
+    return -1;
+  }
+  __device__ int first() const { return next(-1); }
+  __device__ const RingT* k_row(int s) const { return k + s * kv_stride; }
+  __device__ const RingT* v_row(int s) const { return v + s * kv_stride; }
+  __device__ int kpos(int s) const {
+    return s >= n_keys ? attn32::NO_KEY : s <= rr ? base + s
+                                                  : base - n_keys + s;
+  }
+  __device__ int row_lo(int r) const { return max(0, qf + r - window + 1); }
+  __device__ int row_hi(int r) const { return qf + r; }
+};
+
+template <typename RingT, typename OutT>
+__global__ void __launch_bounds__(attn32::NT)
+flash_encode_f32_kernel(const float* __restrict__ q,
+                        const RingT* __restrict__ k_ring,
+                        const RingT* __restrict__ v_ring,
+                        const int* __restrict__ pos0, OutT* __restrict__ out,
+                        int T, int H, int KH, int cap, int window,
+                        long long stride_b, long long stride_h,
+                        long long stride_s) {
+  const int q0 = blockIdx.x * attn32::BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int p0 = pos0[b];
+  const int pos_hi = p0 + T - 1;
+
+  RingPolicyF32<RingT> pol;
+  pol.k = k_ring + b * stride_b + kh * stride_h;
+  pol.v = v_ring + b * stride_b + kh * stride_h;
+  pol.kv_stride = stride_s;
+  pol.n_keys = cap;
+  pol.rr = (pos_hi % cap + cap) % cap;
+  pol.base = pos_hi - pol.rr;
+  pol.qf = p0 + q0;
+  pol.window = window;
+  pol.plan(p0 + min(q0 + attn32::BQ, T) - 1);
+
+  const int row = q0 + (threadIdx.x >> 5);
+  const long long off = ((long long)b * T + row) * (H * D) + h * D;
+  const bool live = row < T;
+  attn32::attend<RingT>(pol, live ? q + off : nullptr,
+                        live ? out + off : nullptr);
+}
+
+template <typename RingT, typename OutT>
+int launch_f32(const void* q, const void* k, const void* v, const void* pos0,
+               void* out, int B, int T, int H, int KH, int cap, int window,
+               long long sb, long long sh, long long ss,
+               cudaStream_t stream) {
+  dim3 grid((T + attn32::BQ - 1) / attn32::BQ, H, B);
+  flash_encode_f32_kernel<RingT, OutT><<<grid, attn32::NT, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const RingT*>(k),
+      static_cast<const RingT*>(v), static_cast<const int*>(pos0),
+      static_cast<OutT*>(out), T, H, KH, cap, window, sb, sh, ss);
+  return (int)cudaGetLastError();
+}
+
 template <bool SPLIT, typename RingT, typename OutT>
 int launch(const void* q, const void* k, const void* v, const void* pos0,
            void* out, int B, int T, int H, int KH, int cap, int window,
@@ -374,27 +468,40 @@ int launch_split(int split, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [B,T,H,D] bf16 contiguous; k_ring/v_ring: the layer's rings [B,KH,cap,D]
+// q [B,T,H,D] contiguous, bf16 or (q_f32 != 0) f32 with a 16-byte aligned
+// base; k_ring/v_ring: the layer's rings [B,KH,cap,D]
 // (bf16, or f32 with ring_f32 != 0) at element strides stride_b, stride_h,
 // stride_s (stride_s < 2^31 / 64), D contiguous, 16-byte aligned rows; pos0
 // [B] int32, >= 0; out [B,T,H,D] in f32 (out_f32 != 0) or bf16; segments
 // 1 .. min(8, ceil(cap/64)), the caller's plan, a function of cap alone
 // (the bitwise chunking invariance rests on it); split 1: one block per
 // segment (a cluster per query tile), 0: one block per query tile walking
-// every segment (the output is the same bit for bit).  Returns a
-// cudaError_t code.
+// every segment (the output is the same bit for bit).  f32 queries take
+// the f32 walk, which ignores segments and split.  Returns a cudaError_t
+// code.
 extern "C" int vt_flash_encode(const void* q, const void* k_ring,
                                const void* v_ring, const void* pos0,
                                void* out, int B, int T, int H, int KH,
                                int head_dim, int cap, int window,
                                long long stride_b, long long stride_h,
-                               long long stride_s, int ring_f32, int out_f32,
-                               int segments, int split, void* stream) {
+                               long long stride_s, int q_f32, int ring_f32,
+                               int out_f32, int segments, int split,
+                               void* stream) {
   if (head_dim != D || KH <= 0 || H % KH != 0 || T <= 0 || B <= 0 ||
       cap <= 0 || window <= 0 || segments < 1 || segments > MAX_SEGMENTS ||
       segments > (cap + BK - 1) / BK || split < 0 || split > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VT_F32(R, O)                                                          \
+  launch_f32<R, O>(q, k_ring, v_ring, pos0, out, B, T, H, KH, cap, window,    \
+                   stride_b, stride_h, stride_s, s)
+  if (q_f32) {
+    if (ring_f32)
+      return out_f32 ? VT_F32(float, float) : VT_F32(float, __nv_bfloat16);
+    return out_f32 ? VT_F32(__nv_bfloat16, float)
+                   : VT_F32(__nv_bfloat16, __nv_bfloat16);
+  }
+#undef VT_F32
 #define VT_SPLIT(R, O)                                                        \
   launch_split<R, O>(split, q, k_ring, v_ring, pos0, out, B, T, H, KH, cap,  \
                      window, stride_b, stride_h, stride_s, segments, s)

@@ -184,11 +184,10 @@ def run_pool(eng, audios, pool_kw: dict) -> dict:
 
 def mesh_serve(rank: int, dp: int, tp: int, cfg, params, mel,
                engine_kw: dict, device: str = "cpu", backend: str = "gloo",
-               clips: bool = False, quantize=False, runs: int = 1) -> dict:
-    """run_serving `runs` times on a dp x tp mesh (the last run's result;
-    every run must give the same tokens), the engine built from `params`
-    (a numpy tree or a seed, _rank_params); the full tree is freed once
-    the engine holds its slices."""
+               clips: bool = False, quantize=False) -> dict:
+    """run_serving on a dp x tp mesh, the engine built from `params` (a
+    numpy tree or a seed, _rank_params); the full tree is freed once the
+    engine holds its slices."""
     from .parallel.mesh import make_mesh
     from .runtime.engine import VoxtralEngine
 
@@ -199,13 +198,7 @@ def mesh_serve(rank: int, dp: int, tp: int, cfg, params, mel,
     del full
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    first = None
-    for _ in range(runs):
-        out = run_serving(eng, mel, clips)
-        first = first or out["tokens"]
-        if out["tokens"] != first:
-            raise AssertionError(f"rank {rank}: a second run gave other ids")
-    return {"rank": rank, **out}
+    return {"rank": rank, **run_serving(eng, mel, clips)}
 
 
 def mesh_pool(rank: int, dp: int, tp: int, cfg, params, audios,
@@ -316,8 +309,7 @@ def _dryrun_pool(cfg, params, mesh, tag, device) -> list:
 def dryrun_config(device: str, compute_dtype: str = "float32"):
     """The dry run's config: mid_config (the real layer and head lattice at
     reduced widths).  On CUDA its head dims become the kernels' (encoder
-    64, decoder 128), and a float32 config's encoder attends on its plain
-    path ("xla": the flash-encode kernel takes bf16 queries only)."""
+    64, decoder 128)."""
     import dataclasses
 
     from .config import mid_config
@@ -327,9 +319,7 @@ def dryrun_config(device: str, compute_dtype: str = "float32"):
     if torch.device(device).type != "cuda":
         return cfg
     return cfg.replace(
-        encoder=dataclasses.replace(
-            cfg.encoder, head_dim=64,
-            attn_impl="xla" if compute_dtype == "float32" else "auto"),
+        encoder=dataclasses.replace(cfg.encoder, head_dim=64),
         decoder=dataclasses.replace(cfg.decoder, head_dim=128))
 
 

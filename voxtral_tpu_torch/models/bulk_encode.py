@@ -4,8 +4,11 @@ NO ring cache — the reference's batch `vox_encoder_forward` analog
 
 When the whole clip is available there is no cache state at all: k/v are
 plain [B, T, KH, D] activations and attention is the static-band op of
-ops/banded_encode.py (the hand-written CUDA kernel on the GPU).  The conv
-stem stays two im2col matmuls, as in the JAX package.
+ops/banded_encode.py.  EncoderConfig.attn_impl picks its version by the
+streaming encoder's rule (decoder._use_flash with no ring): "flash" and
+"auto" the wrapper (the hand-written CUDA kernel for CUDA tensors, bf16 or
+float32), "xla" the plain `banded_attention_plain`.  The conv stem stays
+two im2col matmuls, as in the JAX package.
 
 `window_encode_chunk` is the StreamPool's window-recompute streaming mode
 (parallel/scheduler.py): the same no-ring transformer over a per-stream
@@ -22,10 +25,11 @@ from typing import Any
 import torch
 
 from ..config import VoxtralConfig
-from ..ops.banded_encode import banded_attention_batched
+from ..ops.banded_encode import banded_attention_batched, banded_attention_plain
 from ..ops.norms import rms_norm, silu
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
+from .decoder import _use_flash
 from .encoder import adapter_forward, conv0_chunk, conv1_chunk
 from .quant import mm
 
@@ -45,14 +49,17 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
                      kv_lo=None) -> torch.Tensor:
     """32-layer no-ring transformer over [B, T, dim] at positions 0..T-1
     (banded attention), final-normed.  `kv_lo` (int [B]) hides leading
-    positions.  One banded-attention launch per layer, at the config's
-    (per-rank, on a tp mesh) head count."""
+    positions.  On the kernel path (module docstring) one banded-attention
+    launch per layer, at the config's (per-rank, on a tp mesh) head
+    count."""
     e = cfg.encoder
     cdtype = cfg.cdtype
     bsz, t, _ = x.shape
     positions = torch.arange(t, dtype=torch.int32, device=x.device)
     cos, sin = rope_cos_sin(positions, e.head_dim, e.rope_theta)
     qkv_dim = e.qkv_dim
+    banded = (banded_attention_batched if _use_flash(e)
+              else banded_attention_plain)
     x = x.to(cdtype)
     layers = enc_params["layers"]
     for li in range(e.n_layers):
@@ -64,10 +71,9 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
         v = qkv[..., 2 * qkv_dim:].reshape(bsz, t, e.n_kv_heads, e.head_dim)
         q = apply_rope_interleaved(q, cos, sin)
         k = apply_rope_interleaved(k, cos, sin)
-        attn = banded_attention_batched(
-            q.to(cdtype), k.to(cdtype), v.to(cdtype), kv_lo,
-            window=e.window, out_dtype=cdtype,
-        ).reshape(bsz, t, qkv_dim)
+        attn = banded(q.to(cdtype), k.to(cdtype), v.to(cdtype), kv_lo,
+                      window=e.window, out_dtype=cdtype,
+                      ).reshape(bsz, t, qkv_dim)
         # row-parallel products: on a tp mesh, summed over the ranks in
         # f32, the bias added once after the sum (parallel/mesh.py)
         x = x + (tp_sum(mm(attn, lp, "wo"), e) + lp["bo"]).to(x.dtype)

@@ -99,15 +99,21 @@ def ada_scales(dec_params: PyTree, cfg: VoxtralConfig) -> torch.Tensor:
     return torch.einsum("la,lda->ld", hid, lp["ada_up"].float())
 
 
-def _use_flash(cfg, ring: torch.Tensor, fp8: bool = False) -> bool:
-    """Whether cfg.attn_impl takes the kernel path for this ring (module
-    docstring): float rings of >= 2 bytes, and fp8 e4m3fn rings where the
-    kernel reads them (`fp8`: the decoder's flash-decode does, unlike the
-    JAX package's; the encoder's flash-encode does not)."""
+def _use_flash(cfg, ring: torch.Tensor | None = None,
+               fp8: bool = False) -> bool:
+    """Whether cfg.attn_impl (decoder or encoder config) takes the kernel
+    path for this ring (module docstring): float rings of >= 2 bytes, and
+    fp8 e4m3fn rings where the kernel reads them (`fp8`: the decoder's
+    flash-decode does, unlike the JAX package's; the encoder's
+    flash-encode does not).  No ring: the bulk encoder's banded attention,
+    which reads plain activations.  The query's dtype plays no part: every
+    kernel takes the compute dtypes (bf16, float32)."""
     if cfg.attn_impl == "xla":
         return False
     if cfg.attn_impl not in ("flash", "auto"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if ring is None:
+        return True
     if ring.dtype == torch.float8_e4m3fn:
         return fp8
     return ring.dtype.is_floating_point and ring.element_size() >= 2

@@ -23,13 +23,16 @@ Chunk attention (EncoderConfig.attn_impl), for chunks of T > 1 rows after
     tensors, its plain version for CPU tensors);
   - "xla":   the plain `ring_attention` over the whole ring with a mask;
   - "auto":  "flash" whenever the ring is a float type of >= 2 bytes, at
-    any B; fp8 rings take "xla".  The JAX package resolves "auto" to xla
-    from a TPU measurement (voxtral_tpu/ops/flash_encode.py STATUS); on the
-    GPU the plain path widens the whole ring to f32 and keeps an f32
+    any B, for bf16 and float32 queries alike (the kernel has a float32
+    instantiation, as the TPU kernel computes an f32 config in f32); fp8
+    rings take "xla".  The JAX package resolves "auto" to xla from a TPU
+    measurement (voxtral_tpu/ops/flash_encode.py STATUS); on the GPU the
+    plain path widens the whole ring to f32 and keeps an f32
     [B, KH, G, T, cap] score tensor per layer, which the kernel never
     writes.
-Both compute the same function.  A T == 1 chunk writes its slot directly
-and takes `ring_attention`, as in the JAX package.
+Both compute the same function; decoder._use_flash holds the rule, for
+the bulk encoder too.  A T == 1 chunk writes its slot directly and takes
+`ring_attention`, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ gets 0.
     kernel voxtral_tpu/ops/banded_encode.py:_kernel; its header says what
     bounds it on the H100 and how it is laid out; its core is the attention
     tile `csrc/attn_tile.cuh`, shared with the flash-encode kernel).  It
-    takes bf16 q/k/v with head_dim 64 and raises on anything else; there is
-    no fallback.
+    takes bf16 q/k/v, or float32 ones (a float32 config: the f32 row walk
+    of `csrc/attn_f32.cuh`, as the TPU kernel computes such a config in
+    f32), with head_dim 64, and raises on anything else; there is no
+    fallback.
   * CPU tensors take `banded_attention_plain`, the same function in plain
     PyTorch.  The CPU tests hold it against the JAX kernel, and the GPU
     smoke run holds the kernel against it.
@@ -70,9 +72,12 @@ def banded_attention_batched(q, k, v, kv_lo=None, *, window: int,
         raise NotImplementedError(f"banded_attention on {q.device}")
     bsz, t, h, d = q.shape
     kh = k.shape[2]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16 or x.device != q.device:
-            raise ValueError(f"banded kernel: {name} must be bf16 on {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"banded kernel: q must be bf16 or f32, got {q.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"banded kernel: {name} must be {q.dtype} on "
+                             f"{q.device}")
     if k.shape != (bsz, t, kh, d) or v.shape != k.shape or h % kh:
         raise ValueError(f"banded kernel: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -81,6 +86,8 @@ def banded_attention_batched(q, k, v, kv_lo=None, *, window: int,
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"banded kernel: out_dtype {out_dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("banded kernel: q/k/v must be 16-byte aligned")
     if kv_lo is None:
         kv_lo = torch.zeros(bsz, dtype=torch.int32, device=q.device)
     kv_lo = kv_lo.to(device=q.device, dtype=torch.int32).reshape(bsz).contiguous()
@@ -89,7 +96,7 @@ def banded_attention_batched(q, k, v, kv_lo=None, *, window: int,
     err = lib.vt_banded_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lo.data_ptr(),
         out.data_ptr(), bsz, t, h, kh, d, window,
-        int(out_dtype == torch.float32),
+        int(q.dtype == torch.float32), int(out_dtype == torch.float32),
         cuda_lib.stream_handle(q.device),
     )
     cuda_lib.check(err, "banded_attention")

@@ -1,8 +1,9 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points;
-headers there (`*.cuh`, e.g. `attn_tile.cuh`, the attention tile shared by
-the banded and flash-encode kernels) are included, not linked.  On first
+headers there (`*.cuh`, e.g. `attn_tile.cuh` and `attn_f32.cuh`, the bf16
+and float32 attention shared by the banded and flash-encode kernels) are
+included, not linked.  On first
 use each `.cu` is compiled with `nvcc` for `sm_90a` (Hopper) into its own
 object, all at once in parallel, and linked into one shared library under
 `voxtral_tpu_torch/build/<digest>/` (ignored by git), then loaded with
@@ -113,7 +114,7 @@ def kernels() -> ctypes.CDLL:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.vt_banded_attention.restype = i
             lib.vt_banded_attention.argtypes = [
-                p, p, p, p, p, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, i, i, i, i, i, i, i, i, p,
             ]
             lib.vt_flash_decode.restype = i
             lib.vt_flash_decode.argtypes = [
@@ -123,7 +124,7 @@ def kernels() -> ctypes.CDLL:
             lib.vt_flash_encode.restype = i
             lib.vt_flash_encode.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, i, i,
-                p,
+                i, p,
             ]
             lib.vt_int4_mm.restype = i
             lib.vt_int4_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]

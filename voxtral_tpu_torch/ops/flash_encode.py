@@ -15,7 +15,9 @@ gets 0.
     replaces the Pallas kernel voxtral_tpu/ops/flash_encode.py:_kernel; its
     header says what bounds it on the H100 and how it is laid out; its core
     is the attention tile `csrc/attn_tile.cuh`, shared with the banded
-    kernel).  It takes bf16 queries with head_dim 64 and bf16 or f32 rings,
+    kernel).  It takes bf16 queries, or float32 ones (a float32 config:
+    the f32 row walk of `csrc/attn_f32.cuh`, which reads the ring as f32
+    and has no split), with head_dim 64 and bf16 or f32 rings,
     reads the rings in place through their strides (pass the layer's view
     of the stacked cache, `k_all[:, li]`), and raises on anything else: fp8
     rings stay on the plain `ring_attention` path (models/encoder.py).  It
@@ -152,7 +154,7 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
     blocks: True, one block each (a cluster per query tile); False, one
     block walks them all; None, one block each when the query tiles
     (ceil(T / 64) x H x B) would not fill two waves of the card's SMs.  It
-    changes no bit of the output.  CPU: ignored."""
+    changes no bit of the output.  CPU and float32 queries: ignored."""
     out_dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
         return flash_encode_plain(q, k_ring, v_ring, pos0, window=window,
@@ -161,8 +163,9 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
         raise NotImplementedError(f"flash_encode on {q.device}")
     bsz, t, h, d = q.shape
     _, kh, cap, _ = k_ring.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"flash-encode kernel: q must be bf16, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("flash-encode kernel: q must be bf16 or f32, got "
+                         f"{q.dtype}")
     rdt = k_ring.dtype
     if rdt not in (torch.bfloat16, torch.float32) or v_ring.dtype != rdt:
         raise ValueError("flash-encode kernel takes bf16 or f32 rings, got "
@@ -190,6 +193,8 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
         tiles = -(-t // TILE_ROWS) * h * bsz
         split = tiles < 2 * cuda_lib.sm_count(q.device)
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("flash-encode kernel: q must be 16-byte aligned")
     pos32 = pos0.to(device=q.device, dtype=torch.int32).reshape(bsz)
     pos32 = pos32.contiguous()
     out = torch.empty((bsz, t, h, d), dtype=out_dtype, device=q.device)
@@ -198,7 +203,7 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
     err = lib.vt_flash_encode(
         q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), pos32.data_ptr(),
         out.data_ptr(), bsz, t, h, kh, d, cap, window, sb, sh, ss,
-        int(rdt == torch.float32), int(out_dtype == torch.float32),
+        int(q.dtype == torch.float32), int(rdt == torch.float32), int(out_dtype == torch.float32),
         flash_encode_segments(cap), int(split),
         cuda_lib.stream_handle(q.device),
     )

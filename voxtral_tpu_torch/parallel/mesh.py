@@ -54,6 +54,7 @@ import os
 import pickle
 import shutil
 import tempfile
+import time
 from typing import Any, Optional
 
 import torch
@@ -66,6 +67,9 @@ PyTree = Any
 # seconds any collective may wait before the ranks fail (a dead or hung
 # rank fails the whole world instead of hanging it)
 DEFAULT_TIMEOUT_S = 300
+# the time a spawned world (run_ranks) may take as a whole, from the first
+# spawn to the last rank's exit, unless its caller gives its own
+WORLD_TIMEOUT_S = 900
 
 
 # --------------------------------------------------------------------------
@@ -384,6 +388,10 @@ def _rank_main(rank: int, fn, world: int, workdir: str, device: str,
         timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
     try:
         out = fn(rank, *args)
+        # no rank leaves the world before every rank has joined it: a rank
+        # that closed its sockets while a slower one was still in gloo's
+        # connectFullMesh failed that one ("Connection closed by peer")
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     path = os.path.join(workdir, f"rank{rank}.pkl")
@@ -394,13 +402,15 @@ def _rank_main(rank: int, fn, world: int, workdir: str, device: str,
 
 def run_ranks(fn, world: int, args: tuple = (), *, device: str = "cuda",
               backend: Optional[str] = None,
-              workdir: Optional[str] = None) -> list:
+              workdir: Optional[str] = None,
+              timeout: float = WORLD_TIMEOUT_S) -> list:
     """fn(rank, *args) in `world` spawned processes joined in one default
     process group (rendezvous through a FileStore in `workdir`, a fresh
     temporary directory when None); returns their results in rank order.
     `fn` must be importable by the children (a module-level function).  A
     rank that raises fails the call (the others are stopped); a hung
-    collective times out after DEFAULT_TIMEOUT_S."""
+    collective times out after DEFAULT_TIMEOUT_S, and a world still running
+    `timeout` seconds after its start is killed (TimeoutError)."""
     import torch.multiprocessing as mp
 
     backend = resolve_backend(device, backend)
@@ -411,9 +421,18 @@ def run_ranks(fn, world: int, args: tuple = (), *, device: str = "cuda",
         os.makedirs(workdir, exist_ok=True)
         if os.path.exists(os.path.join(workdir, "store")):
             raise ValueError(f"{workdir} holds an old rendezvous store")
-        mp.start_processes(
+        deadline = time.monotonic() + timeout
+        ctx = mp.start_processes(
             _rank_main, args=(fn, world, workdir, device, backend, args),
-            nprocs=world, join=True, start_method="spawn")
+            nprocs=world, join=False, start_method="spawn")
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+                raise TimeoutError(f"{world} spawned ranks still running "
+                                   f"{timeout} s after their start")
         out = []
         for r in range(world):
             with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:

@@ -1,7 +1,18 @@
-"""Measurement tools of the port, run as `python -m voxtral_tpu_torch.tools.
-<name>`: jacobi_settle (Jacobi settle-rate brackets), tick_probe (a
-StreamPool tick broken into its terms) and pool_soak (N live streams for M
-minutes).  Each runs on the CUDA device, or on the CPU only when given
+"""Tools of the port, run as `python -m voxtral_tpu_torch.tools.<name>`:
+
+  checkpoint  make_fake_ckpt (a synthetic checkpoint in the reference's
+              layout), inspect_weights (its tensors), fidelity_check (the
+              engine through the real loader against the independent f32
+              oracle of `oracle.py`), make_golden (token-ID fixtures:
+              record, ingest, check), runtest.sh (the end-to-end
+              regression script)
+  A/B         int8_ab (bf16 against int8, int4 or fp8 KV), window_ab (the
+              pool's ring encoder against window recompute)
+  measuring   benchmark (the CLI over WAV files), jacobi_settle (Jacobi
+              settle-rate brackets), tick_probe (a StreamPool tick broken
+              into its terms), pool_soak (N live streams for M minutes)
+
+Each runs on the CUDA device, or on the CPU only when given
 `--device cpu`."""
 
 import sys
