@@ -59,6 +59,15 @@ script exits non-zero:
                timed beside the kernel's and counted for the row-write
                kernel); then once on the int4 weights dequantized to bf16
                (plain matmuls), whose ids must agree with the int4 rung's
+  9b. graphs  the engine's CUDA graphs (voxtral_tpu_torch/ops/graphs.py)
+               against eager in this call (phase_graphs): serve B=16 x 30 s
+               on bf16, fp8kv, int8 and int4 with ids bit-equal, decode
+               ms/step, device ms, device events, the host's launch calls
+               (at most LAUNCH_CALLS_MAX per graphed step) and busy share at
+               mid fill (fp8kv also under "xla", the row-write kernel), one
+               step's f32 logits bit-equal; the B=1 stream's feed() p50/p90
+               and the Jacobi clip, ids bit-equal; the captures' count, host
+               seconds and pool memory (also for the whole run)
  10. stream   VoxStream at B=1 on an 11 s clip fed 1 s at a time (2 s
                interval), 0.5 s at a time (-I 0.5) and unfused: exact
                launch counts, id agreement among the runs and with the
@@ -207,10 +216,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters: int = 1) -> tuple[list, float]:
+# the host's calls into the CUDA runtime that put work on a stream: one per
+# kernel launch, graph launch, copy or fill; a graphed decode step makes
+# three (its adapter row in, the graph, its token out) and its burst a few
+LAUNCH_CALLS_MAX = 10
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def profiled(fn, iters: int = 1) -> tuple[list, int, float]:
     """The device events (kernels, copies) torch.profiler records over
-    `iters` calls of fn(), after one unprofiled call, and the host wall of
-    the profiled calls in seconds."""
+    `iters` calls of fn(), after one unprofiled call; the host's launch
+    calls into the runtime among its host events (LAUNCH_CALLS); and the
+    host wall of the profiled calls in seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -226,13 +245,23 @@ def device_events(fn, iters: int = 1) -> tuple[list, float]:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         # "Command Buffer Full" marks the host waiting on a full launch queue
-        events = [e for e in prof.events()
+        all_events = prof.events()
+        events = [e for e in all_events
                   if e.device_type == DeviceType.CUDA
                   and "Command Buffer Full" not in e.name]
+        calls = sum(1 for e in all_events
+                    if e.device_type == DeviceType.CPU
+                    and e.name in LAUNCH_CALLS)
         if events:
-            return events, wall
+            return events, calls, wall
         log("timing", "torch.profiler recorded no device time; again")
     raise AssertionError("torch.profiler recorded no device time")
+
+
+def device_events(fn, iters: int = 1) -> tuple[list, float]:
+    """profiled() without the launch calls: (device events, wall s)."""
+    events, _, wall = profiled(fn, iters)
+    return events, wall
 
 
 def device_ms(fn, iters: int, with_events: bool = False):
@@ -2079,6 +2108,303 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
                                    for r in runs.values())}
 
 
+def capture_stats(start=(0, 0.0, 0)) -> dict:
+    """The CUDA graphs captured since `start` (GraphedCall's counters then):
+    how many, their host seconds, and the memory their captures added to
+    the allocator's reserve (their private pools)."""
+    from voxtral_tpu_torch.ops.graphs import GraphedCall as gc
+
+    n = gc.captures - start[0]
+    sec = gc.capture_s - start[1]
+    return {"graphs": n, "capture_s": sec,
+            "capture_ms_mean": sec * 1e3 / max(n, 1),
+            "pool_gib": (gc.pool_bytes - start[2]) / 2**30}
+
+
+def _step_logits_bit_equal(engine, cfg, bsz: int, device: str,
+                           pos: int = 500, seed: int = 3) -> bool:
+    """One decoder step and its f32 logits at position `pos` over a ring
+    of random rows: run eagerly, and as the replay of its CUDA graph
+    (ops/graphs.py) from the same ring.  True when the logits and both
+    rings are equal bit for bit."""
+    import torch
+
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models.quant import embed_rows
+    from voxtral_tpu_torch.ops.graphs import GraphStore, graph_key
+
+    dp, ada = engine.params["decoder"], engine.ada()
+    base = engine.new_dec_cache(bsz)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for t in (base.k, base.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=device) * 0.5)
+    row = torch.randn((bsz, cfg.decoder.dim), generator=gen, device=device)
+    prev = torch.full((bsz,), 32, dtype=torch.int32, device=device)
+    at = torch.full((bsz,), pos, dtype=torch.int32, device=device)
+
+    def body(cache):
+        def step(row, prev, at):
+            embed = (row.float() + embed_rows(dp, prev))[:, None]
+            x, _ = dec_mod.decoder_forward(dp, cfg, embed, cache, at, ada)
+            return dec_mod.final_logits(dp, cfg, x)[:, 0]
+        return step
+
+    eager = dec_mod.KVCache(base.k.clone(), base.v.clone())
+    want = body(eager)(row, prev, at)
+    graphed = dec_mod.KVCache(base.k.clone(), base.v.clone(), GraphStore())
+    key = graph_key("logits", dp, ada, cfg, bsz)
+    graph, _ = graphed.graphs.call(key, body(graphed), (row, prev, at))
+    graphed.k.copy_(base.k)
+    graphed.v.copy_(base.v)
+    got = graph(row, prev, at)
+    return bool(torch.equal(got, want) and torch.equal(graphed.k, eager.k)
+                and torch.equal(graphed.v, eager.v))
+
+
+def phase_graphs(cfg, params, device: str, n_streams: int = 16,
+                 seconds: float = 30.0, dec_ring: int = 896,
+                 extra_steps: int = 32, stream_seconds: float = 11.0,
+                 jacobi_seconds: float = 30.0) -> dict:
+    """The engine's CUDA graphs (ops/graphs.py) against eager, both in this
+    call, on engines that differ only in `cuda_graphs`:
+      * serve_clips at B=`n_streams` x `seconds` on the bf16, fp8kv, int8
+        and int4 rungs: ids bit-equal, exact launch counts both ways,
+        decode ms/step; at mid fill (position 500, bursts of
+        `extra_steps`) decode ms/step, device ms/step, device events and
+        the host's launch calls into the runtime per step (LAUNCH_CALLS)
+        and the busy share, the bursts' ids bit-equal; on fp8kv also under
+        attn_impl "xla" (the row-write kernel); one step's f32 logits and
+        rings bit-equal (_step_logits_bit_equal);
+      * a B=1 VoxStream built as the CLI builds it, an `stream_seconds`
+        clip fed 1 s at a time: feed() wall p50/p90, ids bit-equal;
+      * the `jacobi_seconds` clip offline under decode_mode "auto" (Jacobi
+        windows of 64): ids bit-equal;
+      * the captures: their number, host seconds and pool memory.
+    main() runs it at full width on the card; a tiny CPU config rehearses
+    it with a stand-in graph."""
+    import torch
+
+    from voxtral_tpu_torch.config import (
+        SAMPLE_RATE,
+        STREAM_DEFAULT_INTERVAL_S,
+    )
+    from voxtral_tpu_torch.ops import graphs
+    from voxtral_tpu_torch.parallel import serving as sv
+    from voxtral_tpu_torch.runtime.engine import (
+        VoxtralEngine,
+        adaptive_dec_ring,
+    )
+    from voxtral_tpu_torch.runtime.offline import (
+        padded_clip_mel,
+        transcribe_offline_ids,
+    )
+    from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    on_gpu = device == "cuda"
+    wrappers = graphs.counted_wrappers()
+    names = [f.__name__ for f in wrappers]
+    totals = dict.fromkeys(names, 0)
+    nl, el = cfg.decoder.n_layers, cfg.encoder.n_layers
+
+    def zero():
+        for f in wrappers:
+            f.launches = 0
+
+    def take(tag, want):
+        """The launches since zero(), checked against `want` (the kernels
+        it does not name: 0) and added to the phase's totals."""
+        got = {f.__name__: f.launches for f in wrappers}
+        want = {n: want.get(n, 0) for n in names}
+        if got != want:
+            raise AssertionError(f"[graphs] {tag}: launches {got} != {want}")
+        for n in names:
+            totals[n] += got[n]
+        return got
+
+    def sync():
+        if on_gpu:
+            torch.cuda.synchronize()
+
+    def both(tag, a, b):
+        if a != b:
+            raise AssertionError(f"[graphs] {tag}: graph ids differ from "
+                                 "eager ids")
+
+    gc = graphs.GraphedCall
+    start = (gc.captures, gc.capture_s, gc.pool_bytes)
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    clips = [make_audio(seconds, seed=100 + i) for i in range(n_streams)]
+    mel, table = None, []
+    for name, kv, quantize in RUNGS:
+        rcfg = cfg if kv is None else cfg.replace(kv_dtype=kv,
+                                                  enc_kv_dtype="bfloat16")
+        engine = VoxtralEngine(rcfg, params, tokenizer=tok,
+                               dec_kv_ring=dec_ring, buckets=(64, 16, 4, 1),
+                               quantize=quantize)
+        if mel is None:
+            mel = torch.from_numpy(np.stack(
+                [padded_clip_mel(engine, c) for c in clips])).to(device)
+        dp = engine.params["decoder"]
+        int4 = quantize == "int4"
+        rec, ids = {"rung": name}, {}
+        for graphed in (False, True):
+            tag = "graph" if graphed else "eager"
+            engine.cuda_graphs = graphed
+            zero()
+            c0 = graphs.GraphedCall.captures
+            ids[tag], run = sv.serve_clips(engine, mel)
+            steps = run["decode_steps"]
+            take(f"{name} serve {tag}", {
+                "banded_attention_batched": el, "flash_decode": nl * steps,
+                "int4_mm": (4 * nl + (4 * nl + 1) * steps) if int4 else 0})
+            rec[f"serve_decode_ms_per_step_{tag}"] = (run["decode_s"] * 1e3
+                                                     / steps)
+            rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
+                                          + run["decode_s"])
+            rec[f"serve_captures_{tag}"] = graphs.GraphedCall.captures - c0
+        both(f"{name} serve", ids["eager"], ids["graph"])
+        rec["decode_steps"] = steps
+        rec["tokens"] = sum(len(t) for t in ids["graph"])
+
+        for impl in ("auto", "xla") if name == "fp8kv" else ("auto",):
+            icfg = rcfg.replace(decoder=dataclasses.replace(
+                rcfg.decoder, attn_impl=impl))
+            burst_ids = {}
+            for graphed in (False, True):
+                tag = (("graph" if graphed else "eager")
+                       + ("" if impl == "auto" else "_xla"))
+                xcache = sv.batched_dec_cache(icfg, n_streams, dec_ring,
+                                              device=device, graphs=graphed)
+                xchunk = torch.zeros((n_streams, extra_steps,
+                                      cfg.decoder.dim), device=device)
+                xprev = torch.full((n_streams,), 32, dtype=torch.int32,
+                                   device=device)
+                xpos = torch.full((n_streams,), 500, dtype=torch.int32,
+                                  device=device)
+                ran, last = [0], [None]
+
+                def burst(n=extra_steps):
+                    last[0] = sv.bdecode_burst(dp, icfg, xchunk[:, :n], xprev,
+                                               xcache, xpos, engine.ada())[0]
+                    ran[0] += n
+
+                zero()
+                if on_gpu:
+                    step_ms = cuda_ms(burst, 2, warmup=1) / extra_steps
+                    ev, calls, _ = profiled(lambda: burst(8))
+                    dms = sum(e.time_range.elapsed_us() for e in ev) / 8e3
+                    if graphed and not calls / 8 <= LAUNCH_CALLS_MAX:
+                        raise AssertionError(
+                            f"[graphs] {name} {tag}: {calls / 8} launch "
+                            f"calls per graphed step (max {LAUNCH_CALLS_MAX})")
+                    rec.update({
+                        f"step_ms_mid_fill_{tag}": step_ms,
+                        f"device_ms_per_step_mid_fill_{tag}": dms,
+                        f"device_events_per_step_mid_fill_{tag}": len(ev) / 8,
+                        f"launch_calls_per_step_mid_fill_{tag}": calls / 8,
+                        f"busy_mid_fill_{tag}": dms / step_ms})
+                else:
+                    burst()
+                    burst()
+                sync()
+                n = ran[0]
+                got = take(f"{name} {tag} mid fill", {
+                    "flash_decode": nl * n * (impl == "auto"),
+                    "ring_rows_write": nl * n * (impl == "xla"),
+                    "int4_mm": (4 * nl + 1) * n if int4 else 0})
+                if impl == "xla" and graphed:
+                    rec["launches_xla_mid_fill_graph"] = got
+                burst_ids[graphed] = last[0].tolist()
+                del xcache
+            both(f"{name} {impl} mid fill", burst_ids[False], burst_ids[True])
+        rec["logits_bit_equal"] = _step_logits_bit_equal(engine, rcfg,
+                                                         n_streams, device)
+        if not rec["logits_bit_equal"]:
+            raise AssertionError(f"[graphs] {name}: the graphed step's "
+                                 "logits or rings differ from eager")
+        table.append(rec)
+        log("graphs", f"{name}: serve B={n_streams} x {seconds:.0f} s ids "
+                      f"bit-equal ({steps} steps, {rec['tokens']} ids), logits "
+                      "bit-equal; " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in rec.items()
+                          if isinstance(v, float)))
+        del engine, dp
+        if on_gpu:
+            torch.cuda.empty_cache()
+
+    # the B=1 stream as the CLI builds it, fed 1 s at a time
+    clip = make_audio(stream_seconds, seed=7)
+    eng = VoxtralEngine(cfg, params, tokenizer=tok,
+                        dec_kv_ring=adaptive_dec_ring(cfg, len(clip)),
+                        buckets=(64, 16, 4, 1), decode_mode="auto")
+    eng.warmup(interval_s=STREAM_DEFAULT_INTERVAL_S)
+    stream, sids = {}, {}
+    for graphed in (False, True):
+        tag = "graph" if graphed else "eager"
+        eng.cuda_graphs = graphed
+        zero()
+        c0, js0 = graphs.GraphedCall.captures, eng.jacobi_steps
+        s = VoxStream(eng)
+        s.record_ids = True
+        walls = []
+        for i in range(0, len(clip), SAMPLE_RATE):
+            f0 = time.monotonic()
+            s.feed(clip[i: i + SAMPLE_RATE])
+            sync()
+            walls.append(time.monotonic() - f0)
+        s.finish()
+        sync()
+        take(f"stream {tag}", {
+            "flash_bulk_attention_batched": el * s.n_enc_chunk_calls,
+            "flash_decode": nl * (s.n_decode_steps
+                                  - (eng.jacobi_steps - js0))})
+        sids[tag] = s.generated_ids
+        stream.update({f"feed_p50_ms_{tag}": _percentile(walls, 50) * 1e3,
+                       f"feed_p90_ms_{tag}": _percentile(walls, 90) * 1e3,
+                       f"captures_{tag}": graphs.GraphedCall.captures - c0})
+    both("stream", sids["eager"], sids["graph"])
+    stream.update({"feeds": len(walls), "ids": len(sids["graph"])})
+    log("graphs", f"stream B=1 {stream_seconds:.0f} s fed 1 s at a time: ids "
+                  "bit-equal; " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                            stream.items()
+                                            if isinstance(v, float)))
+
+    # Jacobi windows (decode_mode "auto" offline)
+    jclip = make_audio(jacobi_seconds, seed=2)
+    jeng = VoxtralEngine(cfg, params, tokenizer=tok,
+                         dec_kv_ring=adaptive_dec_ring(cfg, len(jclip)),
+                         buckets=(64, 16, 4, 1), decode_mode="auto")
+    jacobi, jids = {}, {}
+    for graphed in (False, True):
+        tag = "graph" if graphed else "eager"
+        jeng.cuda_graphs = graphed
+        zero()
+        js0, st = jeng.jacobi_steps, {}
+        jids[tag] = transcribe_offline_ids(jeng, jclip, timings=st)
+        j_steps = jeng.jacobi_steps - js0
+        if j_steps <= 0:
+            raise AssertionError("[graphs] jacobi: no Jacobi burst")
+        take(f"jacobi {tag}", {
+            "banded_attention_batched": el,
+            "flash_decode": nl * (st["decode_steps"] - j_steps)})
+        jacobi[f"decode_ms_per_token_{tag}"] = (st["decode_s"] * 1e3
+                                                / st["decode_steps"])
+    both("jacobi", jids["eager"], jids["graph"])
+    jacobi["jacobi_steps"] = j_steps
+    log("graphs", f"jacobi {jacobi_seconds:.0f} s offline \"auto\": ids "
+                  f"bit-equal ({j_steps} rows by Jacobi); decode ms/token "
+                  f"eager {jacobi['decode_ms_per_token_eager']:.3f}, graph "
+                  f"{jacobi['decode_ms_per_token_graph']:.3f}")
+    captures = capture_stats(start)
+    log("graphs", f"captures: {captures['graphs']} graphs in "
+                  f"{captures['capture_s']:.2f} s "
+                  f"({captures['capture_ms_mean']:.1f} ms each), pools "
+                  f"{captures['pool_gib']:.3f} GiB in all")
+    zero()
+    return {"rungs": table, "stream": stream, "jacobi": jacobi,
+            "captures": captures, "launches": totals}
+
+
 # bench.py's load rows: the ring pool (8 slots, bf16 encoder ring 1024 so
 # flash-encode runs, decoder ring 896) at -I 0.5, the window pool (32
 # slots, fp8 decoder ring 1024) at -I 2.0
@@ -3214,8 +3540,8 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "rows",
-               "jacobi", "pool_ring", "pool_window", "mesh", "mel_device",
-               "ckpt", "ckpt_full")
+               "graphs", "jacobi", "pool_ring", "pool_window", "mesh",
+               "mel_device", "ckpt", "ckpt_full")
 
 
 def run_only(names) -> dict:
@@ -3227,10 +3553,12 @@ def run_only(names) -> dict:
     for name in ONLY_PHASES:
         if name not in names:
             continue
-        if name in ("jacobi", "pool_ring", "pool_window", "mesh") \
+        if name in ("graphs", "jacobi", "pool_ring", "pool_window", "mesh") \
                 and params is None:
             params = make_params(cfg, "cuda")
-        if name == "mesh":
+        if name == "graphs":
+            out[name] = phase_graphs(cfg, params, "cuda")
+        elif name == "mesh":
             out[name] = phase_mesh(cfg, params, "cuda")
         elif name == "jacobi":
             out[name] = phase_jacobi(cfg, params, "cuda")
@@ -3291,6 +3619,9 @@ def main(argv: list[str]) -> int:
         profile_streaming(cfg, params)
         return 0
     phase_s = {}
+    from voxtral_tpu_torch.ops import graphs
+
+    graphs.reset_stats()
 
     def timed(name, fn, *args, **kwargs):
         t0 = time.monotonic()
@@ -3314,6 +3645,8 @@ def main(argv: list[str]) -> int:
     sv = timed("serve", phase_serve, cfg, params, "cuda", n_streams=16,
                seconds=30.0, dec_ring=896)
     served = sv["launches"]
+    gr = timed("graphs", phase_graphs, cfg, params, "cuda")
+    graphed = gr["launches"]
     st = timed("stream", phase_stream, cfg, params, "cuda")
     bst = timed("bstream", phase_bstream, cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
@@ -3351,6 +3684,7 @@ def main(argv: list[str]) -> int:
          "source": "voxtral_tpu_torch/csrc/banded_attention.cu",
          "replaces": "voxtral_tpu/ops/banded_encode.py:56",
          "launches": (sl["launches"][0] + served["banded_attention_batched"]
+                      + graphed["banded_attention_batched"]
                       + jac["launches_banded"]
                       + pw["launches"]["banded_attention_batched"]
                       + meshed["banded_attention_batched"]
@@ -3364,6 +3698,7 @@ def main(argv: list[str]) -> int:
          "source": "voxtral_tpu_torch/csrc/flash_decode.cu",
          "replaces": "voxtral_tpu/ops/flash_decode.py:232",
          "launches": (sl["launches"][1] + served["flash_decode"]
+                      + graphed["flash_decode"]
                       + streamed["flash_decode"] + jac["launches_flash_decode"]
                       + pr["launches"]["flash_decode"]
                       + pw["launches"]["flash_decode"]
@@ -3372,6 +3707,7 @@ def main(argv: list[str]) -> int:
              "slice": sl["launches"][1],
              **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
                 for r in sv["rungs"]},
+             "graphs": graphed["flash_decode"],
              "stream": st["launches"]["flash_decode"],
              "bstream": bst["launches"]["flash_decode"],
              "jacobi": jac["launches_flash_decode"],
@@ -3387,6 +3723,7 @@ def main(argv: list[str]) -> int:
          "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
          "launches": (streamed["flash_bulk_attention_batched"]
+                      + graphed["flash_bulk_attention_batched"]
                       + pr["launches"]["flash_bulk_attention_batched"]
                       + meshed["flash_bulk_attention_batched"]
                       + ckpt["flash_bulk_attention_batched"]
@@ -3395,18 +3732,21 @@ def main(argv: list[str]) -> int:
          "launches_ckpt": ckpt["flash_bulk_attention_batched"],
          "launches_stream": st["launches"]["flash_bulk_attention_batched"],
          "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
+         "launches_graphs": graphed["flash_bulk_attention_batched"],
          "launches_pool_ring": pr["launches"]["flash_bulk_attention_batched"],
          **flash_enc, **rank_keys(shapes["flash_encode"], "tp2_rank"),
          **f32_enc},
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
          "replaces": "voxtral_tpu/ops/quant_mm.py:44",
-         "launches": served["int4_mm"] + ckpt["int4_mm"],
-         "launches_ckpt": ckpt["int4_mm"], **int4},
+         "launches": served["int4_mm"] + graphed["int4_mm"] + ckpt["int4_mm"],
+         "launches_ckpt": ckpt["int4_mm"],
+         "launches_graphs": graphed["int4_mm"], **int4},
         {"name": "ring_rows_write", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/ring_rows_write.cu",
          "replaces": "voxtral_tpu/ops/ring.py:88",
-         "launches": served["ring_rows_write"], **rows},
+         "launches": served["ring_rows_write"] + graphed["ring_rows_write"],
+         "launches_graphs": graphed["ring_rows_write"], **rows},
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -3426,9 +3766,16 @@ def main(argv: list[str]) -> int:
     idle = [k["name"] for k in kernels if k.get("launches_f32") == 0]
     if idle:
         raise AssertionError(f"{idle}: no launch on the f32 encoder path")
+    idle = [k["name"] for k in kernels if k.get("launches_graphs") == 0]
+    if idle:   # the graphed paths: flash-decode's is checked above
+        raise AssertionError(f"{idle}: no launch in a graph")
     idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
+    captured = capture_stats()
+    log("graphs", f"the whole run captured {captured['graphs']} graphs in "
+                  f"{captured['capture_s']:.2f} s, pools "
+                  f"{captured['pool_gib']:.3f} GiB in all")
     total_s = time.monotonic() - t_start
     log("done", f"all phases in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
@@ -3436,7 +3783,8 @@ def main(argv: list[str]) -> int:
                       "serve": sv["rungs"], "stream": st,
                       "bstream": bst, "jacobi": jac, "pool_ring": pr,
                       "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
-                      "f32_auto": f32_auto, "ckpt": ck, "phase_s": phase_s,
+                      "f32_auto": f32_auto, "ckpt": ck, "graphs": gr,
+                      "captured": captured, "phase_s": phase_s,
                       "total_s": total_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

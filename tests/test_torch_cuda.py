@@ -1080,3 +1080,168 @@ def test_checkpoint_tools_on_the_card(dev):
     assert rec["golden"]["check"][0].startswith("OK")
     assert rec["launches"]["banded_attention_batched"] == cfg.encoder.n_layers
     assert rec["launches"]["flash_bulk_attention_batched"] > 0
+
+
+# --- the engine's CUDA graphs (ops/graphs.py) against eager ----------------
+
+def _graph_cfg(n_layers=2, **kw):
+    """Full widths, 2 encoder and 2 decoder layers."""
+    cfg = full_config(**kw)
+    return cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder, n_layers=n_layers),
+        decoder=dataclasses.replace(cfg.decoder, n_layers=n_layers))
+
+
+@pytest.fixture(scope="module")
+def graph_params():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    from voxtral_tpu_torch.models.params import init_params
+
+    return init_params(_graph_cfg(), seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("rung,kv,quantize,impl", [
+    ("bf16", None, False, "auto"), ("fp8kv", "float8_e4m3fn", False, "auto"),
+    ("fp8kv_xla", "float8_e4m3fn", False, "xla"),
+    ("int8", "float8_e4m3fn", "int8", "auto"),
+    ("int4", "float8_e4m3fn", "int4", "auto")])
+def test_graph_step_equals_eager_on_every_rung(dev, graph_params, rung, kv,
+                                               quantize, impl):
+    """Bursts of 4, 1 and 16 steps at B=3 from staggered positions, n_alt 0
+    and 2: tokens, alternatives, probabilities and rings from the graphed
+    steps equal the eager ones bit for bit, with the same kernel launches
+    (each replay adds what its capture recorded); one step's f32 logits
+    are bit-equal too."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = _graph_cfg()
+    if kv:
+        cfg = cfg.replace(kv_dtype=kv, enc_kv_dtype="bfloat16")
+    cfg = cfg.replace(decoder=dataclasses.replace(cfg.decoder,
+                                                  attn_impl=impl))
+    engine = VoxtralEngine(cfg, graph_params, dec_kv_ring=256,
+                           buckets=(64, 16, 4, 1), quantize=quantize)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    chunks = [torch.randn((3, t, cfg.decoder.dim), generator=gen,
+                          device=dev) * 0.5 for t in (4, 1, 16)]
+
+    def run(graphs):
+        engine.cuda_graphs = graphs
+        outs, counts = [], []
+        for n_alt in (0, 2):
+            cache = engine.new_dec_cache(3)
+            prev = torch.full((3,), 32, dtype=torch.int32, device=dev)
+            pos = torch.tensor([0, 40, 200], dtype=torch.int32, device=dev)
+            for ch in chunks:
+                n0 = (flash_decode.launches, int4_mm.launches,
+                      ring_rows_write.launches)
+                o = dec_mod.decode_burst(engine.params["decoder"], cfg, ch,
+                                         prev, cache, pos, engine.ada(),
+                                         n_alt=n_alt)
+                counts.append((flash_decode.launches - n0[0],
+                               int4_mm.launches - n0[1],
+                               ring_rows_write.launches - n0[2]))
+                outs.append(o[:4])
+                prev, pos = o[0][:, -1], pos + ch.shape[1]
+            outs.append((cache.k, cache.v))
+            assert (cache.graphs is not None and len(cache.graphs)) == graphs
+        torch.cuda.synchronize()
+        return outs, counts
+
+    eager, n_eager = run(False)
+    graphed, n_graphed = run(True)
+    for a, b in zip(eager, graphed):
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and torch.equal(x, y)
+    assert n_eager == n_graphed
+    assert sum(n[0] + n[2] for n in n_eager) == 2 * 2 * 21
+    assert cs._step_logits_bit_equal(engine, cfg, 3, "cuda")
+
+
+@pytest.mark.parametrize("bsz", [1, 2])
+def test_graph_encoder_chunk_equals_eager_at_each_bucket(dev, graph_params,
+                                                         bsz):
+    """Encoder chunks of every bucket (64, 16, 4, 1) and a fused size
+    (512 mel frames: 256 positions), each run twice in a row (the second
+    a replay) on one ring: outputs and rings bit-equal to eager, launches
+    equal."""
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = _graph_cfg()
+    engine = VoxtralEngine(cfg, graph_params, buckets=(64, 16, 4, 1))
+    gen = torch.Generator(device=dev).manual_seed(bsz)
+    sizes = (64, 16, 4, 1, 256, 64, 16, 4, 1, 256)
+    xs = [torch.randn((bsz, t, cfg.encoder.dim), generator=gen,
+                      device=dev).to(cfg.cdtype) for t in sizes]
+
+    def run(graphs):
+        engine.cuda_graphs = graphs
+        cache, pos, outs = engine.new_enc_cache(bsz), 0, []
+        n0 = flash_bulk_attention_batched.launches
+        for x in xs:
+            y, _ = engine.encode(x, cache, pos)
+            outs.append(y)
+            pos += x.shape[1]
+        torch.cuda.synchronize()
+        if graphs:
+            assert len(cache.graphs) == 5
+        return outs, (cache.k, cache.v), flash_bulk_attention_batched.launches - n0
+
+    eager, graphed = run(False), run(True)
+    for a, b in zip(eager[0] + list(eager[1]), graphed[0] + list(graphed[1])):
+        assert torch.equal(a, b)
+    assert eager[2] == graphed[2] == 2 * 2 * 4
+
+
+def test_graph_jacobi_window_equals_eager(dev, graph_params):
+    """A Jacobi burst of 48 rows in windows of 16 after 40 positions: the
+    graphed window pass gives the eager tokens, iterations and rings."""
+    from voxtral_tpu_torch.models.jacobi import decode_burst_jacobi
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = _graph_cfg()
+    engine = VoxtralEngine(cfg, graph_params, dec_kv_ring=256,
+                           buckets=(64, 16, 4, 1))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    warm = torch.randn((1, 40, cfg.decoder.dim), generator=gen, device=dev)
+    rows = torch.randn((1, 48, cfg.decoder.dim), generator=gen, device=dev)
+
+    def run(graphs):
+        engine.cuda_graphs = graphs
+        cache = engine.new_dec_cache()
+        w = engine.decode_burst(warm, 32, cache, 0)[0]
+        toks, _, _, _, _, iters = decode_burst_jacobi(
+            engine.params["decoder"], cfg, rows, w[:, -1], cache, 40,
+            engine.ada(), window=16)
+        torch.cuda.synchronize()
+        if graphs:
+            assert any(k[0] == "jacobi" for k in cache.graphs)
+        return toks, iters, cache.k, cache.v
+
+    eager, graphed = run(False), run(True)
+    assert eager[1] == graphed[1]
+    for a, b in zip(eager[:1] + eager[2:], graphed[:1] + graphed[2:]):
+        assert torch.equal(a, b)
+
+
+def test_a_capture_that_fails_raises_on_the_card(dev):
+    """A body that reads the device from the host cannot be captured: the
+    call raises, keeps no graph, restores the launch counters, and the
+    device goes on working."""
+    from voxtral_tpu_torch.ops.graphs import GraphStore
+
+    def body(x):
+        flash_decode.launches += 1
+        return x * float(x.sum())       # a device read: refused in capture
+
+    n0 = flash_decode.launches
+    store = GraphStore()
+    x = torch.ones(4, device=dev)
+    with pytest.raises(RuntimeError):
+        store.call(("fails",), body, (x,))
+    assert len(store) == 0 and flash_decode.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 8.0

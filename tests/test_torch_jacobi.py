@@ -260,3 +260,32 @@ def test_stream_with_jacobi_engine(tparams, ttok, tengine):
                                decode_mode="auto", jacobi_window=16, **KW)
     eng_a.warmup()
     assert len(eng_a.jacobi_iters) == 1 and eng_a.jacobi_steps == 16
+
+
+def test_auto_decodes_sequentially_where_a_window_would_lose_keys(
+        params, tiny_tokenizer, tparams, ttok):
+    """ROADMAP.md section 3: a Jacobi window writes all W rows before its
+    queries attend, so on a ring shorter than the attention window + W - 1
+    that the burst wraps, late rows overwrite keys early queries read (in
+    the JAX package too).  The port's "auto" decodes such bursts
+    sequentially: on tiny_config(enc_kv_ring=128) (decoder window 48, ring
+    64, W 64) with an 8 s clip its ids equal the JAX package's sequential
+    ids exactly in f32, where the JAX package's "auto" ids do not."""
+    from voxtral_tpu.config import tiny_config as jax_tiny
+    from voxtral_tpu.runtime.offline import transcribe_offline_ids as joff
+    from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
+
+    audio = make_audio(8.0, seed=2)
+    kw = dict(buckets=(64, 16, 4, 1), enc_kv_ring=128)
+    jcfg = jax_tiny(enc_kv_ring=128)
+    want = joff(jeng.VoxtralEngine(jcfg, params, tokenizer=tiny_tokenizer,
+                                   decode_mode="sequential", **kw), audio)
+    jauto = joff(jeng.VoxtralEngine(jcfg, params, tokenizer=tiny_tokenizer,
+                                    decode_mode="auto", **kw), audio)
+    eng = teng.VoxtralEngine(tiny_config(enc_kv_ring=128), tparams,
+                             tokenizer=ttok, decode_mode="auto", **kw)
+    assert eng.dec_kv_ring < eng.cfg.decoder.window + eng.jacobi_window - 1
+    got = transcribe_offline_ids(eng, audio)
+    assert len(want) > 64 and got == want
+    assert eng.jacobi_iters == []
+    assert jauto != want          # the reference's fault, kept by "jacobi"

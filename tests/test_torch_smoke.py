@@ -12,7 +12,8 @@ import torch
 
 import chip_smoke as cs
 from voxtral_tpu_torch.config import tiny_config
-from voxtral_tpu_torch.models import bulk_encode, decoder, encoder
+from test_torch_graphs import stand_in  # noqa: F401  (a fixture)
+from voxtral_tpu_torch.models import bulk_encode, decoder, encoder, jacobi
 from voxtral_tpu_torch.ops import (
     banded_encode,
     flash_decode,
@@ -175,6 +176,36 @@ def test_jacobi_phase_on_cpu(counted_kernels):
     assert jac["agree"] == 1.0 and auto["ids"] == seq["ids"]
     assert [c["first_diff"] for c in jac["f32_checks"]] == [None, None]
     assert jac["launches_banded"] == 2 * cfg.encoder.n_layers
+
+
+def test_graphs_phase_on_cpu(counted_kernels, stand_in, monkeypatch):
+    """The graphs phase at tiny size with test_torch_graphs' stand-in for
+    the CUDA graph and the rule's device test dropped, so the graphed
+    paths run: serve, mid-fill bursts (fp8kv also under "xla"), the B=1
+    stream and the Jacobi clip give the eager ids, each way with its exact
+    launch counts; one step's logits are bit-equal; every graphed path
+    captured."""
+    for mod in (decoder, encoder, jacobi):
+        monkeypatch.setattr(mod, "_use_graph", lambda cfg, cache, x, call:
+                            call in decoder.GRAPHED_CALLS
+                            and cache.graphs is not None)
+    cfg = tiny_config(enc_kv_ring=128, dec_window=256, dec_kv_ring=256)
+    params = cs.make_params(cfg, "cpu")
+    gr = cs.phase_graphs(cfg, params, "cpu", n_streams=3, seconds=2.0,
+                         dec_ring=64, extra_steps=4, stream_seconds=2.5,
+                         jacobi_seconds=8.0)
+    rungs = {r["rung"]: r for r in gr["rungs"]}
+    assert list(rungs) == ["bf16", "fp8kv", "int8", "int4"]
+    nl = cfg.decoder.n_layers
+    for r in rungs.values():
+        assert r["logits_bit_equal"] and r["decode_steps"] > 0
+        assert r["serve_captures_eager"] == 0 < r["serve_captures_graph"]
+    assert rungs["fp8kv"]["launches_xla_mid_fill_graph"]["ring_rows_write"] \
+        == nl * 8
+    assert gr["launches"]["ring_rows_write"] == 2 * nl * 8
+    assert gr["stream"]["captures_eager"] == 0 < gr["stream"]["captures_graph"]
+    assert gr["jacobi"]["jacobi_steps"] >= 64
+    assert gr["captures"]["graphs"] > 0
 
 
 def test_jacobi_near_tie_rule():

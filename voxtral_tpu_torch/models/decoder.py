@@ -3,7 +3,9 @@
 PyTorch counterpart of voxtral_tpu/models/decoder.py.  Every tensor carries
 a leading stream axis B (B=1 for one clip): embeddings [B, T, dim], caches
 [B, L, KH, cap, D], positions int [B].  `jit`/`scan` become eager Python
-loops over layers and steps; CUDA graphs are later work.
+loops over layers and steps.  On a CUDA device a burst's steps replay
+one CUDA graph of the whole step (ops/graphs.py; `_use_graph` holds the
+rule), captured on the cache at its first step.
 
   - The rolling KV cache is a fixed ring (ops/ring.py); RoPE uses logical
     positions, so ring reuse is exact.
@@ -42,13 +44,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from ..config import TOKEN_TEXT_MIN, DecoderConfig, VoxtralConfig
 from ..ops import quant_mm
 from ..ops.flash_decode import flash_decode
+from ..ops.graphs import GraphStore, graph_key
 from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
@@ -61,17 +64,22 @@ PyTree = Any
 @dataclasses.dataclass
 class KVCache:
     """Per-layer ring buffers: k/v are [B, L, KH, cap, D] (head-major, so the
-    slot axis is contiguous per head).  Mutated in place by the decoder."""
+    slot axis is contiguous per head).  Mutated in place by the decoder.
+    `graphs` holds the CUDA graphs captured on these buffers (None: the
+    decoder runs this cache eagerly; ops/graphs.py)."""
     k: torch.Tensor
     v: torch.Tensor
+    graphs: Optional[GraphStore] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @classmethod
     def create(cls, cfg: DecoderConfig, kv_dtype, cap: int | None = None,
-               batch: int = 1, device="cpu") -> "KVCache":
+               batch: int = 1, device="cpu", graphs: bool = True) -> "KVCache":
         cap = cap or cfg.kv_ring
         shape = (batch, cfg.n_layers, cfg.n_kv_heads, cap, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=kv_dtype, device=device),
-                   torch.zeros(shape, dtype=kv_dtype, device=device))
+                   torch.zeros(shape, dtype=kv_dtype, device=device),
+                   GraphStore() if graphs else None)
 
 
 def time_embedding(t_value: float, dim: int, theta: float = 10_000.0,
@@ -117,6 +125,23 @@ def _use_flash(cfg, ring: torch.Tensor | None = None,
     if ring.dtype == torch.float8_e4m3fn:
         return fp8
     return ring.dtype.is_floating_point and ring.element_size() >= 2
+
+
+# the calls that replay as CUDA graphs (ops/graphs.py); every other call
+# ("prefill": the decoder at T > 1 outside Jacobi; "bulk": the bulk
+# encoder and window_encode_chunk) runs eagerly
+GRAPHED_CALLS = ("step", "encoder", "jacobi")
+
+
+def _use_graph(cfg, cache, x: torch.Tensor, call: str) -> bool:
+    """Whether `call` on x replays as a CUDA graph captured on `cache`
+    (ops/graphs.py): a call of GRAPHED_CALLS on a CUDA device, on a cache
+    made with graphs on, off a tp > 1 mesh (its all-reduces run through
+    gloo on the host).  Everything else runs eagerly: CPU tensors, the
+    prefill and bulk calls, tp > 1, and caches made with graphs off
+    (`VoxtralEngine(cuda_graphs=False)`, the switch)."""
+    return (call in GRAPHED_CALLS and x.device.type == "cuda"
+            and cache.graphs is not None and tp_of(cfg) is None)
 
 
 def _layer_step(
@@ -253,6 +278,60 @@ def _alts_from_logits(logits: torch.Tensor, n_alt: int):
     return best.to(torch.int32), best_prob, top_i, top_p
 
 
+def _step(params: PyTree, cfg: VoxtralConfig, row: torch.Tensor,
+          prev: torch.Tensor, pos: torch.Tensor, cache: KVCache,
+          ada: torch.Tensor, n_alt: int):
+    """One decode step of B streams: embed row [B, dim] + the embedding of
+    prev int [B], every layer at positions pos int [B] (writing their K/V),
+    the logits and the argmax.  Returns (token [B] i32,) or, with n_alt,
+    (token, best_prob, alt_ids, alt_probs)."""
+    tp = tp_of(cfg)
+    embed = (row.float() + quant.embed_rows(params, prev, tp=tp))[:, None]
+    x, _ = decoder_forward(params, cfg, embed, cache, pos, ada)
+    logits = final_logits(params, cfg, x)[:, 0]
+    if n_alt > 0:
+        if tp is not None:
+            logits = tp.gather_last(logits)
+        return _alts_from_logits(logits, n_alt)
+    if tp is not None:
+        return (tp.argmax(logits),)
+    return (torch.argmax(logits, dim=-1).to(torch.int32),)
+
+
+def _graphed_steps(params, cfg, adapter_chunk, prev, cache, pos0, ada,
+                   n_alt: int, outs: list):
+    """The burst's steps as replays of one CUDA graph of `_step` on this
+    cache (ops/graphs.py): prev and pos live in the graph's static inputs,
+    and the graph advances them itself; between replays only the step's
+    adapter row goes in and its outputs come out, into `outs` (the burst's
+    [B, T, ...] tensors).  The key's first step runs eagerly, then is
+    captured."""
+    bsz, t_total, _ = adapter_chunk.shape
+
+    def body(row, prev_s, pos_s):
+        out = _step(params, cfg, row, prev_s, pos_s, cache, ada, n_alt)
+        prev_s.copy_(out[0])
+        pos_s.add_(1)
+        return out
+
+    key = graph_key("step", params, ada, cfg, bsz, n_alt,
+                    adapter_chunk.dtype, cache.k.data_ptr(),
+                    cache.v.data_ptr())
+    graph, t0 = cache.graphs.lookup(key), 0
+    if graph is None:
+        graph, out = cache.graphs.call(
+            key, body, (adapter_chunk[:, 0], prev, pos0), keep=(params, ada))
+        for dst, src in zip(outs, out):
+            dst[:, 0].copy_(src)
+        t0 = 1
+    else:
+        graph.static[1].copy_(prev)
+        graph.static[2].copy_(pos0)
+    for t in range(t0, t_total):
+        for dst, src in zip(outs, graph(adapter_chunk[:, t], None, None)):
+            dst[:, t].copy_(src)
+
+
 @torch.no_grad()
 def decode_burst(
     params: PyTree,
@@ -266,7 +345,9 @@ def decode_burst(
 ):
     """Greedy burst decode of T steps per stream with on-device token
     feedback: step t embeds adapter_chunk[:, t] + tok_embeddings[prev],
-    runs the decoder, takes the argmax.
+    runs the decoder, takes the argmax.  On a CUDA device every step
+    replays one CUDA graph (`_use_graph`); the results are bit-equal to
+    the eager loop's.
 
     Returns (tokens [B, T] i32, alt_ids [B, T, n_alt] i32, alt_probs
     [B, T, n_alt] f32, best_probs [B, T] f32, cache), all on the device:
@@ -277,25 +358,28 @@ def decode_burst(
     dev = adapter_chunk.device
     pos0 = _positions(pos0, bsz, dev)
     prev = prev_token.to(device=dev, dtype=torch.int32).reshape(-1).expand(bsz)
-    tp = tp_of(cfg)
+    if _use_graph(cfg, cache, adapter_chunk, "step"):
+        tokens = torch.empty((bsz, t_total), dtype=torch.int32, device=dev)
+        alt_i = torch.empty((bsz, t_total, n_alt), dtype=torch.int32,
+                            device=dev)
+        alt_p = torch.empty((bsz, t_total, n_alt), dtype=torch.float32,
+                            device=dev)
+        best_p = torch.zeros((bsz, t_total), dtype=torch.float32, device=dev)
+        outs = [tokens, best_p, alt_i, alt_p] if n_alt > 0 else [tokens]
+        if t_total:
+            _graphed_steps(params, cfg, adapter_chunk, prev, cache, pos0, ada,
+                           n_alt, outs)
+        return tokens, alt_i, alt_p, best_p, cache
     toks, alt_i, alt_p, best_p = [], [], [], []
     for t in range(t_total):
-        embed = (adapter_chunk[:, t].float()
-                 + quant.embed_rows(params, prev, tp=tp))[:, None]
-        x, _ = decoder_forward(params, cfg, embed, cache, pos0 + t, ada)
-        logits = final_logits(params, cfg, x)[:, 0]
-        if n_alt > 0:
-            if tp is not None:
-                logits = tp.gather_last(logits)
-            prev, bp, ai, ap = _alts_from_logits(logits, n_alt)
-            best_p.append(bp)
-            alt_i.append(ai)
-            alt_p.append(ap)
-        elif tp is not None:
-            prev = tp.argmax(logits)
-        else:
-            prev = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = _step(params, cfg, adapter_chunk[:, t], prev, pos0 + t, cache,
+                    ada, n_alt)
+        prev = out[0]
         toks.append(prev)
+        if n_alt > 0:
+            best_p.append(out[1])
+            alt_i.append(out[2])
+            alt_p.append(out[3])
     tokens = torch.stack(toks, dim=1)
     if n_alt > 0:
         return (tokens, torch.stack(alt_i, dim=1), torch.stack(alt_p, dim=1),

@@ -38,17 +38,18 @@ the bulk encoder too.  A T == 1 chunk writes its slot directly and takes
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from ..config import DOWNSAMPLE_FACTOR, EncoderConfig, VoxtralConfig
 from ..ops.flash_encode import flash_bulk_attention_batched
+from ..ops.graphs import GraphStore, graph_key
 from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
-from .decoder import _positions, _use_flash
+from .decoder import _positions, _use_flash, _use_graph
 from .quant import matmul_f32, mm
 
 PyTree = Any
@@ -57,17 +58,22 @@ PyTree = Any
 @dataclasses.dataclass
 class EncKVCache:
     """Per-layer encoder rings: k/v are [B, L, KH, cap, D].  Mutated in
-    place by the encoder."""
+    place by the encoder.  `graphs` holds the CUDA graphs captured on these
+    buffers (None: the encoder runs this cache eagerly; ops/graphs.py)."""
     k: torch.Tensor
     v: torch.Tensor
+    graphs: Optional[GraphStore] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @classmethod
     def create(cls, cfg: EncoderConfig, kv_dtype, cap: int | None = None,
-               batch: int = 1, device="cpu") -> "EncKVCache":
+               batch: int = 1, device="cpu",
+               graphs: bool = True) -> "EncKVCache":
         cap = cap or cfg.kv_ring
         shape = (batch, cfg.n_layers, cfg.n_kv_heads, cap, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=kv_dtype, device=device),
-                   torch.zeros(shape, dtype=kv_dtype, device=device))
+                   torch.zeros(shape, dtype=kv_dtype, device=device),
+                   GraphStore() if graphs else None)
 
     @property
     def batch(self) -> int:
@@ -164,7 +170,21 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
 def encoder_layers(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
                    cache: EncKVCache, pos0: torch.Tensor) -> torch.Tensor:
     """The 32 ring-cache layers over x [B, T, dim] at per-stream positions
-    pos0 int [B] .. pos0+T-1, final-normed; writes the rings in place."""
+    pos0 int [B] .. pos0+T-1, final-normed; writes the rings in place.  On
+    a CUDA device the chunk replays one CUDA graph per (B, T) captured on
+    the cache (decoder._use_graph; ops/graphs.py), bit-equal to eager."""
+    if not _use_graph(cfg, cache, x, "encoder"):
+        return _encoder_layers(enc_params, cfg, x, cache, pos0)
+    key = graph_key("encoder", enc_params, None, cfg, tuple(x.shape),
+                    x.dtype, cache.k.data_ptr(), cache.v.data_ptr())
+    _, y = cache.graphs.call(
+        key, lambda x_, p_: _encoder_layers(enc_params, cfg, x_, cache, p_),
+        (x, pos0), keep=(enc_params,))
+    return y.clone()     # the graph's output is rewritten by its next replay
+
+
+def _encoder_layers(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
+                    cache: EncKVCache, pos0: torch.Tensor) -> torch.Tensor:
     e = cfg.encoder
     cdtype = cfg.cdtype
     t = x.shape[1]

@@ -25,6 +25,9 @@ Differences from the JAX function:
     carried through the loop.
   - Jacobi runs at B=1 only, as in the JAX package (which has no batched
     form); tensors keep the port's leading stream axis of 1.
+  - On a CUDA device each pass over the window replays one CUDA graph per
+    window size, captured on the cache (decoder._use_graph,
+    ops/graphs.py); the fixpoint loop stays on the host.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ from typing import Any
 import torch
 
 from ..config import VoxtralConfig
+from ..ops.graphs import graph_key
 from . import quant
 from .decoder import (
     KVCache,
     _alts_from_logits,
     _positions,
+    _use_graph,
     decoder_forward,
     final_logits,
 )
@@ -58,11 +63,25 @@ def _jacobi_window(params: PyTree, cfg: VoxtralConfig,
     w = adapter_win.shape[0]
     a32 = adapter_win.float()
 
-    def forward(guesses):
+    def window_pass(a32, prev_token, guesses, pos0):
         prev = torch.cat([prev_token, guesses[:-1]])
         embeds = a32 + quant.embed_rows(params, prev)
         x, _ = decoder_forward(params, cfg, embeds[None], cache, pos0, ada)
         return final_logits(params, cfg, x)[0]              # [W, V] f32
+
+    if _use_graph(cfg, cache, a32, "jacobi"):
+        # one CUDA graph per window size on this cache (ops/graphs.py); the
+        # logits are the graph's, read before the next pass
+        key = graph_key("jacobi", params, ada, cfg, w, cache.k.data_ptr(),
+                        cache.v.data_ptr())
+
+        def forward(guesses):
+            return cache.graphs.call(key, window_pass,
+                                     (a32, prev_token, guesses, pos0),
+                                     keep=(params, ada))[1]
+    else:
+        def forward(guesses):
+            return window_pass(a32, prev_token, guesses, pos0)
 
     guesses = prev_token.expand(w).clone()
     iters = 0

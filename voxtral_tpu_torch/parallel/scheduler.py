@@ -268,8 +268,9 @@ class StreamPool:
         )
         self.tails = ConvTails.create(cfg, batch=n_slots, device=dev)
         if enc_mode == "ring":
-            self.enc_cache = sv.batched_enc_cache(cache_cfg, n_slots,
-                                                  self.enc_ring, device=dev)
+            self.enc_cache = sv.batched_enc_cache(
+                cache_cfg, n_slots, self.enc_ring, device=dev,
+                graphs=engine.cuda_graphs)
             self.xwin = None
         else:
             from ..models.bulk_encode import window_pad
@@ -282,7 +283,8 @@ class StreamPool:
         self.row_ring = torch.zeros((n_slots, row_ring, cfg.decoder.dim),
                                     dtype=torch.float32, device=dev)
         self.dec_cache = sv.batched_dec_cache(cache_cfg, n_slots, dec_kv_ring,
-                                              device=dev)
+                                              device=dev,
+                                              graphs=engine.cuda_graphs)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.encoder_ms = 0.0
         self.decoder_ms = 0.0
@@ -409,7 +411,8 @@ class StreamPool:
             if obj is None:
                 continue
             tensors = ([obj] if isinstance(obj, torch.Tensor)
-                       else list(vars(obj).values()))
+                       else [x for x in vars(obj).values()
+                             if isinstance(x, torch.Tensor)])
             b = sum(x.numel() * x.element_size() for x in tensors)
             led[f"pool_{name}"] = b
             pool += b

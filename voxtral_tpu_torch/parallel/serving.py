@@ -56,17 +56,20 @@ PyTree = Any
 
 
 def batched_dec_cache(cfg: VoxtralConfig, batch: int,
-                      cap: Optional[int] = None, device="cpu") -> KVCache:
-    """Zeroed decoder rings [batch, L, KH, cap, D] in cfg.kvdtype."""
+                      cap: Optional[int] = None, device="cpu",
+                      graphs: bool = True) -> KVCache:
+    """Zeroed decoder rings [batch, L, KH, cap, D] in cfg.kvdtype (with
+    `graphs`, the decoder's CUDA graphs on them: ops/graphs.py)."""
     return KVCache.create(cfg.decoder, cfg.kvdtype, cap, batch=batch,
-                          device=device)
+                          device=device, graphs=graphs)
 
 
 def batched_enc_cache(cfg: VoxtralConfig, batch: int,
-                      cap: Optional[int] = None, device="cpu") -> EncKVCache:
+                      cap: Optional[int] = None, device="cpu",
+                      graphs: bool = True) -> EncKVCache:
     """Zeroed encoder rings [batch, L, KH, cap, D] in cfg.enc_kvdtype."""
     return EncKVCache.create(cfg.encoder, cfg.enc_kvdtype, cap, batch=batch,
-                             device=device)
+                             device=device, graphs=graphs)
 
 
 @torch.no_grad()
@@ -142,7 +145,8 @@ def serve_clips(engine, mel):
     rows = engine.encode_clips_bulk(mel)                  # [b, n, dim] f32
     sync()
     t1 = time.monotonic()
-    cache = batched_dec_cache(cfg, bsz, engine.dec_kv_ring, device=dev)
+    cache = batched_dec_cache(cfg, bsz, engine.dec_kv_ring, device=dev,
+                              graphs=engine.cuda_graphs)
     prompt = engine.prompt_embeds(rows[:, : plen - 1])
     zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
     x, _ = dec_mod.decoder_forward(dparams, cfg, prompt, cache, zero,
@@ -183,9 +187,11 @@ class BatchedTranscriber:
         dev = self.device = engine.device
         self.dec_ring = dec_kv_ring or engine.dec_kv_ring
         self.enc_cache = batched_enc_cache(cfg, batch, engine.enc_kv_ring,
-                                           device=dev)
+                                           device=dev,
+                                           graphs=engine.cuda_graphs)
         self.dec_cache = batched_dec_cache(cfg, batch, self.dec_ring,
-                                           device=dev)
+                                           device=dev,
+                                           graphs=engine.cuda_graphs)
         self.c0_tail = torch.zeros((batch, 2, cfg.encoder.n_mel), device=dev)
         self.c1_tail = torch.zeros((batch, 2, cfg.encoder.dim),
                                    dtype=cfg.cdtype, device=dev)

@@ -1,4 +1,4 @@
-"""Engine: loaded parameters + the shape-bucket policy.
+"""Engine: loaded parameters + CUDA graphs + the shape-bucket policy.
 
 PyTorch counterpart of voxtral_tpu/runtime/engine.py.  It holds the weights
 on one device and exposes the calls of the offline path (bulk encode,
@@ -8,9 +8,14 @@ Everything is batched-first: tensors carry a leading stream axis B (B=1
 for one clip or stream).
 
 Chunks keep the JAX package's greedy bucket decomposition, so a stream is
-cut into the same calls in both packages.  PyTorch runs eagerly and needs
-no per-shape program; the buckets are where CUDA-graph capture sizes will
-go, and `warmup` builds the kernels and runs each shape once.
+cut into the same calls in both packages.  Where the JAX engine compiles
+one program per shape, the port captures one CUDA graph per shape key on
+the cache it writes (ops/graphs.py): the decoder step, the streaming
+encoder chunk (each bucket and fused size) and the Jacobi window pass, at
+their first call on a CUDA device.  The prefill, the bulk encoder, the CPU
+and tp > 1 meshes run eagerly (models/decoder.py `_use_graph`);
+`cuda_graphs=False` runs every call eagerly (the caches it makes carry no
+graphs), for tests and A/Bs.
 
 `quantize=` ("int8"/True or "int4") quantizes the decoder only, as the JAX
 engine does (models/quant.py); the encoder stays exact.
@@ -18,7 +23,12 @@ engine does (models/quant.py); the encoder stays exact.
 `decode_mode` picks the decode of each burst as the JAX engine does:
 "sequential" (the default), "jacobi" (models/jacobi.py) or "auto" (Jacobi
 for bursts of at least `jacobi_window` rows).  Jacobi runs one stream: at
-B > 1 "auto" decodes sequentially and "jacobi" raises.
+B > 1 "auto" decodes sequentially and "jacobi" raises.  Unlike the JAX
+engine, "auto" also decodes sequentially where a Jacobi window would lose
+keys: its window writes all W rows before its queries attend, so on a
+ring shorter than the attention window + W - 1 whose burst wraps, late
+rows overwrite slots that early queries still read (ROADMAP.md section 3,
+a deliberate divergence).  "jacobi" keeps the reference's function.
 
 `mesh=` (parallel/mesh.py `make_mesh`) serves on a dp x tp mesh of
 processes: the engine keeps this rank's slices of the weights and runs at
@@ -105,6 +115,7 @@ class VoxtralEngine:
         fused_streaming: bool = True,      # one-call audio side for aligned chunks
         quantize: bool | str = False,      # False | True/"int8" | "int4"
         mesh=None,                         # parallel/mesh.py make_mesh
+        cuda_graphs: bool = True,          # False: every call eager
     ):
         if decode_mode not in ("sequential", "jacobi", "auto"):
             raise ValueError(f"decode_mode {decode_mode!r}")
@@ -133,6 +144,7 @@ class VoxtralEngine:
             params = quantize_params(params, encoder=False,
                                      bits=4 if quantize == "int4" else 8)
         self.quantized = quantize
+        self.cuda_graphs = cuda_graphs
         self.params = params
         self.tokenizer = tokenizer
         self.decode_mode = decode_mode
@@ -221,12 +233,12 @@ class VoxtralEngine:
     def new_dec_cache(self, batch: int = 1) -> KVCache:
         return KVCache.create(self.cfg.decoder, self.cfg.kvdtype,
                               self.dec_kv_ring, batch=batch,
-                              device=self.device)
+                              device=self.device, graphs=self.cuda_graphs)
 
     def new_enc_cache(self, batch: int = 1) -> EncKVCache:
         return EncKVCache.create(self.cfg.encoder, self.cfg.enc_kvdtype,
                                  self.enc_kv_ring, batch=batch,
-                                 device=self.device)
+                                 device=self.device, graphs=self.cuda_graphs)
 
     # -- dispatch planning ---------------------------------------------------
     def fused_sizes(self, q_total: int) -> list[int]:
@@ -332,15 +344,21 @@ class VoxtralEngine:
 
         The burst's decode follows `decode_mode`: "auto" takes Jacobi for
         bursts of at least `jacobi_window` rows at B=1 (sequential at
-        B > 1, and for shorter bursts); "jacobi" takes it for every burst
-        and raises ValueError at B > 1.  A Jacobi burst's window is the
-        largest divisor of T within `jacobi_window`.  Both give the greedy
-        tokens (up to near-tied logits in bf16)."""
+        B > 1, for shorter bursts, and where the window would lose keys:
+        a ring shorter than the attention window + W - 1 that the burst's
+        positions wrap); "jacobi" takes it for every burst and raises
+        ValueError at B > 1.  A Jacobi burst's window W is the largest
+        divisor of T within `jacobi_window`.  Both give the greedy tokens
+        (up to near-tied logits in bf16)."""
         chunk = self._tensor(adapter_chunk)
         bsz, t = chunk.shape[:2]
+        w = min(self.jacobi_window, t)
+        while w > 1 and t % w:
+            w -= 1
         mode = self.decode_mode
         if mode == "auto":
             mode = ("jacobi" if t >= self.jacobi_window and bsz == 1
+                    and not self._window_loses_keys(cache, pos0, t, w)
                     else "sequential")
         if mode == "jacobi":
             from ..models.jacobi import decode_burst_jacobi
@@ -348,9 +366,6 @@ class VoxtralEngine:
             if bsz != 1:
                 raise ValueError(f"decode_mode 'jacobi' decodes one stream, "
                                  f"got a burst of B={bsz}")
-            w = min(self.jacobi_window, t)
-            while t % w:
-                w -= 1
             toks, ai, ap, bp, cache, iters = decode_burst_jacobi(
                 self.params["decoder"], self.cfg, chunk,
                 torch.as_tensor(prev_token), cache, pos0, self.ada(),
@@ -363,12 +378,27 @@ class VoxtralEngine:
             torch.as_tensor(prev_token), cache, pos0, self.ada(), n_alt=n_alt,
         )
 
+    def _window_loses_keys(self, cache: KVCache, pos0, t: int,
+                           w: int) -> bool:
+        """Whether a Jacobi burst of t rows at pos0 in windows of w would
+        overwrite keys its own queries attend: the ring holds fewer slots
+        than the attention window + w - 1, and the burst's positions wrap
+        it (the last position reaches a slot written before)."""
+        cap = cache.k.shape[3]
+        if cap >= self.cfg.decoder.window + w - 1:
+            return False
+        return int(torch.as_tensor(pos0).reshape(-1)[0]) + t > cap
+
     # -- warm-up -------------------------------------------------------------
     def warmup(self, n_alt: int = 0, progress=None,
                interval_s: Optional[float] = None) -> float:
         """Builds the CUDA kernels (on a CUDA device) and runs every bucket
         shape once, with the JAX engine's progress lines (there it compiles
-        them; here it settles cuBLAS handles and the allocator).  With
+        them; here it settles cuBLAS handles and the allocator).  It runs
+        eagerly on caches that carry no graphs and captures nothing:
+        graphs belong to the cache they write (ops/graphs.py), so each
+        stream's caches capture theirs at their own first call of each
+        shape (the step, each encoder chunk size, each Jacobi window).  With
         `interval_s`, also the exact-size fused-encode and decode-burst
         shapes of the steady streaming state at that interval.  The bursts
         go through `decode_burst`, so under "auto" or "jacobi" the bucket
@@ -384,8 +414,8 @@ class VoxtralEngine:
             if progress:
                 progress("warmup kernel build")
             cuda_lib.kernels()
-        enc_cache = self.new_enc_cache()
-        dec_cache = self.new_dec_cache()
+        enc_cache, dec_cache = self.new_enc_cache(), self.new_dec_cache()
+        enc_cache.graphs = dec_cache.graphs = None
         c0_tail = torch.zeros((1, 2, cfg.encoder.n_mel), device=dev)
         c1_tail = torch.zeros((1, 2, cfg.encoder.dim), dtype=cfg.cdtype,
                               device=dev)
