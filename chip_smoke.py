@@ -19,30 +19,38 @@ script exits non-zero:
   3. banded   kernel (A) against its plain PyTorch version at the
                full-width encoder shape (H=KH=32, D=64, window 750), up to
                the serve phase's B=16 padded 30 s clips and the window
-               pool's B=32 T=852 with mixed kv_lo; its times, bound and
-               SDPA's at B=1 T=1500, at the serve shape and the pool's
+               pool's B=32 T=852 with mixed kv_lo, and the bench's
+               shapes (bulk encode B=4 T=3196, the load-window-exact tick
+               B=16 T=2648 with kv_lo up to its 2248-row context); its
+               times, plain time (4 streams a call), bound and SDPA's at
+               B=1 T=1500, the serve, pool and bench shapes
   4. flash    kernel (B) against its plain version at the full-width decoder
                shape (H=32, KH=8, D=128, L=26), with and without the row
                write, fp8, bf16 and f32 rings (bit-equal rings), up to the
                serve phase's B=16 rings of 896 slots, two calls bitwise
-               equal; its times, bound and SDPA's at the slice shape (B=1
-               cap 512 pos 300) and the serve shape (B=16 cap 896, mixed
-               positions around 500) in bf16 and fp8
+               equal, and the bench's B=64 bf16 and B=80 fp8 rings; its
+               times, bound and SDPA's at the slice shape (B=1 cap 512 pos
+               300), the serve shape (B=16 cap 896, mixed positions around
+               500) in bf16 and fp8, and the bench's B=64 bf16 and B=80
+               fp8
   5. flash_enc kernel (E) against its plain version at the full-width
                streaming-encoder shape (H=KH=32, D=64, stacked rings of
                1024 and 1000 slots, window 750) for B in {1, 16}, T from 4
                to 274, positions at 0, in the first lap and after
-               wraparound, under both mappings of its split walk (bitwise
-               equal); its output bitwise equal across three chunkings of
-               256 rows at B=1 and B=16; its times at B=16 T=64 and B=1
-               T=100 by mapping, and at the ring pool's B=8 T=24 (checked
-               there too)
+               wraparound, and on the bench's 1280-slot ring (T=512, 124,
+               530 at B=1 and 2), under both mappings of its split walk
+               (bitwise equal); its output bitwise equal across three
+               chunkings of 256 rows at B=1 and B=16; its times at B=16
+               T=64 and B=1 T=100 by mapping, at the ring pool's B=8
+               T=24 (checked there too) and the bench's B=1 T=512 on
+               1280 slots
   6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table;
-               26-layer stacks, read at layer 25) at 1, 16, 64 and 608 rows,
-               two calls bitwise equal; its plans and the card's occupancy
-               for them; graph-replay times at 16, 64 (a Jacobi window) and
-               608 rows of the kernel,
+               26-layer stacks, read at layer 25) at 1, 16, 64, 608, 56
+               and 2128 rows (the last two: the bench's int4 decode and
+               prefill), two calls bitwise equal; its plans and the card's
+               occupancy for them; graph-replay times at each row count
+               but 1 of the kernel,
                plain and the bf16 yardstick, and of one decode step's 105
                products (26 layers + the table, 1.71 GB packed)
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
@@ -107,7 +115,15 @@ script exits non-zero:
                bounds and SDPA's, and flash-decode at the two pool shapes
  16. mel_device audio/mel_device.py on B=16 x 30 s clips against the host
                mel (3e-4), both times
- 17. ckpt     the checkpoint path through the tools a user runs
+ 17. bench    the port's bench (voxtral_tpu_torch/bench.py, phase_bench)
+               in this process: bf16 at 16 streams x 30 s with the three
+               step probes, the -I 0.5 latency run and the four load rows
+               at 4 ticks, then int4 alone; each result printed on its own
+               line and failed on a -1 value, an `_oom` key, a value <= 0
+               or no launch of its kernels; then run_once in bulk mode at
+               4 streams, its ids bit-equal to serve_clips, and "inc"
+               mode's agreeing with them (STREAM_AGREE_MIN)
+ 18. ckpt     the checkpoint path through the tools a user runs
                (phase_ckpt): make_fake_ckpt writes a full-width
                checkpoint cut to CKPT_LAYERS (4 + 4 layers, 2.0 GB) into a
                temporary directory; the CLI loads it with -d and
@@ -127,8 +143,8 @@ layers, 8.9 GB) checkpoint.  Each phase's seconds are in `phase_s`.
 
 The line before the last but one is a JSON object with one entry per
 kernel (and the slice, serve, stream, bstream, jacobi, pool, mesh,
-mel_device, f32_auto and ckpt tables), the line before the last the card's
-name and power limit; the last line is
+mel_device, f32_auto, bench and ckpt tables), the line before the last
+the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  `--profile` instead prints
 torch.profiler's breakdown of the serve pipeline at B=16 (encode,
 prefill, decode per rung) and of the streaming paths at steady state (a
@@ -419,10 +435,15 @@ def _band_mask(t: int, window: int):
     return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
 
 
-def _banded_times(q, k, v, kv_lo, window: int, plain: bool) -> dict:
+# the plain banded version is timed over this many streams a call: its
+# [T, T] f32 scores per head take 5.9 GB at B=16 T=1696 in one call
+BANDED_PLAIN_STREAMS = 4
+
+
+def _banded_times(q, k, v, kv_lo, window: int) -> dict:
     """Kernel (A) at one shape, bf16 out as on the path: CUDA events and
-    device time, the plain version (B=1 only: its [T, T] scores per head
-    would take 5.9 GB at B=16), SDPA with the band mask, and the bound."""
+    device time, the plain version (in calls of BANDED_PLAIN_STREAMS
+    streams), SDPA with the band mask, and the bound."""
     import torch
 
     from voxtral_tpu_torch.ops.banded_encode import (
@@ -436,10 +457,14 @@ def _banded_times(q, k, v, kv_lo, window: int, plain: bool) -> dict:
         banded_attention_batched(q, k, v, kv_lo, window=window,
                                  out_dtype=torch.bfloat16)
 
-    out = {"ms": cuda_ms(kern, 20), "device_ms": graph_ms(kern, 10)}
-    if plain:
-        out["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
-            q, k, v, kv_lo, window=window, out_dtype=torch.bfloat16), 5)
+    def plain():
+        for i in range(0, bsz, BANDED_PLAIN_STREAMS):
+            j = i + BANDED_PLAIN_STREAMS
+            banded_attention_plain(q[i:j], k[i:j], v[i:j], kv_lo[i:j],
+                                   window=window, out_dtype=torch.bfloat16)
+
+    out = {"ms": cuda_ms(kern, 20), "device_ms": graph_ms(kern, 10),
+           "plain_ms": cuda_ms(plain, 3, warmup=1)}
     # the library call: SDPA with the boolean band mask (and each stream's
     # leading keys hidden below its kv_lo)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -471,6 +496,7 @@ def phase_banded() -> dict:
     gen.manual_seed(1)
     h, d, window = 32, 64, 750
     t_serve = serve_encoder_len(30.0)
+    t_bulk, (exact_ctx, exact_t) = serve_encoder_len(60.0), exact_window()
     cases = [  # (B, T, kv_lo)
         (1, 1500, [0]),          # a 30 s clip
         (1, 1013, [0]),          # ragged: not a multiple of the 64-row tile
@@ -479,7 +505,17 @@ def phase_banded() -> dict:
         # the window-mode pool's tick at 32 slots: 752 context rows + 100
         # new (-I 2.0), every slot hiding its own stale context
         (32, 852, [(0, 300, 752, 0, 100)[i % 5] for i in range(32)]),
+        # the bench's bulk encode: groups of 4 padded 60 s clips
+        (4, t_bulk, [0] * 4),
+        # the bench's load-window-exact tick: 16 slots of the 2248-row
+        # context (enc_ctx_extra=2) + 400 new rows (-I 8.0), slots fresh,
+        # one and two feeds in, and full
+        (16, exact_t, [(exact_ctx, exact_ctx - 400, exact_ctx - 800,
+                        0)[i % 4] for i in range(16)]),
     ]
+    timed_cases = {(1, 1500): "", (16, t_serve): "_b16",
+                   (32, 852): "_pool_window", (4, t_bulk): "_bench_bulk",
+                   (16, exact_t): "_bench_exact"}
     worst = 0.0
     timed = {}
     for bsz, t, lo in cases:
@@ -505,23 +541,33 @@ def phase_banded() -> dict:
         if not ok:
             raise AssertionError(f"[banded] B={bsz} T={t} err {err}")
         del got, want
-        if (bsz, t) in ((1, 1500), (16, t_serve), (32, 852)):
-            tm = _banded_times(q, k, v, kv_lo, window, plain=bsz == 1)
-            timed[bsz] = tm
-            if bsz == 32:
-                tm["max_abs_err"] = err
+        tag = timed_cases.get((bsz, t))
+        if tag is not None:
+            tm = _banded_times(q, k, v, kv_lo, window)
+            tm["max_abs_err"] = err
+            timed[tag] = tm
             log("banded", f"B={bsz} T={t}: kernel {tm['ms']:.4f} ms (device "
                           f"{tm['device_ms']:.4f}), "
                           f"{tm['tflops']:.1f} TFLOP/s, plain "
-                          f"{tm.get('plain_ms', float('nan')):.4f} ms, SDPA "
+                          f"{tm['plain_ms']:.4f} ms, SDPA "
                           f"{tm['library_ms']:.4f} ms per call; bound "
                           f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
         del q, k, v
     banded_attention_batched.launches = 0
-    out = {"max_abs_err": worst, **timed[1]}
-    out.update({f"{key}_b16": val for key, val in timed[16].items()})
-    out.update({f"{key}_pool_window": val for key, val in timed[32].items()})
+    out = {**{f"{key}{tag}": val for tag, tm in timed.items()
+              for key, val in tm.items()}, "max_abs_err": worst}
     return out
+
+
+def exact_window() -> tuple[int, int]:
+    """(context rows, rows a tick) of the bench's load-window-exact row at
+    full width: window_pad(cfg, extra=2) context rows beside the 400
+    encoder rows of an 8 s feed (800 mel frames)."""
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.models.bulk_encode import window_pad
+
+    ctx = window_pad(full_config(), extra=2)
+    return ctx, ctx + 400
 
 
 def serve_encoder_len(seconds: float) -> int:
@@ -534,6 +580,13 @@ def serve_encoder_len(seconds: float) -> int:
 
     eng = types.SimpleNamespace(delay_tokens=full_config().delay_tokens)
     return padded_clip_mel(eng, make_audio(seconds, seed=0)).shape[0] // 2
+
+
+def _mixed_positions(bsz: int, cap: int) -> list[int]:
+    """One position per stream: 0, mid-ring, wrapped, then spread over
+    three laps of the ring."""
+    return [0, cap // 2, cap + 123] + [(97 * i) % (3 * cap)
+                                       for i in range(3, bsz)]
 
 
 def _flash_live(pos_l, cap: int, window: int) -> int:
@@ -614,13 +667,17 @@ def phase_flash() -> dict:
             cases.append((1, cap, [p]))
         cases.append((3, cap, [0, cap // 2 + 7, 2 * cap + 5]))
     # the serve phase's B=16 rings, with each stream at its own position
-    cases.append((16, 896, [0, 448, 896 + 123]
-                  + [(97 * i) % (3 * 896) for i in range(3, 16)]))
+    cases.append((16, 896, _mixed_positions(16, 896)))
+    # the bench's headline decode: B=64 on bf16 rings, B=80 on fp8 rings
+    # (its fp8kv rung), ring 896, mixed positions
+    bench_cases = {torch.bfloat16: (64, 896, _mixed_positions(64, 896)),
+                   torch.float8_e4m3fn: (80, 896, _mixed_positions(80, 896))}
     worst = 0.0
     for rdt in (torch.float8_e4m3fn, torch.bfloat16, torch.float32):
         # q in the ring's compute dtype, as the decoder passes it
         qdt = torch.float32 if rdt == torch.float32 else torch.bfloat16
-        for bsz, cap, pos_l in cases:
+        for bsz, cap, pos_l in cases + ([bench_cases[rdt]]
+                                        if rdt in bench_cases else []):
             shape = (bsz, n_layers, kh, cap, d)
             k_all = _randn(gen, shape, rdt)
             v_all = _randn(gen, shape, rdt)
@@ -666,10 +723,12 @@ def phase_flash() -> dict:
     # times: the slice shape (B=1, a 30 s clip's ring of 512 mid-clip, bf16)
     # and the serve shape (B=16, ring 896, positions around 500) in bf16 and
     # fp8
-    serve_pos = [500 + 13 * (i - 8) for i in range(16)]
+    serve_pos = [500 + 13 * (i % 16 - 8) for i in range(80)]
     shapes = {"": (1, 512, [300], torch.bfloat16),
-              "_b16_bf16": (16, 896, serve_pos, torch.bfloat16),
-              "_b16_fp8": (16, 896, serve_pos, torch.float8_e4m3fn)}
+              "_b16_bf16": (16, 896, serve_pos[:16], torch.bfloat16),
+              "_b16_fp8": (16, 896, serve_pos[:16], torch.float8_e4m3fn),
+              "_bench_b64_bf16": (64, 896, serve_pos[:64], torch.bfloat16),
+              "_bench_b80_fp8": (80, 896, serve_pos, torch.float8_e4m3fn)}
     out = {"max_abs_err": worst, "deterministic": True,
            "replaces_also": ["voxtral_tpu/ops/flash_decode.py:44",
                              "voxtral_tpu/ops/flash_decode.py:124"]}
@@ -700,6 +759,8 @@ INT4_LAYERS = 26            # the decoder's depth: full stacks, 1.71 GB packed
 # B=16 decode, a B=1 Jacobi window (64 rows through every product of the
 # window's pass), B=16 x 38 prefill
 INT4_ROWS = (16, 64, 608)
+# the bench's int4 rung: its B=56 decode and B=56 x 38 prefill
+INT4_BENCH_ROWS = (56, 2128)
 
 
 def _int4_bound(shapes, rows: int) -> dict:
@@ -763,7 +824,7 @@ def phase_int4() -> dict:
         p, s = stacks[name]
         n_layers = p.shape[0]
         wd = [_dequant_bf16(p[li], s[li]) for li in range(min(4, n_layers))]
-        for rows in (1,) + INT4_ROWS:
+        for rows in (1,) + INT4_ROWS + INT4_BENCH_ROWS:
             x = _randn(gen, (rows, in_dim), torch.bfloat16)
             got = int4_mm(x, p, s, n_layers - 1)
             again = int4_mm(x, p, s, n_layers - 1)
@@ -849,15 +910,22 @@ def phase_int4() -> dict:
                 f"{out['plain_ms_layers_rows608']:.4f}, bf16 mm "
                 f"{out['bf16_mm_ms_layers_rows608']:.4f}, bound "
                 f"{b608['bound_ms']:.4f} ms ({b608['bound_by']})")
-    # a Jacobi window's pass: the five products at 64 rows
-    for k in ("ms", "plain_ms", "bf16_mm_ms"):
-        out[f"{k}_rows64"] = sum(out[f"{k}_{n}_rows64"] for n in INT4_SHAPES)
-    b64 = _int4_bound(INT4_SHAPES.values(), 64)
-    out["bound_ms_rows64"] = b64["bound_ms"]
-    log("int4", f"five products at 64 rows: kernel {out['ms_rows64']:.4f} "
-                f"ms, plain {out['plain_ms_rows64']:.4f}, bf16 mm "
-                f"{out['bf16_mm_ms_rows64']:.4f}, bound "
-                f"{b64['bound_ms']:.4f} ms ({b64['bound_by']})")
+    # a Jacobi window's pass and the bench's B=56 decode step: the five
+    # products at 64 and 56 rows; the bench's B=56 prefill: the four layer
+    # products at 2128 rows
+    for rows, names, tag in ((64, list(INT4_SHAPES), "rows64"),
+                             (56, list(INT4_SHAPES), "rows56"),
+                             (2128, list(INT4_SHAPES)[:4], "layers_rows2128")):
+        for k in ("ms", "plain_ms", "bf16_mm_ms"):
+            out[f"{k}_{tag}"] = sum(out[f"{k}_{n}_rows{rows}"] for n in names)
+        b = _int4_bound([INT4_SHAPES[n] for n in names], rows)
+        out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = (b["bound_ms"],
+                                                           b["bound_by"])
+        log("int4", f"{len(names)} products at {rows} rows: kernel "
+                    f"{out[f'ms_{tag}']:.4f} ms, plain "
+                    f"{out[f'plain_ms_{tag}']:.4f}, bf16 mm "
+                    f"{out[f'bf16_mm_ms_{tag}']:.4f}, bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     return out
 
 
@@ -883,7 +951,7 @@ def _int4_plans() -> None:
                                      f"holds {got} blocks per SM, the plan "
                                      f"assumes {assumed}")
     sms = cuda_lib.sm_count(0)
-    for rows in INT4_ROWS:
+    for rows in INT4_ROWS + INT4_BENCH_ROWS:
         for name, (out_dim, in_dim) in INT4_SHAPES.items():
             plan = quant_mm.int4_mm_plan(rows, out_dim, in_dim // 2, sms)
             log("int4", f"plan {name} rows={rows}: {plan}")
@@ -975,6 +1043,17 @@ def phase_rows() -> dict:
     return out
 
 
+# the bench's encoder ring (1280 slots: window 750 + its 1024-frame fused
+# chunk of 512 rows): (B, T, positions) with B=1 the incremental encode
+# and B=2 the batched one; T=512 where a 60 s clip writes it (0 to 3072,
+# the ring wrapped from 1280 on), its 124-row tail at 3072, and 530, the
+# largest chunk the ring holds beside its window
+BENCH_ENC_RING = dict(cap=1280, cases=((1, 512, (0, 512, 1536, 3072)),
+                                       (1, 124, (3072,)),
+                                       (1, 530, (0, 5000)),
+                                       (2, 512, (0, 2560))))
+
+
 # the streaming encoder at full width: stacked rings [B, 32, 32, 1024, 64]
 # (1024 = the engine's ring for buckets (64, 16, 4, 1)) and, for the ragged
 # edge, 1000 slots; chunks of 4 to 274 rows (274 = the largest fused chunk
@@ -985,7 +1064,8 @@ def phase_rows() -> dict:
 FLASH_ENC_FULL = dict(n_layers=32, heads=32, head_dim=64, cap=1024,
                       ragged_cap=1000, window=750, ts=(4, 64, 100, 256, 274),
                       positions=(0, 17, 40, 300, 5000), prefill=800,
-                      splits=((256,), (64, 64, 64, 64), (100, 100, 56)))
+                      splits=((256,), (64, 64, 64, 64), (100, 100, 56)),
+                      bench=BENCH_ENC_RING)
 
 
 def _stream_positions(positions, bsz: int) -> list[int]:
@@ -1043,6 +1123,33 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
                               device)
         return k_all, v_all
 
+    def check(k_all, v_all, q, pos_l) -> float:
+        """The kernel against plain at one case; both mappings of the split
+        walk to blocks agree bit for bit (the default takes one)."""
+        bsz, t, n_slots = q.shape[0], q.shape[1], k_all.shape[3]
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=device)
+        want = flash_encode_plain(q, k_all[:, li], v_all[:, li], pos, **kw)
+        got, walk = (flash_bulk_attention_batched(
+            q, k_all[:, li], v_all[:, li], pos, split=sp, **kw)
+            for sp in (True, False))
+        if not torch.equal(got, walk):
+            raise AssertionError(
+                f"[flash_enc] cap={n_slots} B={bsz} T={t} "
+                f"pos={pos_l[:3]}: the split mappings differ")
+        del walk
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[flash_enc] non-finite cap={n_slots} "
+                                 f"B={bsz} T={t} pos={pos_l[:3]}")
+        err = (got - want).abs().max().item()
+        ok = err <= FLASH_ENC_TOL
+        log("flash_enc", f"cap={n_slots} B={bsz} T={t} pos={pos_l[:3]}: "
+                         f"max_abs_err {err:.3e} (tol {FLASH_ENC_TOL}) "
+                         f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[flash_enc] cap={n_slots} B={bsz} T={t} "
+                                 f"pos={pos_l} err {err}")
+        return err
+
     worst = 0.0
     for n_slots in (cap, sh["ragged_cap"]):
         for bsz in batches:
@@ -1052,36 +1159,17 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
             for t in sh["ts"]:
                 q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
                 for pos_l in pos_sets:
-                    pos = torch.tensor(pos_l, dtype=torch.int32,
-                                       device=device)
-                    want = flash_encode_plain(q, k_all[:, li], v_all[:, li],
-                                              pos, **kw)
-                    # the two mappings of the split walk to blocks agree
-                    # bit for bit (the default takes one of them)
-                    got, walk = (flash_bulk_attention_batched(
-                        q, k_all[:, li], v_all[:, li], pos, split=sp, **kw)
-                        for sp in (True, False))
-                    if not torch.equal(got, walk):
-                        raise AssertionError(
-                            f"[flash_enc] cap={n_slots} B={bsz} T={t} "
-                            f"pos={pos_l[:3]}: the split mappings differ")
-                    del walk
-                    if not bool(torch.isfinite(got).all()):
-                        raise AssertionError(
-                            f"[flash_enc] non-finite cap={n_slots} "
-                            f"B={bsz} T={t} pos={pos_l[:3]}")
-                    err = (got - want).abs().max().item()
-                    worst = max(worst, err)
-                    ok = err <= FLASH_ENC_TOL
-                    log("flash_enc", f"cap={n_slots} B={bsz} T={t} "
-                                     f"pos={pos_l[:3]}: max_abs_err "
-                                     f"{err:.3e} (tol {FLASH_ENC_TOL}) "
-                                     f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(
-                            f"[flash_enc] cap={n_slots} B={bsz} T={t} "
-                            f"pos={pos_l} err {err}")
+                    worst = max(worst, check(k_all, v_all, q, pos_l))
             del k_all, v_all
+    # the bench's encoder ring: its chunks at the positions they take
+    # (every stream of a batched encode at the same one)
+    bench = sh["bench"]
+    for bsz, t, positions in bench["cases"]:
+        k_all, v_all = rings(bsz, bench["cap"])
+        q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+        for p in positions:
+            worst = max(worst, check(k_all, v_all, q, [p] * bsz))
+        del k_all, v_all
 
     # bitwise invariance: `prefill` rows, then n more written and attended
     # as each partition of `splits`, on fresh rings each time
@@ -1131,11 +1219,14 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
     plan = flash_encode_segments(cap)
     # B=16 T=64, the batched transcriber's chunk; B=1 T=100, the 2 s fused
     # chunk; B=8 T=24, the ring-mode pool's tick at -I 0.5 (a 0.4 s gate:
-    # 48 mel frames), its slots at their own positions
-    for bsz, t, tag, at in ((16, 64, "", (2000, 5000)),
-                            (1, 100, "_b1_t100", (2000, 5000)),
-                            (8, 24, "_pool_ring", (40, 300, 2000, 5000))):
-        k_all, v_all = rings(bsz)
+    # 48 mel frames), its slots at their own positions; B=1 T=512 on the
+    # bench's ring, its 1024-frame fused chunk after the ring has wrapped
+    for bsz, t, tag, at, n_slots in (
+            (16, 64, "", (2000, 5000), cap),
+            (1, 100, "_b1_t100", (2000, 5000), cap),
+            (8, 24, "_pool_ring", (40, 300, 2000, 5000), cap),
+            (1, 512, "_bench_inc", (3072,), bench["cap"])):
+        k_all, v_all = rings(bsz, n_slots)
         kr, vr = k_all[:, li], v_all[:, li]
         q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
         pos = torch.tensor(_stream_positions(at, bsz),
@@ -1163,7 +1254,7 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
                                                    window=window), 5)
         # the library call: SDPA over the layer's ring with the
         # logical-position mask
-        valid = _enc_mask(pos, t, cap, window)
+        valid = _enc_mask(pos, t, n_slots, window)
         lib = sdpa_ms(q.transpose(1, 2).contiguous(), kr, vr, valid[:, None])
         # the K/V rows some query of the chunk sees, read once; q read and
         # the output written once (bf16); 4 D operations per (row, head,
@@ -1175,7 +1266,8 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
         out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
                     f"plain_ms{tag}": plain, f"library_ms{tag}": lib,
                     f"bound_ms{tag}": b["bound_ms"],
-                    f"bound_by{tag}": b["bound_by"], "segments": plan})
+                    f"bound_by{tag}": b["bound_by"], "segments": plan,
+                    "segments_bench": flash_encode_segments(bench["cap"])})
         alts = ", ".join(f"{k} {v:.4f}" for k, v in alts.items())
         log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:3]}: kernel "
                          f"{ms:.4f} ms (device {dms:.4f}; {alts}), plain "
@@ -3017,10 +3109,7 @@ def _rank_shape_times() -> dict:
         out_dtype=torch.float32)[0]).abs().max().item() for i in range(16))
     if not err <= BANDED_TOL:
         raise AssertionError(f"[mesh] banded at {h_enc} heads: err {err}")
-    tm = _banded_times(q, k, v, lo, 750, plain=False)
-    tm["plain_ms"] = cuda_ms(lambda: banded_attention_plain(
-        q[:1], k[:1], v[:1], lo[:1], window=750,
-        out_dtype=torch.bfloat16), 3) * 16   # one stream at a time
+    tm = _banded_times(q, k, v, lo, 750)
     out["banded"] = {"shape": f"B=16 T={t} H=KH={h_enc}",
                      "max_abs_err": err, **tm}
     del q, k, v, got
@@ -3150,6 +3239,103 @@ def phase_mel_device(device: str = "cuda", n_clips: int = 16,
         raise AssertionError(f"[mel_device] err {err}, shape "
                              f"{tuple(got.shape)}")
     return rec
+
+
+# the bench phase (phase_bench): the port's bench at the serve cell's
+# depth, every side phase on, the load rows at 4 ticks a round; then its
+# int4 rung alone; then bulk-mode run_once at B=4 held to serve_clips
+BENCH_ENV = {"BENCH_STREAMS": "16", "BENCH_SECONDS": "30", "BENCH_TRIES": "1",
+             "BENCH_LOAD_TICKS": "4"}
+BENCH_INT4_ENV = {**BENCH_ENV, "BENCH_MODE": "int4", "BENCH_LAT": "0",
+                  "BENCH_LOAD": "0"}
+BENCH_BULK_STREAMS = 4
+# the kernels each bench run must launch: flash-decode and flash-encode in
+# bf16 (its "inc" encode, every decode), the int4 product in int4
+BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched"),
+                 "int4": ("int4_mm",)}
+
+
+def _bench_faults(res: dict) -> list[str]:
+    """What makes a bench result a failure: a value of -1 (an OOM in a
+    side measurement, or a latency run that decoded nothing), an `_oom`
+    key, a headline value <= 0."""
+    extra = res["extra"]
+    bad = [k for k, v in extra.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and v == -1]
+    bad += [k for k in extra if k.endswith("_oom")]
+    if not res["value"] > 0:
+        bad.append(f"value {res['value']}")
+    return bad
+
+
+def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
+                int4_env: dict = BENCH_INT4_ENV,
+                bulk_streams: int = BENCH_BULK_STREAMS) -> dict:
+    """The port's bench (voxtral_tpu_torch/bench.py) in this process on
+    `params`: `env` (bf16, every side phase), then `int4_env`; each result
+    printed on a line of its own, and failed on a -1 value, an `_oom` key,
+    a value <= 0 or no launch of its kernels (BENCH_KERNELS).  Then
+    run_once in "bulk" mode at `bulk_streams` streams of the env's clip:
+    its ids bit-equal to serving.serve_clips on the same mel and engine,
+    and "inc" mode's ids agreeing with them on at least STREAM_AGREE_MIN
+    of positions (the two differ in the softmax's summing order)."""
+    import dataclasses
+
+    from voxtral_tpu_torch import bench
+    from voxtral_tpu_torch.parallel.serving import serve_clips
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+    from voxtral_tpu_torch.tools import synthetic_audio
+
+    def blog(msg):
+        log("bench", msg.strip())
+
+    out, launches = {}, {}
+    for tag, e in (("bf16", env), ("int4", int4_env)):
+        t0 = time.monotonic()
+        res = bench.run(bench.settings(e), device, cfg, params, log=blog)
+        print(json.dumps(res), flush=True)
+        got = res["extra"]["kernel_launches"]
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        faults = _bench_faults(res)
+        faults += [f"no {k} launch" for k in BENCH_KERNELS[tag]
+                   if not got[k] > 0]
+        if faults:
+            raise AssertionError(f"[bench] {tag}: {faults}")
+        out[tag] = {"metric": res["metric"], "value": res["value"],
+                    "s": time.monotonic() - t0}
+        log("bench", f"{tag}: {res['metric']} = {res['value']} "
+                     f"({out[tag]['s']:.1f} s), launches {got}")
+
+    s = bench.settings({**env, "BENCH_STREAMS": str(bulk_streams),
+                        "BENCH_ENC": "bulk",
+                        "BENCH_ENC_GROUP": str(bulk_streams)})
+    engine, _ = bench.build_engine(s, device, cfg, params)
+    mel = padded_clip_mel(engine, synthetic_audio(s.seconds))
+    bench.reset_launches()
+    bulk = bench.run_once(engine, s, mel, "bulk", log=blog)
+    served, _ = serve_clips(engine, np.stack([mel] * bulk_streams))
+    inc = bench.run_once(engine, dataclasses.replace(s, enc="inc"), mel,
+                         "inc", log=blog)
+    for k, v in bench.kernel_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    for i, (a, b) in enumerate(zip(bulk["tokens"], served)):
+        if a != b:
+            raise AssertionError(
+                f"[bench] bulk stream {i}: ids differ from serve_clips at "
+                f"position {_first_diff(a, b)} (lengths {len(a)}, {len(b)})")
+    if len(bulk["tokens"]) != len(served):
+        raise AssertionError("[bench] bulk and serve_clips stream counts")
+    agree = [_agreement(a, b) for a, b in zip(inc["tokens"], bulk["tokens"])]
+    log("bench", f"bulk B={bulk_streams} x {s.seconds:g} s: ids bit-equal to "
+                 f"serve_clips ({sum(map(len, served))} ids); inc against "
+                 f"bulk agree {min(agree):.3f} (min {STREAM_AGREE_MIN})")
+    if not min(agree) >= STREAM_AGREE_MIN:
+        raise AssertionError(f"[bench] inc against bulk agree {agree}")
+    out.update({"bulk_equal_serve_clips": True, "inc_agree_bulk": agree,
+                "bulk_steps": bulk["steps"], "launches": launches})
+    return out
 
 
 def _f32_kernels(device: str = "cuda") -> dict:
@@ -3541,7 +3727,7 @@ def _leaves(tree):
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "rows",
                "graphs", "jacobi", "pool_ring", "pool_window", "mesh",
-               "mel_device", "ckpt", "ckpt_full")
+               "mel_device", "bench", "ckpt", "ckpt_full")
 
 
 def run_only(names) -> dict:
@@ -3553,8 +3739,8 @@ def run_only(names) -> dict:
     for name in ONLY_PHASES:
         if name not in names:
             continue
-        if name in ("graphs", "jacobi", "pool_ring", "pool_window", "mesh") \
-                and params is None:
+        if name in ("graphs", "jacobi", "pool_ring", "pool_window", "mesh",
+                    "bench") and params is None:
             params = make_params(cfg, "cuda")
         if name == "graphs":
             out[name] = phase_graphs(cfg, params, "cuda")
@@ -3562,6 +3748,8 @@ def run_only(names) -> dict:
             out[name] = phase_mesh(cfg, params, "cuda")
         elif name == "jacobi":
             out[name] = phase_jacobi(cfg, params, "cuda")
+        elif name == "bench":
+            out[name] = phase_bench(cfg, params, "cuda")
         elif name == "pool_ring":
             out[name] = phase_pool(cfg, params, "cuda", **POOL_RING)
         elif name == "pool_window":
@@ -3658,6 +3846,8 @@ def main(argv: list[str]) -> int:
     pw.pop("slot0_ids")
     ms = timed("mesh", phase_mesh, cfg, params, "cuda")
     mel_dev = timed("mel_device", phase_mel_device, "cuda")
+    bn = timed("bench", phase_bench, cfg, params, "cuda")
+    benched = bn["launches"]
     del params
     torch.cuda.empty_cache()
     ck = timed("ckpt", phase_ckpt, ckpt_config(), "cuda")
@@ -3689,7 +3879,9 @@ def main(argv: list[str]) -> int:
                       + pw["launches"]["banded_attention_batched"]
                       + meshed["banded_attention_batched"]
                       + ckpt["banded_attention_batched"]
-                      + f32_banded["launches_f32"]),
+                      + f32_banded["launches_f32"]
+                      + benched["banded_attention_batched"]),
+         "launches_bench": benched["banded_attention_batched"],
          "launches_pool_window": pw["launches"]["banded_attention_batched"],
          "launches_mesh": meshed["banded_attention_batched"],
          "launches_ckpt": ckpt["banded_attention_batched"],
@@ -3702,7 +3894,9 @@ def main(argv: list[str]) -> int:
                       + streamed["flash_decode"] + jac["launches_flash_decode"]
                       + pr["launches"]["flash_decode"]
                       + pw["launches"]["flash_decode"]
-                      + meshed["flash_decode"] + ckpt["flash_decode"]),
+                      + meshed["flash_decode"] + ckpt["flash_decode"]
+                      + benched["flash_decode"]),
+         "launches_bench": benched["flash_decode"],
          "launches_by_path": {
              "slice": sl["launches"][1],
              **{f"serve_{r['rung']}": r["launches"]["flash_decode"]
@@ -3714,7 +3908,8 @@ def main(argv: list[str]) -> int:
              "pool_ring": pr["launches"]["flash_decode"],
              "pool_window": pw["launches"]["flash_decode"],
              "mesh": meshed["flash_decode"],
-             "ckpt": ckpt["flash_decode"]}, **flash,
+             "ckpt": ckpt["flash_decode"],
+             "bench": benched["flash_decode"]}, **flash,
          **{k2: v for tag in ("rank_bf16", "rank_fp8", "pool_ring",
                               "pool_window")
             for k2, v in rank_keys(shapes[f"flash_decode_{tag}"],
@@ -3727,7 +3922,9 @@ def main(argv: list[str]) -> int:
                       + pr["launches"]["flash_bulk_attention_batched"]
                       + meshed["flash_bulk_attention_batched"]
                       + ckpt["flash_bulk_attention_batched"]
-                      + f32_enc["launches_f32"]),
+                      + f32_enc["launches_f32"]
+                      + benched["flash_bulk_attention_batched"]),
+         "launches_bench": benched["flash_bulk_attention_batched"],
          "launches_mesh": meshed["flash_bulk_attention_batched"],
          "launches_ckpt": ckpt["flash_bulk_attention_batched"],
          "launches_stream": st["launches"]["flash_bulk_attention_batched"],
@@ -3739,7 +3936,9 @@ def main(argv: list[str]) -> int:
         {"name": "int4_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int4_mm.cu",
          "replaces": "voxtral_tpu/ops/quant_mm.py:44",
-         "launches": served["int4_mm"] + graphed["int4_mm"] + ckpt["int4_mm"],
+         "launches": (served["int4_mm"] + graphed["int4_mm"] + ckpt["int4_mm"]
+                      + benched["int4_mm"]),
+         "launches_bench": benched["int4_mm"],
          "launches_ckpt": ckpt["int4_mm"],
          "launches_graphs": graphed["int4_mm"], **int4},
         {"name": "ring_rows_write", "route": "cuda",
@@ -3772,6 +3971,9 @@ def main(argv: list[str]) -> int:
     idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
+    idle = [k["name"] for k in kernels if k.get("launches_bench") == 0]
+    if idle:   # #1 (bulk, the window rows), #4, #6 (int4), #7 ("inc")
+        raise AssertionError(f"{idle}: no launch in the bench")
     captured = capture_stats()
     log("graphs", f"the whole run captured {captured['graphs']} graphs in "
                   f"{captured['capture_s']:.2f} s, pools "
@@ -3784,6 +3986,7 @@ def main(argv: list[str]) -> int:
                       "bstream": bst, "jacobi": jac, "pool_ring": pr,
                       "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
                       "f32_auto": f32_auto, "ckpt": ck, "graphs": gr,
+                      "bench": bn,
                       "captured": captured, "phase_s": phase_s,
                       "total_s": total_s}))
     print(smi)

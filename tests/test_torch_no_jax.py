@@ -40,13 +40,14 @@ def test_port_imports_no_jax():
     expected = [m.name for m in pkgutil.walk_packages(
         voxtral_tpu_torch.__path__, "voxtral_tpu_torch.")]
     assert int(n) == len(expected) >= 20
-    # the checkpoint tools, the oracle among them, the measurement tools
-    # and the CUDA-graph layer are walked too
+    # the checkpoint tools, the oracle among them, the measurement tools,
+    # the CUDA-graph layer and the bench are walked too
     assert {f"voxtral_tpu_torch.tools.{t}" for t in (
         "make_fake_ckpt", "inspect_weights", "oracle", "fidelity_check",
         "make_golden", "benchmark", "int8_ab", "window_ab", "microbench",
         "decode_profile", "int4_kernel_bench", "bulk_encode_bench")} | {
-        "voxtral_tpu_torch.ops.graphs"} <= set(expected)
+        "voxtral_tpu_torch.ops.graphs",
+        "voxtral_tpu_torch.bench"} <= set(expected)
     assert bad == "[]", bad
 
 

@@ -1,5 +1,5 @@
 """chip_smoke.py's slice, serve, flash_enc, stream, bstream, jacobi, pool,
-mesh and mel_device phases rehearsed on the CPU at tiny size.
+mesh, mel_device and bench phases rehearsed on the CPU at tiny size.
 CPU tensors launch no kernel, so the plain functions stand in for the
 kernels and count as their launches; the phases' own checks (exact launch
 counts per rung, ids in range, identical second runs, kernel path against
@@ -112,11 +112,16 @@ def test_dequantize4_rejects_a_wrong_scale():
 
 
 # FLASH_ENC_FULL's cases at tiny width: a 64-slot ring holds the window
-# (24) beside the largest chunk (24 rows); 60 slots for the ragged edge
+# (24) beside the largest chunk (24 rows); 60 slots for the ragged edge;
+# the bench ring's cases on 96 slots (window + 72 rows)
 TINY_FLASH_ENC = dict(n_layers=2, heads=4, head_dim=16, cap=64,
                       ragged_cap=60, window=24, ts=(4, 16, 20),
                       positions=(0, 7, 30, 300), prefill=40,
-                      splits=((24,), (8, 8, 8), (10, 10, 4)))
+                      splits=((24,), (8, 8, 8), (10, 10, 4)),
+                      bench=dict(cap=96, cases=((1, 32, (0, 32, 96)),
+                                                (1, 12, (96,)),
+                                                (1, 72, (0, 200)),
+                                                (2, 32, (0, 160)))))
 
 
 def test_flash_enc_phase_on_cpu():
@@ -260,6 +265,27 @@ def test_pool_phases_on_cpu(counted_kernels):
         cfg.encoder.n_layers * pw["encode_calls"] > 0
     assert pw["launches"]["flash_bulk_attention_batched"] == 0
     assert 0.0 <= pw["slot0_agree_pool_ring"] <= 1.0
+
+
+def test_bench_phase_on_cpu(counted_kernels):
+    """The bench phase at 2 streams x 2 s, 2 load slots x 2 ticks: both
+    runs pass its checks (no -1, no `_oom`, value > 0, their kernels
+    counted), bulk-mode ids equal serve_clips', "inc" agrees with bulk."""
+    cfg = tiny_config()
+    env = {"BENCH_STREAMS": "2", "BENCH_SECONDS": "2", "BENCH_TRIES": "1",
+           "BENCH_LOAD_STREAMS": "2", "BENCH_LOAD_TICKS": "2",
+           "BENCH_FP8_STREAMS": "2"}
+    out = cs.phase_bench(cfg, cs.make_params(cfg, "cpu"), "cpu", env=env,
+                         int4_env={**env, "BENCH_MODE": "int4",
+                                   "BENCH_LAT": "0", "BENCH_LOAD": "0"},
+                         bulk_streams=2)
+    assert out["bf16"]["metric"] == "aggregate_x_realtime_per_chip_2s_2streams"
+    assert out["int4"]["metric"].endswith("_int4")
+    assert out["bulk_equal_serve_clips"] and out["bulk_steps"] == 74 - 38
+    assert min(out["inc_agree_bulk"]) >= cs.STREAM_AGREE_MIN
+    got = out["launches"]
+    assert got["flash_decode"] > 0 and got["flash_bulk_attention_batched"] > 0
+    assert got["int4_mm"] > 0 and got["banded_attention_batched"] > 0
 
 
 def test_mesh_and_mel_device_phases_on_cpu():
