@@ -53,6 +53,18 @@ script exits non-zero:
                but 1 of the kernel,
                plain and the bf16 yardstick, and of one decode step's 105
                products (26 layers + the table, 1.71 GB packed)
+  6b. int8    kernel (G), csrc/int8_mm.cu (the counterpart of the int8
+               convert XLA fuses into the JAX package's int8 product),
+               against its plain version (the layer widened to bf16, then
+               torch.mm) on full 26-layer int8 stacks and the table: every
+               product of the decode step at 16 and 56 rows, layer 25's
+               four and the table at 1 and 64 rows, its four at 608 and
+               2128 (the B=16 and B=56 prefills), two calls bitwise equal;
+               its plans and the card's occupancy for them; graph-replay
+               times of the kernel, the path it replaces, the bf16 mm
+               yardstick and torch._weight_int8pack_mm where the card's
+               torch has it; the decode step's 105 products at 16 and 56
+               rows, kernel and plain
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
                128] rings in fp8, bf16 and f32 (bit-equal rings); its
                graph-replay time beside the card's launch floor
@@ -72,7 +84,9 @@ script exits non-zero:
                on bf16, fp8kv, int8 and int4 with ids bit-equal, decode
                ms/step, device ms, device events, the host's launch calls
                (at most LAUNCH_CALLS_MAX per graphed step) and busy share at
-               mid fill (fp8kv also under "xla", the row-write kernel), one
+               mid fill (fp8kv also under "xla", the row-write kernel; int8
+               also on its plain products, widen + mm, against the int8
+               kernel: ms/step, device ms, burst memory), one
                step's f32 logits bit-equal; the B=1 stream's feed() p50/p90
                and the Jacobi clip, ids bit-equal; the captures' count, host
                seconds and pool memory (also for the whole run)
@@ -155,6 +169,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -185,10 +200,15 @@ F32_ENCODER_REL_TOL = 1e-4
 # (the mma tiles and the cluster's K split against cuBLAS), compared
 # relative to max |plain|
 INT4_REL_TOL = 1e-5
+# (G): bf16 x int8 products are exact (a weight in [-127, 127] is exact in
+# bf16); only the f32 summation order differs, as for (C): the mma tiles
+# and the cluster's K split against cuBLAS, relative to max |plain|
+INT8_REL_TOL = 1e-5
 # kernels built to spill no register (the build phase fails if they do)
 NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
                     "flash_decode_kernel", "int4_mm_kernel",
-                    "banded_attention_f32_kernel", "flash_encode_f32_kernel")
+                    "banded_attention_f32_kernel", "flash_encode_f32_kernel",
+                    "int8_mm_kernel", "int8_mm_wgmma_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -930,31 +950,263 @@ def phase_int4() -> dict:
 
 
 def _int4_plans() -> None:
-    """The kernel's plan for each product at 16 and 608 rows, and the
-    blocks per SM the plan assumes against the card's occupancy query
+    _mm_plans(4, INT4_ROWS + INT4_BENCH_ROWS)
+
+
+def _mm_plans(bits: int, rows_list) -> None:
+    """The int4 or int8 kernel's plan for each product at `rows_list`, and
+    the blocks per SM the plan assumes against the card's occupancy query
     (fails if the plan assumes more: it would launch past one wave)."""
     from voxtral_tpu_torch.ops import cuda_lib, quant_mm
 
-    if not hasattr(quant_mm, "int4_mm_plan"):   # an older tree (A/B runs)
+    tag = f"int{bits}"
+    if not hasattr(quant_mm, f"{tag}_mm_plan"):   # an older tree (A/B runs)
         return
     lib = cuda_lib.kernels()
-    for nj in (2, 4, 16):
+    occupancy = getattr(lib, f"vt_{tag}_mm_occupancy")
+    per_sm = getattr(quant_mm, f"{tag}_mm_blocks_per_sm")
+    smem_of = getattr(quant_mm, f"{tag}_mm_smem")
+    plan_of = getattr(quant_mm, f"{tag}_mm_plan")
+    for nj in (2, 4, 8, 16) if bits == 8 else (2, 4, 16):
         for cs in ((1,) if nj == 16 else (1, 2)):
-            assumed = quant_mm.int4_mm_blocks_per_sm(nj, cs)
-            got = lib.vt_int4_mm_occupancy(nj, cs)
-            smem = quant_mm.int4_mm_smem(nj, cs)
-            log("int4", f"tile nj={nj} split={cs > 1}: {smem} bytes of "
-                        f"shared memory, {got} blocks per SM (plan assumes "
-                        f"{assumed})")
+            assumed = per_sm(nj, cs)
+            got = occupancy(nj, cs)
+            log(tag, f"tile nj={nj} split={cs > 1}: {smem_of(nj, cs)} bytes "
+                     f"of shared memory, {got} blocks per SM (plan assumes "
+                     f"{assumed})")
             if got < assumed:
-                raise AssertionError(f"[int4] nj={nj} cs={cs}: the card "
+                raise AssertionError(f"[{tag}] nj={nj} cs={cs}: the card "
                                      f"holds {got} blocks per SM, the plan "
                                      f"assumes {assumed}")
     sms = cuda_lib.sm_count(0)
-    for rows in INT4_ROWS + INT4_BENCH_ROWS:
+    for rows in rows_list:
         for name, (out_dim, in_dim) in INT4_SHAPES.items():
-            plan = quant_mm.int4_mm_plan(rows, out_dim, in_dim // 2, sms)
-            log("int4", f"plan {name} rows={rows}: {plan}")
+            plan = plan_of(rows, out_dim, in_dim // 2 if bits == 4 else in_dim,
+                           sms)
+            log(tag, f"plan {name} rows={rows}: {plan}")
+
+
+# the int8 phase at full width: the int8 rung's products (INT4_SHAPES'
+# (out, in), 26-layer stacks + the table: 3.43 GB of int8) at its row
+# counts: a B=1 stream, the smoke's B=16 serve and the bench's B=56 decode
+# (step_rows: every product of the decode step), a B=1 Jacobi window, the
+# B=16 and B=56 prefills (16 x 38 and 56 x 38 rows: the four layer products)
+INT8_FULL = dict(products=INT4_SHAPES, layers=INT4_LAYERS, step_rows=(16, 56),
+                 rows=(1, 16, 56, 64, 608, 2128), prefill_rows=(608, 2128))
+
+
+def _int8_bound(shapes, rows: int) -> dict:
+    """bound of int8 products [(out, in)] at `rows`: weights (one byte
+    each), scales and x read once, f32 y written once; 2 operations per
+    weight and row."""
+    n_bytes = sum(o * i + o * 4 + rows * i * 2 + rows * o * 4
+                  for o, i in shapes)
+    return bound(n_bytes, sum(2 * rows * o * i for o, i in shapes))
+
+
+def _int8pack_mm():
+    """torch._weight_int8pack_mm where this torch has it for CUDA tensors
+    (its int8 weight-only product: bf16 x, bf16 row scales, bf16 out), else
+    None: the library yardstick, never called by the port."""
+    import torch
+
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    x = torch.ones((16, 128), dtype=torch.bfloat16, device="cuda")
+    w = torch.ones((64, 128), dtype=torch.int8, device="cuda")
+    try:
+        y = fn(x, w, torch.ones(64, dtype=torch.bfloat16, device="cuda"))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log("int8", f"torch._weight_int8pack_mm on CUDA: {type(e).__name__}: "
+                    f"{str(e).splitlines()[0][:120]}")
+        return None
+    return fn if float(y[0, 0]) == 128.0 else None
+
+
+def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
+    """Kernel (G) on int8 stacks of random bytes in [-127, 127] (`shapes`:
+    full width, 26 layers and the table): within INT8_REL_TOL of
+    int8_mm_plain and two calls bitwise equal on every product of the
+    decode step (every layer's four and the table) at each of `step_rows`,
+    and on the last layer's four and the table at each of `rows` (the four
+    alone at `prefill_rows`), one launch a call, counted; on the card
+    also its plans and the card's occupancy for them, graph-replay times
+    per shape (layers rotating) of the kernel, of the path it replaces
+    (int8_mm_plain: the layer widened to bf16, then torch.mm), of torch.mm
+    on a bf16 weight (the bf16 rung's product, a yardstick) and of
+    torch._weight_int8pack_mm where the card's torch has it (bf16 scales
+    and output: a library yardstick, not this function), and the decode
+    step's products at `step_rows` in decode order, kernel and plain.  A
+    tiny CPU config rehearses it (the plain function counted as the
+    kernel)."""
+    import torch
+
+    from voxtral_tpu_torch.ops.quant_mm import int8_mm, int8_mm_plain
+
+    on_gpu = device == "cuda"
+    products, n_layers = shapes["products"], shapes["layers"]
+    names = list(products)
+    layer_names = [n for n in names if n != "logits"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    stacks = {}
+    for name, (out_dim, in_dim) in products.items():
+        stacks[name] = (
+            torch.randint(-127, 128, (1 if name == "logits" else n_layers,
+                                      out_dim, in_dim),
+                          generator=gen, device=device, dtype=torch.int8),
+            torch.rand((1 if name == "logits" else n_layers, out_dim),
+                       generator=gen, device=device) * 0.02 + 0.001)
+    n_bytes = sum(w.numel() for w, _ in stacks.values())
+    log("int8", f"stacks: {n_layers} layers + table, {n_bytes / 1e9:.3f} GB "
+                "of int8")
+    lib_mm = None
+    if on_gpu:
+        _mm_plans(8, shapes["rows"])
+        lib_mm = _int8pack_mm()
+    worst_abs, worst_rel, out, checked = 0.0, 0.0, {}, 0
+
+    def check(name, rows, li, x):
+        nonlocal worst_abs, worst_rel, checked
+        w, s = stacks[name]
+        n0 = int8_mm.launches
+        got = int8_mm(x, w, s, li)
+        again = int8_mm(x, w, s, li)
+        want = int8_mm_plain(x, w, s, li)
+        if int8_mm.launches != n0 + 2:
+            raise AssertionError(f"[int8] {name} rows={rows}: "
+                                 f"{int8_mm.launches - n0} launches for two "
+                                 "calls")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[int8] non-finite {name} rows={rows}")
+        same = torch.equal(got, again)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        checked += 1
+        if not (rel <= INT8_REL_TOL and same):
+            raise AssertionError(f"[int8] {name} rows={rows} layer {li}: rel "
+                                 f"{rel} (tol {INT8_REL_TOL}), two calls "
+                                 f"{'equal' if same else 'DIFFER'}")
+        return err, rel
+
+    # every product of the decode step at its row counts
+    for rows in shapes["step_rows"]:
+        xs = {i: _randn(gen, (rows, i), torch.bfloat16, device)
+              for _, i in products.values()}
+        step_rel = 0.0
+        for name, (_, in_dim) in products.items():
+            for li in range(stacks[name][0].shape[0]):
+                step_rel = max(step_rel, check(name, rows, li, xs[in_dim])[1])
+        log("int8", f"decode step at {rows} rows: {4 * n_layers + 1} products "
+                    f"({n_layers} layers x 4 + table) within rel "
+                    f"{step_rel:.3e} of plain (tol {INT8_REL_TOL}), two calls "
+                    "bitwise equal, ok")
+    for name, (out_dim, in_dim) in products.items():
+        w, s = stacks[name]
+        n_w = w.shape[0]
+        wd = [(w[li].float() * s[li, :, None]).bfloat16()
+              for li in range(min(4, n_w))]
+        sb = [s[li].bfloat16() for li in range(len(wd))]
+        for rows in shapes["rows"]:
+            if name == "logits" and rows in shapes["prefill_rows"]:
+                continue
+            x = _randn(gen, (rows, in_dim), torch.bfloat16, device)
+            err, rel = check(name, rows, n_w - 1, x)
+            log("int8", f"{name} [{out_dim}x{in_dim}] rows={rows} layer "
+                        f"{n_w - 1}: max_abs_err {err:.3e}, rel {rel:.3e} "
+                        f"(tol {INT8_REL_TOL}), two calls bitwise equal ok")
+            if rows == 1 or not on_gpu:
+                continue
+            tm = {
+                "ms": graph_ms(_rotating(
+                    lambda li: int8_mm(x, w, s, li), n_w), n_w),
+                "plain_ms": graph_ms(_rotating(
+                    lambda li: int8_mm_plain(x, w, s, li), len(wd)), len(wd)),
+                "bf16_mm_ms": graph_ms(_rotating(
+                    lambda li: torch.mm(x, wd[li].t(),
+                                        out_dtype=torch.float32), len(wd)),
+                    len(wd)),
+                **_int8_bound([(out_dim, in_dim)], rows)}
+            lib_txt = ""
+            if lib_mm is not None:
+                try:          # eagerly first: a refusal raises outside a graph
+                    lib_mm(x, w[0], sb[0])
+                    tm["library_ms"] = graph_ms(_rotating(
+                        lambda li: lib_mm(x, w[li], sb[li]), len(wd)),
+                        len(wd))
+                    lib_txt = f", int8pack_mm {tm['library_ms']:.4f}"
+                except RuntimeError as e:
+                    lib_txt = f", int8pack_mm refused ({str(e)[:80]})"
+            for k, v in tm.items():
+                out[f"{k}_{name}_rows{rows}"] = v
+            log("int8", f"{name} rows={rows}: kernel {tm['ms']:.4f} ms, "
+                        f"widen + mm (plain) {tm['plain_ms']:.4f}, bf16 mm "
+                        f"{tm['bf16_mm_ms']:.4f}{lib_txt} ms (graph replay, "
+                        f"layers rotating); {w[0].numel() / tm['ms'] / 1e6:.0f}"
+                        f" GB/s of int8 weights; bound {tm['bound_ms']:.4f} "
+                        f"ms ({tm['bound_by']})")
+        del wd, sb
+    # the decode step: 4 products a layer, then the table, in decode order
+    step_shapes = [products[n] for _ in range(n_layers)
+                   for n in layer_names] + [products["logits"]]
+    out.update({"step_products": len(step_shapes),
+                "checked_products": checked, "max_abs_err": worst_abs,
+                "max_rel_err": worst_rel})
+    for rows in shapes["step_rows"] if on_gpu else ():
+        xs = {i: _randn(gen, (rows, i), torch.bfloat16, device)
+              for _, i in products.values()}
+
+        def step(fn=int8_mm):
+            for li in range(n_layers):
+                for name in layer_names:
+                    fn(xs[products[name][1]], *stacks[name], li)
+            fn(xs[products["logits"][1]], *stacks["logits"], 0)
+
+        sb = _int8_bound(step_shapes, rows)
+        tag = f"step_rows{rows}"
+        out.update({f"{tag}_ms": graph_ms(step, 2, reps=3),
+                    f"{tag}_plain_ms": graph_ms(
+                        lambda: step(int8_mm_plain), 1, reps=3),
+                    f"{tag}_bound_ms": sb["bound_ms"]})
+        log("int8", f"decode step, {len(step_shapes)} products at {rows} rows "
+                    f"over {n_layers} layers + table: kernel "
+                    f"{out[f'{tag}_ms']:.4f} ms, widen + mm "
+                    f"{out[f'{tag}_plain_ms']:.4f} ms (graph replay); bound "
+                    f"{sb['bound_ms']:.4f} ms ({sb['bound_by']})")
+    del stacks
+    if on_gpu:
+        torch.cuda.empty_cache()
+    int8_mm.launches = 0
+    # the summary: the five products at the first decode row count (the
+    # B=16 decode shape), then each timed row count's sums
+    r0 = shapes["step_rows"][0]
+    out.update(_int8_bound(products.values(), r0))
+    out["library_ms"] = None
+    for rows in [r for r in shapes["rows"] if r != 1] if on_gpu else ():
+        group = layer_names if rows in shapes["prefill_rows"] else names
+        tag = ("" if rows == r0 else f"_rows{rows}" if len(group) == len(names)
+               else f"_layers_rows{rows}")
+        for k in ("ms", "plain_ms", "bf16_mm_ms", "library_ms"):
+            keys = [f"{k}_{n}_rows{rows}" for n in group]
+            if all(key in out for key in keys):
+                out[f"{k}{tag}"] = sum(out[key] for key in keys)
+        b = _int8_bound([products[n] for n in group], rows)
+        if tag:
+            out[f"bound_ms{tag}"], out[f"bound_by{tag}"] = (b["bound_ms"],
+                                                             b["bound_by"])
+        lib = out.get(f"library_ms{tag}")
+        log("int8", f"{len(group)} products at {rows} rows: kernel "
+                    f"{out[f'ms{tag}']:.4f} ms, widen + mm "
+                    f"{out[f'plain_ms{tag}']:.4f}, bf16 mm "
+                    f"{out[f'bf16_mm_ms{tag}']:.4f}, int8pack_mm "
+                    f"{'none' if lib is None else f'{lib:.4f}'}, bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    log("int8", f"{checked} products checked, worst rel {worst_rel:.3e} (tol "
+                f"{INT8_REL_TOL}), every pair of calls bitwise equal")
+    return out
 
 
 def phase_rows() -> dict:
@@ -1440,22 +1692,35 @@ def make_params(cfg, device: str):
     return params
 
 
+def _uncounted(plain):
+    """`plain` in a kernel wrapper's place: a `launches` count that stays 0,
+    so a graph captured on the plain path (ops/graphs.py reads the count of
+    every wrapper it finds) keeps the kernels' counts exact."""
+    @functools.wraps(plain)
+    def stand_in(*args, **kwargs):
+        return plain(*args, **kwargs)
+
+    stand_in.launches = 0
+    return stand_in
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Routes the decoder's int4 products and decode-step row writes to
-    their plain PyTorch versions for the duration (the reference side of a
-    kernel-path check; attn_impl="xla" keeps flash-decode, flash-encode
-    and the bulk encoder's banded kernel off)."""
+    """Routes the decoder's int4 and int8 products and decode-step row
+    writes to their plain PyTorch versions for the duration (the reference
+    side of a kernel-path check; attn_impl="xla" keeps flash-decode,
+    flash-encode and the bulk encoder's banded kernel off)."""
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.ops import quant_mm, ring
 
-    saved = (quant_mm.int4_mm, dec_mod.ring_rows_write)
-    quant_mm.int4_mm = quant_mm.int4_mm_plain
+    saved = (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write)
+    quant_mm.int4_mm = _uncounted(quant_mm.int4_mm_plain)
+    quant_mm.int8_mm = _uncounted(quant_mm.int8_mm_plain)
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
     try:
         yield
     finally:
-        quant_mm.int4_mm, dec_mod.ring_rows_write = saved
+        quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write = saved
 
 
 def _agreement(a, b) -> float:
@@ -1545,7 +1810,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
     from voxtral_tpu_torch.models.quant import embed_rows, quantize_params
     from voxtral_tpu_torch.ops.banded_encode import banded_attention_batched
     from voxtral_tpu_torch.ops.flash_decode import flash_decode
-    from voxtral_tpu_torch.ops.quant_mm import int4_mm
+    from voxtral_tpu_torch.ops.quant_mm import int4_mm, int8_mm
     from voxtral_tpu_torch.ops.ring import ring_rows_write
     from voxtral_tpu_torch.parallel import serving as sv
     from voxtral_tpu_torch.runtime.engine import VoxtralEngine
@@ -1556,7 +1821,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
 
     on_gpu = device == "cuda"
     counters = (banded_attention_batched, flash_decode, ring_rows_write,
-                int4_mm)
+                int4_mm, int8_mm)
 
     def sync():
         if on_gpu:
@@ -1626,13 +1891,16 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         st["x_realtime_aggregate"] = n_streams * dur / st["wall_s"]
         st["runs"] = 1 if name in SERVE_ONCE else 2
         # checks: launch counts of both runs, id range, finite adapter rows;
-        # every rung decodes through flash-decode (fp8 rings included)
+        # every rung decodes through flash-decode (fp8 rings included), the
+        # quantized ones their products through their kernel: one a layer
+        # product of the prefill, 105 a decode step (the table's included)
+        quant = 4 * n_layers + (4 * n_layers + 1) * steps
         want = {
             "banded_attention_batched": cfg.encoder.n_layers,
             "flash_decode": n_layers * steps,
             "ring_rows_write": 0,
-            "int4_mm": (4 * n_layers + (4 * n_layers + 1) * steps
-                        if quantize == "int4" else 0),
+            "int4_mm": quant if quantize == "int4" else 0,
+            "int8_mm": quant if quantize == "int8" else 0,
         }
         if not st["launches"] == first["launches"] == want:
             raise AssertionError(f"[serve] {name}: launches {st['launches']}, "
@@ -1686,10 +1954,11 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             n_steps = ran[0]
             got = {f.__name__: f.launches for f in counters}
             want_x = {"banded_attention_batched": 0, "int4_mm": 0,
+                      "int8_mm": 0,
                       "flash_decode": n_layers * n_steps * (impl == "auto"),
                       "ring_rows_write": n_layers * n_steps * (impl == "xla")}
-            if quantize == "int4":
-                want_x["int4_mm"] = (4 * n_layers + 1) * n_steps
+            if quantize in ("int4", "int8"):
+                want_x[f"{quantize}_mm"] = (4 * n_layers + 1) * n_steps
             if got != want_x:
                 raise AssertionError(f"[serve] {name} {impl} mid-fill "
                                      f"launches {got} != {want_x}")
@@ -2253,6 +2522,69 @@ def _step_logits_bit_equal(engine, cfg, bsz: int, device: str,
                 and torch.equal(graphed.v, eager.v))
 
 
+def _int8_step_ab(engine, cfg, n_streams: int, dec_ring: int,
+                  extra_steps: int, device: str) -> dict:
+    """The int8 rung's graphed decode step at mid fill (position 500, as
+    phase_graphs' bursts) with its products on the plain path (under
+    plain_kernels: each weight widened to bf16, then torch.mm, the path
+    csrc/int8_mm.cu replaced) and on the kernel, in this call, in the order
+    plain, kernel, kernel, plain: ms/step (CUDA events over bursts of
+    `extra_steps`), device ms/step (8 profiled steps) and the memory the
+    burst's graph and temporaries take beyond what was allocated before it
+    (GiB), each variant's mean over its two runs; and the share of the
+    last burst's ids the two variants agree on."""
+    import torch
+
+    from voxtral_tpu_torch.parallel import serving as sv
+
+    on_gpu = device == "cuda"
+    dp = engine.params["decoder"]
+    runs, ids = {}, {}
+    for variant in ("plain", "kernel", "kernel", "plain"):
+        cache = sv.batched_dec_cache(cfg, n_streams, dec_ring, device=device,
+                                     graphs=True)
+        chunk = torch.zeros((n_streams, extra_steps, cfg.decoder.dim),
+                            device=device)
+        prev = torch.full((n_streams,), 32, dtype=torch.int32, device=device)
+        pos = torch.full((n_streams,), 500, dtype=torch.int32, device=device)
+        last = [None]
+
+        def burst(n=extra_steps):
+            last[0] = sv.bdecode_burst(dp, cfg, chunk[:, :n], prev, cache,
+                                       pos, engine.ada())[0]
+
+        ctx = plain_kernels() if variant == "plain" else contextlib.nullcontext()
+        with ctx:
+            if on_gpu:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(burst, 2, warmup=1) / extra_steps
+                gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+                ev, _, _ = profiled(lambda: burst(8))
+                dms = sum(e.time_range.elapsed_us() for e in ev) / 8e3
+                runs.setdefault(variant, []).append((ms, dms, gib))
+            else:
+                burst()
+        ids[variant] = last[0].tolist()
+        del cache
+    out = {"ab_agree_ids": _agreement(ids["plain"], ids["kernel"])}
+    for variant, vals in runs.items():
+        for i, key in enumerate(("step_ms", "device_ms", "burst_gib")):
+            out[f"ab_{variant}_{key}"] = sum(v[i] for v in vals) / len(vals)
+    if on_gpu:
+        log("graphs", "int8 graphed step at mid fill, plain (widen + mm) -> "
+                      f"kernel, in this call (plain, kernel, kernel, plain): "
+                      f"{out['ab_plain_step_ms']:.3f} -> "
+                      f"{out['ab_kernel_step_ms']:.3f} ms/step, device "
+                      f"{out['ab_plain_device_ms']:.3f} -> "
+                      f"{out['ab_kernel_device_ms']:.3f} ms, burst memory "
+                      f"{out['ab_plain_burst_gib']:.3f} -> "
+                      f"{out['ab_kernel_burst_gib']:.3f} GiB; ids agree "
+                      f"{out['ab_agree_ids']:.3f}")
+    return out
+
+
 def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                  seconds: float = 30.0, dec_ring: int = 896,
                  extra_steps: int = 32, stream_seconds: float = 11.0,
@@ -2265,8 +2597,9 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
         `extra_steps`) decode ms/step, device ms/step, device events and
         the host's launch calls into the runtime per step (LAUNCH_CALLS)
         and the busy share, the bursts' ids bit-equal; on fp8kv also under
-        attn_impl "xla" (the row-write kernel); one step's f32 logits and
-        rings bit-equal (_step_logits_bit_equal);
+        attn_impl "xla" (the row-write kernel); on int8 the graphed step on
+        the plain products against the kernel's (_int8_step_ab); one
+        step's f32 logits and rings bit-equal (_step_logits_bit_equal);
       * a B=1 VoxStream built as the CLI builds it, an `stream_seconds`
         clip fed 1 s at a time: feed() wall p50/p90, ids bit-equal;
       * the `jacobi_seconds` clip offline under decode_mode "auto" (Jacobi
@@ -2337,7 +2670,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             mel = torch.from_numpy(np.stack(
                 [padded_clip_mel(engine, c) for c in clips])).to(device)
         dp = engine.params["decoder"]
-        int4 = quantize == "int4"
+        qmm = f"{quantize}_mm" if quantize else None   # int4_mm, int8_mm
         rec, ids = {"rung": name}, {}
         for graphed in (False, True):
             tag = "graph" if graphed else "eager"
@@ -2348,7 +2681,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             steps = run["decode_steps"]
             take(f"{name} serve {tag}", {
                 "banded_attention_batched": el, "flash_decode": nl * steps,
-                "int4_mm": (4 * nl + (4 * nl + 1) * steps) if int4 else 0})
+                qmm: 4 * nl + (4 * nl + 1) * steps})
             rec[f"serve_decode_ms_per_step_{tag}"] = (run["decode_s"] * 1e3
                                                      / steps)
             rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
@@ -2403,12 +2736,16 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                 got = take(f"{name} {tag} mid fill", {
                     "flash_decode": nl * n * (impl == "auto"),
                     "ring_rows_write": nl * n * (impl == "xla"),
-                    "int4_mm": (4 * nl + 1) * n if int4 else 0})
+                    qmm: (4 * nl + 1) * n})
                 if impl == "xla" and graphed:
                     rec["launches_xla_mid_fill_graph"] = got
                 burst_ids[graphed] = last[0].tolist()
                 del xcache
             both(f"{name} {impl} mid fill", burst_ids[False], burst_ids[True])
+        if quantize == "int8":   # the kernel against the path it replaced
+            rec.update(_int8_step_ab(engine, rcfg, n_streams, dec_ring,
+                                     extra_steps, device))
+            zero()
         rec["logits_bit_equal"] = _step_logits_bit_equal(engine, rcfg,
                                                          n_streams, device)
         if not rec["logits_bit_equal"]:
@@ -3250,9 +3587,13 @@ BENCH_INT4_ENV = {**BENCH_ENV, "BENCH_MODE": "int4", "BENCH_LAT": "0",
                   "BENCH_LOAD": "0"}
 BENCH_BULK_STREAMS = 4
 # the kernels each bench run must launch: flash-decode and flash-encode in
-# bf16 (its "inc" encode, every decode), the int4 product in int4
-BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched"),
+# bf16 (its "inc" encode, every decode; the int8 product in its int8 step
+# probe), the int4 product in int4
+BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched",
+                          "int8_mm"),
                  "int4": ("int4_mm",)}
+# bench.step_probe's decode steps: one warm burst of 64, then 4 timed
+BENCH_PROBE_STEPS = 5 * 64
 
 
 def _bench_faults(res: dict) -> list[str]:
@@ -3275,7 +3616,8 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
     """The port's bench (voxtral_tpu_torch/bench.py) in this process on
     `params`: `env` (bf16, every side phase), then `int4_env`; each result
     printed on a line of its own, and failed on a -1 value, an `_oom` key,
-    a value <= 0 or no launch of its kernels (BENCH_KERNELS).  Then
+    a value <= 0, no launch of its kernels (BENCH_KERNELS) or int8
+    launches other than its int8 step probe's.  Then
     run_once in "bulk" mode at `bulk_streams` streams of the env's clip:
     its ids bit-equal to serving.serve_clips on the same mel and engine,
     and "inc" mode's ids agreeing with them on at least STREAM_AGREE_MIN
@@ -3301,6 +3643,13 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
         faults = _bench_faults(res)
         faults += [f"no {k} launch" for k in BENCH_KERNELS[tag]
                    if not got[k] > 0]
+        # the int8 probe (bf16 mode): int8 layer stacks beside the bf16
+        # table, 4 products a layer and step
+        st = bench.settings(e)
+        want8 = (4 * cfg.decoder.n_layers * BENCH_PROBE_STEPS
+                 if st.mode == "bf16" and st.int8 else 0)
+        if got["int8_mm"] != want8:
+            faults.append(f"int8_mm launches {got['int8_mm']} != {want8}")
         if faults:
             raise AssertionError(f"[bench] {tag}: {faults}")
         out[tag] = {"metric": res["metric"], "value": res["value"],
@@ -3725,7 +4074,8 @@ def _leaves(tree):
 
 
 # the phases `--only` runs by name (after device and build), in this order
-ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "rows",
+ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
+               "rows",
                "graphs", "jacobi", "pool_ring", "pool_window", "mesh",
                "mel_device", "bench", "ckpt", "ckpt_full")
 
@@ -3825,6 +4175,7 @@ def main(argv: list[str]) -> int:
     from voxtral_tpu_torch.config import full_config
 
     int4 = timed("int4", phase_int4)
+    int8 = timed("int8", phase_int8)
     rows = timed("rows", phase_rows)
     cfg = full_config()
     params = timed("params", make_params, cfg, "cuda")
@@ -3941,6 +4292,15 @@ def main(argv: list[str]) -> int:
          "launches_bench": benched["int4_mm"],
          "launches_ckpt": ckpt["int4_mm"],
          "launches_graphs": graphed["int4_mm"], **int4},
+        {"name": "int8_mm", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/int8_mm.cu",
+         # no Pallas kernel: the int8 einsum whose convert XLA fuses
+         "replaces": "voxtral_tpu/models/quant.py:223",
+         "launches": (served["int8_mm"] + graphed["int8_mm"]
+                      + benched["int8_mm"]),
+         "launches_serve": served["int8_mm"],
+         "launches_bench": benched["int8_mm"],
+         "launches_graphs": graphed["int8_mm"], **int8},
         {"name": "ring_rows_write", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/ring_rows_write.cu",
          "replaces": "voxtral_tpu/ops/ring.py:88",
@@ -3972,7 +4332,8 @@ def main(argv: list[str]) -> int:
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
     idle = [k["name"] for k in kernels if k.get("launches_bench") == 0]
-    if idle:   # #1 (bulk, the window rows), #4, #6 (int4), #7 ("inc")
+    if idle:   # #1 (bulk, the window rows), #4, #6 (int4), #7 ("inc"),
+               # int8 (the int8 step probe)
         raise AssertionError(f"{idle}: no launch in the bench")
     captured = capture_stats()
     log("graphs", f"the whole run captured {captured['graphs']} graphs in "

@@ -26,7 +26,12 @@ from voxtral_tpu_torch.ops.flash_encode import (
     flash_encode_segments,
     flash_encode_split_plain,
 )
-from voxtral_tpu_torch.ops.quant_mm import int4_mm, int4_mm_plain
+from voxtral_tpu_torch.ops.quant_mm import (
+    int4_mm,
+    int4_mm_plain,
+    int8_mm,
+    int8_mm_plain,
+)
 from voxtral_tpu_torch.ops.ring import ring_rows_write, ring_rows_write_plain
 
 pytestmark = pytest.mark.cuda
@@ -469,6 +474,165 @@ def test_int4_plan_residency_fits_the_card(dev, nj, cs):
     assert got >= int4_mm_blocks_per_sm(nj, cs) >= 1, got
 
 
+# ---- the int8 product (csrc/int8_mm.cu) -----------------------------------
+
+def _int8_stack(gen, n_layers, out_dim, in_dim, dev):
+    """An int8 stack [L, out, in] and its f32 row scales [L, out], quantized
+    from random bf16 weights as the engine quantizes."""
+    from voxtral_tpu_torch.models.quant import quantize_layer_stack
+
+    w = _randn(gen, (n_layers, out_dim, in_dim), torch.bfloat16, dev)
+    q = quantize_layer_stack({"wqkv": w}, bits=8)
+    return q["wqkv"], q["wqkv_scale"]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 56, 64, 608])
+@pytest.mark.parametrize("name", list(INT4_SHAPES))
+def test_int8_kernel_matches_plain(dev, name, rows):
+    """bf16 x against int8 weights (layer 1 of a 2-layer stack, one layer
+    for the table) at the int8 rung's row counts: the products are exact,
+    only the f32 summation order differs, so max abs error <= 1e-5 x max
+    |plain| (chip_smoke.py's INT8_REL_TOL); one launch."""
+    out_dim, in_dim = INT4_SHAPES[name]
+    n_layers = 1 if name == "logits" else 2
+    gen = torch.Generator(device=dev).manual_seed(out_dim + rows + 8)
+    w, s = _int8_stack(gen, n_layers, out_dim, in_dim, dev)
+    x = _randn(gen, (rows, in_dim), torch.bfloat16, dev)
+    li = n_layers - 1
+    n0 = int8_mm.launches
+    got = int8_mm(x, w, s, li)
+    want = int8_mm_plain(x, w, s, li)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == n0 + 1
+    assert got.shape == (rows, out_dim) and got.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+# rows across every tile edge of the int8 kernel's plans, and the prefills
+# of B=16 and B=56 (38 rows a stream)
+INT8_ROWS = (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64, 65, 127, 128,
+             129, 608, 2128)
+
+
+@pytest.fixture(scope="module")
+def int8_stacks():
+    """Layer 25 of a 26-layer wo stack (3072 x 4096: split K at decode) and
+    the ragged one-layer [200, 3200] (25 chunks of 128 columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    return {name: (*_int8_stack(gen, n, o, i, "cuda"), n - 1)
+            for name, (n, o, i) in (("wo26", (26, 3072, 4096)),
+                                    ("ragged", (1, 200, 3200)))}
+
+
+@pytest.mark.parametrize("rows", INT8_ROWS)
+@pytest.mark.parametrize("name", ["wo26", "ragged"])
+def test_int8_kernel_rows_sweep(dev, int8_stacks, name, rows):
+    """Every row count's plan against the plain version, 1e-5 x max
+    |plain|, one launch a call; a second call is bitwise equal."""
+    w, s, li = int8_stacks[name]
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
+    n0 = int8_mm.launches
+    got = int8_mm(x, w, s, li)
+    again = int8_mm(x, w, s, li)
+    want = int8_mm_plain(x, w, s, li)
+    torch.cuda.synchronize()
+    assert int8_mm.launches == n0 + 2
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rows", [5, 40, 100, 129])
+@pytest.mark.parametrize("nj,cs,clusters", [(2, 1, 1), (2, 5, 2), (4, 1, 3),
+                                            (4, 8, 1), (8, 1, 2), (8, 3, 1),
+                                            (16, 1, 1), (16, 1, 2)])
+def test_int8_kernel_every_tile_on_ragged_edges(dev, int8_stacks, nj, cs,
+                                                clusters, rows):
+    """Each tile forced onto the ragged [200, 3200] product: the 16-, 32-
+    and 64-row decode tiles with and without a K split, the wgmma prefill
+    tile, clusters that
+    walk several tiles each; against plain, 1e-5 x max |plain|."""
+    from voxtral_tpu_torch.ops import cuda_lib
+
+    w, s, li = int8_stacks["ragged"]
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    x = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
+    got = torch.full((rows, w.shape[1]), float("nan"), device=dev)
+    cuda_lib.check(cuda_lib.kernels().vt_int8_mm(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), got.data_ptr(), rows,
+        w.shape[1], w.shape[-1], li, nj, cs, clusters,
+        cuda_lib.stream_handle(dev)), "int8_mm")
+    want = int8_mm_plain(x, w, s, li)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("rows", [16, 608])
+def test_int8_kernel_in_a_captured_graph(dev, int8_stacks, rows):
+    """Captured in a CUDA graph (its tensor maps hold x's address), a
+    replay gives the eager call's bits, and after new values are copied
+    into the captured x, the eager bits of the new x."""
+    w, s, li = int8_stacks["wo26"]
+    gen = torch.Generator(device=dev).manual_seed(rows + 1)
+    x = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
+    x2 = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
+    want, want2 = int8_mm(x, w, s, li), int8_mm(x2, w, s, li)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_mm(x, w, s, li)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = int8_mm(x, w, s, li)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want2)
+
+
+def test_int8_wrapper_refuses(dev):
+    w = torch.zeros((2, 64, 128), dtype=torch.int8, device=dev)
+    s = torch.ones((2, 64), device=dev)
+    x = torch.zeros((4, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        int8_mm(x.float(), w, s, 0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int8_mm(x[:, :96].contiguous(), w[..., :96].contiguous(), s, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_mm(torch.zeros((128, 4), dtype=torch.bfloat16, device=dev).t(),
+                w, s, 0)
+    with pytest.raises(ValueError, match="layer"):
+        int8_mm(x, w, s, 2)
+    with pytest.raises(ValueError, match="scales"):
+        int8_mm(x, w, s[:, :32].contiguous(), 0)
+    with pytest.raises(ValueError, match="int8 weights"):
+        int8_mm(x, w.float(), s, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(2 * 64 * 128 + 1, dtype=torch.int8, device=dev)
+        int8_mm(x, flat[1:].view(2, 64, 128), s, 0)
+
+
+@pytest.mark.parametrize("nj,cs", [(2, 1), (2, 8), (4, 1), (4, 8), (8, 1),
+                                   (8, 8), (16, 1)])
+def test_int8_plan_residency_fits_the_card(dev, nj, cs):
+    """The int8 plan's blocks per SM are no more than the card's occupancy
+    query gives for the kernel."""
+    from voxtral_tpu_torch.ops import cuda_lib
+    from voxtral_tpu_torch.ops.quant_mm import int8_mm_blocks_per_sm
+
+    got = cuda_lib.kernels().vt_int8_mm_occupancy(nj, cs)
+    assert got >= int8_mm_blocks_per_sm(nj, cs) >= 1, got
+
+
 @pytest.mark.parametrize("bsz", [1, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.bfloat16,
                                    torch.float32])
@@ -557,6 +721,47 @@ def test_int4_fp8_serving_at_reduced_depth(dev):
     assert flash_decode.launches == 2 * steps     # fp8 rings take the kernel
     assert ring_rows_write.launches == 0
     assert int4_mm.launches == 2 * 4 + (2 * 4 + 1) * steps
+
+
+def test_int8_serving_at_reduced_depth(dev):
+    """Full widths, 2 encoder and 2 decoder layers, int8 decoder and fp8
+    rings, B=2: every int8 product goes through the int8 kernel, one launch
+    a layer product of the prefill and 2 x 4 + 1 a decode step (the table
+    included), and no int4 launch."""
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.parallel import serving as sv
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine, decompose
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    cfg = full_config(kv_dtype="float8_e4m3fn", enc_kv_dtype="bfloat16")
+    cfg = cfg.replace(
+        encoder=dataclasses.replace(cfg.encoder, n_layers=2),
+        decoder=dataclasses.replace(cfg.decoder, n_layers=2))
+    engine = VoxtralEngine(cfg, init_params(cfg, seed=0, device=dev),
+                           dec_kv_ring=256, quantize="int8")
+    rng = np.random.default_rng(0)
+    mel = np.stack([padded_clip_mel(engine, (0.1 * rng.standard_normal(
+        16000)).astype(np.float32)) for _ in range(2)])
+    rows = engine.encode_clips_bulk(mel)
+    for fn in (int4_mm, int8_mm):
+        fn.launches = 0
+    plen = engine.prompt_len
+    cache = sv.batched_dec_cache(cfg, 2, engine.dec_kv_ring, device=dev)
+    sv.bprefill(engine.params["decoder"], cfg,
+                engine.prompt_embeds(rows[:, : plen - 1]), cache,
+                torch.zeros(2, dtype=torch.int32, device=dev), engine.ada())
+    prev = torch.full((2,), 32, dtype=torch.int32, device=dev)
+    pos, steps = plen - 1, 0
+    for b in decompose(rows.shape[1] - pos, (64, 16, 4, 1)):
+        toks, _, _, _, cache = sv.bdecode_burst(
+            engine.params["decoder"], cfg, rows[:, pos: pos + b], prev,
+            cache, torch.full((2,), pos, dtype=torch.int32, device=dev),
+            engine.ada())
+        prev, pos, steps = toks[:, -1], pos + b, steps + b
+    torch.cuda.synchronize()
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.decoder.vocab_size
+    assert int4_mm.launches == 0
+    assert int8_mm.launches == 2 * 4 + (2 * 4 + 1) * steps
 
 
 def _enc_rings(gen, bsz, cap, dtype, dev, n_layers=3):

@@ -43,7 +43,7 @@ def test_digest_follows_a_new_header_and_a_source_edit(tmp_path):
 def test_each_cu_is_compiled_and_headers_are_not(tmp_path):
     dst = _copy(tmp_path)
     names = cuda_lib.sources(str(dst))
-    assert "attn_tile.cuh" not in names
+    assert "attn_tile.cuh" not in names and "quant_mm.cuh" not in names
     assert {"banded_attention.cu", "flash_encode.cu", "flash_decode.cu",
-            "int4_mm.cu", "ring_rows_write.cu"} <= set(names)
+            "int4_mm.cu", "int8_mm.cu", "ring_rows_write.cu"} <= set(names)
     assert names == sorted(names)

@@ -1,5 +1,5 @@
-"""chip_smoke.py's slice, serve, flash_enc, stream, bstream, jacobi, pool,
-mesh, mel_device and bench phases rehearsed on the CPU at tiny size.
+"""chip_smoke.py's slice, serve, flash_enc, int8, stream, bstream, jacobi,
+pool, mesh, mel_device and bench phases rehearsed on the CPU at tiny size.
 CPU tensors launch no kernel, so the plain functions stand in for the
 kernels and count as their launches; the phases' own checks (exact launch
 counts per rung, ids in range, identical second runs, kernel path against
@@ -48,10 +48,12 @@ def counted_kernels(monkeypatch):
         flash_encode.flash_encode_plain))
     monkeypatch.setattr(decoder, "ring_rows_write", _counted(
         ring.ring_rows_write, ring.ring_rows_write_plain))
-    # phase_serve imports int4_mm from its module, so it reads the
-    # stand-in's counter
+    # phase_serve imports int4_mm and int8_mm from their module, so it reads
+    # the stand-ins' counters
     monkeypatch.setattr(quant_mm, "int4_mm", _counted(
         quant_mm.int4_mm, quant_mm.int4_mm_plain, own=True))
+    monkeypatch.setattr(quant_mm, "int8_mm", _counted(
+        quant_mm.int8_mm, quant_mm.int8_mm_plain, own=True))
     yield
     for fn in (banded_encode.banded_attention_batched,
                flash_decode.flash_decode, ring.ring_rows_write,
@@ -76,17 +78,21 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
     assert [r["runs"] for r in rungs.values()] == [2, 1, 1, 1, 1]
     steps = rungs["bf16"]["decode_steps"]
     # every rung decodes through flash-decode, fp8 rings included; the
-    # row-write kernel runs in the fp8kv rung's "xla" mid-fill burst
+    # row-write kernel runs in the fp8kv rung's "xla" mid-fill burst; the
+    # int4 and int8 rungs each their product, one launch a layer product of
+    # the prefill and 4 a layer + the table a step
+    quant = 4 * cfg.decoder.n_layers + (4 * cfg.decoder.n_layers + 1) * steps
     assert sv["launches"] == {
         "banded_attention_batched": 5 * cfg.encoder.n_layers,
         "flash_decode": 5 * cfg.decoder.n_layers * steps,
         "ring_rows_write": cfg.decoder.n_layers * 4,
-        "int4_mm": 4 * cfg.decoder.n_layers
-        + (4 * cfg.decoder.n_layers + 1) * steps,
+        "int4_mm": quant, "int8_mm": quant,
     }
+    assert rungs["int8"]["launches"]["int8_mm"] == quant
     assert rungs["fp8kv"]["launches_xla_mid_fill"] == {
         "banded_attention_batched": 0, "flash_decode": 0,
-        "ring_rows_write": cfg.decoder.n_layers * 4, "int4_mm": 0}
+        "ring_rows_write": cfg.decoder.n_layers * 4, "int4_mm": 0,
+        "int8_mm": 0}
     assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
     for name in ("fp8kv", "int8", "int4", "int4deq"):
         assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0
@@ -131,6 +137,30 @@ def test_flash_enc_phase_on_cpu():
     out = cs.phase_flash_enc("cpu", TINY_FLASH_ENC, batches=(1, 3))
     assert out == {"max_abs_err": 0.0, "bitwise_invariant": True}
     assert flash_encode.flash_bulk_attention_batched.launches == 0
+
+
+# INT8_FULL's cases at tiny width: five products (in a multiple of 128, as
+# the kernel takes), 3 layers, the step at 2 and 5 rows, a 20-row prefill
+TINY_INT8 = dict(products={"wqkv": (48, 256), "wo": (32, 128),
+                           "w13": (96, 256), "w2": (32, 384),
+                           "logits": (160, 256)},
+                 layers=3, step_rows=(2, 5), rows=(1, 2, 5, 8, 20),
+                 prefill_rows=(20,))
+
+
+def test_int8_phase_on_cpu(counted_kernels):
+    """The int8 phase at tiny width: every product of the decode step at
+    both row counts and the last layer's at every row count checked (the
+    plain version against itself: error 0, two calls equal), two counted
+    launches a check; no timing off the card."""
+    out = cs.phase_int8("cpu", TINY_INT8)
+    n_layers = TINY_INT8["layers"]
+    assert out["step_products"] == 4 * n_layers + 1
+    assert out["checked_products"] == (2 * (4 * n_layers + 1) + 5 * 4 + 4)
+    assert out["max_abs_err"] == 0.0 and out["max_rel_err"] == 0.0
+    assert out["library_ms"] is None and "ms" not in out
+    assert out["bound_by"] == "bytes" and out["bound_ms"] > 0
+    assert quant_mm.int8_mm.launches == 0      # the phase resets its count
 
 
 def test_stream_and_bstream_phases_on_cpu(counted_kernels):
@@ -207,6 +237,8 @@ def test_graphs_phase_on_cpu(counted_kernels, stand_in, monkeypatch):
         assert r["serve_captures_eager"] == 0 < r["serve_captures_graph"]
     assert rungs["fp8kv"]["launches_xla_mid_fill_graph"]["ring_rows_write"] \
         == nl * 8
+    # the int8 rung's graphed step on the plain path and on the kernel
+    assert 0.0 <= rungs["int8"]["ab_agree_ids"] <= 1.0
     assert gr["launches"]["ring_rows_write"] == 2 * nl * 8
     assert gr["stream"]["captures_eager"] == 0 < gr["stream"]["captures_graph"]
     assert gr["jacobi"]["jacobi_steps"] >= 64
@@ -286,6 +318,9 @@ def test_bench_phase_on_cpu(counted_kernels):
     got = out["launches"]
     assert got["flash_decode"] > 0 and got["flash_bulk_attention_batched"] > 0
     assert got["int4_mm"] > 0 and got["banded_attention_batched"] > 0
+    # the bf16 run's int8 step probe: 5 bursts of 64 steps, 4 layer
+    # products a step (the probe keeps the bf16 table)
+    assert got["int8_mm"] == 4 * cfg.decoder.n_layers * cs.BENCH_PROBE_STEPS
 
 
 def test_mesh_and_mel_device_phases_on_cpu():

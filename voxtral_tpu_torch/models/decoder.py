@@ -241,9 +241,10 @@ def final_logits(params: PyTree, cfg: VoxtralConfig,
                              emb[None], s[None], 0)
         return y.reshape(*x.shape[:-1], emb.shape[0])
     if emb.dtype == torch.int8:
-        # int8 table: widened to bf16 for the product, rescaled per vocab row
-        return quant.matmul_f32(xn.to(torch.bfloat16),
-                                emb.to(torch.bfloat16).t()) * s
+        # int8 table, one scale per vocab row [V]: the int8 kernel
+        y = quant_mm.int8_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
+                             emb[None], s[None], 0)
+        return y.reshape(*x.shape[:-1], emb.shape[0])
     return quant.matmul_f32(xn.to(emb.dtype), emb.t())
 
 

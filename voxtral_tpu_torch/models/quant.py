@@ -5,8 +5,12 @@ are byte-equal to the JAX package's.
 
   - int8: per-output-row symmetric scale, W8[o,i] = round(W[o,i] / s[o]),
     s[o] = max_i |W[o,i]| / 127 (round half to even, clip +-127).  The
-    matmul widens the int8 weight to the activation dtype and scales the
-    f32 result per row: plain PyTorch, as the JAX package leaves it to XLA.
+    matmul is y = (x @ W8.T) * s: `ops/quant_mm.py int8_mm`.  On CUDA
+    tensors its kernel reads the int8 bytes and widens them in registers
+    (one byte a weight from device memory), the counterpart of the convert
+    XLA fuses into the JAX package's product; on CPU tensors the plain
+    version widens the whole weight to the activation dtype first (two or
+    four bytes a weight written and read again).
   - int4: NIBBLE-PACKED int8 [out, in/2]; low nibbles hold input columns
     [0, in/2), high nibbles [in/2, in).  One f32 scale per (output row,
     half), max |W| / 7, clip +-7.  The matmul is two dots (one per half)
@@ -212,17 +216,16 @@ def mm(x: torch.Tensor, lp: PyTree, name: str) -> torch.Tensor:
 
     lp[name] is [out, in] (float, or int8 with lp[name+'_scale'] [out]) or
     nibble-packed int4 [out, in/2] with per-half scales [out, 2]; the int4
-    product goes to `ops.quant_mm.int4_mm` (kernel on CUDA).  One layer of a
-    contiguous stacked weight is a zero-copy view, so the port passes it as
-    a one-layer stack with li=0 (the JAX package keeps the whole stack out
-    of its layer scan instead)."""
+    and int8 products go to `ops.quant_mm.int4_mm` / `int8_mm` (kernels on
+    CUDA).  One layer of a contiguous stacked weight is a zero-copy view, so
+    the port passes it as a one-layer stack with li=0 (the JAX package
+    keeps the whole stack out of its layer scan instead)."""
     w = lp[name]
     s = lp.get(name + "_scale")
-    if _is_packed4(w, s):
+    if s is not None and w.dtype == torch.int8:
         from ..ops import quant_mm
 
-        y = quant_mm.int4_mm(x.reshape(-1, x.shape[-1]), w[None], s[None], 0)
+        fn = quant_mm.int4_mm if _is_packed4(w, s) else quant_mm.int8_mm
+        y = fn(x.reshape(-1, x.shape[-1]), w[None], s[None], 0)
         return y.reshape(*x.shape[:-1], w.shape[0])
-    if w.dtype == torch.int8:
-        return matmul_f32(x, w.to(x.dtype).t()) * s
     return matmul_f32(x, w.t())

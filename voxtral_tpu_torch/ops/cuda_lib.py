@@ -1,8 +1,9 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points;
-headers there (`*.cuh`, e.g. `attn_tile.cuh` and `attn_f32.cuh`, the bf16
-and float32 attention shared by the banded and flash-encode kernels) are
+headers there (`*.cuh`: `attn_tile.cuh` and `attn_f32.cuh`, the bf16
+and float32 attention shared by the banded and flash-encode kernels, and
+`quant_mm.cuh`, the PTX wrappers of the int4 and int8 products) are
 included, not linked.  On first
 use each `.cu` is compiled with `nvcc` for `sm_90a` (Hopper) into its own
 object, all at once in parallel, and linked into one shared library under
@@ -130,6 +131,10 @@ def kernels() -> ctypes.CDLL:
             lib.vt_int4_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
             lib.vt_int4_mm_occupancy.restype = i
             lib.vt_int4_mm_occupancy.argtypes = [i, i]
+            lib.vt_int8_mm.restype = i
+            lib.vt_int8_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.vt_int8_mm_occupancy.restype = i
+            lib.vt_int8_mm_occupancy.argtypes = [i, i]
             lib.vt_ring_rows_write.restype = i
             lib.vt_ring_rows_write.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,

@@ -34,13 +34,14 @@ Capture (`GraphedCall`): the key's first call runs eagerly on the store's
 side stream, on static copies of its inputs: it is the real call (it
 writes the cache), and it is torch's warm-up before capture, so every
 lazy host step (the kernel build, `sm_count`, the shared-memory opt-ins,
-the int4 kernel's `cuTensorMapEncodeTiled` lookup, cuBLAS handles) has
-happened before the capture.  Then the same body is captured on the same stream in global
-capture mode, where it runs nothing.  A call that the capture refuses
-raises; nothing falls back to eager.  Later calls copy their inputs into
-the static buffers and replay.  Every address a kernel captured (the int4
-kernel's tensor maps bake in x's) stays fixed: static inputs belong to the
-entry and intermediates to the graph's private pool.
+the int4 and int8 kernels' `cuTensorMapEncodeTiled` lookup, cuBLAS
+handles) has happened before the capture.  Then the same body is captured
+on the same stream in global capture mode, where it runs nothing.  A call
+that the capture refuses raises; nothing falls back to eager.  Later calls
+copy their inputs into the static buffers and replay.  Every address a
+kernel captured (the int4 and int8 kernels' tensor maps bake in x's) stays
+fixed: static inputs belong to the entry and intermediates to the graph's
+private pool.
 
 Launch counters: the kernel wrappers count in Python as they launch
 (`flash_decode.launches`, ...), and a capture launches nothing.  So a
@@ -63,11 +64,11 @@ def counted_wrappers() -> tuple:
     from .banded_encode import banded_attention_batched
     from .flash_decode import flash_decode
     from .flash_encode import flash_bulk_attention_batched
-    from .quant_mm import int4_mm
+    from .quant_mm import int4_mm, int8_mm
     from .ring import ring_rows_write
 
     return (banded_attention_batched, flash_decode,
-            flash_bulk_attention_batched, int4_mm, ring_rows_write)
+            flash_bulk_attention_batched, int4_mm, int8_mm, ring_rows_write)
 
 
 def _counts() -> list[int]:

@@ -2,10 +2,10 @@
 
 PyTorch counterpart of tools/int4_kernel_bench.py.  Times one
 decode-shaped product per decoder matrix (`rows` rows, 16 by default)
-three ways: the bf16 product, the int8 product (weights widened to bf16,
-as models/quant.py's plain path does) and the int4 kernel
-(csrc/int4_mm.cu through ops/quant_mm.py, TPU kernel #6), without the
-engine, so nothing else is resident.  Each way runs a chain over the 26
+three ways: the bf16 product, the int8 product (csrc/int8_mm.cu through
+ops/quant_mm.py int8_mm, the counterpart of the int8 convert XLA fuses in
+the JAX package) and the int4 kernel (csrc/int4_mm.cu, TPU kernel #6),
+without the engine, so nothing else is resident.  Each way runs a chain over the 26
 layers of a random stack, captured in one CUDA graph and replayed between
 CUDA events; the time is per product.  The floors are the bytes each way
 must read over the H100's 3.35 TB/s (HBM_BYTES_PER_S): bf16 2 bytes an
@@ -53,7 +53,7 @@ def main(argv=None, cfg=None) -> int:
 
     from ..config import full_config
     from ..models.quant import _quantize, _quantize4, matmul_f32
-    from ..ops.quant_mm import int4_mm
+    from ..ops.quant_mm import int4_mm, int8_mm
 
     cfg = cfg or full_config()
     n_layers = cfg.decoder.n_layers
@@ -88,9 +88,8 @@ def main(argv=None, cfg=None) -> int:
 
         t16 = graph_time(chain(lambda li: matmul_f32(x, w[li].t())),
                          1, dev) / n_layers
-        t8 = graph_time(chain(lambda li: matmul_f32(
-            x, q8[li].to(torch.bfloat16).t()) * s8[li][None, :]),
-            1, dev) / n_layers
+        t8 = graph_time(chain(lambda li: int8_mm(x, q8, s8, li)),
+                        1, dev) / n_layers
         t4 = graph_time(chain(lambda li: int4_mm(x, p4, s4, li)),
                         1, dev) / n_layers
         per_us = HBM_BYTES_PER_S / 1e6          # bytes a microsecond
