@@ -64,10 +64,24 @@ script exits non-zero:
                times of the kernel, the path it replaces, the bf16 mm
                yardstick and torch._weight_int8pack_mm where the card's
                torch has it; the decode step's 105 products at 16 and 56
-               rows, kernel and plain
+               rows, kernel, plain, bf16 mm and torch._weight_int8pack_mm
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
                128] rings in fp8, bf16 and f32 (bit-equal rings); its
                graph-replay time beside the card's launch floor
+  7b. rowinv  kernel (H), csrc/bf16_mm.cu (the streaming encoder side's
+               float products, row-invariant), on the eight products of
+               that side at full width, and the int8 and int4 kernels on
+               their row-invariant plans on a layer's four, at rows 1, 2,
+               24, 50, 64, 124, 192, 512 and 1696: every row bit-equal to
+               the same row in one larger call, at an offset and alone;
+               within tolerance of plain, two calls bitwise equal, one
+               launch a call, bf16_mm's two ways to run its split bitwise
+               equal; the plans against the card's occupancy; at which row
+               counts torch.mm gives a row other bits (printed) and that
+               torch's rms_norm gives none (gated); graph-replay times of
+               bf16_mm (both ways) against torch.mm(out_dtype=f32), of the
+               int kernels' row-invariant plans against their row-count
+               plans, with bounds
   8. slice    full_config() bf16 with seeded random weights: three
                synthetic clips through transcribe_offline_ids on one
                VoxtralEngine, with launch counts, timings and checks
@@ -89,14 +103,23 @@ script exits non-zero:
                kernel: ms/step, device ms, burst memory), one
                step's f32 logits bit-equal; the B=1 stream's feed() p50/p90
                and the Jacobi clip, ids bit-equal; the captures' count, host
-               seconds and pool memory (also for the whole run)
+               seconds and pool memory (also for the whole run); the serve
+               halves at 20 s clips
  10. stream   VoxStream at B=1 on an 11 s clip fed 1 s at a time (2 s
                interval), 0.5 s at a time (-I 0.5) and unfused: exact
-               launch counts, id agreement among the runs and with the
-               offline path, feed() walls, decode ms/step
+               launch counts (bf16_mm's too), ids equal and rows by encoder
+               position bit-equal among the runs (conv stem, encoder,
+               adapter), id agreement with the offline path, feed() walls,
+               decode ms/step; the same runs through the cuBLAS route
+               (cublas_stream: torch.mm), their agreement, walls and the
+               first stage where their rows part, eager and probed inside
+               every layer over the clip's first 3 s; an int8 and an int4
+               pair (the encoder's layers quantized too), ids and rows
+               equal
  11. bstream  BatchedTranscriber at B=16 x 30 s, 200-frame intervals,
                decoder ring 896: exact launch counts, aggregate x realtime,
-               stream 0 against a B=1 VoxStream
+               stream 0 against a B=1 VoxStream (ids, and its encoder
+               side's rows by position)
  12. jacobi   the 30 s clip of the slice through transcribe_offline_ids at
                B=1 with decode_mode "auto" (Jacobi for the 64-row bursts)
                and "sequential": exact launch counts, tokens per
@@ -108,7 +131,8 @@ script exits non-zero:
                with a 0.4 s gate, 2 rounds of 16 ticks, one slot churning:
                exact launch counts, tick p50/p90, tokens and bursts per
                tick, the encode/decode split, peak memory, slot 0 against a
-               B=1 VoxStream fed the same audio
+               B=1 VoxStream fed the same audio (ids, and its encoder side's
+               rows by position)
  14. pool_window the StreamPool in window mode: 32 slots, fp8 decoder ring
                1024, -I 2.0, 2 rounds of 8 ticks, the same churn (banded
                attention at B=32 with per-slot kv_lo); slot 0 against the
@@ -170,6 +194,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import re
@@ -208,7 +233,8 @@ INT8_REL_TOL = 1e-5
 NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
                     "flash_decode_kernel", "int4_mm_kernel",
                     "banded_attention_f32_kernel", "flash_encode_f32_kernel",
-                    "int8_mm_kernel", "int8_mm_wgmma_kernel")
+                    "int8_mm_kernel", "int8_mm_wgmma_kernel",
+                    "bf16_mm_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -893,21 +919,24 @@ def phase_int4() -> dict:
     xs = {i: _randn(gen, (16, i), torch.bfloat16)
           for _, i in INT4_SHAPES.values()}
 
-    def step():
+    def step(fn=int4_mm):
         for li in range(INT4_LAYERS):
             for name in ("wqkv", "wo", "w13", "w2"):
-                int4_mm(xs[INT4_SHAPES[name][1]], *stacks[name], li)
-        int4_mm(xs[INT4_SHAPES["logits"][1]], *stacks["logits"], 0)
+                fn(xs[INT4_SHAPES[name][1]], *stacks[name], li)
+        fn(xs[INT4_SHAPES["logits"][1]], *stacks["logits"], 0)
 
     step_shapes = [INT4_SHAPES[n] for n in ("wqkv", "wo", "w13", "w2")
                    for _ in range(INT4_LAYERS)] + [INT4_SHAPES["logits"]]
     sb = _int4_bound(step_shapes, 16)
-    out.update({"step_ms": graph_ms(step, 2), "step_bound_ms": sb["bound_ms"],
+    out.update({"step_ms": graph_ms(step, 2),
+                "step_plain_ms": graph_ms(lambda: step(int4_mm_plain), 1,
+                                          reps=3),
+                "step_bound_ms": sb["bound_ms"],
                 "step_products": len(step_shapes)})
     log("int4", f"decode step, {len(step_shapes)} products at 16 rows over "
-                f"{INT4_LAYERS} layers + table: {out['step_ms']:.4f} ms "
-                f"(graph replay); bound {sb['bound_ms']:.4f} ms "
-                f"({sb['bound_by']})")
+                f"{INT4_LAYERS} layers + table: {out['step_ms']:.4f} ms, "
+                f"plain {out['step_plain_ms']:.4f} ms (graph replay); bound "
+                f"{sb['bound_ms']:.4f} ms ({sb['bound_by']})")
     del stacks, xs
     torch.cuda.empty_cache()
     int4_mm.launches = 0
@@ -1159,23 +1188,43 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
         xs = {i: _randn(gen, (rows, i), torch.bfloat16, device)
               for _, i in products.values()}
 
-        def step(fn=int8_mm):
+        def step(prod=lambda name, x, li: int8_mm(x, *stacks[name], li)):
             for li in range(n_layers):
                 for name in layer_names:
-                    fn(xs[products[name][1]], *stacks[name], li)
-            fn(xs[products["logits"][1]], *stacks["logits"], 0)
+                    prod(name, xs[products[name][1]], li)
+            prod("logits", xs[products["logits"][1]], 0)
 
         sb = _int8_bound(step_shapes, rows)
         tag = f"step_rows{rows}"
         out.update({f"{tag}_ms": graph_ms(step, 2, reps=3),
-                    f"{tag}_plain_ms": graph_ms(
-                        lambda: step(int8_mm_plain), 1, reps=3),
+                    f"{tag}_plain_ms": graph_ms(lambda: step(
+                        lambda name, x, li: int8_mm_plain(
+                            x, *stacks[name], li)), 1, reps=3),
                     f"{tag}_bound_ms": sb["bound_ms"]})
+        # the yardsticks on the same step: torch.mm on the weights
+        # dequantized to bf16, and torch._weight_int8pack_mm
+        wb = {name: torch.stack([(w[li].float() * s[li, :, None]).bfloat16()
+                                 for li in range(w.shape[0])])
+              for name, (w, s) in stacks.items()}
+        out[f"{tag}_bf16_mm_ms"] = graph_ms(lambda: step(
+            lambda name, x, li: torch.mm(x, wb[name][li].t(),
+                                         out_dtype=torch.float32)), 1, reps=3)
+        del wb
+        lib_txt = ""
+        if lib_mm is not None:
+            sb8 = {name: s.bfloat16() for name, (_, s) in stacks.items()}
+            out[f"{tag}_library_ms"] = graph_ms(lambda: step(
+                lambda name, x, li: lib_mm(x, stacks[name][0][li],
+                                           sb8[name][li])), 1, reps=1)
+            lib_txt = f", int8pack_mm {out[f'{tag}_library_ms']:.4f}"
+            del sb8
         log("int8", f"decode step, {len(step_shapes)} products at {rows} rows "
                     f"over {n_layers} layers + table: kernel "
                     f"{out[f'{tag}_ms']:.4f} ms, widen + mm "
-                    f"{out[f'{tag}_plain_ms']:.4f} ms (graph replay); bound "
-                    f"{sb['bound_ms']:.4f} ms ({sb['bound_by']})")
+                    f"{out[f'{tag}_plain_ms']:.4f}, bf16 mm "
+                    f"{out[f'{tag}_bf16_mm_ms']:.4f}{lib_txt} ms (graph "
+                    f"replay); bound {sb['bound_ms']:.4f} ms "
+                    f"({sb['bound_by']})")
     del stacks
     if on_gpu:
         torch.cuda.empty_cache()
@@ -1697,7 +1746,7 @@ def _uncounted(plain):
     so a graph captured on the plain path (ops/graphs.py reads the count of
     every wrapper it finds) keeps the kernels' counts exact."""
     @functools.wraps(plain)
-    def stand_in(*args, **kwargs):
+    def stand_in(*args, rowinv=False, **kwargs):   # the int kernels' plan
         return plain(*args, **kwargs)
 
     stand_in.launches = 0
@@ -2076,81 +2125,730 @@ def _percentile(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
-    """Drives the streaming path at B=1: VoxStream on an engine built as
-    the CLI builds it (buckets (64, 16, 4, 1), adaptive decoder ring, the
-    encoder ring the engine sizes, decode_mode "auto", the CLI's warm-up),
-    one synthetic clip
-    fed three ways: 1 s at a time at the default 2 s interval, 0.5 s at a
-    time at -I 0.5, and 1 s at a time with fused_streaming=False.  Checks
-    the exact launch counts of each run and the id agreement of the runs
-    with each other and with transcribe_offline_ids on the same clip.
-    main() runs it at full width on the card; a tiny CPU config rehearses
-    it (with the plain functions counted, as for phase_slice)."""
+# ---- row invariance of the streaming encoder side --------------------------
+
+# the row counts of the rowinv phase: a B=1 chunk's few rows (T=1 and 2 of
+# the unfused buckets, 24 and 50 of -I 0.5 and 1 s feeds), a tile's edge
+# (64), larger B=1 chunks (124, 192), the bench's T=512 chunk and a B=16
+# transcriber interval (16 x 106)
+ROWINV_ROWS = (1, 2, 24, 50, 64, 124, 192, 512, 1696)
+# each row count runs twice: on rows [0, n) and on rows [SHIFT, SHIFT + n),
+# which puts the same rows at other places in the tile
+ROWINV_SHIFT = 7
+# (H), bf16_mm: bf16 x bf16 products are exact in f32; only the f32
+# summation order differs (the wgmma k16 steps and the cluster's K split
+# against cuBLAS), compared relative to max |plain|
+BF16_MM_REL_TOL = 1e-5
+# the rowinv phase's weight copies a timed call rotates over (the larger
+# products' copies exceed the 50 MB L2, as a layer's weights do in a chunk)
+ROWINV_COPIES = 4
+# the stream phase's eager localisation runs: the first seconds of the clip
+STREAM_LOCATE_S = 3.0
+
+
+def rowinv_shapes(cfg) -> dict:
+    """(out, in) of every product of the streaming encoder side: a layer's
+    four, the adapter's two, the conv stem's two im2col products."""
+    e = cfg.encoder
+    return {"wqkv": (3 * e.qkv_dim, e.dim), "wo": (e.dim, e.qkv_dim),
+            "w13": (2 * e.hidden, e.dim), "w2": (e.dim, e.hidden),
+            "adapter_w0": (cfg.adapter_hidden, 4 * e.dim),
+            "adapter_w1": (cfg.decoder.dim, cfg.adapter_hidden),
+            "conv0": (e.dim, e.conv_kernel * e.n_mel),
+            "conv1": (e.dim, e.conv_kernel * e.dim)}
+
+
+ROWINV_LAYER = ("wqkv", "wo", "w13", "w2")
+# the conv stem's products, whose weights the model stores [in, out]
+ROWINV_CONV = ("conv0", "conv1")
+
+
+def bf16_mm_as(x, w, seq: bool):
+    """ops.bf16_mm.bf16_mm's launch on its plan with the split's way to run
+    given (seq True: single blocks, False: clusters), for the checks that
+    both give the same bits and for the times of each; not counted."""
     import torch
 
-    from voxtral_tpu_torch.config import (
-        SAMPLE_RATE,
-        STREAM_DEFAULT_INTERVAL_S,
-    )
-    from voxtral_tpu_torch.runtime.engine import (
-        VoxtralEngine,
-        adaptive_dec_ring,
-    )
-    from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
-    from voxtral_tpu_torch.runtime.stream import VoxStream
+    from voxtral_tpu_torch.ops import bf16_mm as bmod
+    from voxtral_tpu_torch.ops import cuda_lib
+
+    (rows, k), n = x.shape, w.shape[0]
+    sms = cuda_lib.sm_count(x.device)
+    plan = bmod.bf16_mm_plan(n, k, sms)
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    blocks = (sms * bmod.bf16_mm_blocks_per_sm(1, seq=True) if seq
+              else plan.clusters)
+    cuda_lib.check(cuda_lib.kernels().vt_bf16_mm(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, n, k, plan.cs,
+        int(seq), int(bmod.weight_layout(w)), blocks,
+        cuda_lib.stream_handle(x.device)), "bf16_mm")
+    return out
+
+
+@contextlib.contextmanager
+def cublas_stream():
+    """Routes the streaming encoder side through cuBLAS again, through
+    stand-ins: float products to torch.mm (`bf16_mm_plain`), the int
+    kernels on their row-count plans, and T == 1 chunks to
+    `ring_attention`.  The stand-ins carry `launches = 0` (ops/graphs.py
+    reads every wrapper's count during a capture)."""
+    from voxtral_tpu_torch.models import encoder as enc_mod
+    from voxtral_tpu_torch.ops import bf16_mm, quant_mm
+    from voxtral_tpu_torch.runtime import stream as stream_mod
+
+    def row_plans(fn):
+        @functools.wraps(fn)
+        def stand_in(x, w, s, li, rowinv=False):
+            return fn(x, w, s, li)
+        stand_in.launches = 0
+        return stand_in
+
+    saved = (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
+             enc_mod.chunk_attention, stream_mod.chunk_attention)
+    bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
+    quant_mm.int4_mm = row_plans(saved[1])
+    quant_mm.int8_mm = row_plans(saved[2])
+    enc_mod.chunk_attention = stream_mod.chunk_attention = (
+        lambda t, cdtype: t > 1)
+    try:
+        yield
+    finally:
+        (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
+         enc_mod.chunk_attention, stream_mod.chunk_attention) = saved
+
+
+def _stream_arg(args, kwargs, i: int) -> bool:
+    """Whether a call of a function shared with the bulk encoder (its
+    `call` argument at position i) is a streaming one."""
+    return (args[i] if len(args) > i else kwargs.get("call", "stream")) \
+        == "stream"
+
+
+@contextlib.contextmanager
+def encoder_probe(cfg, deep: bool = False, record: bool = True,
+                  stream: int = 0):
+    """Records the streaming encoder side while it runs: `calls` counts
+    its streaming calls (conv0, conv1, encoder chunks, adapter), `rows`
+    holds each stage's rows of batch entry `stream` in call order, i.e.
+    by position: "mel" (the host mel the stem reads), "conv1" (the conv
+    stem), "encoder" (after the final norm), "adapter".  `deep` (eager runs only: a captured graph runs no Python)
+    also records inside: conv0 and both products of the stem ("conv0.mm",
+    "conv1.mm"), and per layer li "Lli.attn_norm", "Lli.wqkv",
+    "Lli.attention", "Lli.wo", "Lli.ffn_norm", "Lli.w13", "Lli.w2",
+    "Lli.out", then "final_norm", "adapter.w0", "adapter.w1".  With
+    `record` off it only counts."""
+    import torch
+
+    from voxtral_tpu_torch.models import bulk_encode
+    from voxtral_tpu_torch.models import encoder as enc_mod
+    from voxtral_tpu_torch.models import fused_stream
+
+    stem_k = cfg.encoder.conv_kernel * cfg.encoder.n_mel
+    calls = {"conv": 0, "encoder": 0, "adapter": 0}
+    rows: dict = {}
+    state = {"layer": None, "norms": 0, "mm": None}
+
+    def put(stage, y):     # y: [B, ..., D]
+        if record:
+            rows.setdefault(stage, []).append(
+                y.detach()[stream].reshape(-1, y.shape[-1]).clone())
+
+    patches = []
+
+    def patch(mod, name, make):
+        patches.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, make(getattr(mod, name)))
+
+    def conv(stage, call_at):
+        def make(fn):
+            def f(*a, **k):
+                y = fn(*a, **k)
+                if _stream_arg(a, k, call_at):
+                    calls["conv"] += 1
+                    if stage == "conv0":
+                        put("mel", a[1])
+                    if deep or stage == "conv1":
+                        put(stage, y[0])
+                return y
+            return f
+        return make
+
+    def enc_layers(fn):
+        def f(*a, **k):
+            y = fn(*a, **k)
+            calls["encoder"] += 1
+            put("encoder", y)
+            return y
+        return f
+
+    def adapter(fn):
+        def f(*a, **k):
+            if not _stream_arg(a, k, 3):
+                return fn(*a, **k)
+            state["mm"] = "adapter"
+            try:
+                y = fn(*a, **k)
+            finally:
+                state["mm"] = None
+            calls["adapter"] += 1
+            put("adapter", y)
+            return y
+        return f
+
+    for mod in (enc_mod, bulk_encode):
+        patch(mod, "conv0_chunk", conv("conv0", 4))
+        patch(mod, "conv1_chunk", conv("conv1", 4))
+    for mod in (enc_mod, fused_stream):
+        patch(mod, "encoder_layers", enc_layers)
+        patch(mod, "adapter_forward", adapter)
+    if deep:
+        def layer(fn):
+            def f(cfg, cdtype, x, lp, cache, li, *rest):
+                state["layer"], state["norms"] = li, 0
+                try:
+                    y = fn(cfg, cdtype, x, lp, cache, li, *rest)
+                finally:
+                    state["layer"] = None
+                put(f"L{li:02d}.out", y)
+                return y
+            return f
+
+        def norm(fn):
+            def f(x, *a, **k):
+                y = fn(x, *a, **k)
+                li = state["layer"]
+                if li is None:
+                    put("final_norm", y)
+                else:
+                    put(f"L{li:02d}."
+                        f"{('attn', 'ffn')[state['norms'] % 2]}_norm", y)
+                    state["norms"] += 1
+                return y
+            return f
+
+        def product(fn):
+            def f(x, lp, name, *a, **k):
+                y = fn(x, lp, name, *a, **k)
+                li = state["layer"]
+                put(f"L{li:02d}.{name}" if li is not None
+                    else f"{state['mm'] or 'other'}.{name}", y)
+                return y
+            return f
+
+        def conv_mm(fn):
+            def f(cols, w):
+                y = fn(cols, w)
+                put("conv0.mm" if cols.shape[-1] == stem_k else "conv1.mm", y)
+                return y
+            return f
+
+        def attention(fn):
+            def f(*a, **k):
+                y = fn(*a, **k)
+                put(f"L{state['layer']:02d}.attention", y)
+                return y
+            return f
+
+        patch(enc_mod, "_enc_layer_step", layer)
+        patch(enc_mod, "rms_norm", norm)
+        patch(enc_mod, "mm", product)
+        patch(enc_mod, "matmul_rows", conv_mm)
+        patch(enc_mod, "matmul_f32", conv_mm)
+        patch(enc_mod, "flash_bulk_attention_batched", attention)
+        patch(enc_mod, "ring_attention", attention)
+    try:
+        yield calls, rows
+    finally:
+        for mod, name, fn in reversed(patches):
+            setattr(mod, name, fn)
+        for k in rows:
+            rows[k] = torch.cat(rows[k])
+
+
+def first_row_diff(rows_a: dict, rows_b: dict):
+    """The first stage (in the order stages were first recorded) at which
+    two runs' rows differ bitwise over their common rows, with the first
+    such row and the rows compared; None when every stage is equal."""
+    for stage, a in rows_a.items():
+        b = rows_b.get(stage)
+        if a is None or b is None:
+            continue
+        n = min(a.shape[0], b.shape[0])
+        same = (a[:n] == b[:n]) | (a[:n].isnan() & b[:n].isnan())
+        bad = (~same.all(dim=-1)).nonzero()
+        if bad.numel():
+            return {"stage": stage, "row": int(bad[0, 0]), "rows": n}
+    return None
+
+
+def _rowinv_want(cfg, calls: dict, quantized_encoder: bool = False) -> dict:
+    """The row-invariant product's exact launches on a stream's encoder
+    side: one per conv call, two per adapter call, four per layer of each
+    encoder chunk when its weights are float (the int kernels take them
+    otherwise)."""
+    n_layers = cfg.encoder.n_layers
+    return {"bf16_mm": calls["conv"] + 2 * calls["adapter"]
+            + (0 if quantized_encoder else 4 * n_layers * calls["encoder"])}
+
+
+def _rowinv_expect(cfg, calls: dict, on_gpu: bool,
+                   quantized: bool = False) -> dict:
+    """_rowinv_want on the card's row-invariant route, else 0 each (CPU
+    calls never count; float32 configs keep torch.mm)."""
+    from voxtral_tpu_torch.models.decoder import _use_rowinv
+
+    if on_gpu and _use_rowinv(cfg.cdtype, "stream"):
+        return _rowinv_want(cfg, calls, quantized)
+    return {"bf16_mm": 0}
+
+
+def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
+                  quantized: bool = False) -> dict:
+    """The row-invariant kernels' launches since _zero_rowinv, checked
+    exact against _rowinv_expect."""
+    got = _rowinv_launches()
+    want = _rowinv_expect(cfg, calls, on_gpu, quantized)
+    if got != want:
+        raise AssertionError(f"[{tag}] row-invariant kernels' launches {got}"
+                             f" != {want} ({calls})")
+    return got
+
+
+def _rowinv_launches() -> dict:
+    """The row-invariant product's launches (bf16_mm's counter)."""
+    from voxtral_tpu_torch.ops import bf16_mm
+
+    return {"bf16_mm": bf16_mm.bf16_mm.launches}
+
+
+def _zero_rowinv() -> None:
+    from voxtral_tpu_torch.ops import bf16_mm
+
+    bf16_mm.bf16_mm.launches = 0
+
+
+def _bf16_bound(shapes, rows: int) -> dict:
+    """bound of bf16 products [(out, in)] at `rows`: weights (two bytes
+    each) and x read once, f32 y written once; 2 operations per weight and
+    row."""
+    n_bytes = sum(o * i * 2 + rows * i * 2 + rows * o * 4 for o, i in shapes)
+    return bound(n_bytes, sum(2 * rows * o * i for o, i in shapes))
+
+
+def phase_rowinv(device: str = "cuda", cfg=None,
+                 rows_list=ROWINV_ROWS) -> dict:
+    """The row-invariant products of the streaming encoder side: (H)
+    bf16_mm (csrc/bf16_mm.cu) on every product of `rowinv_shapes` (full
+    width unless `cfg`), and the int8 and int4 kernels on their
+    row-invariant plans on a layer's four products.  At each row count n
+    of `rows_list` each kernel's rows [0, n) and [SHIFT, SHIFT + n) must be
+    bitwise equal to the same rows of one call over max(n) + SHIFT rows,
+    and row n - 1 computed alone to its row there; the full call within
+    tolerance of the plain version, two calls bitwise equal, one launch a
+    call.  It prints at which row counts torch.mm gives a row other bits
+    than the full call (the fault the kernels repair), and fails if
+    torch's rms_norm, which the streaming side keeps, does so at any row
+    count up to 80 or of `rows_list`.  On the card also the plans against
+    the card's occupancy and graph-replay times at every shape and row
+    count (layer copies rotating): bf16_mm against
+    torch.mm(out_dtype=f32), each int kernel's row-invariant plan against
+    its row-count plan, each with its bound.  A tiny CPU config rehearses
+    it (plain functions; nothing bitwise is gated: CPU products are not
+    row-invariant)."""
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.models.quant import _quantize, _quantize4
+    from voxtral_tpu_torch.ops import bf16_mm as bmod
+    from voxtral_tpu_torch.ops import cuda_lib, quant_mm
+    from voxtral_tpu_torch.ops.norms import rms_norm
 
     on_gpu = device == "cuda"
-    counters = _stream_counters()
+    cfg = cfg or full_config()
+    shapes = rowinv_shapes(cfg)
+    n_max = max(rows_list) + ROWINV_SHIFT
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    out, worst = {}, {"bf16": 0.0, "int8": 0.0, "int4": 0.0}
+    if on_gpu:
+        sms = cuda_lib.sm_count(0)
+        lib = cuda_lib.kernels()
+        for (cs, seq), w_t in itertools.product(
+                ((1, False), (2, False), (1, True)), (False, True)):
+            got, assumed = (lib.vt_bf16_mm_occupancy(cs, int(seq), int(w_t)),
+                            bmod.bf16_mm_blocks_per_sm(cs, seq))
+            log("rowinv", f"bf16_mm {'single blocks' if seq else 'cluster'}"
+                          f" split={cs > 1} {'[K, out]' if w_t else '[out, K]'}"
+                          f" weights: {bmod.bf16_mm_smem(cs, seq)} "
+                          f"bytes of shared memory, {got} blocks per SM "
+                          f"(plan assumes {assumed})")
+            if got < assumed:
+                raise AssertionError(f"[rowinv] bf16_mm cs={cs} seq={seq} "
+                                     f"w_t={w_t}: the card holds {got} "
+                                     f"blocks per SM, the plan assumes "
+                                     f"{assumed}")
+        for name, (o, i) in shapes.items():
+            plans = [f"bf16 {bmod.bf16_mm_plan(o, i, sms)}"]
+            if name in ROWINV_LAYER:
+                plans += [f"int8 {quant_mm.int8_mm_rowinv_plan(o, i, sms)}",
+                          f"int4 {quant_mm.int4_mm_rowinv_plan(o, i // 2, sms)}"]
+            log("rowinv", f"plans {name} [{o}x{i}]: " + "; ".join(plans))
+
+    def kinds(name, o, i):
+        """(kind, kernel(x, li), plain(x, li), row-count plan or None,
+        weight(li) [o, i]) of the product `name`, on ROWINV_COPIES layers of
+        random weights; the conv stem's stored [i, o] as the model holds
+        them, read through their transpose views."""
+        if name in ROWINV_CONV:
+            wk = _randn(gen, (ROWINV_COPIES, i, o), torch.bfloat16,
+                        device) * 0.02
+            wv = lambda li: wk[li].t()  # noqa: E731
+        else:
+            w = _randn(gen, (ROWINV_COPIES, o, i), torch.bfloat16,
+                       device) * 0.02
+            wv = lambda li: w[li]  # noqa: E731
+        yield ("bf16", lambda x, li: bmod.bf16_mm(x, wv(li)),
+               lambda x, li: bmod.bf16_mm_plain(x, wv(li)), None, wv)
+        if name not in ROWINV_LAYER:
+            return
+        q8, s8 = _quantize(w)
+        s8 = s8.squeeze(-1).contiguous()
+        yield ("int8",
+               lambda x, li: quant_mm.int8_mm(x, q8, s8, li, rowinv=True),
+               lambda x, li: quant_mm.int8_mm_plain(x, q8, s8, li),
+               lambda x, li: quant_mm.int8_mm(x, q8, s8, li), wv)
+        q4, s4 = _quantize4(w)
+        yield ("int4",
+               lambda x, li: quant_mm.int4_mm(x, q4, s4, li, rowinv=True),
+               lambda x, li: quant_mm.int4_mm_plain(x, q4, s4, li),
+               lambda x, li: quant_mm.int4_mm(x, q4, s4, li), wv)
+
+    counter = {"bf16": bmod.bf16_mm, "int8": quant_mm.int8_mm,
+               "int4": quant_mm.int4_mm}
+    mm_varies, checked = {}, 0
+    for name, (o, i) in shapes.items():
+        x = _randn(gen, (n_max, i), torch.bfloat16, device)
+        for kind, fn, plain, row_plan, wv in kinds(name, o, i):
+            wrapper = counter[kind]
+            n0 = wrapper.launches
+            ref = fn(x, 0)
+            again = fn(x, 0)
+            if on_gpu and wrapper.launches != n0 + 2:
+                raise AssertionError(f"[rowinv] {kind} {name}: "
+                                     f"{wrapper.launches - n0} launches for "
+                                     "two calls")
+            want = plain(x, 0)
+            if not bool(torch.isfinite(ref).all()):
+                raise AssertionError(f"[rowinv] {kind} {name}: non-finite")
+            err = (ref - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            worst[kind] = max(worst[kind], err)
+            bad = []
+            for n in rows_list:
+                for lo in (0, ROWINV_SHIFT):
+                    if not torch.equal(fn(x[lo: lo + n], 0), ref[lo: lo + n]):
+                        bad.append((n, lo))
+                if not torch.equal(fn(x[n - 1: n], 0), ref[n - 1: n]):
+                    bad.append((n, "alone"))
+                checked += 1
+            log("rowinv", f"{kind} {name} [{o}x{i}] at rows {rows_list} "
+                          f"(+{ROWINV_SHIFT} offset, the last row alone): "
+                          f"{'bitwise equal to the full call' if not bad else f'DIFFERS at {bad}'}"
+                          f"; rel {rel:.3e} of plain (tol "
+                          f"{BF16_MM_REL_TOL}), two calls "
+                          f"{'equal' if torch.equal(ref, again) else 'DIFFER'}")
+            if on_gpu and (bad or not torch.equal(ref, again)
+                           or not rel <= BF16_MM_REL_TOL):
+                raise AssertionError(f"[rowinv] {kind} {name}: rows differ "
+                                     f"{bad} or rel {rel} or two calls "
+                                     "differ")
+            if kind == "bf16" and on_gpu:
+                full = torch.mm(x, wv(0).t(), out_dtype=torch.float32)
+                mm_varies[name] = [
+                    n for n in rows_list
+                    if not torch.equal(torch.mm(x[:n], wv(0).t(),
+                                                out_dtype=torch.float32),
+                                       full[:n])]
+            if not on_gpu:
+                continue
+            if kind == "bf16":
+                # the split's two ways to run, bitwise, and the weights'
+                # two layouts
+                bad = [n for n in rows_list
+                       if not torch.equal(bf16_mm_as(x[:n], wv(0), True),
+                                          bf16_mm_as(x[:n], wv(0), False))]
+                flip = (wv(0).t().contiguous().t() if wv(0).is_contiguous()
+                        else wv(0).contiguous())
+                if bad or not torch.equal(bmod.bf16_mm(x, flip), ref):
+                    raise AssertionError(f"[rowinv] bf16 {name}: single "
+                                         f"blocks and clusters differ at "
+                                         f"rows {bad}, or the two weight "
+                                         "layouts differ")
+            for n in rows_list:
+                xn = x[:n]
+                if kind == "bf16":   # both ways timed; "ms" the one it takes
+                    tm = {f"{tag}_ms": graph_ms(_rotating(
+                        lambda li: bf16_mm_as(xn, wv(li), seq),
+                        ROWINV_COPIES), ROWINV_COPIES)
+                        for tag, seq in (("seq", True), ("cluster", False))}
+                    tm["ms"] = tm["seq_ms" if bmod.bf16_mm_seq(
+                        n, bmod.bf16_mm_plan(o, i, sms), sms)
+                        else "cluster_ms"]
+                else:
+                    tm = {"ms": graph_ms(_rotating(lambda li: fn(xn, li),
+                                                   ROWINV_COPIES),
+                                         ROWINV_COPIES)}
+                if kind == "bf16":
+                    tm["mm_ms"] = graph_ms(_rotating(
+                        lambda li: torch.mm(xn, wv(li).t(),
+                                            out_dtype=torch.float32),
+                        ROWINV_COPIES), ROWINV_COPIES)
+                    tm.update(_bf16_bound([(o, i)], n))
+                else:
+                    tm["rowplan_ms"] = graph_ms(_rotating(
+                        lambda li: row_plan(xn, li), ROWINV_COPIES),
+                        ROWINV_COPIES)
+                    tm.update((_int8_bound if kind == "int8" else _int4_bound)(
+                        [(o, i)], n))
+                for k, v in tm.items():
+                    out[f"{kind}_{k}_{name}_rows{n}"] = v
+        del x
+    # torch's rms_norm, which the streaming side keeps: a row's bits at
+    # every row count up to 80 and of rows_list, at two offsets
+    x = _randn(gen, (n_max, cfg.encoder.dim), torch.bfloat16, device)
+    nw = torch.rand((cfg.encoder.dim,), generator=gen, device=device) + 0.5
+    full = rms_norm(x, nw)
+    norm_rows = sorted(set(rows_list) | set(range(1, 81)))
+    norm_varies = [(n, lo) for n in norm_rows for lo in (0, ROWINV_SHIFT)
+                   if not torch.equal(rms_norm(x[lo: lo + n], nw),
+                                      full[lo: lo + n])]
+    log("rowinv", f"torch's rms_norm [n x {cfg.encoder.dim}] at rows 1..80 "
+                  f"and {rows_list} (+{ROWINV_SHIFT} offset): "
+                  + ("bitwise equal to the full call" if not norm_varies
+                     else f"DIFFERS at {norm_varies}"))
+    if on_gpu:
+        if norm_varies:
+            raise AssertionError(f"[rowinv] torch's rms_norm is not "
+                                 f"row-invariant: {norm_varies}")
+        log("rowinv", "torch.mm(out_dtype=f32) gives a row other bits than "
+                      "the full call at rows: " + "; ".join(
+                          f"{k} {v}" for k, v in mm_varies.items()))
+    out.update({"torch_mm_varies_at": mm_varies,
+                "torch_rms_norm_varies_at": norm_varies,
+                "checked": checked, "max_abs_err_bf16": worst["bf16"],
+                "max_abs_err_int8": worst["int8"],
+                "max_abs_err_int4": worst["int4"]})
+    if on_gpu:
+        _rowinv_summary(out, shapes, rows_list)
+    _zero_rowinv()
+    quant_mm.int8_mm.launches = quant_mm.int4_mm.launches = 0
+    return out
+
+
+def _rowinv_summary(out: dict, shapes: dict, rows_list) -> None:
+    """Sums of the rowinv phase's times: a layer's four products and all
+    eight at each row count, each kernel against its yardstick."""
+    layer = [n for n in shapes if n in ROWINV_LAYER]
+    for n in rows_list:
+        for group, names in (("layer", layer), ("all", list(shapes))):
+            b = _bf16_bound([shapes[k] for k in names], n)
+            ms = sum(out[f"bf16_ms_{k}_rows{n}"] for k in names)
+            mm = sum(out[f"bf16_mm_ms_{k}_rows{n}"] for k in names)
+            out.update({f"bf16_{group}_ms_rows{n}": ms,
+                        f"bf16_{group}_mm_ms_rows{n}": mm,
+                        f"bf16_{group}_bound_ms_rows{n}": b["bound_ms"],
+                        f"bf16_{group}_bound_by_rows{n}": b["bound_by"]})
+            seq = sum(out[f"bf16_seq_ms_{k}_rows{n}"] for k in names)
+            clu = sum(out[f"bf16_cluster_ms_{k}_rows{n}"] for k in names)
+            log("rowinv", f"bf16 {group} ({len(names)} products) at {n} "
+                          f"rows: kernel {ms:.4f} ms (single blocks "
+                          f"{seq:.4f}, clusters {clu:.4f}), torch.mm "
+                          f"{mm:.4f} ms ({ms / mm:.2f}x), bound "
+                          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        for kind in ("int8", "int4"):
+            ms = sum(out[f"{kind}_ms_{k}_rows{n}"] for k in layer)
+            rp = sum(out[f"{kind}_rowplan_ms_{k}_rows{n}"] for k in layer)
+            bd = sum(out[f"{kind}_bound_ms_{k}_rows{n}"] for k in layer)
+            out.update({f"{kind}_layer_ms_rows{n}": ms,
+                        f"{kind}_layer_rowplan_ms_rows{n}": rp})
+            log("rowinv", f"{kind} layer (4 products) at {n} rows: "
+                          f"row-invariant plan {ms:.4f} ms, row-count plan "
+                          f"{rp:.4f} ms ({ms / rp:.2f}x), bound >= {bd:.4f}"
+                          " ms (the products' bounds summed)")
+
+
+STREAM_RUNS = (("1s_at_2s", True, 1.0, None),
+               ("0.5s_at_0.5s", True, 0.5, 0.5),
+               ("1s_at_2s_unfused", False, 1.0, None))
+
+
+def _stream_once(engine, clip, feed_s: float, interval, on_gpu: bool,
+                 probe: tuple, seconds=None):
+    """One VoxStream over `clip` (its first `seconds` if given) fed
+    `feed_s` seconds at a time at `interval` (None: the default), with
+    encoder_probe(*probe) active: (the stream, feed() walls, wall
+    seconds, the probe's calls and rows)."""
+    import torch
+
+    from voxtral_tpu_torch.config import SAMPLE_RATE
+    from voxtral_tpu_torch.runtime.stream import VoxStream
 
     def sync():
         if on_gpu:
             torch.cuda.synchronize()
 
+    feed_n = int(feed_s * SAMPLE_RATE)
+    if seconds is not None:
+        clip = clip[: int(seconds * SAMPLE_RATE)]
+    s = VoxStream(engine)
+    s.record_ids = True
+    if interval is not None:
+        s.set_processing_interval(interval)
+    walls = []
+    sync()
+    w0 = time.monotonic()
+    with encoder_probe(*probe) as (calls, rows):
+        for i in range(0, len(clip), feed_n):
+            f0 = time.monotonic()
+            s.feed(clip[i: i + feed_n])
+            sync()
+            walls.append(time.monotonic() - f0)
+        s.finish()
+        sync()
+    return s, walls, time.monotonic() - w0, calls, rows
+
+
+def _pairs(names):
+    return [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
+
+
+def _first_id_diff(a, b) -> int:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
+    """Drives the streaming path at B=1: VoxStream on an engine built as
+    the CLI builds it (buckets (64, 16, 4, 1), adaptive decoder ring, the
+    encoder ring the engine sizes, decode_mode "auto", the CLI's warm-up),
+    one synthetic clip fed three ways (STREAM_RUNS): 1 s at a time at the
+    default 2 s interval, 0.5 s at a time at -I 0.5, and 1 s at a time
+    with fused_streaming=False.  Checks the exact launch counts of each run
+    (the row-invariant kernels' too) and records the streaming encoder
+    side's rows by encoder position (encoder_probe: the conv stem, the
+    final norm, the adapter).  On the card's row-invariant route (bf16)
+    the three runs' rows must be bitwise equal and their ids equal; each
+    run's ids must agree with transcribe_offline_ids on STREAM_AGREE_MIN
+    (the banded and ring softmax orders differ).  Then, ungated, the same
+    three runs through the cuBLAS route (cublas_stream: torch.mm,
+    torch's norm, T == 1 on ring_attention) with their agreement, the
+    first stage at which their rows differ and their timings, and eager
+    runs over the clip's first STREAM_LOCATE_S seconds of each route,
+    probed inside every layer, which name the first stage (product, norm,
+    attention) whose rows part.  Last, an int8 and an int4 pair (the
+    encoder's layers quantized, so their products take the int kernels'
+    row-invariant plans; the decoder quantized as the engine's rungs do):
+    two chunkings each, rows bitwise equal and ids equal on the card.
+    main() runs it at full width on the card; a tiny CPU config rehearses
+    it (plain functions counted, as for phase_slice; nothing bitwise is
+    gated on the CPU, whose products are not row-invariant)."""
+    import torch
+
+    from voxtral_tpu_torch.config import STREAM_DEFAULT_INTERVAL_S
+    from voxtral_tpu_torch.models.decoder import _use_rowinv
+    from voxtral_tpu_torch.models.quant import quantize_params
+    from voxtral_tpu_torch.ops.quant_mm import int4_mm, int8_mm
+    from voxtral_tpu_torch.runtime.engine import (
+        VoxtralEngine,
+        adaptive_dec_ring,
+    )
+    from voxtral_tpu_torch.runtime.offline import transcribe_offline_ids
+
+    on_gpu = device == "cuda"
+    counters = _stream_counters()
+    exact = on_gpu and _use_rowinv(cfg.cdtype, "stream")
     tok = byte_tokenizer(cfg.decoder.vocab_size)
     clip = make_audio(seconds, seed=7)
     ring = adaptive_dec_ring(cfg, len(clip))
-    engines = {fused: VoxtralEngine(cfg, params, tokenizer=tok,
-                                    dec_kv_ring=ring, buckets=(64, 16, 4, 1),
-                                    decode_mode="auto",
-                                    fused_streaming=fused)
-               for fused in (True, False)}
+
+    def engine(p, fused, quantize=False):
+        return VoxtralEngine(cfg, p, tokenizer=tok, dec_kv_ring=ring,
+                             buckets=(64, 16, 4, 1), decode_mode="auto",
+                             fused_streaming=fused, quantize=quantize)
+
+    engines = {fused: engine(params, fused) for fused in (True, False)}
     eng = engines[True]
     warm = eng.warmup(interval_s=STREAM_DEFAULT_INTERVAL_S)
     log("stream", f"engine: enc ring {eng.enc_kv_ring}, dec ring "
                   f"{eng.dec_kv_ring}, buckets {eng.buckets}, fused buckets "
                   f"{eng.fused_buckets}; warm-up {warm:.1f} s")
-    runs = (("1s_at_2s", True, SAMPLE_RATE, None),
-            ("0.5s_at_0.5s", True, SAMPLE_RATE // 2, 0.5),
-            ("1s_at_2s_unfused", False, SAMPLE_RATE, None))
-    table, ids = [], {}
-    for name, fused, feed_n, interval in runs:
+
+    def agreement(ids, rows, tag):
+        agree, first = {}, {}
+        for a, b in _pairs(list(ids)):
+            agree[f"{a}~{b}"] = _agreement(ids[a], ids[b])
+            # where the two greedy decodes part (a flipped near-tie feeds
+            # back, so the ids after it differ more)
+            first[f"{a}~{b}"] = _first_id_diff(ids[a], ids[b])
+        rows_diff = {f"{a}~{b}": first_row_diff(rows[a], rows[b])
+                     for a, b in _pairs(list(rows))}
+        log("stream", f"{tag} id agreement: " + ", ".join(
+            f"{k} {v:.3f} (first differs at {first[k]})"
+            for k, v in agree.items()))
+        log("stream", f"{tag} rows by encoder position (conv stem, encoder, "
+                      "adapter): " + ", ".join(
+                          f"{k} {'bit-equal' if d is None else d}"
+                          for k, d in rows_diff.items()))
+        return agree, first, rows_diff
+
+    def locate(tag):
+        """Eager runs over the clip's first seconds, probed inside every
+        layer: the first stage whose rows part between each pair."""
+        rows = {}
+        for name, fused, feed_s, interval in STREAM_RUNS:
+            engines[fused].cuda_graphs = False
+            try:
+                *_, rows[name] = _stream_once(
+                    engines[fused], clip, feed_s, interval, on_gpu,
+                    probe=(cfg, True), seconds=STREAM_LOCATE_S)
+            finally:
+                engines[fused].cuda_graphs = True
+        first = {f"{a}~{b}": first_row_diff(rows[a], rows[b])
+                 for a, b in _pairs(list(rows))}
+        log("stream", f"{tag} eager over the first {STREAM_LOCATE_S:g} s, "
+                      f"{len(rows[STREAM_RUNS[0][0]])} stages probed: first "
+                      "differing stage " + ", ".join(
+                          f"{k} {'none' if d is None else d}"
+                          for k, d in first.items()))
+        return first
+
+    # the phase's parts' walls (s), to see what its time goes to
+    part_s, t_part = {}, [time.monotonic()]
+
+    def part(name):
+        now = time.monotonic()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    table, ids, rows = [], {}, {}
+    for name, fused, feed_s, interval in STREAM_RUNS:
         for f in counters:
             f.launches = 0
+        _zero_rowinv()
         if on_gpu:
             torch.cuda.reset_peak_memory_stats()
-        s = VoxStream(engines[fused])
-        s.record_ids = True
         js0 = engines[fused].jacobi_steps
-        if interval is not None:
-            s.set_processing_interval(interval)
-        feed_walls = []
-        sync()
-        w0 = time.monotonic()
-        for i in range(0, len(clip), feed_n):
-            f0 = time.monotonic()
-            s.feed(clip[i: i + feed_n])
-            sync()
-            feed_walls.append(time.monotonic() - f0)
-        s.finish()
-        sync()
-        wall = time.monotonic() - w0
+        s, feed_walls, wall, calls, rows[name] = _stream_once(
+            engines[fused], clip, feed_s, interval, on_gpu,
+            probe=(cfg, False))
         launches = {f.__name__: f.launches for f in counters}
         # Jacobi bursts ("auto" takes bursts of >= 64 rows) run the plain
         # ring path: only the sequential steps launch flash-decode
         j_steps = engines[fused].jacobi_steps - js0
         _check_stream_launches("stream", cfg, launches, s.n_enc_chunk_calls,
                                s.n_decode_steps - j_steps)
+        rowinv_launches = _check_rowinv(f"stream {name}", cfg, calls,
+                                        on_gpu)
         vocab = cfg.decoder.vocab_size
         if not s.generated_ids or not all(0 <= t < vocab
                                           for t in s.generated_ids):
@@ -2158,7 +2856,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
                                  "range")
         ids[name] = s.generated_ids
         rec = {
-            "run": name, "fused": fused, "feed_s": feed_n / SAMPLE_RATE,
+            "run": name, "fused": fused, "feed_s": feed_s,
             "interval_s": (interval if interval is not None
                            else STREAM_DEFAULT_INTERVAL_S),
             "clip_s": seconds, "wall_s": wall, "x_realtime": seconds / wall,
@@ -2175,7 +2873,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
             "encoder_chunks": s.n_enc_chunk_calls,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_gpu else 0.0),
-            "launches": launches,
+            "launches": launches, "rowinv_launches": rowinv_launches,
         }
         table.append(rec)
         log("stream", f"{name}: {seconds:.1f} s in {wall:.3f} s "
@@ -2187,32 +2885,111 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
                       f"{rec['prefill_ms']:.2f} ms, decode "
                       f"{rec['decode_ms_per_step']:.3f} ms/step over "
                       f"{rec['decode_steps']} steps; peak "
-                      f"{rec['peak_gib']:.2f} GiB; launches {launches}")
+                      f"{rec['peak_gib']:.2f} GiB; launches {launches}, "
+                      f"{rowinv_launches}")
     for f in counters:
         f.launches = 0
+    _zero_rowinv()
+    part("runs")
+    agree, first_diff, rows_diff = agreement(ids, rows, "row-invariant")
+    stream_ids = dict(ids)
     ids["offline"] = transcribe_offline_ids(eng, clip)
-    names = list(ids)
-    agree, first_diff = {}, {}
-    for i, a in enumerate(names):
-        for b in names[i + 1:]:
-            agree[f"{a}~{b}"] = _agreement(ids[a], ids[b])
-            # where the two greedy decodes part (a flipped near-tie feeds
-            # back, so the ids after it differ more)
-            first_diff[f"{a}~{b}"] = next(
-                (j for j, (x, y) in enumerate(zip(ids[a], ids[b])) if x != y),
-                min(len(ids[a]), len(ids[b])))
-    log("stream", "id agreement: " + ", ".join(
-        f"{k} {v:.3f} (first differs at {first_diff[k]})"
-        for k, v in agree.items()) + f"; min {STREAM_AGREE_MIN}")
+    part("offline")
+    for a in stream_ids:
+        key = f"{a}~offline"
+        agree[key] = _agreement(ids[a], ids["offline"])
+        first_diff[key] = _first_id_diff(ids[a], ids["offline"])
+    log("stream", "against offline: " + ", ".join(
+        f"{a}~offline {agree[f'{a}~offline']:.3f}" for a in stream_ids)
+        + f"; min {STREAM_AGREE_MIN}")
     low = {k: v for k, v in agree.items() if not v >= STREAM_AGREE_MIN}
     if low:
         raise AssertionError(f"[stream] id agreement below "
                              f"{STREAM_AGREE_MIN}: {low}")
+    parted = {k: d for k, d in rows_diff.items() if d is not None}
+    unequal = {k: v for k, v in agree.items()
+               if "offline" not in k and v != 1.0}
+    if exact and (parted or unequal):
+        raise AssertionError(f"[stream] the row-invariant route's runs "
+                             f"differ: rows {parted}, ids {unequal}")
+    first_stage = None if not parted else locate("row-invariant")
+    part("locate")
+
+    # the cuBLAS route, through stand-ins (ungated)
+    cublas = {"runs": {}}
+    with cublas_stream():
+        c_ids, c_rows = {}, {}
+        for rec, (name, fused, feed_s, interval) in zip(table, STREAM_RUNS):
+            s, walls, wall, _, c_rows[name] = _stream_once(
+                engines[fused], clip, feed_s, interval, on_gpu,
+                probe=(cfg, False))
+            c_ids[name] = s.generated_ids
+            c = cublas["runs"][name] = {
+                "wall_s": wall,
+                "encoder_ms_per_feed": s.encoder_ms / len(walls),
+                "feed_p50_ms": _percentile(walls, 50) * 1e3,
+                "feed_p90_ms": _percentile(walls, 90) * 1e3}
+            log("stream", f"cublas {name}: encoder "
+                          f"{c['encoder_ms_per_feed']:.2f} ms/feed (issue), "
+                          f"feed() wall p50 {c['feed_p50_ms']:.2f} p90 "
+                          f"{c['feed_p90_ms']:.2f} ms; row-invariant "
+                          f"{rec['encoder_ms_per_feed']:.2f}, p50 "
+                          f"{rec['feed_p50_ms']:.2f}, p90 "
+                          f"{rec['feed_p90_ms']:.2f}")
+        (cublas["agreement"], cublas["first_diff"],
+         cublas["rows_diff"]) = agreement(c_ids, c_rows, "cublas")
+        part("cublas_runs")
+        cublas["first_stage"] = locate("cublas")
+        part("cublas_locate")
+    for f in counters:
+        f.launches = 0
+    _zero_rowinv()
+
+    # the int rungs: the encoder's layer products on the int kernels'
+    # row-invariant plans
+    quant = {}
+    for bits, kernel in ((8, int8_mm), (4, int4_mm)):
+        tag = f"int{bits}"
+        qeng = engine(quantize_params(params, decoder=False, bits=bits),
+                      True, quantize=tag)
+        q_ids, q_rows = {}, {}
+        for name, fused, feed_s, interval in STREAM_RUNS[:2]:
+            kernel.launches = 0
+            _zero_rowinv()
+            s, _, wall, calls, q_rows[name] = _stream_once(
+                qeng, clip, feed_s, interval, on_gpu, probe=(cfg, False))
+            _check_rowinv(f"stream {tag} {name}", cfg, calls, on_gpu,
+                          quantized=True)
+            n_enc = 4 * cfg.encoder.n_layers * calls["encoder"]
+            if on_gpu and not kernel.launches >= n_enc > 0:
+                raise AssertionError(f"[stream] {tag} {name}: {kernel.launches}"
+                                     f" {tag} launches, the encoder alone "
+                                     f"takes {n_enc}")
+            q_ids[name] = s.generated_ids
+        q_agree, _, q_diff = agreement(q_ids, q_rows, tag)
+        quant[tag] = {"agreement": q_agree, "rows_diff": q_diff}
+        if exact and (set(q_agree.values()) != {1.0}
+                      or any(d is not None for d in q_diff.values())):
+            raise AssertionError(f"[stream] {tag}: the chunkings differ: "
+                                 f"ids {q_agree}, rows {q_diff}")
+        del qeng
+        if on_gpu:
+            torch.cuda.empty_cache()
+        part(tag)
+    log("stream", "parts (s): " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in part_s.items()))
+    int8_mm.launches = int4_mm.launches = 0
+    _zero_rowinv()
     for f in counters:
         f.launches = 0
     return {"runs": table, "agreement": agree, "first_diff": first_diff,
+            "rows_diff": rows_diff, "first_stage": first_stage,
+            "cublas": cublas, **quant, "part_s": part_s,
             "launches": {f.__name__: sum(r["launches"][f.__name__]
-                                         for r in table) for f in counters}}
+                                         for r in table) for f in counters},
+            "rowinv_launches": {k: sum(r["rowinv_launches"][k]
+                                       for r in table)
+                                for k in table[0]["rowinv_launches"]}}
 
 
 def phase_bstream(cfg, params, device: str, n_streams: int = 16,
@@ -2250,29 +3027,35 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
         mel[:, : 2 * interval_frames], interval_frames=interval_frames)
     for f in counters:
         f.launches = 0
+    _zero_rowinv()
     if on_gpu:
         torch.cuda.reset_peak_memory_stats()
     tr = BatchedTranscriber(engine, n_streams, dec_kv_ring=dec_ring)
     sync()
     w0 = time.monotonic()
-    toks = tr.transcribe(mel, interval_frames=interval_frames)
+    with encoder_probe(cfg) as (calls, rows0):
+        toks = tr.transcribe(mel, interval_frames=interval_frames)
     sync()
     wall = time.monotonic() - w0
     launches = {f.__name__: f.launches for f in counters}
     _check_stream_launches("bstream", cfg, launches, tr.n_enc_chunk_calls,
                            tr.decode_steps)
+    rowinv_launches = _check_rowinv("bstream", cfg, calls, on_gpu)
     vocab = cfg.decoder.vocab_size
     if not all(toks) or not all(0 <= t < vocab for s in toks for t in s):
         raise AssertionError("[bstream] a stream without ids, or ids out of "
                              "range")
-    # stream 0 alone through VoxStream (1 s feeds, default interval)
+    # stream 0 alone through VoxStream (1 s feeds, default interval); its
+    # encoder side's rows against stream 0's in the batch
     s = VoxStream(engine)
     s.record_ids = True
-    for i in range(0, len(clips[0]), 16000):
-        s.feed(clips[0][i: i + 16000])
-    s.finish()
+    with encoder_probe(cfg) as (_, rows_b1):
+        for i in range(0, len(clips[0]), 16000):
+            s.feed(clips[0][i: i + 16000])
+        s.finish()
     m = min(len(toks[0]), len(s.generated_ids))
     agree_b1 = _agreement(toks[0][:m], s.generated_ids[:m])
+    rows_diff = first_row_diff(rows0, rows_b1)
     rec = {"streams": n_streams, "clip_s": seconds, "wall_s": wall,
            "x_realtime_aggregate": n_streams * seconds / wall,
            "encode_ms": tr.encode_time * 1e3,
@@ -2283,9 +3066,10 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
            "encoder_chunks": tr.n_enc_chunk_calls,
            "tokens": sum(len(t) for t in toks),
            "stream0_agree_b1": agree_b1, "compared": m,
+           "stream0_rows_diff_b1": rows_diff,
            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if on_gpu else 0.0),
-           "launches": launches}
+           "launches": launches, "rowinv_launches": rowinv_launches}
     log("bstream", f"B={n_streams} x {seconds:.1f} s in {wall:.3f} s "
                    f"({rec['x_realtime_aggregate']:.2f}x realtime aggregate); "
                    f"encode {rec['encode_ms']:.1f} ms, decode "
@@ -2293,9 +3077,13 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
                    f" ms/step over {tr.decode_steps} steps), "
                    f"{tr.n_enc_chunk_calls} encoder chunks, {rec['tokens']} "
                    f"ids; stream 0 vs B=1 VoxStream {agree_b1:.3f} over {m} "
-                   f"ids; peak {rec['peak_gib']:.2f} GiB; launches {launches}")
+                   f"ids, its rows by position (mel, conv stem, encoder, "
+                   f"adapter) "
+                   f"{'bit-equal' if rows_diff is None else rows_diff}; peak {rec['peak_gib']:.2f} GiB; launches {launches}, "
+                   f"{rowinv_launches}")
     for f in counters:
         f.launches = 0
+    _zero_rowinv()
     return rec
 
 
@@ -2776,17 +3564,19 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
         s = VoxStream(eng)
         s.record_ids = True
         walls = []
-        for i in range(0, len(clip), SAMPLE_RATE):
-            f0 = time.monotonic()
-            s.feed(clip[i: i + SAMPLE_RATE])
+        with encoder_probe(cfg, record=False) as (calls, _):
+            for i in range(0, len(clip), SAMPLE_RATE):
+                f0 = time.monotonic()
+                s.feed(clip[i: i + SAMPLE_RATE])
+                sync()
+                walls.append(time.monotonic() - f0)
+            s.finish()
             sync()
-            walls.append(time.monotonic() - f0)
-        s.finish()
-        sync()
         take(f"stream {tag}", {
             "flash_bulk_attention_batched": el * s.n_enc_chunk_calls,
             "flash_decode": nl * (s.n_decode_steps
-                                  - (eng.jacobi_steps - js0))})
+                                  - (eng.jacobi_steps - js0)),
+            **_rowinv_expect(cfg, calls, on_gpu)})
         sids[tag] = s.generated_ids
         stream.update({f"feed_p50_ms_{tag}": _percentile(walls, 50) * 1e3,
                        f"feed_p90_ms_{tag}": _percentile(walls, 90) * 1e3,
@@ -2917,39 +3707,42 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
         start(pool, slots[-1])
     for f in counters:
         f.launches = 0
+    _zero_rowinv()
     if on_gpu:
         torch.cuda.reset_peak_memory_stats()
     e0, b0, r0 = pool.n_enc_calls, pool.n_bursts, pool.burst_rows
     ticks, enc_ms, dec_ms, toks, bursts = [], [], [], [], []
-    w0 = time.monotonic()
-    for rnd in range(2):
-        for ti in range(n_ticks):
-            if rnd and ti == n_ticks // 2:      # the last slot churns
-                pool.close(slots[-1])
-                slots[-1] = pool.add_stream()
-                start(pool, slots[-1])
-            at = (rnd * n_ticks + ti) * feed_n
-            gen0 = sum(s.n_generated for s in pool.slots)
-            nb0 = pool.n_bursts
-            t1 = time.monotonic()
-            for i, sidx in enumerate(slots):
-                pool.feed(sidx, clips[i][at: at + feed_n])
-            pool._tick_encoder()
-            sync()
-            t_mid = time.monotonic()
-            pool._tick_decoder()
-            pool._mon_flush()
-            t2 = time.monotonic()
-            ticks.append((t2 - t1) * 1e3)
-            enc_ms.append((t_mid - t1) * 1e3)
-            dec_ms.append((t2 - t_mid) * 1e3)
-            toks.append(sum(s.n_generated for s in pool.slots) - gen0)
-            bursts.append(pool.n_bursts - nb0)
-            for sidx in slots:
-                pool.get(sidx)
+    with encoder_probe(cfg) as (calls, rows0):
+        w0 = time.monotonic()
+        for rnd in range(2):
+            for ti in range(n_ticks):
+                if rnd and ti == n_ticks // 2:      # the last slot churns
+                    pool.close(slots[-1])
+                    slots[-1] = pool.add_stream()
+                    start(pool, slots[-1])
+                at = (rnd * n_ticks + ti) * feed_n
+                gen0 = sum(s.n_generated for s in pool.slots)
+                nb0 = pool.n_bursts
+                t1 = time.monotonic()
+                for i, sidx in enumerate(slots):
+                    pool.feed(sidx, clips[i][at: at + feed_n])
+                pool._tick_encoder()
+                sync()
+                t_mid = time.monotonic()
+                pool._tick_decoder()
+                pool._mon_flush()
+                t2 = time.monotonic()
+                ticks.append((t2 - t1) * 1e3)
+                enc_ms.append((t_mid - t1) * 1e3)
+                dec_ms.append((t2 - t_mid) * 1e3)
+                toks.append(sum(s.n_generated for s in pool.slots) - gen0)
+                bursts.append(pool.n_bursts - nb0)
+                for sidx in slots:
+                    pool.get(sidx)
     sync()
     wall = time.monotonic() - w0
     launches = {f.__name__: f.launches for f in counters}
+    rowinv_launches = _check_rowinv(tag, cfg, calls, on_gpu)
     n_enc, rows = pool.n_enc_calls - e0, pool.burst_rows - r0
     want = {"flash_bulk_attention_batched":
             cfg.encoder.n_layers * n_enc * (enc_mode == "ring"),
@@ -2966,14 +3759,17 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
                            for t in s.generated_ids):
         raise AssertionError(f"[{tag}] no ids on slot 0, or ids out of "
                              "range")
+    rows_diff = None
     if ref_ids is None:   # slot 0's audio through a B=1 VoxStream
         s = VoxStream(engine)
         s.record_ids = True
         s.set_processing_interval(gate)
         s.set_continuous(True)
-        for at in range(0, 2 * n_ticks * feed_n, feed_n):
-            s.feed(clips[0][at: at + feed_n])
+        with encoder_probe(cfg) as (_, rows_b1):
+            for at in range(0, 2 * n_ticks * feed_n, feed_n):
+                s.feed(clips[0][at: at + feed_n])
         ref_ids, ref = s.generated_ids, "b1_voxstream"
+        rows_diff = first_row_diff(rows0, rows_b1)
     else:
         ref = "pool_ring"
     m = min(len(ids0), len(ref_ids))
@@ -2997,7 +3793,8 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
                         if on_gpu else 0.0),
            "pool_gib": pool.memory_ledger()["pool_total"] / 2**30,
            f"slot0_agree_{ref}": agree, "compared": m,
-           "launches": launches}
+           "slot0_rows_diff_b1": rows_diff,
+           "launches": launches, "rowinv_launches": rowinv_launches}
     log(tag, f"{n_slots} slots {pool.enc_mode}, -I {interval_s} (gate "
              f"{gate:.1f}), {n_t} ticks in {wall:.2f} s: tick p50 "
              f"{rec['tick_p50_ms']:.1f} p90 {rec['tick_p90_ms']:.1f} ms "
@@ -3006,7 +3803,11 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
              f"tokens and {rec['bursts_per_tick']:.2f} bursts per tick, "
              f"{rec['restarts']} restarts; peak {rec['peak_gib']:.2f} GiB "
              f"(pool {rec['pool_gib']:.2f}); slot 0 vs {ref} {agree:.3f} "
-             f"over {m} ids; launches {launches}")
+             f"over {m} ids"
+             + ("" if ref_ids is None or enc_mode != "ring" else
+                f", its rows by position (mel, conv stem, encoder, adapter) "
+                f"{'bit-equal' if rows_diff is None else rows_diff}")
+             + f"; launches {launches}")
     for f in counters:
         f.launches = 0
     rec["slot0_ids"] = ids0
@@ -3588,7 +4389,8 @@ BENCH_INT4_ENV = {**BENCH_ENV, "BENCH_MODE": "int4", "BENCH_LAT": "0",
 BENCH_BULK_STREAMS = 4
 # the kernels each bench run must launch: flash-decode and flash-encode in
 # bf16 (its "inc" encode, every decode; the int8 product in its int8 step
-# probe), the int4 product in int4
+# probe; on the card in a bf16 config also the row-invariant product, the
+# "inc" encode's), the int4 product in int4
 BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched",
                           "int8_mm"),
                  "int4": ("int4_mm",)}
@@ -3641,7 +4443,10 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         faults = _bench_faults(res)
-        faults += [f"no {k} launch" for k in BENCH_KERNELS[tag]
+        rowinv = (("bf16_mm",) if tag == "bf16" and _rowinv_expect(
+            cfg, {"conv": 1, "adapter": 0, "encoder": 0},
+            device == "cuda")["bf16_mm"] else ())
+        faults += [f"no {k} launch" for k in BENCH_KERNELS[tag] + rowinv
                    if not got[k] > 0]
         # the int8 probe (bf16 mode): int8 layer stacks beside the bf16
         # table, 4 products a layer and step
@@ -3669,6 +4474,17 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
                          "inc", log=blog)
     for k, v in bench.kernel_launches().items():
         launches[k] = launches.get(k, 0) + v
+    # "inc" again through the cuBLAS route (torch.mm on the encoder
+    # side): the row-invariant products' cost in this encode
+    with cublas_stream():
+        inc_cublas = bench.run_once(engine, dataclasses.replace(s, enc="inc"),
+                                    mel, "inc", log=blog)
+    bench.reset_launches()
+    log("bench", f"inc encode B={bulk_streams} x {s.seconds:g} s: "
+                 f"row-invariant {inc['encode_s'] * 1e3:.1f} ms, cublas "
+                 f"{inc_cublas['encode_s'] * 1e3:.1f} ms (host clock, "
+                 f"device synced); ids agree "
+                 f"{min(_agreement(a, b) for a, b in zip(inc['tokens'], inc_cublas['tokens'])):.3f}")
     for i, (a, b) in enumerate(zip(bulk["tokens"], served)):
         if a != b:
             raise AssertionError(
@@ -3683,7 +4499,9 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
     if not min(agree) >= STREAM_AGREE_MIN:
         raise AssertionError(f"[bench] inc against bulk agree {agree}")
     out.update({"bulk_equal_serve_clips": True, "inc_agree_bulk": agree,
-                "bulk_steps": bulk["steps"], "launches": launches})
+                "bulk_steps": bulk["steps"], "launches": launches,
+                "inc_encode_ms": inc["encode_s"] * 1e3,
+                "inc_encode_ms_cublas": inc_cublas["encode_s"] * 1e3})
     return out
 
 
@@ -4065,6 +4883,36 @@ def phase_ckpt(cfg, device: str = "cuda", tag: str = "ckpt",
     return rec
 
 
+# the rowinv phase's row count that summarises a kernel in the kernels
+# line: a B=1 stream's 1 s feed (50 encoder positions a chunk)
+ROWINV_SUMMARY_ROWS = 50
+
+
+def _rowinv_kernel(rowinv: dict, streamed: dict, pr: dict, graphed: dict,
+                   benched: dict) -> dict:
+    """The kernels line's entry of the row-invariant product: launches by
+    streaming path, and the rowinv phase's times at ROWINV_SUMMARY_ROWS
+    (all eight shapes summed; torch.mm(out_dtype=f32) is both its plain
+    version and the library call), with every row count's."""
+    n = ROWINV_SUMMARY_ROWS
+    by_path = {"stream": streamed["bf16_mm"],
+               "pool_ring": pr["rowinv_launches"]["bf16_mm"],
+               "graphs": graphed["bf16_mm"], "bench": benched["bf16_mm"]}
+    return {"name": "bf16_mm", "route": "cuda",
+            "source": "voxtral_tpu_torch/csrc/bf16_mm.cu",
+            # no Pallas kernel: the float einsum XLA compiles
+            "replaces": "voxtral_tpu/models/quant.py:227",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "ms": rowinv[f"bf16_all_ms_rows{n}"],
+            "plain_ms": rowinv[f"bf16_all_mm_ms_rows{n}"],
+            "library_ms": rowinv[f"bf16_all_mm_ms_rows{n}"],
+            "bound_ms": rowinv[f"bf16_all_bound_ms_rows{n}"],
+            "bound_by": rowinv[f"bf16_all_bound_by_rows{n}"],
+            "max_abs_err": rowinv["max_abs_err_bf16"],
+            **{k: v for k, v in rowinv.items() if k.startswith("bf16_")},
+            "torch_mm_varies_at": rowinv["torch_mm_varies_at"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4075,9 +4923,9 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
-               "rows",
-               "graphs", "jacobi", "pool_ring", "pool_window", "mesh",
-               "mel_device", "bench", "ckpt", "ckpt_full")
+               "rows", "rowinv",
+               "graphs", "stream", "jacobi", "pool_ring", "pool_window",
+               "mesh", "mel_device", "bench", "ckpt", "ckpt_full")
 
 
 def run_only(names) -> dict:
@@ -4089,11 +4937,13 @@ def run_only(names) -> dict:
     for name in ONLY_PHASES:
         if name not in names:
             continue
-        if name in ("graphs", "jacobi", "pool_ring", "pool_window", "mesh",
-                    "bench") and params is None:
+        if name in ("graphs", "stream", "jacobi", "pool_ring", "pool_window",
+                    "mesh", "bench") and params is None:
             params = make_params(cfg, "cuda")
         if name == "graphs":
             out[name] = phase_graphs(cfg, params, "cuda")
+        elif name == "stream":
+            out[name] = phase_stream(cfg, params, "cuda")
         elif name == "mesh":
             out[name] = phase_mesh(cfg, params, "cuda")
         elif name == "jacobi":
@@ -4177,6 +5027,7 @@ def main(argv: list[str]) -> int:
     int4 = timed("int4", phase_int4)
     int8 = timed("int8", phase_int8)
     rows = timed("rows", phase_rows)
+    rowinv = timed("rowinv", phase_rowinv)
     cfg = full_config()
     params = timed("params", make_params, cfg, "cuda")
     sl = timed("slice", phase_slice, cfg, params, "cuda", (4.0, 11.0, 30.0))
@@ -4190,6 +5041,8 @@ def main(argv: list[str]) -> int:
     bst = timed("bstream", phase_bstream, cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
                 for k in st["launches"]}
+    streamed.update({k: st["rowinv_launches"][k] + bst["rowinv_launches"][k]
+                     for k in st["rowinv_launches"]})
     jac = timed("jacobi", phase_jacobi, cfg, params, "cuda")
     pr = timed("pool_ring", phase_pool, cfg, params, "cuda", **POOL_RING)
     pw = timed("pool_window", phase_pool, cfg, params, "cuda", **POOL_WINDOW,
@@ -4291,7 +5144,8 @@ def main(argv: list[str]) -> int:
                       + benched["int4_mm"]),
          "launches_bench": benched["int4_mm"],
          "launches_ckpt": ckpt["int4_mm"],
-         "launches_graphs": graphed["int4_mm"], **int4},
+         "launches_graphs": graphed["int4_mm"], **int4,
+         **{k: v for k, v in rowinv.items() if k.startswith("int4_")}},
         {"name": "int8_mm", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/int8_mm.cu",
          # no Pallas kernel: the int8 einsum whose convert XLA fuses
@@ -4300,12 +5154,14 @@ def main(argv: list[str]) -> int:
                       + benched["int8_mm"]),
          "launches_serve": served["int8_mm"],
          "launches_bench": benched["int8_mm"],
-         "launches_graphs": graphed["int8_mm"], **int8},
+         "launches_graphs": graphed["int8_mm"], **int8,
+         **{k: v for k, v in rowinv.items() if k.startswith("int8_")}},
         {"name": "ring_rows_write", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/ring_rows_write.cu",
          "replaces": "voxtral_tpu/ops/ring.py:88",
          "launches": served["ring_rows_write"] + graphed["ring_rows_write"],
          "launches_graphs": graphed["ring_rows_write"], **rows},
+        _rowinv_kernel(rowinv, streamed, pr, graphed, benched),
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -4331,6 +5187,10 @@ def main(argv: list[str]) -> int:
     idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
+    idle = [f"{k['name']} {path}" for k in kernels[-1:]
+            for path, n in k["launches_by_path"].items() if n <= 0]
+    if idle:   # the streaming encoder side of every streaming path
+        raise AssertionError(f"no launch on {idle}")
     idle = [k["name"] for k in kernels if k.get("launches_bench") == 0]
     if idle:   # #1 (bulk, the window rows), #4, #6 (int4), #7 ("inc"),
                # int8 (the int8 step probe)

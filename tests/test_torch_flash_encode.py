@@ -166,12 +166,16 @@ def _counting(monkeypatch):
     ("flash", "float32", "float32", 8, "flash"),
     ("auto", "bfloat16", "float8_e4m3fn", 8, "ring"),  # byte-wide ring
     ("xla", "bfloat16", "bfloat16", 8, "ring"),
-    ("auto", "bfloat16", "bfloat16", 1, "ring"),  # T == 1: direct slot write
+    ("auto", "float32", "float32", 1, "ring"),  # T == 1: direct slot write
+    # bf16 takes the row-invariant route (decoder._use_rowinv): a T == 1
+    # chunk attends through the chunk path like any other chunk
+    ("auto", "bfloat16", "bfloat16", 1, "flash"),
 ])
 def test_encoder_attention_dispatch(monkeypatch, impl, cdt, enc_kv, t, route):
     """attn_impl "auto" takes the flash-encode wrapper for every chunk of
     T > 1 rows on a float ring of >= 2 bytes, at any B and for bf16 and
-    float32 queries alike; fp8 rings, "xla" and T == 1 chunks take the
+    float32 queries alike, and for T == 1 chunks on the row-invariant
+    route (bf16); fp8 rings, "xla" and float32 T == 1 chunks take the
     plain ring_attention."""
     cfg = tiny_config(enc_kv_ring=64, compute_dtype=cdt).replace(
         enc_kv_dtype=enc_kv)

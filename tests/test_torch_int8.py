@@ -180,9 +180,9 @@ def int8_calls(monkeypatch):
     calls = []
     real = quant_mm.int8_mm
 
-    def counted(*args):
+    def counted(*args, **kwargs):
         calls.append(args[1].shape)
-        return real(*args)
+        return real(*args, **kwargs)
 
     monkeypatch.setattr(quant_mm, "int8_mm", counted)
     return calls

@@ -1,0 +1,271 @@
+"""Row invariance of the port's streaming encoder side, on the CPU.
+
+On the card the streaming encoder side's products take kernels whose rows'
+bits do not depend on how many rows share a call (ops/bf16_mm.py, the int4
+and int8 kernels' row-invariant plans), so that a stream's transcript does
+not depend on how its audio was chunked.  Here: the plans of those
+kernels take no row count while the decode plans stay as they were, the
+routing rule (models/decoder.py:_use_rowinv) sends the streaming calls and
+only those through them, and on tiny_config() the streaming ids of three
+chunkings equal each other (float32, equal to the JAX package's VoxStream
+too, and on the int8 rung).  The kernels themselves are checked on the
+card (tests/test_torch_cuda.py, chip_smoke.py's rowinv phase)."""
+
+import hashlib
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_audio
+from voxtral_tpu.config import tiny_config as jax_tiny_config
+from voxtral_tpu.runtime import engine as jeng
+from voxtral_tpu.runtime import stream as jstream
+from voxtral_tpu_torch.config import full_config, tiny_config
+from voxtral_tpu_torch.models import bulk_encode, decoder
+from voxtral_tpu_torch.models import encoder as enc_mod
+from voxtral_tpu_torch.models.fused_stream import ConvTails
+from voxtral_tpu_torch.models.params import from_jax_numpy, init_params
+from voxtral_tpu_torch.models.quant import quantize_params
+from voxtral_tpu_torch.ops import bf16_mm, quant_mm
+from voxtral_tpu_torch.runtime import engine as teng
+from voxtral_tpu_torch.runtime import stream as tstream
+from voxtral_tpu_torch.tokenizer import TekkenTokenizer
+
+torch.set_num_threads(1)
+
+# the products of the streaming encoder side at full width: (out, in)
+_E = full_config().encoder
+STREAM_SHAPES = {
+    "wqkv": (3 * _E.qkv_dim, _E.dim), "wo": (_E.dim, _E.qkv_dim),
+    "w13": (2 * _E.hidden, _E.dim), "w2": (_E.dim, _E.hidden),
+    "adapter_w0": (full_config().adapter_hidden, 4 * _E.dim),
+    "adapter_w1": (full_config().decoder.dim, full_config().adapter_hidden),
+    "conv0": (_E.dim, _E.conv_kernel * _E.n_mel),
+    "conv1": (_E.dim, _E.conv_kernel * _E.dim),
+}
+LAYER = ("wqkv", "wo", "w13", "w2")
+SMS = 132
+
+
+def _rowinv_plans():
+    """(name, plan function, its K argument from in, the plans' tile nj,
+    blocks_per_sm(nj, cs), smem(nj, cs), the K chunk) of each
+    row-invariant plan."""
+    return [
+        ("bf16", bf16_mm.bf16_mm_plan, lambda i: i, 8,
+         lambda nj, cs: bf16_mm.bf16_mm_blocks_per_sm(cs),
+         lambda nj, cs: bf16_mm.bf16_mm_smem(cs), bf16_mm.K_CHUNK),
+        ("int8", quant_mm.int8_mm_rowinv_plan, lambda i: i, 8,
+         quant_mm.int8_mm_blocks_per_sm, quant_mm.int8_mm_smem,
+         quant_mm.INT8_K_CHUNK),
+        ("int4", quant_mm.int4_mm_rowinv_plan, lambda i: i // 2, 4,
+         quant_mm.int4_mm_blocks_per_sm, quant_mm.int4_mm_smem,
+         quant_mm.K_CHUNK),
+    ]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_rowinv_plans_take_no_row_count(kind):
+    """Each row-invariant plan is a function of (out, K) and the card: no
+    row argument; one mma family for every product (bf16: the 64-row wgmma
+    tile, int8 and int4: their widest mma.sync decode tile, never the wgmma
+    prefill tile); a K split of 1..8 blocks of at least one chunk each; a
+    wave of clusters the card holds at once, in the shared memory an SM
+    has."""
+    _, plan_of, k_of, nj, per_sm, smem, chunk = next(
+        p for p in _rowinv_plans() if p[0] == kind)
+    params = list(inspect.signature(plan_of).parameters)
+    assert params[0] == "out" and "rows" not in params and len(params) == 3
+    names = STREAM_SHAPES if kind == "bf16" else LAYER
+    for name in names:
+        out, in_dim = STREAM_SHAPES[name]
+        plan = plan_of(out, k_of(in_dim), SMS)
+        chunks = -(-k_of(in_dim) // chunk)
+        assert plan.nj == nj and plan.nj != 16
+        assert 1 <= plan.cs <= min(8, chunks)
+        assert plan.per_sm == per_sm(nj, plan.cs) >= 1
+        assert plan.clusters * plan.cs <= SMS * plan.per_sm
+        assert plan.clusters >= 1 and plan.tiles >= 1
+        assert smem(nj, plan.cs) <= 233472 // plan.per_sm
+
+
+# the decode and prefill plans (int8_mm_plan, int4_mm_plan), pinned as
+# they were before the row-invariant plans came beside them, at the
+# decoder's products (out, in) for rows 1..128 and the prefills (38 rows
+# a stream): the sha256 of repr([(name, rows, int8 plan, int4 plan),
+# ...]); a few of them written out below
+DECODE_SHAPES = {"wqkv": (6144, 3072), "wo": (3072, 4096),
+                 "w13": (18432, 3072), "w2": (3072, 9216),
+                 "logits": (131072, 3072)}
+DECODE_ROWS = list(range(1, 129)) + [152, 304, 608, 1216, 2128, 3040]
+DECODE_PLANS_SHA256 = \
+    "364850ce47b4b4350bf0cc9ba2d00b3ac22ccd1f7c83eb9e50ab965d3d3b95d7"
+DECODE_PLANS = {  # (name, rows): (int8 plan, int4 plan)
+    ("wqkv", 16): ((2, 5, 96, 96, 4), (2, 6, 96, 96, 5)),
+    ("wo", 56): ((8, 5, 48, 48, 2), (4, 4, 96, 96, 3)),
+    ("w13", 1): ((2, 1, 288, 288, 4), (2, 2, 288, 288, 5)),
+    ("logits", 56): ((8, 1, 396, 2048, 3), (4, 1, 396, 4096, 3)),
+    ("w2", 2128): ((16, 1, 132, 408, 1), (16, 1, 132, 408, 1)),
+}
+
+
+def test_decode_plans_unchanged():
+    """The decode and prefill plans of the int8 and int4 kernels are the
+    pinned ones for every decoder product at every row count (the decode
+    path keeps its bits)."""
+    plans = [(name, r, tuple(quant_mm.int8_mm_plan(r, o, i)),
+              tuple(quant_mm.int4_mm_plan(r, o, i // 2)))
+             for name, (o, i) in DECODE_SHAPES.items() for r in DECODE_ROWS]
+    assert hashlib.sha256(repr(plans).encode()).hexdigest() == \
+        DECODE_PLANS_SHA256
+    for (name, r), (p8, p4) in DECODE_PLANS.items():
+        o, i = DECODE_SHAPES[name]
+        assert tuple(quant_mm.int8_mm_plan(r, o, i)) == p8
+        assert tuple(quant_mm.int4_mm_plan(r, o, i // 2)) == p4
+
+
+@pytest.mark.parametrize("cdtype,call,want", [
+    (torch.bfloat16, "stream", True),
+    (torch.float32, "stream", False),     # float32 witnesses keep torch.mm
+    (torch.bfloat16, "bulk", False),      # bulk encoder and window mode
+    (torch.float32, "bulk", False),
+])
+def test_rowinv_predicate(cdtype, call, want):
+    assert decoder._use_rowinv(cdtype, call) is want
+    if call == "stream":   # T == 1 takes the chunk attention on the route
+        assert enc_mod.chunk_attention(1, cdtype) is want
+    assert enc_mod.chunk_attention(2, cdtype) is True
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """Counts the calls that reach bf16_mm (and those whose weight is the
+    transpose view of a stored [in, out], `bf16_kn`), and the int8
+    products by their rowinv argument."""
+    seen = {"bf16": 0, "bf16_kn": 0, "int8_rowinv": 0, "int8_plain": 0}
+    real_bf16, real_int8 = bf16_mm.bf16_mm, quant_mm.int8_mm
+
+    def bf16(x, w):
+        seen["bf16"] += 1
+        assert x.is_contiguous()
+        # raises on a layout the kernel does not take
+        seen["bf16_kn"] += bf16_mm.weight_layout(w)
+        return real_bf16(x, w)
+
+    def int8(x, w, s, li, rowinv=False):
+        seen["int8_rowinv" if rowinv else "int8_plain"] += 1
+        return real_int8(x, w, s, li, rowinv=rowinv)
+
+    monkeypatch.setattr(bf16_mm, "bf16_mm", bf16)
+    monkeypatch.setattr(quant_mm, "int8_mm", int8)
+    return seen
+
+
+def _engine(cfg, params, **kw):
+    return teng.VoxtralEngine(cfg, params, buckets=(16, 4, 1),
+                              enc_kv_ring=64, dec_kv_ring=64, **kw)
+
+
+@pytest.mark.parametrize("encoder_int8", [False, True])
+def test_stream_calls_take_the_rowinv_route(calls, encoder_int8):
+    """bf16 tiny config: a fused chunk, and the unfused conv0/conv1/encode/
+    adapter calls, send every float product through bf16_mm (the conv
+    stem's two, four a layer, the adapter's two) or, with an int8 encoder,
+    its layer products to int8_mm on the row-invariant plan; the bulk
+    encoder and window mode send none.  The conv stem's weights are read
+    where the model holds them ([in, out], no copy).  Their rows equal the
+    plain functions' (the CPU wrappers take them)."""
+    cfg = tiny_config(compute_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device="cpu")
+    if encoder_int8:
+        params = quantize_params(params, decoder=False, bits=8)
+    eng = _engine(cfg, params)
+    e = cfg.encoder
+    layer = 0 if encoder_int8 else 4 * e.n_layers
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 16, e.n_mel)).astype(np.float32))
+
+    rows, _, _ = eng.fused_encode(mel, ConvTails.create(cfg),
+                                  eng.new_enc_cache(), 0)
+    assert calls["bf16"] == 2 + layer + 2 and calls["bf16_kn"] == 2
+    assert calls["int8_rowinv"] == (4 * e.n_layers if encoder_int8 else 0)
+    c0, _ = eng.conv0(mel, torch.zeros((1, 2, e.n_mel)))
+    c1, _ = eng.conv1(c0, torch.zeros((1, 2, e.dim), dtype=cfg.cdtype))
+    y, _ = eng.encode(c1, eng.new_enc_cache(), 0)
+    rows2 = eng.adapter(y)
+    assert calls["bf16"] == 2 * (2 + layer + 2)
+    assert torch.equal(rows, rows2)          # the same function, unfused
+    assert calls["int8_plain"] == 0
+    before = dict(calls)
+    bulk_encode.bulk_encode_clip(params["encoder"], params["adapter"], cfg,
+                                 mel)
+    xwin = torch.zeros((1, 8, e.dim), dtype=cfg.cdtype)
+    bulk_encode.window_encode_chunk(
+        params["encoder"], params["adapter"], cfg, mel,
+        torch.zeros((1, 2, e.n_mel)), torch.zeros((1, 2, e.dim),
+                                                  dtype=cfg.cdtype),
+        xwin, torch.zeros(1, dtype=torch.int32))
+    assert calls["bf16"] == before["bf16"]
+    assert calls["int8_rowinv"] == before["int8_rowinv"]
+
+
+def test_float32_streams_keep_torch_mm(calls):
+    """A float32 config (the witnesses) never takes the row-invariant
+    route."""
+    cfg = tiny_config()
+    eng = _engine(cfg, init_params(cfg, seed=0, device="cpu"))
+    mel = torch.zeros((1, 16, cfg.encoder.n_mel))
+    eng.fused_encode(mel, ConvTails.create(cfg), eng.new_enc_cache(), 0)
+    assert calls == {"bf16": 0, "bf16_kn": 0, "int8_rowinv": 0,
+                     "int8_plain": 0}
+
+
+# three chunkings of one clip, as chip_smoke.py's stream phase feeds it:
+# (feed samples, interval seconds or None for the default, fused)
+CHUNKINGS = {"1s_at_2s": (16000, None, True),
+             "0.5s_at_0.5s": (8000, 0.5, True),
+             "1s_at_2s_unfused": (16000, None, False)}
+AUDIO = make_audio(2.6, seed=29)
+
+
+def _ids(stream_cls, engine, feed_n, interval):
+    s = stream_cls(engine)
+    s.record_ids = True
+    if interval is not None:
+        s.set_processing_interval(interval)
+    for i in range(0, len(AUDIO), feed_n):
+        s.feed(AUDIO[i: i + feed_n])
+    s.finish()
+    return s.generated_ids
+
+
+@pytest.mark.parametrize("rung", ["float32", "int8"])
+def test_stream_ids_equal_across_chunkings(params, params_np, tiny_tokenizer,
+                                           rung):
+    """tiny_config() with the JAX package's weights: the streaming ids of
+    the three chunkings equal each other; in float32 they also equal the
+    JAX package's VoxStream fed the first way.  The int8 rung quantizes
+    the encoder's layers too (their products through int8_mm's
+    row-invariant route) and the decoder as the engine does."""
+    cfg = tiny_config()
+    tparams = from_jax_numpy(params_np)
+    tok = TekkenTokenizer([bytes([i]) for i in range(256)], 1000)
+    quantize = False
+    if rung == "int8":
+        tparams = quantize_params(tparams, decoder=False, bits=8)
+        quantize = "int8"
+    got = {name: _ids(tstream.VoxStream,
+                      _engine(cfg, tparams, tokenizer=tok,
+                              fused_streaming=fused, quantize=quantize),
+                      feed_n, interval)
+           for name, (feed_n, interval, fused) in CHUNKINGS.items()}
+    first = got["1s_at_2s"]
+    assert len(first) > 20
+    assert all(ids == first for ids in got.values())
+    if rung == "float32":
+        je = jeng.VoxtralEngine(jax_tiny_config(), params,
+                                tokenizer=tiny_tokenizer, buckets=(16, 4, 1),
+                                enc_kv_ring=64, dec_kv_ring=64)
+        assert _ids(jstream.VoxStream, je, 16000, None) == first

@@ -30,7 +30,7 @@ def _counted(kernel_fn, plain_fn, own=False):
     the phases reset and read (`own`: the stand-in's copy of it, for a
     wrapper the phases import by name)."""
     @functools.wraps(kernel_fn)
-    def f(*args, **kwargs):
+    def f(*args, rowinv=False, **kwargs):   # the int kernels' plan choice
         (f if own else kernel_fn).launches += 1
         return plain_fn(*args, **kwargs)
     return f
@@ -161,6 +161,30 @@ def test_int8_phase_on_cpu(counted_kernels):
     assert out["library_ms"] is None and "ms" not in out
     assert out["bound_by"] == "bytes" and out["bound_ms"] > 0
     assert quant_mm.int8_mm.launches == 0      # the phase resets its count
+
+
+def test_rowinv_phase_on_cpu(counted_kernels, monkeypatch):
+    """The rowinv phase at tiny width: the bf16 product on every product
+    of the streaming encoder side and the int8 and int4 kernels'
+    row-invariant plans on a layer's four, each checked at every row count
+    (the plain version against itself: error 0), no timing off the card,
+    and the counters it used reset."""
+    from voxtral_tpu_torch.ops import bf16_mm
+
+    monkeypatch.setattr(bf16_mm, "bf16_mm", _counted(
+        bf16_mm.bf16_mm, bf16_mm.bf16_mm_plain, own=True))
+    cfg = tiny_config(compute_dtype="bfloat16")
+    rows = (1, 2, 5, 24)
+    out = cs.phase_rowinv("cpu", cfg, rows_list=rows)
+    shapes = cs.rowinv_shapes(cfg)
+    assert out["checked"] == (len(shapes) + 2 * len(cs.ROWINV_LAYER)) \
+        * len(rows)
+    assert (out["max_abs_err_bf16"], out["max_abs_err_int8"],
+            out["max_abs_err_int4"]) == (0.0, 0.0, 0.0)
+    assert out["torch_mm_varies_at"] == {}
+    assert not any(k.endswith(f"_rows{n}") for k in out for n in rows)
+    assert (bf16_mm.bf16_mm.launches, quant_mm.int8_mm.launches,
+            quant_mm.int4_mm.launches) == (0, 0, 0)
 
 
 def test_stream_and_bstream_phases_on_cpu(counted_kernels):

@@ -37,11 +37,13 @@ PyTree = Any
 
 
 def _conv_stem(enc_params: PyTree, cfg: VoxtralConfig, mel: torch.Tensor,
-               mel_tail: torch.Tensor, c0_tail: torch.Tensor):
+               mel_tail: torch.Tensor, c0_tail: torch.Tensor, call: str):
     """conv0 + conv1 over one chunk with explicit boundary tails ->
-    (x [B, Tm//2, dim], new_mel_tail, new_c0_tail)."""
-    c0, mel_tail = conv0_chunk(enc_params, mel, mel_tail, cfg.cdtype)
-    x, c0_tail = conv1_chunk(enc_params, c0, c0_tail, cfg.cdtype)
+    (x [B, Tm//2, dim], new_mel_tail, new_c0_tail).  `call`: "bulk" (the
+    bulk encoder, window mode) or "stream" (the fused streaming chunk),
+    decoder._use_rowinv's."""
+    c0, mel_tail = conv0_chunk(enc_params, mel, mel_tail, cfg.cdtype, call)
+    x, c0_tail = conv1_chunk(enc_params, c0, c0_tail, cfg.cdtype, call)
     return x, mel_tail, c0_tail
 
 
@@ -105,9 +107,10 @@ def bulk_encode_clip(
         enc_params, cfg, mel,
         torch.zeros((bsz, 2, e.n_mel), dtype=mel.dtype, device=mel.device),
         torch.zeros((bsz, 2, e.dim), dtype=cfg.cdtype, device=mel.device),
+        "bulk",
     )
     y = bulk_transformer(enc_params, cfg, x)
-    return adapter_forward(adapter_params, cfg, y).float()
+    return adapter_forward(adapter_params, cfg, y, "bulk").float()
 
 
 # the batched whole-clip encode under the JAX package's name: the port's
@@ -157,12 +160,12 @@ def window_encode_chunk(
                          f"{tuple(mel.shape)}")
     wp = xwin.shape[1]
     c1, new_mel_tail, new_c0_tail = _conv_stem(enc_params, cfg, mel,
-                                               mel_tail, c0_tail)
+                                               mel_tail, c0_tail, "bulk")
     t = c1.shape[1]
     x_full = torch.cat([xwin, c1.to(xwin.dtype)], dim=1)   # [B, Wp + t, dim]
     n_ctx = n_ctx.to(device=mel.device, dtype=torch.int32)
     kv_lo = torch.clamp(wp - n_ctx, min=0)
     y = bulk_transformer(enc_params, cfg, x_full, kv_lo)[:, wp:]
-    rows = adapter_forward(adapter_params, cfg, y).float()
+    rows = adapter_forward(adapter_params, cfg, y, "bulk").float()
     return (rows, new_mel_tail, new_c0_tail, x_full[:, t:],
             torch.clamp(n_ctx + t, max=wp))

@@ -144,6 +144,22 @@ def _use_graph(cfg, cache, x: torch.Tensor, call: str) -> bool:
             and cache.graphs is not None and tp_of(cfg) is None)
 
 
+def _use_rowinv(cdtype, call: str) -> bool:
+    """Whether `call`'s products take the row-invariant kernels
+    (ops/bf16_mm.py, the int4 and int8 kernels' row-invariant plans),
+    whose rows' bits do not depend on how many rows share a call: the
+    streaming encoder side ("stream": the conv stem, the ring layers and
+    the adapter of a streaming chunk, whose row count follows the feed) in
+    a bf16 config, so that a stream's transcript does not depend on how its
+    audio was chunked (a T == 1 chunk then attends like any other,
+    encoder.chunk_attention).  Everything else keeps torch.mm: the bulk
+    encoder and window mode ("bulk": one chunk per clip, or a recompute by
+    design), the decoder (its row count is fixed per step), and float32
+    configs (the witnesses).  The device plays no part: on CPU tensors the
+    wrappers take their plain versions."""
+    return call == "stream" and cdtype == torch.bfloat16
+
+
 def _layer_step(
     cfg: DecoderConfig,
     cdtype,

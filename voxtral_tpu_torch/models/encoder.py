@@ -32,7 +32,19 @@ Chunk attention (EncoderConfig.attn_impl), for chunks of T > 1 rows after
     writes.
 Both compute the same function; decoder._use_flash holds the rule, for
 the bulk encoder too.  A T == 1 chunk writes its slot directly and takes
-`ring_attention`, as in the JAX package.
+`ring_attention`, as in the JAX package, but on the row-invariant route
+(below) it attends through the chunk path like any other chunk
+(`chunk_attention`), so that a row attends in the same order whatever the
+size of its chunk.
+
+Row invariance (decoder._use_rowinv): in a bf16 config the streaming side
+here (conv stem, ring layers, adapter) takes the products whose rows' bits
+do not depend on how many rows share a call (`quant.mm(rowinv=True)`,
+`quant.matmul_rows`), so that a stream's rows do not depend on how its
+audio was chunked.  torch's rms_norm already gives a row the same bits at
+every row count at the encoder's width (chip_smoke.py's rowinv phase
+checks it).  The bulk encoder passes call="bulk" to the functions it
+shares with the stream and keeps torch.mm.
 """
 
 from __future__ import annotations
@@ -49,8 +61,8 @@ from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
-from .decoder import _positions, _use_flash, _use_graph
-from .quant import matmul_f32, mm
+from .decoder import _positions, _use_flash, _use_graph, _use_rowinv
+from .quant import matmul_f32, matmul_rows, mm
 
 PyTree = Any
 
@@ -103,38 +115,51 @@ def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 
 def _conv(enc_params: PyTree, name: str, stride: int, x: torch.Tensor,
-          tail: torch.Tensor, cdtype):
+          tail: torch.Tensor, cdtype, call: str):
     xin = torch.cat([tail, x], dim=-2)
-    y = gelu(matmul_f32(_im2col(xin, 3, stride).to(cdtype),
-                        enc_params[f"{name}_w"]) + enc_params[f"{name}_b"])
+    cols = _im2col(xin, 3, stride).to(cdtype)
+    w = enc_params[f"{name}_w"]
+    y = (matmul_rows(cols, w.t()) if _use_rowinv(cdtype, call)
+         else matmul_f32(cols, w))
+    y = gelu(y + enc_params[f"{name}_b"])
     return y.to(cdtype), xin[..., -2:, :]
 
 
 def conv0_chunk(enc_params: PyTree, mel: torch.Tensor, tail: torch.Tensor,
-                cdtype):
+                cdtype, call: str = "stream"):
     """mel: [B, T, 128]; tail: [B, 2, 128] (zeros for the first chunk) ->
-    ([B, T, 1280] GELU'd conv0 output, new tail [B, 2, 128])."""
-    return _conv(enc_params, "conv0", 1, mel, tail, cdtype)
+    ([B, T, 1280] GELU'd conv0 output, new tail [B, 2, 128]).  `call`:
+    decoder._use_rowinv's ("bulk" from the bulk encoder)."""
+    return _conv(enc_params, "conv0", 1, mel, tail, cdtype, call)
 
 
 def conv1_chunk(enc_params: PyTree, feed: torch.Tensor, tail: torch.Tensor,
-                cdtype):
+                cdtype, call: str = "stream"):
     """feed: [B, F, 1280] (F even); tail: [B, 2, 1280] (zeros first) ->
     ([B, F//2, 1280], new tail [B, 2, 1280])."""
-    return _conv(enc_params, "conv1", 2, feed, tail, cdtype)
+    return _conv(enc_params, "conv1", 2, feed, tail, cdtype, call)
 
 
 # ---------------------------------------------------------------------------
 # Transformer
 # ---------------------------------------------------------------------------
 
+def chunk_attention(t: int, cdtype) -> bool:
+    """Whether a streaming encoder chunk of t rows takes the chunk path
+    (ring_chunk_write's attention: flash-encode where decoder._use_flash
+    allows): T > 1, and on the row-invariant route T == 1 too.  The
+    streams count these chunks (`n_enc_chunk_calls`)."""
+    return t > 1 or _use_rowinv(cdtype, "stream")
+
+
 def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
                     li: int, pos0, cos, sin):
     bsz, t, _ = x.shape
     qkv_dim = cfg.qkv_dim
+    ri = _use_rowinv(cdtype, "stream")
 
     xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
-    qkv = mm(xn, lp, "wqkv") + lp["bqkv"]
+    qkv = mm(xn, lp, "wqkv", ri) + lp["bqkv"]
     q = qkv[..., :qkv_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, cfg.n_kv_heads,
                                                cfg.head_dim)
@@ -148,7 +173,7 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
     else:
         _, _, k_ring, v_ring = ring_chunk_write(cache.k, cache.v, k, v, li,
                                                 pos0)
-    if t > 1 and _use_flash(cfg, k_ring):
+    if chunk_attention(t, cdtype) and _use_flash(cfg, k_ring):
         attn = flash_bulk_attention_batched(
             q.to(cdtype), k_ring, v_ring, pos0, window=cfg.window,
             out_dtype=cdtype)
@@ -158,12 +183,12 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
     attn = attn.reshape(bsz, t, qkv_dim)
     # row-parallel products: on a tp mesh, summed over the ranks in f32,
     # the bias added once after the sum (parallel/mesh.py)
-    x = x + (tp_sum(mm(attn, lp, "wo"), cfg) + lp["bo"]).to(x.dtype)
+    x = x + (tp_sum(mm(attn, lp, "wo", ri), cfg) + lp["bo"]).to(x.dtype)
 
     hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(cdtype)
-    g13 = mm(hn, lp, "w13")
+    g13 = mm(hn, lp, "w13", ri)
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
-    ffn = tp_sum(mm(gate.to(cdtype), lp, "w2"), cfg) + lp["b2"]
+    ffn = tp_sum(mm(gate.to(cdtype), lp, "w2", ri), cfg) + lp["b2"]
     return x + ffn.to(x.dtype)
 
 
@@ -210,14 +235,17 @@ def encode_chunk(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
 
 
 def adapter_forward(adapter_params: PyTree, cfg: VoxtralConfig,
-                    enc_out: torch.Tensor) -> torch.Tensor:
+                    enc_out: torch.Tensor, call: str = "stream"
+                    ) -> torch.Tensor:
     """[B, 4G, 1280] -> 4x downsample reshape -> MLP -> [B, G, 3072] in the
     compute dtype (voxtral_encoder.c:642-674, python:446-463).  No
     normalization.  On a tp mesh w0 is column- and w1 row-parallel, with
-    one sum over the ranks (parallel/mesh.py)."""
+    one sum over the ranks (parallel/mesh.py).  `call`:
+    decoder._use_rowinv's ("bulk" from the bulk encoder)."""
     cdtype = cfg.cdtype
+    ri = _use_rowinv(cdtype, call)
     *lead, t, dim = enc_out.shape
     g = t // DOWNSAMPLE_FACTOR
     ds = enc_out.reshape(*lead, g, DOWNSAMPLE_FACTOR * dim).to(cdtype)
-    h = gelu(mm(ds, adapter_params, "w0")).to(cdtype)
-    return tp_sum(mm(h, adapter_params, "w1"), cfg).to(cdtype)
+    h = gelu(mm(ds, adapter_params, "w0", ri)).to(cdtype)
+    return tp_sum(mm(h, adapter_params, "w1", ri), cfg).to(cdtype)

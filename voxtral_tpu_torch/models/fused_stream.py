@@ -54,7 +54,7 @@ def fused_encode_chunk(enc_params: PyTree, adapter_params: PyTree,
         raise ValueError(f"fused chunk of {mel.shape[1]} mel frames is not a "
                          "multiple of 8")
     x, mel_tail, c0_tail = _conv_stem(enc_params, cfg, mel, tails.mel_tail,
-                                      tails.c0_tail)
+                                      tails.c0_tail, "stream")
     y = encoder_layers(enc_params, cfg, x, cache, enc_pos)
     rows = adapter_forward(adapter_params, cfg, y)
     return rows, ConvTails(mel_tail, c0_tail), cache

@@ -210,7 +210,19 @@ def _mm4(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor,
     return y_lo * s[None, :, 0] + y_hi * s[None, :, 1]
 
 
-def mm(x: torch.Tensor, lp: PyTree, name: str) -> torch.Tensor:
+def matmul_rows(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`matmul_f32(a, w.t())` for a [..., k] and w [n, k] (contiguous, or
+    the transpose view of a contiguous [k, n]), each row's bits independent
+    of the row count on the card: `ops.bf16_mm.bf16_mm` (the row-invariant
+    route, models/decoder.py:_use_rowinv)."""
+    from ..ops import bf16_mm
+
+    a2 = a.reshape(-1, a.shape[-1]).contiguous()
+    return bf16_mm.bf16_mm(a2, w).reshape(*a.shape[:-1], w.shape[0])
+
+
+def mm(x: torch.Tensor, lp: PyTree, name: str,
+       rowinv: bool = False) -> torch.Tensor:
     """einsum('td,od->to') with int8/int4 dequantization: x [..., in] @
     lp[name].T -> f32 [..., out].
 
@@ -219,13 +231,18 @@ def mm(x: torch.Tensor, lp: PyTree, name: str) -> torch.Tensor:
     and int8 products go to `ops.quant_mm.int4_mm` / `int8_mm` (kernels on
     CUDA).  One layer of a contiguous stacked weight is a zero-copy view, so
     the port passes it as a one-layer stack with li=0 (the JAX package
-    keeps the whole stack out of its layer scan instead)."""
+    keeps the whole stack out of its layer scan instead).  `rowinv`: the
+    row-invariant route (the int kernels' row-invariant plans, float
+    weights through `matmul_rows`)."""
     w = lp[name]
     s = lp.get(name + "_scale")
     if s is not None and w.dtype == torch.int8:
         from ..ops import quant_mm
 
         fn = quant_mm.int4_mm if _is_packed4(w, s) else quant_mm.int8_mm
-        y = fn(x.reshape(-1, x.shape[-1]), w[None], s[None], 0)
+        y = fn(x.reshape(-1, x.shape[-1]).contiguous(), w[None], s[None], 0,
+               rowinv=rowinv)
         return y.reshape(*x.shape[:-1], w.shape[0])
+    if rowinv:
+        return matmul_rows(x, w)
     return matmul_f32(x, w.t())

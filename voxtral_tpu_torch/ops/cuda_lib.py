@@ -3,8 +3,8 @@
 The sources in `voxtral_tpu_torch/csrc/*.cu` expose plain C entry points;
 headers there (`*.cuh`: `attn_tile.cuh` and `attn_f32.cuh`, the bf16
 and float32 attention shared by the banded and flash-encode kernels, and
-`quant_mm.cuh`, the PTX wrappers of the int4 and int8 products) are
-included, not linked.  On first
+`quant_mm.cuh`, the PTX wrappers of the int4, int8 and bf16 products)
+are included, not linked.  On first
 use each `.cu` is compiled with `nvcc` for `sm_90a` (Hopper) into its own
 object, all at once in parallel, and linked into one shared library under
 `voxtral_tpu_torch/build/<digest>/` (ignored by git), then loaded with
@@ -113,6 +113,10 @@ def kernels() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.vt_bf16_mm.restype = i
+            lib.vt_bf16_mm.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            lib.vt_bf16_mm_occupancy.restype = i
+            lib.vt_bf16_mm_occupancy.argtypes = [i, i, i]
             lib.vt_banded_attention.restype = i
             lib.vt_banded_attention.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, i, p,

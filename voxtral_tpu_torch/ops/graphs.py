@@ -62,13 +62,15 @@ import torch
 def counted_wrappers() -> tuple:
     """The kernel wrappers whose `launches` attribute counts launches."""
     from .banded_encode import banded_attention_batched
+    from .bf16_mm import bf16_mm
     from .flash_decode import flash_decode
     from .flash_encode import flash_bulk_attention_batched
     from .quant_mm import int4_mm, int8_mm
     from .ring import ring_rows_write
 
     return (banded_attention_batched, flash_decode,
-            flash_bulk_attention_batched, int4_mm, int8_mm, ring_rows_write)
+            flash_bulk_attention_batched, int4_mm, int8_mm, ring_rows_write,
+            bf16_mm)
 
 
 def _counts() -> list[int]:

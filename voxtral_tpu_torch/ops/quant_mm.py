@@ -19,7 +19,11 @@ one byte a weight and one f32 scale per output row, y = (x @ w.T) * s.
     and contiguous operands (int4: an input dim that is a multiple of 32,
     int8: of 128) and raise on anything else.  One launch per call, on the
     plan of `int4_mm_plan` / `int8_mm_plan` (tile, K split over a
-    thread-block cluster, clusters), a function of the shapes alone.
+    thread-block cluster, clusters), a function of the shapes alone; with
+    `rowinv` (the streaming encoder side, models/decoder.py:_use_rowinv)
+    on `int4_mm_rowinv_plan` / `int8_mm_rowinv_plan`, a function of
+    (out, K) and the card without the row count, so that a row's bits do
+    not depend on how many rows share the call.
   * CPU tensors take `int4_mm_plain` (the JAX package's `_mm4`) or
     `int8_mm_plain` (the JAX expression: the weights widened to x's dtype,
     one f32-result product, the row scales).
@@ -125,6 +129,23 @@ def _plan(rows: int, out: int, chunks: int, tiles_table: dict,
     return MmPlan(nj, cs, min(n_tiles, sms * per_sm // cs), n_tiles, per_sm)
 
 
+def _rowinv_plan(out: int, chunks: int, tiles_table: dict, blocks_per_sm,
+                 sms: int) -> MmPlan:
+    """The row-invariant launch of a weight-only product of `chunks` K
+    chunks at ANY row count: one tile and one K split for every row count,
+    so that a row's sums are taken in the same order however many rows
+    share the call.  The tile is the widest decode tile (mma.sync; the
+    wgmma prefill tile would round a k16 step otherwise), the split fills
+    about one wave with the tiles of one row tile (`tiles`), and a full
+    wave of clusters walks the tiles (those past the last tile exit)."""
+    nj = max(k for k in tiles_table if k != 16)
+    col_tiles = -(-out // tiles_table[nj][0])
+    cs = max(1, min(MAX_CLUSTER, chunks,
+                    sms * blocks_per_sm(nj, 2) // col_tiles))
+    per_sm = blocks_per_sm(nj, cs)
+    return MmPlan(nj, cs, sms * per_sm // cs, col_tiles, per_sm)
+
+
 def _splits(width: int, chunk: int, cs: int) -> list[tuple[int, int]]:
     """The column ranges [lo, hi) of the cs blocks of a K split of `width`
     columns in chunks of `chunk`: contiguous runs of chunks, rank order (the
@@ -140,6 +161,14 @@ def int4_mm_plan(rows: int, out: int, half: int, sms: int = 132) -> MmPlan:
     (`_plan`, in K chunks of K_CHUNK packed columns)."""
     return _plan(rows, out, -(-half // K_CHUNK), _TILES,
                  int4_mm_blocks_per_sm, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def int4_mm_rowinv_plan(out: int, half: int, sms: int = 132) -> MmPlan:
+    """csrc/int4_mm.cu's row-invariant launch for an [any, 2 half] x
+    [out, half] product (`_rowinv_plan`)."""
+    return _rowinv_plan(out, -(-half // K_CHUNK), _TILES,
+                        int4_mm_blocks_per_sm, sms)
 
 
 def int4_mm_splits(half: int, cs: int) -> list[tuple[int, int]]:
@@ -180,8 +209,9 @@ def _check_operands(what: str, x, **tensors) -> None:
             raise ValueError(f"{what} kernel: {name} not 16-byte aligned")
 
 
-def int4_mm(x, p_all, s_all, li: int):
-    """f32 [rows, out] = x @ unpack(p_all[li]).T with per-half scales."""
+def int4_mm(x, p_all, s_all, li: int, rowinv: bool = False):
+    """f32 [rows, out] = x @ unpack(p_all[li]).T with per-half scales
+    (`rowinv`: on the row-invariant plan)."""
     if x.device.type == "cpu":
         return int4_mm_plain(x, p_all, s_all, li)
     if x.device.type != "cuda":
@@ -207,7 +237,9 @@ def int4_mm(x, p_all, s_all, li: int):
     out = torch.empty((rows, out_dim), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
-    plan = int4_mm_plan(rows, out_dim, half, cuda_lib.sm_count(x.device))
+    sms = cuda_lib.sm_count(x.device)
+    plan = (int4_mm_rowinv_plan(out_dim, half, sms) if rowinv
+            else int4_mm_plan(rows, out_dim, half, sms))
     err = cuda_lib.kernels().vt_int4_mm(
         x.data_ptr(), p_all.data_ptr(), s_all.data_ptr(), out.data_ptr(),
         rows, out_dim, half, li, plan.nj, plan.cs, plan.clusters,
@@ -251,6 +283,14 @@ def int8_mm_plan(rows: int, out: int, in_dim: int, sms: int = 132) -> MmPlan:
                  int8_mm_blocks_per_sm, sms)
 
 
+@functools.lru_cache(maxsize=None)
+def int8_mm_rowinv_plan(out: int, in_dim: int, sms: int = 132) -> MmPlan:
+    """csrc/int8_mm.cu's row-invariant launch for an [any, in] x [out, in]
+    product (`_rowinv_plan`)."""
+    return _rowinv_plan(out, -(-in_dim // INT8_K_CHUNK), _TILES8,
+                        int8_mm_blocks_per_sm, sms)
+
+
 def int8_mm_splits(in_dim: int, cs: int) -> list[tuple[int, int]]:
     """The column ranges [lo, hi) of the cs blocks of the int8 kernel's K
     split: contiguous runs of K chunks, rank order (the kernel's c_lo)."""
@@ -276,8 +316,9 @@ def int8_mm_split_plain(x, w_all, s_all, li: int, cs: int):
     return acc * s_all[li]
 
 
-def int8_mm(x, w_all, s_all, li: int):
-    """f32 [rows, out] = (x @ w_all[li].T) * s_all[li]."""
+def int8_mm(x, w_all, s_all, li: int, rowinv: bool = False):
+    """f32 [rows, out] = (x @ w_all[li].T) * s_all[li] (`rowinv`: on the
+    row-invariant plan)."""
     if x.device.type == "cpu":
         return int8_mm_plain(x, w_all, s_all, li)
     if x.device.type != "cuda":
@@ -303,7 +344,9 @@ def int8_mm(x, w_all, s_all, li: int):
     out = torch.empty((rows, out_dim), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
-    plan = int8_mm_plan(rows, out_dim, in_dim, cuda_lib.sm_count(x.device))
+    sms = cuda_lib.sm_count(x.device)
+    plan = (int8_mm_rowinv_plan(out_dim, in_dim, sms) if rowinv
+            else int8_mm_plan(rows, out_dim, in_dim, sms))
     err = cuda_lib.kernels().vt_int8_mm(
         x.data_ptr(), w_all.data_ptr(), s_all.data_ptr(), out.data_ptr(),
         rows, out_dim, in_dim, li, plan.nj, plan.cs, plan.clusters,

@@ -209,7 +209,9 @@ class BatchedTranscriber:
         self.decode_steps = 0
         self.decode_time = 0.0
         self.encode_time = 0.0
-        self.n_enc_chunk_calls = 0    # bencode calls with T > 1
+        # bencode calls that take the chunk attention (encoder.py
+        # chunk_attention: T > 1, any T on the row-invariant route)
+        self.n_enc_chunk_calls = 0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -247,7 +249,7 @@ class BatchedTranscriber:
                 torch.full((self.b,), self.enc_pos, dtype=torch.int32,
                            device=self.device))
             self.enc_pos += b
-            self.n_enc_chunk_calls += b > 1
+            self.n_enc_chunk_calls += enc_mod.chunk_attention(b, cfg.cdtype)
             self.enc_backlog.append(y)
         avail_e = sum(a.shape[1] for a in self.enc_backlog)
         for g in decompose(avail_e // 4, eng.buckets):

@@ -36,6 +36,7 @@ from ..config import (
     TOKEN_STREAMING_PAD,
     n_right_pad_tokens,
 )
+from ..models.encoder import chunk_attention
 from ..models.fused_stream import ConvTails
 from ..native import make_mel_context
 from ..tokenizer import TekkenTokenizer
@@ -137,8 +138,10 @@ class VoxStream:
         self.n_text_tokens = 0
         self.n_control_tokens = 0
         self.n_invalid_tokens = 0
-        # encoder calls with T > 1 rows (each runs one flash-encode launch
-        # per layer on the card) and decode steps run (one flash-decode
+        # encoder calls that take the chunk attention (T > 1 rows, any T
+        # on the row-invariant route: models/encoder.py chunk_attention;
+        # each runs one flash-encode launch per layer on the card) and
+        # decode steps run (one flash-decode
         # launch per layer each; a burst cut short by EOS still ran them
         # all), for launch accounting
         self.n_enc_chunk_calls = 0
@@ -224,7 +227,8 @@ class VoxStream:
                     mel[:, i: i + q], self._tails, self.enc_cache,
                     self.enc_pos)
                 self.enc_pos += q // 2
-                self.n_enc_chunk_calls += q // 2 > 1
+                self.n_enc_chunk_calls += chunk_attention(q // 2,
+                                                          eng.cfg.cdtype)
                 # rows stay on the device; nothing here waits for it
                 # (encoder_ms is issue time, not device time)
                 self.adapter_q.append(rows)
@@ -272,7 +276,7 @@ class VoxStream:
             enc_out, self.enc_cache = eng.encode(c1_out, self.enc_cache,
                                                  self.enc_pos)
             self.enc_pos += b
-            self.n_enc_chunk_calls += b > 1
+            self.n_enc_chunk_calls += chunk_attention(b, eng.cfg.cdtype)
             self._enc_backlog.append(enc_out)
 
         # adapter on groups of 4 (leftover 0-3 stays in the backlog,
