@@ -28,11 +28,14 @@ script exits non-zero:
                shape (H=32, KH=8, D=128, L=26), with and without the row
                write, fp8, bf16 and f32 rings (bit-equal rings), up to the
                serve phase's B=16 rings of 896 slots, two calls bitwise
-               equal, and the bench's B=64 bf16 and B=80 fp8 rings; its
-               times, bound and SDPA's at the slice shape (B=1 cap 512 pos
-               300), the serve shape (B=16 cap 896, mixed positions around
-               500) in bf16 and fp8, and the bench's B=64 bf16 and B=80
-               fp8
+               equal, every mapping of its batch-free split (1 .. S blocks
+               per cluster) bitwise equal, stream 0 alone bitwise equal to
+               stream 0 in the batch, and the bench's B=64 bf16 and B=80
+               fp8 rings; its times (against the parent's batch-dependent
+               plan, parent_flash_plan, in turns), bound and SDPA's at the
+               slice shape (B=1 cap 512 pos 300) in bf16 and fp8, the serve
+               shape (B=16 cap 896, mixed positions around 500) in bf16
+               and fp8, and B=64 (bf16, fp8) and B=80 fp8
   5. flash_enc kernel (E) against its plain version at the full-width
                streaming-encoder shape (H=KH=32, D=64, stacked rings of
                1024 and 1000 slots, window 750) for B in {1, 16}, T from 4
@@ -81,7 +84,10 @@ script exits non-zero:
                torch's rms_norm gives none (gated); graph-replay times of
                bf16_mm (both ways) against torch.mm(out_dtype=f32), of the
                int kernels' row-invariant plans against their row-count
-               plans, with bounds
+               plans, with bounds; torch's rms_norm also at the decoder's
+               width (rows 1..80 and B x 38), gated; bf16_mm on the
+               decoder's five products (rows 1..2432 bitwise invariant,
+               times at 16, 56, 64 rows against torch.mm and bound)
   8. slice    full_config() bf16 with seeded random weights: three
                synthetic clips through transcribe_offline_ids on one
                VoxtralEngine, with launch counts, timings and checks
@@ -118,8 +124,15 @@ script exits non-zero:
                equal
  11. bstream  BatchedTranscriber at B=16 x 30 s, 200-frame intervals,
                decoder ring 896: exact launch counts, aggregate x realtime,
-               stream 0 against a B=1 VoxStream (ids, and its encoder
-               side's rows by position)
+               stream 0 against a B=1 VoxStream of the same clip, gated:
+               the same ids, its encoder side's rows and its decoder's K/V
+               rows by position bit-equal
+ 11b. batchinv stream 0's graphed decode step at B = 1, 3, 16, 64 on
+               bf16, fp8kv, int8 and int4: logits and K/V rows bit-equal
+               to B=1's, its prefill alone against inside B = 4 and 64
+               (gated), and, on the parent's route in the same call, where
+               the rows part (decoder_probe); the graphed step at B = 16,
+               56, 64 and the B=64 prefill timed on both routes
  12. jacobi   the 30 s clip of the slice through transcribe_offline_ids at
                B=1 with decode_mode "auto" (Jacobi for the 64-row bursts)
                and "sequential": exact launch counts, tokens per
@@ -131,8 +144,7 @@ script exits non-zero:
                with a 0.4 s gate, 2 rounds of 16 ticks, one slot churning:
                exact launch counts, tick p50/p90, tokens and bursts per
                tick, the encode/decode split, peak memory, slot 0 against a
-               B=1 VoxStream fed the same audio (ids, and its encoder side's
-               rows by position)
+               B=1 VoxStream fed the same audio, gated as bstream's
  14. pool_window the StreamPool in window mode: 32 slots, fp8 decoder ring
                1024, -I 2.0, 2 rounds of 8 ticks, the same churn (banded
                attention at B=32 with per-slot kv_lo); slot 0 against the
@@ -140,7 +152,7 @@ script exits non-zero:
  15. mesh     multi-device serving with ranks spawned on this one card,
                joined over gloo (NCCL takes one card per rank): (a) the
                full-width serve pipeline (bulk encode, batched prefill,
-               decode bursts) of 4 x 10 s clips at dp 1 x tp 2 against the
+               decode bursts) of 4 x 5 s clips at dp 1 x tp 2 against the
                same clips unsharded: exact launches per rank (banded at 16
                heads, flash-decode at 16q/4kv), the prefill's last hidden
                state against an f32 witness of the same clips within
@@ -234,7 +246,7 @@ NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
                     "flash_decode_kernel", "int4_mm_kernel",
                     "banded_attention_f32_kernel", "flash_encode_f32_kernel",
                     "int8_mm_kernel", "int8_mm_wgmma_kernel",
-                    "bf16_mm_kernel")
+                    "bf16_mm_kernel", "rms_norm_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
 # their max magnitude
@@ -672,8 +684,18 @@ def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int,
         def kern():
             flash_decode(q, k_all, v_all, li, pos, *r, **kw)
 
+        def parent():
+            with flash_plan(parent_flash_plan):
+                kern()
+
         out[f"ms{mode}"] = cuda_ms(kern, 50)
-        out[f"device_ms{mode}"] = graph_ms(kern, 20)
+        # the plan against the parent's (parent_flash_plan), in turns
+        dev = {"": [], "_parent": []}
+        for tag, fn in (("_parent", parent), ("", kern), ("", kern),
+                        ("_parent", parent)):
+            dev[tag].append(graph_ms(fn, 20))
+        for tag, v in dev.items():
+            out[f"device_ms{tag}{mode}"] = float(np.mean(v))
         out[f"plain_ms{mode}"] = cuda_ms(lambda: flash_decode_plain(
             q, k_all, v_all, li, pos, *r, **kw), 10)
     out["library_ms"] = None       # SDPA takes no fp8 operands
@@ -694,13 +716,52 @@ def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int,
     return out
 
 
+# flash: plans timed against each other at the serve and bench shapes
+# (ranges x slots, blocks per cluster): the split's cost by range count
+FLASH_SWEEP = ((1, 896, 1), (2, 448, 1), (4, 256, 1), (7, 128, 1),
+               (7, 128, 7))
+
+
+def _flash_plan_sweep(gen, window: int = 8192) -> dict:
+    """Kernel (B)'s device ms (graph replay, write + attend, bf16 ring of
+    896 slots, positions around 500) at B=16 and 64 under each plan of
+    FLASH_SWEEP: what a range costs when one block walks them, and what
+    the cluster mapping costs where it passes a wave."""
+    import torch
+
+    from voxtral_tpu_torch.ops.flash_decode import FlashPlan, flash_decode
+
+    out = {}
+    for bsz in (16, 64):
+        shape = (bsz, 26, 8, 896, 128)
+        k_all = _randn(gen, shape, torch.bfloat16)
+        v_all = _randn(gen, shape, torch.bfloat16)
+        q = _randn(gen, (bsz, 32, 128), torch.bfloat16)
+        rows = [_randn(gen, (bsz, 8, 128), torch.float32) for _ in range(2)]
+        pos = torch.tensor([500 + 13 * (i % 16 - 8) for i in range(bsz)],
+                           dtype=torch.int32, device="cuda")
+        for plan in FLASH_SWEEP:
+            with flash_plan(lambda *a, p=plan: FlashPlan(*p)):
+                out[f"b{bsz}_{'x'.join(map(str, plan))}"] = graph_ms(
+                    lambda: flash_decode(q, k_all, v_all, 25, pos, *rows,
+                                         window=window,
+                                         out_dtype=torch.bfloat16), 20)
+        del k_all, v_all
+        log("flash", f"plans at B={bsz} bf16 cap 896 (ranges x slots x "
+                     f"blocks per cluster: device ms): " + ", ".join(
+                         f"{k[len(f'b{bsz}_'):]} {v:.4f}"
+                         for k, v in out.items()
+                         if k.startswith(f"b{bsz}_")))
+    return out
+
+
 def phase_flash() -> dict:
     import torch
 
     from voxtral_tpu_torch.ops.flash_decode import (
         flash_decode,
         flash_decode_plain,
-        flash_decode_splits,
+        flash_decode_plan,
     )
 
     gen = torch.Generator(device="cuda")
@@ -744,6 +805,27 @@ def phase_flash() -> dict:
             got_w = flash_decode(q, kk, vk, li, pos, k_rows, v_rows, **kw)
             again_w = flash_decode(q, kk2, vk2, li, pos, k_rows, v_rows,
                                    **kw)
+            # every mapping of the split (1 .. S blocks per cluster) gives
+            # the same bits, attend and write + attend (uncounted); stream
+            # 0 alone gives its bits inside the batch (before the plain
+            # version writes the rows into k_all, v_all)
+            plan = flash_decode_plan(min(cap, window), bsz, kh)
+            maps_equal = True
+            for c in range(1, plan.splits + 1):
+                with flash_plan(lambda *a, c=c: plan._replace(cluster=c)):
+                    m = flash_decode(q, k_all, v_all, li, pos, **kw)
+                    km, vm = k_all.clone(), v_all.clone()
+                    m_w = flash_decode(q, km, vm, li, pos, k_rows, v_rows,
+                                       **kw)
+                maps_equal &= (torch.equal(m, got) and torch.equal(m_w, got_w)
+                               and torch.equal(km.view(torch.uint8),
+                                               kk.view(torch.uint8)))
+                del km, vm
+            n0 = flash_decode.launches
+            alone = flash_decode(q[:1], k_all[:1], v_all[:1], li, pos[:1],
+                                 **kw)
+            flash_decode.launches = n0
+            alone_equal = torch.equal(alone[0], got[0])
             want_w = flash_decode_plain(q, kp, vp, li, pos, k_rows, v_rows,
                                         **kw)
             torch.cuda.synchronize()
@@ -754,43 +836,64 @@ def phase_flash() -> dict:
                 for a, b in ((kk, kp), (vk, vp), (kk2, kp), (vk2, vp)))
             same = torch.equal(got, again) and torch.equal(got_w, again_w)
             worst = max(worst, err)
-            ok = err <= FLASH_TOL and rings_equal and same
+            ok = (err <= FLASH_TOL and rings_equal and same and maps_equal
+                  and alone_equal)
             log("flash", f"{str(rdt)[6:]} B={bsz} cap={cap} pos={pos_l[:3]} "
-                         f"splits={flash_decode_splits(min(cap, window), bsz, kh)}"
+                         f"splits={plan.splits}x{plan.chunk} "
+                         f"cluster={plan.cluster}"
                          f": max_abs_err {err:.3e} (tol {FLASH_TOL}), rings "
                          f"{'bit-equal' if rings_equal else 'DIFFER'}, two "
-                         f"calls {'bitwise equal' if same else 'DIFFER'} "
+                         f"calls {'bitwise equal' if same else 'DIFFER'}, "
+                         f"mappings 1..{plan.splits} "
+                         f"{'bitwise equal' if maps_equal else 'DIFFER'}, "
+                         f"stream 0 alone "
+                         f"{'bitwise equal' if alone_equal else 'DIFFERS'} "
                          f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"[flash] {rdt} B={bsz} cap={cap} "
                                      f"pos={pos_l} err {err} rings "
-                                     f"{rings_equal} deterministic {same}")
+                                     f"{rings_equal} deterministic {same} "
+                                     f"mappings {maps_equal} alone "
+                                     f"{alone_equal}")
             del k_all, v_all, kk, vk, kk2, vk2, kp, vp
     # times: the slice shape (B=1, a 30 s clip's ring of 512 mid-clip, bf16)
     # and the serve shape (B=16, ring 896, positions around 500) in bf16 and
     # fp8
     serve_pos = [500 + 13 * (i % 16 - 8) for i in range(80)]
     shapes = {"": (1, 512, [300], torch.bfloat16),
+              "_b1_fp8": (1, 512, [300], torch.float8_e4m3fn),
               "_b16_bf16": (16, 896, serve_pos[:16], torch.bfloat16),
               "_b16_fp8": (16, 896, serve_pos[:16], torch.float8_e4m3fn),
               "_bench_b64_bf16": (64, 896, serve_pos[:64], torch.bfloat16),
+              "_b64_fp8": (64, 896, serve_pos[:64], torch.float8_e4m3fn),
               "_bench_b80_fp8": (80, 896, serve_pos, torch.float8_e4m3fn)}
     out = {"max_abs_err": worst, "deterministic": True,
+           "mappings_equal": True, "batch_invariant": True,
            "replaces_also": ["voxtral_tpu/ops/flash_decode.py:44",
                              "voxtral_tpu/ops/flash_decode.py:124"]}
     for tag, (bsz, cap, pos_l, rdt) in shapes.items():
         tm = _flash_times(gen, bsz, cap, pos_l, rdt, window)
         out.update({f"{k}{tag}": v for k, v in tm.items()})
-        out[f"splits{tag}"] = flash_decode_splits(min(cap, window), bsz, kh)
+        plan = flash_decode_plan(min(cap, window), bsz, kh)
+        out[f"plan{tag}"] = list(plan)
+        out[f"parent_plan{tag}"] = list(parent_flash_plan(min(cap, window),
+                                                          bsz, kh))
         lib = tm["library_ms"]
-        log("flash", f"B={bsz} {str(rdt)[6:]} cap={cap} pos={pos_l[:3]}..: "
+        log("flash", f"B={bsz} {str(rdt)[6:]} cap={cap} pos={pos_l[:3]}.. "
+                     f"plan {tuple(plan)} (parent's "
+                     f"{tuple(out[f'parent_plan{tag}'])}): "
                      f"write+attend kernel {tm['ms']:.4f} ms (device "
-                     f"{tm['device_ms']:.4f}), plain {tm['plain_ms']:.4f}; "
+                     f"{tm['device_ms']:.4f}, parent's plan "
+                     f"{tm['device_ms_parent']:.4f}; attend "
+                     f"{tm['device_ms_attend']:.4f} against "
+                     f"{tm['device_ms_parent_attend']:.4f}), plain "
+                     f"{tm['plain_ms']:.4f}; "
                      f"attend kernel {tm['ms_attend']:.4f} (device "
                      f"{tm['device_ms_attend']:.4f}), plain "
                      f"{tm['plain_ms_attend']:.4f}; SDPA (attend) "
                      f"{'none' if lib is None else f'{lib:.4f}'} ms; bound "
                      f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
+    out["plan_sweep"] = _flash_plan_sweep(gen, window)
     flash_decode.launches = 0
     return out
 
@@ -1630,6 +1733,7 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
     def run(samples):
         banded_attention_batched.launches = 0
         flash_decode.launches = 0
+        _zero_rowinv()
         if on_gpu:
             torch.cuda.reset_peak_memory_stats()
         sync()
@@ -1639,15 +1743,16 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
         sync()
         wall = time.monotonic() - w0
         return ids, stats, wall, (banded_attention_batched.launches,
-                                  flash_decode.launches)
+                                  flash_decode.launches,
+                                  *_rowinv_launches().values())
 
     # warm-up outside the measured runs (cuBLAS handles, allocator)
     run(clips[0][:SAMPLE_RATE])
     per_clip = []
     first_ids = None
-    counts_total = [0, 0]
+    counts_total = [0, 0, 0, 0]
     for i, samples in enumerate(clips):
-        ids, st, wall, (na, nb) = run(samples)
+        ids, st, wall, (na, nb, nh, nn) = run(samples)
         dur = len(samples) / SAMPLE_RATE
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         steps = st["decode_steps"]
@@ -1661,8 +1766,19 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
         if nb != cfg.decoder.n_layers * steps:
             raise AssertionError(f"[slice] clip {i}: flash launches {nb} != "
                                  f"{cfg.decoder.n_layers} x {steps} steps")
+        # the decoder's products: 4 a layer of the prefill, 4 a layer and
+        # the table a step; its norms 2 a layer, and the final norm a step
+        nl = cfg.decoder.n_layers
+        want_h = (4 * nl + (4 * nl + 1) * steps) * _dec_route(cfg, on_gpu)
+        want_n = (2 * nl + (2 * nl + 1) * steps) * _dec_route(cfg, on_gpu)
+        if (nh, nn) != (want_h, want_n):
+            raise AssertionError(f"[slice] clip {i}: bf16_mm and "
+                                 f"rms_norm_rows launches {nh}, {nn} != "
+                                 f"{want_h}, {want_n}")
         counts_total[0] += na
         counts_total[1] += nb
+        counts_total[2] += nh
+        counts_total[3] += nn
         n_text = sum(t >= TOKEN_TEXT_MIN for t in ids)
         rec = {
             "clip_s": dur, "tokens": len(ids), "text_tokens": n_text,
@@ -1671,6 +1787,7 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
             "decode_ms_per_step": st["decode_s"] * 1e3 / max(steps, 1),
             "x_realtime": dur / wall, "peak_gib": peak / 2**30,
             "banded_launches": na, "flash_launches": nb,
+            "bf16_mm_launches": nh, "rms_norm_launches": nn,
         }
         per_clip.append(rec)
         log("slice", f"clip {i} ({dur:.1f} s): {len(ids)} ids "
@@ -1679,10 +1796,12 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
                      f"{rec['prefill_ms']:.2f} ms, decode "
                      f"{rec['decode_ms_per_step']:.3f} ms/step, "
                      f"{rec['x_realtime']:.2f}x realtime, peak "
-                     f"{rec['peak_gib']:.2f} GiB; launches A={na} B={nb}")
+                     f"{rec['peak_gib']:.2f} GiB; launches A={na} B={nb} "
+                     f"bf16_mm={nh} rms_norm={nn}")
         if first_ids is None:
             first_ids = ids
     again, _, _, _ = run(clips[0])
+    _zero_rowinv()
     if again != first_ids:
         raise AssertionError("[slice] second run of clip 0 gave other ids")
     log("slice", "second run of clip 0: identical ids")
@@ -1713,6 +1832,7 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
         raise AssertionError(f"[slice] decoder step rel err {step_err}")
     banded_attention_batched.launches = 0
     flash_decode.launches = 0
+    _zero_rowinv()
     return {"clips": per_clip, "launches": counts_total,
             "step_rel_err": step_err}
 
@@ -1755,21 +1875,27 @@ def _uncounted(plain):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Routes the decoder's int4 and int8 products and decode-step row
-    writes to their plain PyTorch versions for the duration (the reference
-    side of a kernel-path check; attn_impl="xla" keeps flash-decode,
-    flash-encode and the bulk encoder's banded kernel off)."""
+    """Routes the decoder's products (int4, int8 and the row-invariant
+    bf16), its norms and decode-step row writes to their plain PyTorch
+    versions for the duration (the reference side of a kernel-path check;
+    attn_impl="xla" keeps flash-decode, flash-encode and the bulk
+    encoder's banded kernel off)."""
     from voxtral_tpu_torch.models import decoder as dec_mod
-    from voxtral_tpu_torch.ops import quant_mm, ring
+    from voxtral_tpu_torch.ops import bf16_mm, quant_mm, ring
+    from voxtral_tpu_torch.ops.norms import rms_norm
 
-    saved = (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write)
+    saved = (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write,
+             bf16_mm.bf16_mm, dec_mod.rms_norm_rows)
     quant_mm.int4_mm = _uncounted(quant_mm.int4_mm_plain)
     quant_mm.int8_mm = _uncounted(quant_mm.int8_mm_plain)
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
+    bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
+    dec_mod.rms_norm_rows = _uncounted(rms_norm)
     try:
         yield
     finally:
-        quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write = saved
+        (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write,
+         bf16_mm.bf16_mm, dec_mod.rms_norm_rows) = saved
 
 
 def _agreement(a, b) -> float:
@@ -1868,9 +1994,12 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         transcribe_offline_ids,
     )
 
+    from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
+    from voxtral_tpu_torch.ops.norms import rms_norm_rows
+
     on_gpu = device == "cuda"
     counters = (banded_attention_batched, flash_decode, ring_rows_write,
-                int4_mm, int8_mm)
+                int4_mm, int8_mm, bf16_mm, rms_norm_rows)
 
     def sync():
         if on_gpu:
@@ -1942,7 +2071,8 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         # checks: launch counts of both runs, id range, finite adapter rows;
         # every rung decodes through flash-decode (fp8 rings included), the
         # quantized ones their products through their kernel: one a layer
-        # product of the prefill, 105 a decode step (the table's included)
+        # product of the prefill, 105 a decode step (the table's included);
+        # the float rungs theirs through bf16_mm on the card
         quant = 4 * n_layers + (4 * n_layers + 1) * steps
         want = {
             "banded_attention_batched": cfg.encoder.n_layers,
@@ -1950,6 +2080,9 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             "ring_rows_write": 0,
             "int4_mm": quant if quantize == "int4" else 0,
             "int8_mm": quant if quantize == "int8" else 0,
+            "bf16_mm": quant * (_dec_route(rcfg, on_gpu) and not quantize),
+            "rms_norm_rows": (2 * n_layers + (2 * n_layers + 1) * steps)
+            * _dec_route(rcfg, on_gpu),
         }
         if not st["launches"] == first["launches"] == want:
             raise AssertionError(f"[serve] {name}: launches {st['launches']}, "
@@ -2005,7 +2138,11 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             want_x = {"banded_attention_batched": 0, "int4_mm": 0,
                       "int8_mm": 0,
                       "flash_decode": n_layers * n_steps * (impl == "auto"),
-                      "ring_rows_write": n_layers * n_steps * (impl == "xla")}
+                      "ring_rows_write": n_layers * n_steps * (impl == "xla"),
+                      "bf16_mm": (4 * n_layers + 1) * n_steps
+                      * (_dec_route(rcfg, on_gpu) and not quantize),
+                      "rms_norm_rows": (2 * n_layers + 1) * n_steps
+                      * _dec_route(rcfg, on_gpu)}
             if quantize in ("int4", "int8"):
                 want_x[f"{quantize}_mm"] = (4 * n_layers + 1) * n_steps
             if got != want_x:
@@ -2142,6 +2279,18 @@ BF16_MM_REL_TOL = 1e-5
 # the rowinv phase's weight copies a timed call rotates over (the larger
 # products' copies exceed the 50 MB L2, as a layer's weights do in a chunk)
 ROWINV_COPIES = 4
+# rms_norm_rows against torch's rms_norm, relative to max |plain|: the
+# same f32 function with the sum of squares in another order; bf16
+# outputs round apart by one bf16 step (2^-8 relative) where the two f32
+# values straddle a rounding boundary
+RMS_NORM_TOL = {"torch.bfloat16": 2 ** -7, "torch.float32": 1e-5}
+# rows at which the norm kernel is timed: a decode step at B = 16 and 64,
+# the B=64 prefill
+NORM_TIME_ROWS = (16, 64, 2432)
+# rowinv: the decoder's prefill rows, B x 38, at these B (the smoke's
+# serve and batchinv prefills, the bench's B=56 and B=64)
+ROWINV_PREFILL_ROWS = 38
+ROWINV_PREFILL_B = (1, 3, 4, 16, 56, 64)
 # the stream phase's eager localisation runs: the first seconds of the clip
 STREAM_LOCATE_S = 3.0
 
@@ -2187,13 +2336,16 @@ def bf16_mm_as(x, w, seq: bool):
 
 @contextlib.contextmanager
 def cublas_stream():
-    """Routes the streaming encoder side through cuBLAS again, through
-    stand-ins: float products to torch.mm (`bf16_mm_plain`), the int
-    kernels on their row-count plans, and T == 1 chunks to
+    """Routes the streaming encoder side (and with it the decoder's
+    products and norms) through cuBLAS and torch again, through stand-ins:
+    float products to torch.mm (`bf16_mm_plain`), the int kernels on their
+    row-count plans, the norms to torch's `rms_norm`, and T == 1 chunks to
     `ring_attention`.  The stand-ins carry `launches = 0` (ops/graphs.py
     reads every wrapper's count during a capture)."""
+    from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.models import encoder as enc_mod
     from voxtral_tpu_torch.ops import bf16_mm, quant_mm
+    from voxtral_tpu_torch.ops.norms import rms_norm
     from voxtral_tpu_torch.runtime import stream as stream_mod
 
     def row_plans(fn):
@@ -2204,17 +2356,20 @@ def cublas_stream():
         return stand_in
 
     saved = (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
-             enc_mod.chunk_attention, stream_mod.chunk_attention)
+             enc_mod.chunk_attention, stream_mod.chunk_attention,
+             enc_mod.rms_norm_rows, dec_mod.rms_norm_rows)
     bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
     quant_mm.int4_mm = row_plans(saved[1])
     quant_mm.int8_mm = row_plans(saved[2])
     enc_mod.chunk_attention = stream_mod.chunk_attention = (
         lambda t, cdtype: t > 1)
+    enc_mod.rms_norm_rows = dec_mod.rms_norm_rows = _uncounted(rms_norm)
     try:
         yield
     finally:
         (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
-         enc_mod.chunk_attention, stream_mod.chunk_attention) = saved
+         enc_mod.chunk_attention, stream_mod.chunk_attention,
+         enc_mod.rms_norm_rows, dec_mod.rms_norm_rows) = saved
 
 
 def _stream_arg(args, kwargs, i: int) -> bool:
@@ -2236,22 +2391,28 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
     "conv1.mm"), and per layer li "Lli.attn_norm", "Lli.wqkv",
     "Lli.attention", "Lli.wo", "Lli.ffn_norm", "Lli.w13", "Lli.w2",
     "Lli.out", then "final_norm", "adapter.w0", "adapter.w1".  With
-    `record` off it only counts."""
+    `record` off it only counts.  A StreamPool encode call in which slot
+    `stream` takes no part (its taker flag is off: its rows are zeros in,
+    garbage out) records nothing for it: the rows are what that slot
+    computed."""
     import torch
 
     from voxtral_tpu_torch.models import bulk_encode
     from voxtral_tpu_torch.models import encoder as enc_mod
     from voxtral_tpu_torch.models import fused_stream
+    from voxtral_tpu_torch.parallel import scheduler as sched
 
     stem_k = cfg.encoder.conv_kernel * cfg.encoder.n_mel
     calls = {"conv": 0, "encoder": 0, "adapter": 0}
     rows: dict = {}
-    state = {"layer": None, "norms": 0, "mm": None}
+    state = {"layer": None, "norms": 0, "mm": None, "pool": None}
+    takes = []     # per pool encode call: whether `stream` takes part
 
     def put(stage, y):     # y: [B, ..., D]
         if record:
-            rows.setdefault(stage, []).append(
-                y.detach()[stream].reshape(-1, y.shape[-1]).clone())
+            rows.setdefault(stage, []).append((
+                y.detach()[stream].reshape(-1, y.shape[-1]).clone(),
+                state["pool"]))
 
     patches = []
 
@@ -2295,12 +2456,24 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
             return y
         return f
 
+    def pool_call(fn):
+        def f(*a, **k):    # a[7]: the pool's taker flags [B]
+            takes.append(a[7][stream].clone())
+            state["pool"] = len(takes) - 1
+            try:
+                return fn(*a, **k)
+            finally:
+                state["pool"] = None
+        return f
+
     for mod in (enc_mod, bulk_encode):
         patch(mod, "conv0_chunk", conv("conv0", 4))
         patch(mod, "conv1_chunk", conv("conv1", 4))
     for mod in (enc_mod, fused_stream):
         patch(mod, "encoder_layers", enc_layers)
         patch(mod, "adapter_forward", adapter)
+    patch(sched, "pool_encode_ring", pool_call)
+    patch(sched, "pool_encode_window", pool_call)
     if deep:
         def layer(fn):
             def f(cfg, cdtype, x, lp, cache, li, *rest):
@@ -2351,6 +2524,7 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
 
         patch(enc_mod, "_enc_layer_step", layer)
         patch(enc_mod, "rms_norm", norm)
+        patch(enc_mod, "rms_norm_rows", norm)
         patch(enc_mod, "mm", product)
         patch(enc_mod, "matmul_rows", conv_mm)
         patch(enc_mod, "matmul_f32", conv_mm)
@@ -2361,8 +2535,10 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
     finally:
         for mod, name, fn in reversed(patches):
             setattr(mod, name, fn)
+        took = [bool(t) for t in takes]
         for k in rows:
-            rows[k] = torch.cat(rows[k])
+            rows[k] = torch.cat([y for y, call in rows[k]
+                                 if call is None or took[call]])
 
 
 def first_row_diff(rows_a: dict, rows_b: dict):
@@ -2381,25 +2557,225 @@ def first_row_diff(rows_a: dict, rows_b: dict):
     return None
 
 
+@contextlib.contextmanager
+def decoder_probe(stream: int = 0):
+    """Records the decoder while it runs eagerly (a captured graph runs no
+    Python): `rows` holds batch entry `stream`'s rows of each stage in call
+    order: "embed" (the step's or prefill's input embeddings), per layer li
+    "Lli.attn_norm", "Lli.wqkv", "Lli.attention" (the input of wo),
+    "Lli.wo", "Lli.ffn_norm", "Lli.w13", "Lli.w2", "Lli.out", then
+    "final_norm", "logits", "argmax" and, for a step with alternatives,
+    "alts" (the argmax's probability and the alternatives', after the
+    softmax over the vocabulary)."""
+    import torch
+
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models import quant
+
+    rows: dict = {}
+    state = {"layer": None, "norms": 0}
+
+    def put(stage, y):     # y: [B, ..., D]
+        rows.setdefault(stage, []).append(
+            y.detach()[stream].reshape(-1, y.shape[-1]).clone())
+
+    patches = []
+
+    def patch(mod, name, make):
+        patches.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, make(getattr(mod, name)))
+
+    def forward(fn):
+        def f(params, cfg, embeds, *a, **k):
+            put("embed", embeds)
+            return fn(params, cfg, embeds, *a, **k)
+        return f
+
+    def layer(fn):
+        def f(cfg, cdtype, x, lp, ada, cache, li, *rest):
+            state["layer"], state["norms"] = li, 0
+            try:
+                y = fn(cfg, cdtype, x, lp, ada, cache, li, *rest)
+            finally:
+                state["layer"] = None
+            put(f"L{li:02d}.out", y)
+            return y
+        return f
+
+    def norm(fn):
+        def f(x, *a, **k):
+            y = fn(x, *a, **k)
+            li = state["layer"]
+            if li is None:
+                put("final_norm", y)
+            else:
+                put(f"L{li:02d}.{('attn', 'ffn')[state['norms'] % 2]}_norm",
+                    y)
+                state["norms"] += 1
+            return y
+        return f
+
+    def product(fn):
+        def f(x, lp, name, *a, **k):
+            li = state["layer"]
+            if name == "wo":
+                put(f"L{li:02d}.attention", x)
+            y = fn(x, lp, name, *a, **k)
+            put(f"L{li:02d}.{name}", y)
+            return y
+        return f
+
+    def logits(fn):
+        def f(*a, **k):
+            y = fn(*a, **k)
+            put("logits", y)
+            put("argmax", y.argmax(-1, keepdim=True))
+            return y
+        return f
+
+    def alts(fn):
+        def f(lg, n_alt):
+            out = fn(lg, n_alt)
+            put("alts", torch.cat([out[1][:, None], out[3]], dim=-1))
+            return out
+        return f
+
+    patch(dec_mod, "decoder_forward", forward)
+    patch(dec_mod, "_layer_step", layer)
+    patch(dec_mod, "rms_norm", norm)
+    patch(dec_mod, "rms_norm_rows", norm)
+    patch(quant, "mm", product)
+    patch(dec_mod, "final_logits", logits)
+    patch(dec_mod, "_alts_from_logits", alts)
+    try:
+        yield rows
+    finally:
+        for mod, name, fn in reversed(patches):
+            setattr(mod, name, fn)
+        for k in rows:
+            rows[k] = torch.cat(rows[k])
+
+
+def ring_rows_diff(cache_a, sa: int, n_a: int, cache_b, sb: int, n_b: int):
+    """Where two decoder rings' rows part: stream sa's of cache_a, written
+    at positions 0 .. n_a - 1, against stream sb's of cache_b, at 0 ..
+    n_b - 1, over the positions both still hold (at slot p % cap), K and V
+    of every layer bitwise.  None when all are equal, else the first
+    position that differs and how many were compared."""
+    import torch
+
+    cap_a, cap_b = cache_a.k.shape[3], cache_b.k.shape[3]
+    lo, hi = max(0, n_a - cap_a, n_b - cap_b), min(n_a, n_b)
+    p = torch.arange(lo, hi, device=cache_a.k.device)
+    same = torch.ones(hi - lo, dtype=torch.bool, device=p.device)
+    for a, b in ((cache_a.k, cache_b.k), (cache_a.v, cache_b.v)):
+        ra = a[sa][:, :, p % cap_a].view(torch.uint8)
+        rb = b[sb][:, :, (p % cap_b).to(b.device)].view(torch.uint8)
+        same &= (ra == rb.to(ra.device)).flatten(3).all(-1).all(1).all(0)
+    bad = (~same).nonzero()
+    if bad.numel():
+        return {"position": lo + int(bad[0, 0]), "positions": hi - lo}
+    return None
+
+
+def _call_counter(name: str):
+    """A stand-in kernel wrapper: a `launches` count under `name`."""
+    def counter():
+        pass
+
+    counter.__name__, counter.launches = name, 0
+    return counter
+
+
+# the decoder's forward passes (any T) and logits calls: with
+# decoder_calls() on, counted like kernel launches, so a CUDA graph's
+# capture records them and its replays add them
+DECODER_CALLS = (_call_counter("decoder_forward"),
+                 _call_counter("final_logits"))
+
+
+@contextlib.contextmanager
+def decoder_calls():
+    """Counts the decoder's forward passes and logits calls in
+    DECODER_CALLS for the duration, exactly under CUDA graphs: the two
+    counters ride among ops/graphs.py's counted wrappers.  The decoder's
+    share of bf16_mm's launches follows from them (_dec_rowinv_want)."""
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models import jacobi
+    from voxtral_tpu_torch.ops import graphs
+
+    def counted(fn, counter):
+        @functools.wraps(fn)
+        def f(*a, **k):
+            counter.launches += 1
+            return fn(*a, **k)
+        return f
+
+    wrappers = graphs.counted_wrappers
+    saved = [(m, n, getattr(m, n)) for m in (dec_mod, jacobi)
+             for n in ("decoder_forward", "final_logits")]
+    graphs.counted_wrappers = lambda: wrappers() + DECODER_CALLS
+    for m, n, fn in saved:
+        setattr(m, n, counted(fn, DECODER_CALLS[n == "final_logits"]))
+    try:
+        yield
+    finally:
+        graphs.counted_wrappers = wrappers
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _dec_rowinv_want(cfg, on_gpu: bool, float_weights: bool = True) -> dict:
+    """The row-invariant kernels' launches by the decoder since
+    DECODER_CALLS were zeroed, on the card's row-invariant route
+    (`decoder._use_rowinv`), else 0: bf16_mm four a layer per forward pass
+    and one per logits call with float decoder weights (the int rungs' go
+    to their kernels), rms_norm_rows two a layer per forward pass and one
+    per logits call on every rung."""
+    from voxtral_tpu_torch.models.decoder import _use_rowinv
+
+    if not (on_gpu and _use_rowinv(cfg.cdtype, "step")):
+        return {"bf16_mm": 0, "rms_norm_rows": 0}
+    fwd, logits = (c.launches for c in DECODER_CALLS)
+    n = cfg.decoder.n_layers
+    return {"bf16_mm": (4 * n * fwd + logits) * float_weights,
+            "rms_norm_rows": 2 * n * fwd + logits}
+
+
+def _dec_route(cfg, on_gpu: bool) -> bool:
+    """Whether the decoder runs on the card's row-invariant route
+    (`decoder._use_rowinv`): its norms on rms_norm_rows, its float
+    products on bf16_mm (an int rung's on the int kernels)."""
+    from voxtral_tpu_torch.models.decoder import _use_rowinv
+
+    return on_gpu and _use_rowinv(cfg.cdtype, "step")
+
+
 def _rowinv_want(cfg, calls: dict, quantized_encoder: bool = False) -> dict:
-    """The row-invariant product's exact launches on a stream's encoder
-    side: one per conv call, two per adapter call, four per layer of each
-    encoder chunk when its weights are float (the int kernels take them
-    otherwise)."""
+    """The row-invariant kernels' exact launches on a stream's encoder
+    side: bf16_mm one per conv call, two per adapter call, four per layer
+    of each encoder chunk when its weights are float (the int kernels take
+    them otherwise); rms_norm_rows two per layer and the final norm of each
+    encoder chunk."""
     n_layers = cfg.encoder.n_layers
     return {"bf16_mm": calls["conv"] + 2 * calls["adapter"]
-            + (0 if quantized_encoder else 4 * n_layers * calls["encoder"])}
+            + (0 if quantized_encoder else 4 * n_layers * calls["encoder"]),
+            "rms_norm_rows": (2 * n_layers + 1) * calls["encoder"]}
 
 
 def _rowinv_expect(cfg, calls: dict, on_gpu: bool,
                    quantized: bool = False) -> dict:
     """_rowinv_want on the card's row-invariant route, else 0 each (CPU
-    calls never count; float32 configs keep torch.mm)."""
+    calls never count; float32 configs keep torch.mm), plus the decoder's
+    share (_dec_rowinv_want; `quantized`: the encoder's and the decoder's
+    weights int, as the stream phase's int pairs run them)."""
     from voxtral_tpu_torch.models.decoder import _use_rowinv
 
+    dec = _dec_rowinv_want(cfg, on_gpu, not quantized)
     if on_gpu and _use_rowinv(cfg.cdtype, "stream"):
-        return _rowinv_want(cfg, calls, quantized)
-    return {"bf16_mm": 0}
+        enc = _rowinv_want(cfg, calls, quantized)
+        return {k: enc[k] + dec[k] for k in dec}
+    return dec
 
 
 def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
@@ -2410,21 +2786,28 @@ def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
     want = _rowinv_expect(cfg, calls, on_gpu, quantized)
     if got != want:
         raise AssertionError(f"[{tag}] row-invariant kernels' launches {got}"
-                             f" != {want} ({calls})")
+                             f" != {want} ({calls}, decoder calls "
+                             f"{[c.launches for c in DECODER_CALLS]})")
     return got
 
 
 def _rowinv_launches() -> dict:
-    """The row-invariant product's launches (bf16_mm's counter)."""
+    """The row-invariant kernels' launches: bf16_mm's and
+    rms_norm_rows' counters."""
     from voxtral_tpu_torch.ops import bf16_mm
+    from voxtral_tpu_torch.ops.norms import rms_norm_rows
 
-    return {"bf16_mm": bf16_mm.bf16_mm.launches}
+    return {"bf16_mm": bf16_mm.bf16_mm.launches,
+            "rms_norm_rows": rms_norm_rows.launches}
 
 
 def _zero_rowinv() -> None:
     from voxtral_tpu_torch.ops import bf16_mm
+    from voxtral_tpu_torch.ops.norms import rms_norm_rows
 
-    bf16_mm.bf16_mm.launches = 0
+    bf16_mm.bf16_mm.launches = rms_norm_rows.launches = 0
+    for c in DECODER_CALLS:
+        c.launches = 0
 
 
 def _bf16_bound(shapes, rows: int) -> dict:
@@ -2433,6 +2816,113 @@ def _bf16_bound(shapes, rows: int) -> dict:
     row."""
     n_bytes = sum(o * i * 2 + rows * i * 2 + rows * o * 4 for o, i in shapes)
     return bound(n_bytes, sum(2 * rows * o * i for o, i in shapes))
+
+
+# (H) at the decoder's products: as BF16_MM_REL_TOL, over K up to 9216
+# (w2; the encoder's largest is 5120), whose f32 sums take more roundings
+DEC_MM_REL_TOL = 2e-5
+# rowinv: the decoder's products (INT4_SHAPES: the four of a layer and the
+# tied table) on bf16_mm, checked at these rows (a step at B = 1, 16, 56,
+# 64; the prefills of B = 16, 56, 64) and timed at the decode step's
+DEC_ROWINV_ROWS = (1, 16, 56, 64, 608, 2128, 2432)
+DEC_ROWINV_TIME_ROWS = (16, 56, 64)
+
+
+def _norm_times(gen, cfg, device: str = "cuda") -> dict:
+    """rms_norm_rows' graph-replay ms at the decoder's width in bf16 at
+    NORM_TIME_ROWS rows, against torch's rms_norm (the plain version) and
+    torch.nn.functional.rms_norm (the library call), with its bound (each
+    row read and written once, the weight read once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
+
+    width, out = cfg.decoder.dim, {}
+    nw = torch.rand((width,), generator=gen, device=device) + 0.5
+    for n in NORM_TIME_ROWS:
+        x = _randn(gen, (n, width), torch.bfloat16, device)
+        n0 = rms_norm_rows.launches
+        tm = {"ms": graph_ms(lambda: rms_norm_rows(x, nw), 20),
+              "plain_ms": graph_ms(lambda: rms_norm(x, nw), 20),
+              "library_ms": graph_ms(lambda: F.rms_norm(
+                  x.float(), (width,), nw).to(x.dtype), 20),
+              **bound(2 * 2 * n * width + 4 * width, 4 * n * width)}
+        rms_norm_rows.launches = n0
+        out.update({f"norm_{k}_rows{n}": v for k, v in tm.items()})
+        log("rowinv", f"rms_norm_rows [{n} x {width}] bf16: "
+                      f"{tm['ms']:.4f} ms, torch's rms_norm {tm['plain_ms']:.4f}"
+                      f" ms, F.rms_norm {tm['library_ms']:.4f} ms, bound "
+                      f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
+    return out
+
+
+def _decoder_products(gen, device: str = "cuda") -> dict:
+    """bf16_mm on the decoder's five products at full width (the route the
+    decoder takes since it is row-invariant): at each row count of
+    DEC_ROWINV_ROWS rows [0, n) and [SHIFT, SHIFT + n) bitwise equal to
+    one call over the most rows, within DEC_MM_REL_TOL of torch.mm;
+    graph-replay times at DEC_ROWINV_TIME_ROWS (ROWINV_COPIES weight
+    copies rotating) against torch.mm(out_dtype=f32), the path it
+    replaced, with bounds, and their sums over a decode step's 105
+    products (26 layers and the table)."""
+    import torch
+
+    from voxtral_tpu_torch.ops import bf16_mm as bmod
+
+    out = {}
+    n_max = max(DEC_ROWINV_ROWS) + ROWINV_SHIFT
+    step = {n: {"ms": 0.0, "mm_ms": 0.0} for n in DEC_ROWINV_TIME_ROWS}
+    for name, (o, i) in INT4_SHAPES.items():
+        w = _randn(gen, (ROWINV_COPIES, o, i), torch.bfloat16, device) * 0.02
+        x = _randn(gen, (n_max, i), torch.bfloat16, device)
+        n0 = bmod.bf16_mm.launches
+        ref = bmod.bf16_mm(x, w[0])
+        want = torch.mm(x, w[0].t(), out_dtype=torch.float32)
+        rel = ((ref - want).abs().max() / want.abs().max()).item()
+        bad = [(n, lo) for n in DEC_ROWINV_ROWS for lo in (0, ROWINV_SHIFT)
+               if not torch.equal(bmod.bf16_mm(x[lo: lo + n], w[0]),
+                                  ref[lo: lo + n])]
+        bmod.bf16_mm.launches = n0
+        del want
+        if bad or not rel <= DEC_MM_REL_TOL:
+            raise AssertionError(f"[rowinv] decoder {name} [{o}x{i}]: rows "
+                                 f"differ at {bad} or rel {rel}")
+        per = 1 if name == "logits" else INT4_LAYERS
+        for n in DEC_ROWINV_TIME_ROWS:
+            xn = x[:n]
+            tm = {"ms": graph_ms(_rotating(
+                lambda li: bmod.bf16_mm(xn, w[li]), ROWINV_COPIES),
+                ROWINV_COPIES),
+                "mm_ms": graph_ms(_rotating(
+                    lambda li: torch.mm(xn, w[li].t(),
+                                        out_dtype=torch.float32),
+                    ROWINV_COPIES), ROWINV_COPIES),
+                **_bf16_bound([(o, i)], n)}
+            bmod.bf16_mm.launches = n0
+            for k, v in tm.items():
+                out[f"dec_{name}_{k}_rows{n}"] = v
+            step[n]["ms"] += per * tm["ms"]
+            step[n]["mm_ms"] += per * tm["mm_ms"]
+            log("rowinv", f"decoder {name} [{o}x{i}] at {n} rows: bf16_mm "
+                          f"{tm['ms']:.4f} ms, torch.mm {tm['mm_ms']:.4f} ms "
+                          f"({tm['ms'] / tm['mm_ms']:.2f}x), bound "
+                          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+        log("rowinv", f"decoder {name} [{o}x{i}]: rows {DEC_ROWINV_ROWS} "
+                      f"(+{ROWINV_SHIFT}) bitwise equal to the full call, "
+                      f"rel {rel:.3e} of torch.mm (tol {DEC_MM_REL_TOL})")
+        del w, x, ref
+    shapes105 = ([INT4_SHAPES[k] for k in ("wqkv", "wo", "w13", "w2")]
+                 * INT4_LAYERS + [INT4_SHAPES["logits"]])
+    for n, tm in step.items():
+        tm.update(_bf16_bound(shapes105, n))
+        for k, v in tm.items():
+            out[f"dec_step105_{k}_rows{n}"] = v
+        log("rowinv", f"a decode step's 105 products at {n} rows (summed): "
+                      f"bf16_mm {tm['ms']:.3f} ms, torch.mm "
+                      f"{tm['mm_ms']:.3f} ms ({tm['ms'] / tm['mm_ms']:.2f}x),"
+                      f" bound {tm['bound_ms']:.3f} ms ({tm['bound_by']})")
+    return out
 
 
 def phase_rowinv(device: str = "cuda", cfg=None,
@@ -2461,7 +2951,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     from voxtral_tpu_torch.models.quant import _quantize, _quantize4
     from voxtral_tpu_torch.ops import bf16_mm as bmod
     from voxtral_tpu_torch.ops import cuda_lib, quant_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
 
     on_gpu = device == "cuda"
     cfg = cfg or full_config()
@@ -2469,7 +2959,8 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     n_max = max(rows_list) + ROWINV_SHIFT
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
-    out, worst = {}, {"bf16": 0.0, "int8": 0.0, "int4": 0.0}
+    out = {}
+    worst = {"bf16": 0.0, "int8": 0.0, "int4": 0.0, "rms_norm": 0.0}
     if on_gpu:
         sms = cuda_lib.sm_count(0)
         lib = cuda_lib.kernels()
@@ -2613,33 +3104,72 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                 for k, v in tm.items():
                     out[f"{kind}_{k}_{name}_rows{n}"] = v
         del x
-    # torch's rms_norm, which the streaming side keeps: a row's bits at
-    # every row count up to 80 and of rows_list, at two offsets
-    x = _randn(gen, (n_max, cfg.encoder.dim), torch.bfloat16, device)
-    nw = torch.rand((cfg.encoder.dim,), generator=gen, device=device) + 0.5
-    full = rms_norm(x, nw)
-    norm_rows = sorted(set(rows_list) | set(range(1, 81)))
-    norm_varies = [(n, lo) for n in norm_rows for lo in (0, ROWINV_SHIFT)
-                   if not torch.equal(rms_norm(x[lo: lo + n], nw),
+    # the norms: rms_norm_rows (csrc/rms_norm.cu) at the encoder's width and
+    # the decoder's, in bf16 and f32, a row's bits at every row count up to
+    # 80, of rows_list and (decoder) the prefills' B x 38, at two offsets;
+    # torch's rms_norm beside it, whose f32 mean of squares shows where its
+    # reduction changes layout (printed: the reason for the kernel)
+    norm_varies, norm_torch_varies = {}, {}
+    for width, extra in ((cfg.encoder.dim, ()),
+                         (cfg.decoder.dim, tuple(b * ROWINV_PREFILL_ROWS
+                                                 for b in ROWINV_PREFILL_B))):
+        norm_rows = sorted(set(rows_list) | set(range(1, 81)) | set(extra))
+        nw = torch.rand((width,), generator=gen, device=device) + 0.5
+        for dt in (torch.bfloat16, torch.float32):
+            x = _randn(gen, (max(norm_rows) + ROWINV_SHIFT, width), dt,
+                       device)
+            n0 = rms_norm_rows.launches
+            full = rms_norm_rows(x, nw)
+            bad = [(n, lo) for n in norm_rows for lo in (0, ROWINV_SHIFT)
+                   if not torch.equal(rms_norm_rows(x[lo: lo + n], nw),
                                       full[lo: lo + n])]
-    log("rowinv", f"torch's rms_norm [n x {cfg.encoder.dim}] at rows 1..80 "
-                  f"and {rows_list} (+{ROWINV_SHIFT} offset): "
-                  + ("bitwise equal to the full call" if not norm_varies
-                     else f"DIFFERS at {norm_varies}"))
+            want = rms_norm(x, nw).float()
+            err_abs = (full.float() - want).abs().max().item()
+            err = err_abs / want.abs().max().item()
+            out["max_abs_err_rms_norm"] = max(
+                out.get("max_abs_err_rms_norm", 0.0), err_abs)
+            tol = RMS_NORM_TOL[str(dt)]
+            rms_norm_rows.launches = n0
+            tag = f"{width}_{str(dt)[6:]}"
+            norm_varies[tag] = bad
+            out[f"rms_norm_rel_err_{tag}"] = err
+            worst["rms_norm"] = max(worst["rms_norm"], err)
+            if dt == torch.float32:
+                sq = x * x
+                mean = sq.mean(-1)
+                norm_torch_varies[width] = [
+                    n for n in norm_rows
+                    if not torch.equal(sq[:n].mean(-1), mean[:n])]
+            log("rowinv", f"rms_norm_rows [n x {width}] {str(dt)[6:]} at "
+                          f"rows 1..80 and "
+                          f"{sorted(set(rows_list) | set(extra))} "
+                          f"(+{ROWINV_SHIFT} offset): "
+                          + ("bitwise equal to the full call" if not bad
+                             else f"DIFFERS at {bad}")
+                          + f"; rel {err:.3e} of torch's rms_norm (tol "
+                          f"{tol})")
+            if on_gpu and (bad or not err <= tol):
+                raise AssertionError(f"[rowinv] rms_norm_rows {tag}: rows "
+                                     f"differ at {bad} or rel {err}")
+            del x
+        log("rowinv", f"torch's rms_norm [n x {width}]: its f32 mean of "
+                      f"squares gives a row other bits than the full call "
+                      f"at rows {norm_torch_varies[width] or 'none'}")
     if on_gpu:
-        if norm_varies:
-            raise AssertionError(f"[rowinv] torch's rms_norm is not "
-                                 f"row-invariant: {norm_varies}")
+        out.update(_norm_times(gen, cfg, device))
         log("rowinv", "torch.mm(out_dtype=f32) gives a row other bits than "
                       "the full call at rows: " + "; ".join(
                           f"{k} {v}" for k, v in mm_varies.items()))
     out.update({"torch_mm_varies_at": mm_varies,
-                "torch_rms_norm_varies_at": norm_varies,
+                "torch_rms_norm_varies_at": norm_torch_varies,
+                "rms_norm_rows_varies_at": norm_varies,
                 "checked": checked, "max_abs_err_bf16": worst["bf16"],
                 "max_abs_err_int8": worst["int8"],
-                "max_abs_err_int4": worst["int4"]})
+                "max_abs_err_int4": worst["int4"],
+                "max_rel_err_rms_norm": worst["rms_norm"]})
     if on_gpu:
         _rowinv_summary(out, shapes, rows_list)
+        out.update(_decoder_products(gen, device))
     _zero_rowinv()
     quant_mm.int8_mm.launches = quant_mm.int4_mm.launches = 0
     return out
@@ -2727,6 +3257,43 @@ def _first_id_diff(a, b) -> int:
                 min(len(a), len(b)))
 
 
+def teacher_forced_agreement(engine, samples, ids) -> float:
+    """The offline path teacher-forced on `ids` (a streaming run's): the
+    clip's bulk-encoded rows, the prompt prefilled, then one decoder pass
+    over the decode positions with each position's previous id taken from
+    `ids` (the function a Jacobi window verifies); the share of those
+    positions whose argmax is the id `ids` holds there.  Unlike two
+    free-running greedy decodes, a near-tie that the two encoders'
+    rounding tips changes one position, not every position after it."""
+    import torch
+
+    from voxtral_tpu_torch.config import TOKEN_STREAMING_PAD
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models.quant import embed_rows
+    from voxtral_tpu_torch.runtime.offline import padded_clip_mel
+
+    dev, cfg = engine.device, engine.cfg
+    rows = engine.encode_clip_bulk(padded_clip_mel(engine, samples)[None])
+    plen = engine.prompt_len
+    m = min(len(ids), rows.shape[1] - (plen - 1),
+            engine.dec_kv_ring - (plen - 1))
+    if m <= 0:
+        return 0.0
+    dp = engine.params["decoder"]
+    cache = engine.new_dec_cache()
+    engine.prefill(engine.prompt_embeds(rows[:, : plen - 1]), cache, 0)
+    prev = torch.tensor([TOKEN_STREAMING_PAD, *ids[: m - 1]],
+                        dtype=torch.int32, device=dev)
+    embeds = (rows[:, plen - 1: plen - 1 + m].float()
+              + embed_rows(dp, prev)[None])
+    x, _ = dec_mod.decoder_forward(
+        dp, cfg, embeds, cache,
+        torch.full((1,), plen - 1, dtype=torch.int32, device=dev),
+        engine.ada(), call="prefill")
+    pred = dec_mod.final_logits(dp, cfg, x, call="prefill")[0].argmax(-1)
+    return float((pred.cpu() == torch.tensor(ids[:m])).float().mean())
+
+
 def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     """Drives the streaming path at B=1: VoxStream on an engine built as
     the CLI builds it (buckets (64, 16, 4, 1), adaptive decoder ring, the
@@ -2737,9 +3304,12 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     (the row-invariant kernels' too) and records the streaming encoder
     side's rows by encoder position (encoder_probe: the conv stem, the
     final norm, the adapter).  On the card's row-invariant route (bf16)
-    the three runs' rows must be bitwise equal and their ids equal; each
-    run's ids must agree with transcribe_offline_ids on STREAM_AGREE_MIN
-    (the banded and ring softmax orders differ).  Then, ungated, the same
+    the three runs' rows must be bitwise equal and their ids equal; the
+    offline path (bulk encoder: the banded softmax order and torch.mm,
+    rows that differ by rounding) teacher-forced on each run's ids must
+    predict them on STREAM_AGREE_MIN of positions
+    (teacher_forced_agreement); transcribe_offline_ids' free-running
+    agreement is printed beside it.  Then, ungated, the same
     three runs through the cuBLAS route (cublas_stream: torch.mm,
     torch's norm, T == 1 on ring_attention) with their agreement, the
     first stage at which their rows differ and their timings, and eager
@@ -2895,14 +3465,20 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     stream_ids = dict(ids)
     ids["offline"] = transcribe_offline_ids(eng, clip)
     part("offline")
+    forced = {}
     for a in stream_ids:
         key = f"{a}~offline"
         agree[key] = _agreement(ids[a], ids["offline"])
         first_diff[key] = _first_id_diff(ids[a], ids["offline"])
-    log("stream", "against offline: " + ", ".join(
-        f"{a}~offline {agree[f'{a}~offline']:.3f}" for a in stream_ids)
-        + f"; min {STREAM_AGREE_MIN}")
-    low = {k: v for k, v in agree.items() if not v >= STREAM_AGREE_MIN}
+        forced[key] = teacher_forced_agreement(eng, clip, ids[a])
+    log("stream", "against offline, teacher-forced on each run's ids: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in forced.items())
+        + f" (min {STREAM_AGREE_MIN}); free-running: " + ", ".join(
+            f"{a}~offline {agree[f'{a}~offline']:.3f} (first differs at "
+            f"{first_diff[f'{a}~offline']})" for a in stream_ids))
+    low = {k: v for k, v in {**forced, **{
+        k: v for k, v in agree.items() if "offline" not in k}}.items()
+        if not v >= STREAM_AGREE_MIN}
     if low:
         raise AssertionError(f"[stream] id agreement below "
                              f"{STREAM_AGREE_MIN}: {low}")
@@ -2983,6 +3559,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     for f in counters:
         f.launches = 0
     return {"runs": table, "agreement": agree, "first_diff": first_diff,
+            "teacher_forced_offline": forced,
             "rows_diff": rows_diff, "first_stage": first_stage,
             "cublas": cublas, **quant, "part_s": part_s,
             "launches": {f.__name__: sum(r["launches"][f.__name__]
@@ -2990,6 +3567,24 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
             "rowinv_launches": {k: sum(r["rowinv_launches"][k]
                                        for r in table)
                                 for k in table[0]["rowinv_launches"]}}
+
+
+def _gate_b1(tag: str, who: str, cfg, on_gpu: bool, agree: float, m: int,
+             rows_diff, dec_diff) -> None:
+    """The promise that sharing a call cannot change a transcript, on the
+    card's row-invariant route (decoder._use_rowinv): a stream inside a
+    batch or a pool gives exactly the ids of a B=1 VoxStream of the same
+    audio (over the ids both have), its encoder side's rows and its
+    decoder's K/V rows bit-equal by position."""
+    from voxtral_tpu_torch.models.decoder import _use_rowinv
+
+    if not (on_gpu and _use_rowinv(cfg.cdtype, "step")):
+        return
+    if agree != 1.0 or m <= 0 or rows_diff is not None \
+            or dec_diff is not None:
+        raise AssertionError(f"[{tag}] {who} against a B=1 VoxStream: ids "
+                             f"{agree:.3f} equal over {m}, encoder rows "
+                             f"{rows_diff}, decoder rows {dec_diff}")
 
 
 def phase_bstream(cfg, params, device: str, n_streams: int = 16,
@@ -3056,6 +3651,12 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
     m = min(len(toks[0]), len(s.generated_ids))
     agree_b1 = _agreement(toks[0][:m], s.generated_ids[:m])
     rows_diff = first_row_diff(rows0, rows_b1)
+    # the decoder's rows by step: the K/V rows each layer wrote at each
+    # position, in the batch's rings and the B=1 stream's
+    dec_diff = ring_rows_diff(tr.dec_cache, 0, tr.gen_pos, s.dec_cache, 0,
+                              s.dec_pos)
+    _gate_b1("bstream", "stream 0", cfg, on_gpu, agree_b1, m, rows_diff,
+             dec_diff)
     rec = {"streams": n_streams, "clip_s": seconds, "wall_s": wall,
            "x_realtime_aggregate": n_streams * seconds / wall,
            "encode_ms": tr.encode_time * 1e3,
@@ -3067,6 +3668,7 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
            "tokens": sum(len(t) for t in toks),
            "stream0_agree_b1": agree_b1, "compared": m,
            "stream0_rows_diff_b1": rows_diff,
+           "stream0_dec_rows_diff_b1": dec_diff,
            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if on_gpu else 0.0),
            "launches": launches, "rowinv_launches": rowinv_launches}
@@ -3079,12 +3681,292 @@ def phase_bstream(cfg, params, device: str, n_streams: int = 16,
                    f"ids; stream 0 vs B=1 VoxStream {agree_b1:.3f} over {m} "
                    f"ids, its rows by position (mel, conv stem, encoder, "
                    f"adapter) "
-                   f"{'bit-equal' if rows_diff is None else rows_diff}; peak {rec['peak_gib']:.2f} GiB; launches {launches}, "
+                   f"{'bit-equal' if rows_diff is None else rows_diff}, "
+                   f"its decoder's K/V rows by position "
+                   f"{'bit-equal' if dec_diff is None else dec_diff}; peak "
+                   f"{rec['peak_gib']:.2f} GiB; launches {launches}, "
                    f"{rowinv_launches}")
     for f in counters:
         f.launches = 0
     _zero_rowinv()
     return rec
+
+
+def parent_flash_plan(span: int, bsz: int, kv_heads: int):
+    """The parent's flash-decode plan, for the A/B and the localisation:
+    one cluster of S blocks, one range each, with S = WAVE_BLOCKS // (B x
+    KH) capped at 8 and at span / 64 (a function of the batch size), run
+    on this kernel (its c = S mapping is the parent's algorithm)."""
+    from voxtral_tpu_torch.ops import flash_decode as fd
+
+    n = max(1, min(fd.MAX_SPLITS, fd.WAVE_BLOCKS // (bsz * kv_heads),
+                   span // fd.MIN_SPLIT_SLOTS))
+    return fd.FlashPlan(n, -(-span // n), n)
+
+
+@contextlib.contextmanager
+def flash_plan(plan_fn, counted: bool = False):
+    """flash_decode's launches on `plan_fn(span, B, KH)` for the duration;
+    uncounted unless `counted` (comparison launches do not count)."""
+    from voxtral_tpu_torch.ops import flash_decode as fd
+
+    saved, n0 = fd.flash_decode_plan, fd.flash_decode.launches
+    fd.flash_decode_plan = plan_fn
+    try:
+        yield
+    finally:
+        fd.flash_decode_plan = saved
+        if not counted:
+            fd.flash_decode.launches = n0
+
+
+@contextlib.contextmanager
+def parent_decoder_route():
+    """The decoder as the parent ran it: the float products on torch.mm
+    (cuBLAS, whose algorithm follows the row count), the int kernels on
+    their row-count plans, the prefill's attention batched over B, and
+    flash-decode on the parent's batch-dependent split (parent_flash_plan);
+    the streaming encoder side keeps its route.  Launches count as
+    usual."""
+    import torch
+
+    from voxtral_tpu_torch.models import decoder as dec_mod
+
+    saved = dec_mod._use_rowinv
+    dec_mod._use_rowinv = (lambda cdtype, call: call == "stream"
+                           and cdtype == torch.bfloat16)
+    try:
+        with flash_plan(parent_flash_plan, counted=True):
+            yield
+    finally:
+        dec_mod._use_rowinv = saved
+
+
+# batchinv: the batch sizes of stream 0's graphed step (bit-equal at each),
+# the sizes timed on both routes, stream 0's position (its live window
+# spans 5 of the 7 ranges of an 896-slot ring), the prefill's batch
+BATCHINV_SIZES = (1, 3, 16, 64)
+BATCHINV_TIME_SIZES = (16, 56, 64)
+BATCHINV_POS = 600
+BATCHINV_PREFILL_B = (4, 64)
+BATCHINV_ROUTES = ("parent", "rowinv")
+
+
+def phase_batchinv(cfg, params, device: str = "cuda",
+                   sizes=BATCHINV_SIZES, time_sizes=BATCHINV_TIME_SIZES,
+                   dec_ring: int = 896, rungs=RUNGS,
+                   pos: int = BATCHINV_POS,
+                   prefill_b=BATCHINV_PREFILL_B) -> dict:
+    """Whether a stream's decoder rows depend on how many streams share
+    its call, on each rung (bf16, fp8kv, int8, int4), on the port's
+    route and on the parent's (parent_decoder_route) in this call:
+      * one graphed step (embed, every layer, logits, argmax) of stream 0
+        at B in `sizes`, its inputs (adapter row, previous id, position
+        `pos`, ring) identical and the other streams' random: its logits
+        and the K/V rows it wrote bit-equal to B=1's (gated on the port's
+        route); eagerly under decoder_probe (with 2 alternatives: the
+        softmax), the first stage where its rows part from B=1's;
+      * stream 0's 38-row prompt prefill alone and inside batches of
+        `prefill_b`: its rings and its rows by stage bit-equal (gated on
+        the port's route);
+      * the graphed step's ms at B in `time_sizes` on both routes in turns
+        (parent, port, port, parent), CUDA events over replays, and the
+        prefill's at the largest of them.
+    main() runs it at full width on the card; a tiny CPU config rehearses
+    it."""
+    import torch
+
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models.quant import embed_rows
+    from voxtral_tpu_torch.ops.graphs import GraphStore
+    from voxtral_tpu_torch.parallel import serving as sv
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    on_gpu = device == "cuda"
+    tok = byte_tokenizer(cfg.decoder.vocab_size)
+    dim, vocab = cfg.decoder.dim, cfg.decoder.vocab_size
+    plen = None
+    routes = {"rowinv": contextlib.nullcontext,
+              "parent": parent_decoder_route}
+    all_sizes = sorted(set(sizes) | set(time_sizes))
+    table = []
+
+    def step_inputs(bsz: int, seed: int):
+        """Stream 0's fixed inputs, the others' from `seed`."""
+        g0 = torch.Generator(device=device).manual_seed(5)
+        row0 = torch.randn((1, dim), generator=g0, device=device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        rows = torch.cat([row0, torch.randn((bsz - 1, dim), generator=g,
+                                            device=device)])
+        prev = torch.randint(0, vocab, (bsz,), generator=g, device=device,
+                             dtype=torch.int32)
+        prev[0] = 32
+        at = torch.randint(0, 3 * dec_ring, (bsz,), generator=g,
+                           device=device, dtype=torch.int32)
+        at[0] = pos
+        return rows, prev, at
+
+    def fill(cache, seed: int):
+        """Rings of random rows: stream 0's fixed, the others' from
+        `seed`."""
+        for i, t in enumerate((cache.k, cache.v)):
+            g0 = torch.Generator(device=device).manual_seed(7 + i)
+            t[0].copy_(torch.randn(t.shape[1:], generator=g0, device=device)
+                       * 0.5)
+            g = torch.Generator(device=device).manual_seed(seed + i)
+            if t.shape[0] > 1:
+                t[1:].copy_(torch.randn((t.shape[0] - 1, *t.shape[1:]),
+                                        generator=g, device=device) * 0.5)
+
+    for name, kv, quantize in rungs:
+        rcfg = cfg if kv is None else cfg.replace(kv_dtype=kv,
+                                                  enc_kv_dtype="bfloat16")
+        engine = VoxtralEngine(rcfg, params, tokenizer=tok,
+                               dec_kv_ring=dec_ring, buckets=(64, 16, 4, 1),
+                               quantize=quantize)
+        dp, ada = engine.params["decoder"], engine.ada()
+        plen = engine.prompt_len
+        rec = {"rung": name}
+        kept = {}                 # (route, B) -> (graph, inputs), timed
+        for route in BATCHINV_ROUTES:
+            ref = None
+            for bsz in all_sizes:
+                with routes[route]():
+                    cache = sv.batched_dec_cache(rcfg, bsz, dec_ring,
+                                                 device=device)
+                    fill(cache, 100 + bsz)
+                    base = (cache.k.clone(), cache.v.clone())
+                    rows, prev, at = step_inputs(bsz, 200 + bsz)
+
+                    def step(row, prev_s, at_s, cache=cache):
+                        embed = (row.float() + embed_rows(dp, prev_s))[:, None]
+                        x, _ = dec_mod.decoder_forward(dp, rcfg, embed, cache,
+                                                       at_s, ada)
+                        lg = dec_mod.final_logits(dp, rcfg, x)[:, 0]
+                        return lg, torch.argmax(lg, dim=-1)
+
+                    graph, _ = cache.graphs.call(("batchinv", bsz), step,
+                                                 (rows, prev, at))
+                    cache.k.copy_(base[0])
+                    cache.v.copy_(base[1])
+                    lg, am = graph(rows, prev, at)
+                    slot = pos % dec_ring
+                    got = {"logits": lg[0].clone(), "argmax": int(am[0]),
+                           "k": cache.k[0, :, :, slot].clone(),
+                           "v": cache.v[0, :, :, slot].clone()}
+                    if bsz in sizes:
+                        # eagerly, under the probe, with 2 alternatives
+                        eager = dec_mod.KVCache(base[0].clone(),
+                                                base[1].clone())
+                        with decoder_probe() as probed:
+                            dec_mod._step(dp, rcfg, rows, prev, at, eager,
+                                          ada, 2)
+                        got["rows"] = dict(probed)
+                        del eager
+                if bsz in time_sizes:
+                    kept[(route, bsz)] = (graph, (rows, prev, at), cache)
+                else:
+                    del cache, graph
+                if bsz not in sizes:
+                    continue
+                if ref is None:
+                    ref = got
+                    continue
+                same = (torch.equal(got["logits"], ref["logits"])
+                        and torch.equal(got["k"].view(torch.uint8),
+                                        ref["k"].view(torch.uint8))
+                        and torch.equal(got["v"].view(torch.uint8),
+                                        ref["v"].view(torch.uint8)))
+                diff = first_row_diff(ref["rows"], got["rows"])
+                rec[f"step_{route}_b{bsz}_equal"] = same
+                rec[f"step_{route}_b{bsz}_first_diff"] = diff
+                rec[f"step_{route}_b{bsz}_argmax_equal"] = (
+                    got["argmax"] == ref["argmax"])
+                log("batchinv", f"{name} {route}: stream 0's graphed step at "
+                                f"B={bsz} against B=1: logits and ring rows "
+                                f"{'bit-equal' if same else 'DIFFER'}, "
+                                f"argmax {'equal' if got['argmax'] == ref['argmax'] else 'DIFFERS'}; "
+                                f"eager rows by stage "
+                                f"{'bit-equal' if diff is None else diff}")
+                if route == "rowinv" and on_gpu and not (same and diff is None):
+                    raise AssertionError(
+                        f"[batchinv] {name}: stream 0's step at B={bsz} "
+                        f"parts from B=1 (logits and rings {same}, rows "
+                        f"{diff})")
+            # the prefill: stream 0 alone and inside batches
+            gp = torch.Generator(device=device).manual_seed(9)
+            emb0 = torch.randn((1, plen - 1, dim), generator=gp,
+                               device=device)
+            pre = {}
+            with routes[route]():
+                for bsz in (1, *prefill_b):
+                    e = torch.cat([emb0, torch.randn(
+                        (bsz - 1, plen - 1, dim), generator=gp,
+                        device=device)])
+                    c = sv.batched_dec_cache(rcfg, bsz, dec_ring,
+                                             device=device, graphs=False)
+                    with decoder_probe() as probed:
+                        sv.bprefill(dp, rcfg, e, c, torch.zeros(
+                            bsz, dtype=torch.int32, device=device), ada)
+                    pre[bsz] = (c, dict(probed))
+            for bsz in prefill_b:
+                rdiff = ring_rows_diff(pre[1][0], 0, plen - 1, pre[bsz][0],
+                                       0, plen - 1)
+                diff = first_row_diff(pre[1][1], pre[bsz][1])
+                rec[f"prefill_{route}_b{bsz}_rings_diff"] = rdiff
+                rec[f"prefill_{route}_b{bsz}_first_diff"] = diff
+                log("batchinv", f"{name} {route}: stream 0's prefill alone "
+                                f"and inside B={bsz}: rings "
+                                f"{'bit-equal' if rdiff is None else rdiff}, "
+                                f"rows by stage "
+                                f"{'bit-equal' if diff is None else diff}")
+                if route == "rowinv" and on_gpu and (rdiff or diff):
+                    raise AssertionError(f"[batchinv] {name}: stream 0's "
+                                         f"prefill parts inside B={bsz} "
+                                         f"({rdiff}, {diff})")
+            del pre
+        # both routes' graphed steps in turns, and the prefill's ms
+        if on_gpu:
+            for bsz in time_sizes:
+                ms = {r: [] for r in BATCHINV_ROUTES}
+                for r in ("parent", "rowinv", "rowinv", "parent"):
+                    graph, inputs, _ = kept[(r, bsz)]
+                    ms[r].append(cuda_ms(lambda: graph(*inputs), 20))
+                for r in BATCHINV_ROUTES:
+                    rec[f"step_ms_{r}_b{bsz}"] = float(np.mean(ms[r]))
+                log("batchinv", f"{name} graphed step B={bsz}: port's route "
+                                f"{rec[f'step_ms_rowinv_b{bsz}']:.3f} ms, "
+                                f"parent's {rec[f'step_ms_parent_b{bsz}']:.3f}"
+                                f" ms ({rec[f'step_ms_rowinv_b{bsz}'] / rec[f'step_ms_parent_b{bsz}']:.3f}x)")
+            bsz = max(time_sizes)
+            e = torch.randn((bsz, plen - 1, dim), device=device)
+            c = sv.batched_dec_cache(rcfg, bsz, dec_ring, device=device,
+                                     graphs=False)
+            z = torch.zeros(bsz, dtype=torch.int32, device=device)
+            for r in ("parent", "rowinv", "rowinv", "parent"):
+                with routes[r]():
+                    rec.setdefault(f"prefill_ms_{r}_b{bsz}", []).append(
+                        cuda_ms(lambda: sv.bprefill(dp, rcfg, e, c, z, ada),
+                                2, warmup=1))
+            for r in BATCHINV_ROUTES:
+                rec[f"prefill_ms_{r}_b{bsz}"] = float(np.mean(
+                    rec[f"prefill_ms_{r}_b{bsz}"]))
+            log("batchinv", f"{name} prefill B={bsz} x {plen - 1}: port's "
+                            f"route {rec[f'prefill_ms_rowinv_b{bsz}']:.2f} "
+                            f"ms, parent's "
+                            f"{rec[f'prefill_ms_parent_b{bsz}']:.2f} ms")
+            del c, e
+        del kept, engine, dp
+        table.append(rec)
+        if on_gpu:
+            torch.cuda.empty_cache()
+    from voxtral_tpu_torch.ops import graphs as graphs_mod
+
+    for f in graphs_mod.counted_wrappers():
+        f.launches = 0
+    return {"rungs": table, "sizes": list(sizes),
+            "time_sizes": list(time_sizes), "pos": pos,
+            "prefill_b": list(prefill_b)}
 
 
 def small_config(compute_dtype: str = "float32"):
@@ -3185,6 +4067,7 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
     runs, ids = {}, {}
     for mode, eng in engines.items():
         banded_attention_batched.launches = flash_decode.launches = 0
+        _zero_rowinv()
         it0, js0 = len(eng.jacobi_iters), eng.jacobi_steps
         stats: dict = {}
         ids[mode] = transcribe_offline_ids(eng, clip, timings=stats)
@@ -3193,9 +4076,13 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
         j_steps = eng.jacobi_steps - js0
         launches = {"banded_attention_batched":
                     banded_attention_batched.launches,
-                    "flash_decode": flash_decode.launches}
+                    "flash_decode": flash_decode.launches,
+                    **_rowinv_launches()}
+        # bf16_mm: the decoder's passes (the prefill, each sequential step,
+        # each Jacobi iteration), counted by DECODER_CALLS
         want = {"banded_attention_batched": cfg.encoder.n_layers,
-                "flash_decode": cfg.decoder.n_layers * (steps - j_steps)}
+                "flash_decode": cfg.decoder.n_layers * (steps - j_steps),
+                **_dec_rowinv_want(cfg, on_gpu)}
         if launches != want or (mode == "auto") != (j_steps > 0):
             raise AssertionError(f"[jacobi] {mode}: launches {launches} != "
                                  f"{want} ({steps} steps, {j_steps} by "
@@ -3247,12 +4134,17 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
                                  f"sequential at {res['first_diff']}, not a "
                                  f"near-tie: {res}")
     flash_decode.launches = banded_attention_batched.launches = 0
+    _zero_rowinv()
     if on_gpu:
         torch.cuda.empty_cache()
     return {"clip_s": seconds, "runs": runs, "agree": agree,
             "first_diff": first, "f32_checks": checks,
             "launches_flash_decode": sum(r["launches"]["flash_decode"]
                                          for r in runs.values()),
+            "launches_bf16_mm": sum(r["launches"]["bf16_mm"]
+                                    for r in runs.values()),
+            "launches_rms_norm_rows": sum(r["launches"]["rms_norm_rows"]
+                                          for r in runs.values()),
             "launches_banded": sum(r["launches"]["banded_attention_batched"]
                                    for r in runs.values())}
 
@@ -3414,7 +4306,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
     from voxtral_tpu_torch.runtime.stream import VoxStream
 
     on_gpu = device == "cuda"
-    wrappers = graphs.counted_wrappers()
+    wrappers = [f for f in graphs.counted_wrappers()
+                if f not in DECODER_CALLS]
     names = [f.__name__ for f in wrappers]
     totals = dict.fromkeys(names, 0)
     nl, el = cfg.decoder.n_layers, cfg.encoder.n_layers
@@ -3422,6 +4315,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
     def zero():
         for f in wrappers:
             f.launches = 0
+        _zero_rowinv()
 
     def take(tag, want):
         """The launches since zero(), checked against `want` (the kernels
@@ -3469,7 +4363,11 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             steps = run["decode_steps"]
             take(f"{name} serve {tag}", {
                 "banded_attention_batched": el, "flash_decode": nl * steps,
-                qmm: 4 * nl + (4 * nl + 1) * steps})
+                qmm: 4 * nl + (4 * nl + 1) * steps,
+                "bf16_mm": (4 * nl + (4 * nl + 1) * steps)
+                * (_dec_route(rcfg, on_gpu) and not quantize),
+                "rms_norm_rows": (2 * nl + (2 * nl + 1) * steps)
+                * _dec_route(rcfg, on_gpu)})
             rec[f"serve_decode_ms_per_step_{tag}"] = (run["decode_s"] * 1e3
                                                      / steps)
             rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
@@ -3524,7 +4422,11 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                 got = take(f"{name} {tag} mid fill", {
                     "flash_decode": nl * n * (impl == "auto"),
                     "ring_rows_write": nl * n * (impl == "xla"),
-                    qmm: (4 * nl + 1) * n})
+                    qmm: (4 * nl + 1) * n,
+                    "bf16_mm": (4 * nl + 1) * n
+                    * (_dec_route(rcfg, on_gpu) and not quantize),
+                    "rms_norm_rows": (2 * nl + 1) * n
+                    * _dec_route(rcfg, on_gpu)})
                 if impl == "xla" and graphed:
                     rec["launches_xla_mid_fill_graph"] = got
                 burst_ids[graphed] = last[0].tolist()
@@ -3605,7 +4507,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             raise AssertionError("[graphs] jacobi: no Jacobi burst")
         take(f"jacobi {tag}", {
             "banded_attention_batched": el,
-            "flash_decode": nl * (st["decode_steps"] - j_steps)})
+            "flash_decode": nl * (st["decode_steps"] - j_steps),
+            **_dec_rowinv_want(cfg, on_gpu)})
         jacobi[f"decode_ms_per_token_{tag}"] = (st["decode_s"] * 1e3
                                                 / st["decode_steps"])
     both("jacobi", jids["eager"], jids["graph"])
@@ -3759,7 +4662,7 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
                            for t in s.generated_ids):
         raise AssertionError(f"[{tag}] no ids on slot 0, or ids out of "
                              "range")
-    rows_diff = None
+    rows_diff = dec_diff = None
     if ref_ids is None:   # slot 0's audio through a B=1 VoxStream
         s = VoxStream(engine)
         s.record_ids = True
@@ -3770,10 +4673,14 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
                 s.feed(clips[0][at: at + feed_n])
         ref_ids, ref = s.generated_ids, "b1_voxstream"
         rows_diff = first_row_diff(rows0, rows_b1)
+        dec_diff = ring_rows_diff(pool.dec_cache, 0, pool.slots[0].dec_pos,
+                                  s.dec_cache, 0, s.dec_pos)
     else:
         ref = "pool_ring"
     m = min(len(ids0), len(ref_ids))
     agree = _agreement(ids0[:m], ref_ids[:m])
+    if ref == "b1_voxstream":
+        _gate_b1(tag, "slot 0", cfg, on_gpu, agree, m, rows_diff, dec_diff)
     n_t = len(ticks)
     rec = {"slots": n_slots, "enc_mode": pool.enc_mode,
            "interval_s": interval_s, "gate_s": gate, "ticks": n_t,
@@ -3794,6 +4701,7 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
            "pool_gib": pool.memory_ledger()["pool_total"] / 2**30,
            f"slot0_agree_{ref}": agree, "compared": m,
            "slot0_rows_diff_b1": rows_diff,
+           "slot0_dec_rows_diff_b1": dec_diff,
            "launches": launches, "rowinv_launches": rowinv_launches}
     log(tag, f"{n_slots} slots {pool.enc_mode}, -I {interval_s} (gate "
              f"{gate:.1f}), {n_t} ticks in {wall:.2f} s: tick p50 "
@@ -3804,9 +4712,11 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
              f"{rec['restarts']} restarts; peak {rec['peak_gib']:.2f} GiB "
              f"(pool {rec['pool_gib']:.2f}); slot 0 vs {ref} {agree:.3f} "
              f"over {m} ids"
-             + ("" if ref_ids is None or enc_mode != "ring" else
+             + ("" if ref != "b1_voxstream" else
                 f", its rows by position (mel, conv stem, encoder, adapter) "
-                f"{'bit-equal' if rows_diff is None else rows_diff}")
+                f"{'bit-equal' if rows_diff is None else rows_diff}, its "
+                f"decoder's K/V rows by position "
+                f"{'bit-equal' if dec_diff is None else dec_diff}")
              + f"; launches {launches}")
     for f in counters:
         f.launches = 0
@@ -4224,7 +5134,7 @@ def _rank_shape_times() -> dict:
     from voxtral_tpu_torch.ops.flash_decode import (
         flash_decode,
         flash_decode_plain,
-        flash_decode_splits,
+        flash_decode_plan,
     )
     from voxtral_tpu_torch.ops.flash_encode import (
         flash_bulk_attention_batched,
@@ -4280,7 +5190,7 @@ def _rank_shape_times() -> dict:
         tm = _flash_times(gen, bsz, cap, pos_l, rdt, 8192, h=h, kh=kh)
         out[f"flash_decode_{tag}"] = {
             "shape": f"B={bsz} cap={cap} {h}q/{kh}kv {str(rdt)[6:]}",
-            "splits": flash_decode_splits(cap, bsz, kh), "max_abs_err": err,
+            "plan": list(flash_decode_plan(cap, bsz, kh)), "max_abs_err": err,
             **tm}
     # #7 at one rank's heads
     cap, t = 1024, 64
@@ -4324,7 +5234,7 @@ def _rank_shape_times() -> dict:
     return out
 
 
-def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 10.0,
+def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 5.0,
                n_streams: int = 4) -> dict:
     """Multi-device serving on one card: ranks spawned by
     parallel/mesh.py run_ranks share it over gloo (NCCL takes one card per
@@ -4888,16 +5798,13 @@ def phase_ckpt(cfg, device: str = "cuda", tag: str = "ckpt",
 ROWINV_SUMMARY_ROWS = 50
 
 
-def _rowinv_kernel(rowinv: dict, streamed: dict, pr: dict, graphed: dict,
-                   benched: dict) -> dict:
+def _rowinv_kernel(rowinv: dict, by_path: dict) -> dict:
     """The kernels line's entry of the row-invariant product: launches by
-    streaming path, and the rowinv phase's times at ROWINV_SUMMARY_ROWS
-    (all eight shapes summed; torch.mm(out_dtype=f32) is both its plain
-    version and the library call), with every row count's."""
+    path (the streaming encoder side's and the decoder's), and the rowinv
+    phase's times at ROWINV_SUMMARY_ROWS (all eight shapes summed;
+    torch.mm(out_dtype=f32) is both its plain version and the library
+    call), with every row count's."""
     n = ROWINV_SUMMARY_ROWS
-    by_path = {"stream": streamed["bf16_mm"],
-               "pool_ring": pr["rowinv_launches"]["bf16_mm"],
-               "graphs": graphed["bf16_mm"], "bench": benched["bf16_mm"]}
     return {"name": "bf16_mm", "route": "cuda",
             "source": "voxtral_tpu_torch/csrc/bf16_mm.cu",
             # no Pallas kernel: the float einsum XLA compiles
@@ -4913,6 +5820,27 @@ def _rowinv_kernel(rowinv: dict, streamed: dict, pr: dict, graphed: dict,
             "torch_mm_varies_at": rowinv["torch_mm_varies_at"]}
 
 
+def _norm_kernel(rowinv: dict, by_path: dict) -> dict:
+    """The kernels line's entry of the row-invariant norm: launches by path
+    (the streaming encoder side's and the decoder's norms), the rowinv
+    phase's check and times at a B=16 step's rows."""
+    n = NORM_TIME_ROWS[0]
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "voxtral_tpu_torch/csrc/rms_norm.cu",
+            # no Pallas kernel: the norm XLA fuses into the layers
+            "replaces": "voxtral_tpu/ops/norms.py:13",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "ms": rowinv[f"norm_ms_rows{n}"],
+            "plain_ms": rowinv[f"norm_plain_ms_rows{n}"],
+            "library_ms": rowinv[f"norm_library_ms_rows{n}"],
+            "bound_ms": rowinv[f"norm_bound_ms_rows{n}"],
+            "bound_by": rowinv[f"norm_bound_by_rows{n}"],
+            "max_abs_err": rowinv["max_abs_err_rms_norm"],
+            "max_rel_err": rowinv["max_rel_err_rms_norm"],
+            **{k: v for k, v in rowinv.items() if k.startswith("norm_")},
+            "torch_rms_norm_varies_at": rowinv["torch_rms_norm_varies_at"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4923,24 +5851,36 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
-               "rows", "rowinv",
-               "graphs", "stream", "jacobi", "pool_ring", "pool_window",
+               "rows", "rowinv", "slice", "serve", "batchinv",
+               "graphs", "stream", "bstream", "jacobi", "pool_ring",
+               "pool_window",
                "mesh", "mel_device", "bench", "ckpt", "ckpt_full")
 
 
 def run_only(names) -> dict:
     """The named phases alone (a quick check of some phases on the card;
-    the full run is what proves the port)."""
+    the full run is what proves the port); run from main(), under
+    decoder_calls."""
     from voxtral_tpu_torch.config import full_config
 
     out, cfg, params = {}, full_config(), None
     for name in ONLY_PHASES:
         if name not in names:
             continue
-        if name in ("graphs", "stream", "jacobi", "pool_ring", "pool_window",
-                    "mesh", "bench") and params is None:
+        if name in ("slice", "serve", "batchinv", "graphs", "stream",
+                    "bstream", "jacobi", "pool_ring", "pool_window", "mesh",
+                    "bench") and params is None:
             params = make_params(cfg, "cuda")
-        if name == "graphs":
+        if name == "slice":
+            out[name] = phase_slice(cfg, params, "cuda", (4.0, 11.0, 30.0))
+        elif name == "serve":
+            out[name] = phase_serve(cfg, params, "cuda", n_streams=16,
+                                    seconds=30.0, dec_ring=896)
+        elif name == "batchinv":
+            out[name] = phase_batchinv(cfg, params, "cuda")
+        elif name == "bstream":
+            out[name] = phase_bstream(cfg, params, "cuda")
+        elif name == "graphs":
             out[name] = phase_graphs(cfg, params, "cuda")
         elif name == "stream":
             out[name] = phase_stream(cfg, params, "cuda")
@@ -4988,6 +5928,15 @@ def main(argv: list[str]) -> int:
     smi = phase_device()
     log("device", f"nvidia-smi: {smi}")
     phase_build()
+    with decoder_calls():
+        return _run_phases(argv, smi, t_start)
+
+
+def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
+    """main()'s phases after the build, with the decoder's calls counted
+    (decoder_calls)."""
+    import torch
+
     if argv[:1] == ["--int4"]:
         import voxtral_tpu_torch
 
@@ -5039,6 +5988,7 @@ def main(argv: list[str]) -> int:
     graphed = gr["launches"]
     st = timed("stream", phase_stream, cfg, params, "cuda")
     bst = timed("bstream", phase_bstream, cfg, params, "cuda")
+    bi = timed("batchinv", phase_batchinv, cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
                 for k in st["launches"]}
     streamed.update({k: st["rowinv_launches"][k] + bst["rowinv_launches"][k]
@@ -5161,7 +6111,24 @@ def main(argv: list[str]) -> int:
          "replaces": "voxtral_tpu/ops/ring.py:88",
          "launches": served["ring_rows_write"] + graphed["ring_rows_write"],
          "launches_graphs": graphed["ring_rows_write"], **rows},
-        _rowinv_kernel(rowinv, streamed, pr, graphed, benched),
+        _rowinv_kernel(rowinv, {
+            "slice": sl["launches"][2], "serve": served["bf16_mm"],
+            "graphs": graphed["bf16_mm"],
+            "stream": st["rowinv_launches"]["bf16_mm"],
+            "bstream": bst["rowinv_launches"]["bf16_mm"],
+            "jacobi": jac["launches_bf16_mm"],
+            "pool_ring": pr["rowinv_launches"]["bf16_mm"],
+            "pool_window": pw["rowinv_launches"]["bf16_mm"],
+            "bench": benched["bf16_mm"]}),
+        _norm_kernel(rowinv, {
+            "slice": sl["launches"][3], "serve": served["rms_norm_rows"],
+            "graphs": graphed["rms_norm_rows"],
+            "stream": st["rowinv_launches"]["rms_norm_rows"],
+            "bstream": bst["rowinv_launches"]["rms_norm_rows"],
+            "jacobi": jac["launches_rms_norm_rows"],
+            "pool_ring": pr["rowinv_launches"]["rms_norm_rows"],
+            "pool_window": pw["rowinv_launches"]["rms_norm_rows"],
+            "bench": benched["rms_norm_rows"]}),
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -5187,9 +6154,9 @@ def main(argv: list[str]) -> int:
     idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
-    idle = [f"{k['name']} {path}" for k in kernels[-1:]
+    idle = [f"{k['name']} {path}" for k in kernels[-2:]
             for path, n in k["launches_by_path"].items() if n <= 0]
-    if idle:   # the streaming encoder side of every streaming path
+    if idle:   # the streaming encoder side, the decoder of every path
         raise AssertionError(f"no launch on {idle}")
     idle = [k["name"] for k in kernels if k.get("launches_bench") == 0]
     if idle:   # #1 (bulk, the window rows), #4, #6 (int4), #7 ("inc"),
@@ -5204,7 +6171,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"kernels": kernels, "clips": sl["clips"],
                       "step_rel_err": sl["step_rel_err"],
                       "serve": sv["rungs"], "stream": st,
-                      "bstream": bst, "jacobi": jac, "pool_ring": pr,
+                      "bstream": bst, "batchinv": bi, "jacobi": jac,
+                      "pool_ring": pr,
                       "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
                       "f32_auto": f32_auto, "ckpt": ck, "graphs": gr,
                       "bench": bn,

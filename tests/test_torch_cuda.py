@@ -1664,3 +1664,124 @@ def test_fused_stream_rows_equal_across_chunkings(dev):
         y, cache = eng.encode(c1, cache, 16 * i)
         out.append(eng.adapter(y))
     assert torch.equal(torch.cat(out, dim=1), whole)
+
+
+@pytest.mark.parametrize("bsz,cap,dtype", [
+    (1, 512, torch.bfloat16), (3, 896, torch.bfloat16),
+    (16, 896, torch.float8_e4m3fn), (64, 896, torch.bfloat16),
+    (3, 1024, torch.float32)])
+def test_flash_decode_mappings_bitwise_equal(dev, bsz, cap, dtype,
+                                             monkeypatch):
+    """Every mapping of the batch-free split (1 .. S blocks per cluster,
+    block r walking the ranges r, r + c, ..) gives the wrapper's output
+    and rings bit for bit, attend and write + attend; stream 0 alone gives
+    its bits inside the batch."""
+    from voxtral_tpu_torch.ops import flash_decode as fd
+
+    kk, vk, q, rows = _flash_case(dev, 17 + bsz, bsz, cap, dtype,
+                                  q_dtype=torch.bfloat16)
+    pos = torch.tensor([cap + 300] + [(389 * i) % (3 * cap)
+                                      for i in range(1, bsz)],
+                       dtype=torch.int32, device=dev)
+    kw = dict(window=8192, out_dtype=torch.float32)
+    plan = fd.flash_decode_plan(cap, bsz, 8)
+    want = flash_decode(q, kk, vk, 25, pos, **kw)
+    k2, v2 = kk.clone(), vk.clone()
+    want_w = flash_decode(q, k2, v2, 25, pos, *rows, **kw)
+    alone = flash_decode(q[:1], kk[:1].contiguous(), vk[:1].contiguous(), 25,
+                         pos[:1], **kw)
+    for c in range(1, plan.splits + 1):
+        monkeypatch.setattr(fd, "flash_decode_plan",
+                            lambda *a, c=c: plan._replace(cluster=c))
+        got = flash_decode(q, kk, vk, 25, pos, **kw)
+        k3, v3 = kk.clone(), vk.clone()
+        got_w = flash_decode(q, k3, v3, 25, pos, *rows, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_w, want_w), c
+        assert torch.equal(_bits(k3), _bits(k2))
+    assert torch.equal(alone[0], want[0])
+
+
+@pytest.mark.parametrize("rung,kv,quantize", [
+    ("bf16", None, False), ("fp8kv", "float8_e4m3fn", False),
+    ("int8", "float8_e4m3fn", "int8"), ("int4", "float8_e4m3fn", "int4")])
+def test_decode_step_batch_invariant_on_every_rung(dev, graph_params, rung,
+                                                   kv, quantize):
+    """Stream 0's graphed decode step (n_alt 2) from the same ring and
+    inputs at B = 1, 3 and 16, the other streams random: its token,
+    probabilities and the K/V rows it wrote are the same bits at every B;
+    and its prefill's rings alone and inside a batch of 4."""
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.parallel import serving as sv
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = _graph_cfg()
+    if kv:
+        cfg = cfg.replace(kv_dtype=kv, enc_kv_dtype="bfloat16")
+    engine = VoxtralEngine(cfg, graph_params, dec_kv_ring=896,
+                           buckets=(64, 16, 4, 1), quantize=quantize)
+    dp, ada, dim = engine.params["decoder"], engine.ada(), cfg.decoder.dim
+    g0 = torch.Generator(device=dev).manual_seed(3)
+    ring0 = [torch.randn((2, 8, 896, 128), generator=g0, device=dev) * 0.5
+             for _ in range(2)]
+    row0 = torch.randn((1, 1, dim), generator=g0, device=dev)
+    ref = None
+    for bsz in (1, 3, 16):
+        g = torch.Generator(device=dev).manual_seed(bsz)
+        cache = engine.new_dec_cache(bsz)
+        for t, r0 in zip((cache.k, cache.v), ring0):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.5)
+            t[0].copy_(r0)
+        chunk = torch.cat([row0, torch.randn((bsz - 1, 1, dim), generator=g,
+                                             device=dev)])
+        prev = torch.randint(0, 1000, (bsz,), generator=g, device=dev,
+                             dtype=torch.int32)
+        pos = torch.randint(0, 2000, (bsz,), generator=g, device=dev,
+                            dtype=torch.int32)
+        prev[0], pos[0] = 32, 600
+        base = (cache.k.clone(), cache.v.clone())
+        for _ in range(2):       # the capture's own run, then a replay
+            cache.k.copy_(base[0])
+            cache.v.copy_(base[1])
+            out = dec_mod.decode_burst(dp, cfg, chunk, prev, cache, pos, ada,
+                                       n_alt=2)
+        got = [out[0][0], out[1][0], out[2][0], out[3][0],
+               _bits(cache.k[0, :, :, 600]), _bits(cache.v[0, :, :, 600])]
+        if ref is None:
+            ref = got
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), bsz
+    emb0 = torch.randn((1, 38, dim), generator=g0, device=dev)
+    rings = []
+    for bsz in (1, 4):
+        e = torch.cat([emb0, torch.randn((bsz - 1, 38, dim), generator=g0,
+                                         device=dev)])
+        c = sv.batched_dec_cache(cfg, bsz, 896, device=dev, graphs=False)
+        sv.bprefill(dp, cfg, e, c, torch.zeros(bsz, dtype=torch.int32,
+                                               device=dev), ada)
+        rings.append((_bits(c.k[0, :, :, :38]), _bits(c.v[0, :, :, :38])))
+    assert all(torch.equal(a, b) for a, b in zip(*rings))
+
+
+@pytest.mark.parametrize("width", [1280, 3072])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_rows_bitwise_invariant(dev, width, dtype):
+    """The norm kernel: every row's bits the same at 1..80 rows and at the
+    prefills' B x 38 (at two offsets) as in one call over all of them,
+    and within one bf16 step (f32: 1e-5) of torch's rms_norm, relative to
+    its largest value; one launch a call."""
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
+
+    gen = torch.Generator(device=dev).manual_seed(width)
+    x = _randn(gen, (64 * 38 + 7, width), dtype, dev)
+    w = torch.rand((width,), generator=gen, device=dev) + 0.5
+    n0 = rms_norm_rows.launches
+    full = rms_norm_rows(x, w)
+    assert rms_norm_rows.launches == n0 + 1
+    for n in list(range(1, 81)) + [38 * b for b in (3, 4, 16, 56, 64)]:
+        for lo in (0, 7):
+            assert torch.equal(rms_norm_rows(x[lo: lo + n], w),
+                               full[lo: lo + n]), (n, lo)
+    want = rms_norm(x, w).float()
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert ((full.float() - want).abs().max()
+            / want.abs().max()).item() <= tol

@@ -25,7 +25,10 @@ from voxtral_tpu_torch.models import decoder as tdec
 from voxtral_tpu_torch.models.params import from_jax_numpy
 from voxtral_tpu_torch.ops.flash_decode import (
     flash_decode,
+    flash_decode_chunk,
     flash_decode_plain,
+    flash_decode_plan,
+    flash_decode_split_plain,
     flash_decode_splits,
 )
 
@@ -231,10 +234,93 @@ def test_decoder_routes_fp8_rings_to_flash(params_np, monkeypatch):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
-@pytest.mark.parametrize("span,bsz,kh,want", [
-    (512, 1, 8, 8), (8192, 1, 8, 8), (896, 16, 8, 1), (896, 3, 8, 5),
-    (384, 1, 8, 6), (64, 1, 8, 1), (48, 3, 2, 1), (8192, 64, 8, 1)])
-def test_split_plan(span, bsz, kh, want):
-    """The kernel's split plan: at most 132 blocks (one H100 wave), at most
-    8 per cluster, at least 64 window slots each; shapes only."""
-    assert flash_decode_splits(span, bsz, kh) == want
+@pytest.mark.parametrize("span,kh,want", [
+    (512, 8, 8), (8192, 8, 8), (896, 8, 7), (1024, 8, 8),
+    (384, 8, 6), (64, 8, 1), (48, 2, 1), (896, 4, 7)])
+def test_split_plan(span, kh, want):
+    """The kernel's split: at most 8 ranges, at least 64 window slots each,
+    ranges a multiple of 64 slots covering the window; shapes only, and no
+    batch size among them."""
+    assert flash_decode_splits(span, kh) == want
+    chunk = flash_decode_chunk(span, kh)
+    assert chunk % 64 == 0 and (want - 1) * chunk < span <= want * chunk
+
+
+@pytest.mark.parametrize("bsz,kh,want", [
+    (1, 8, 7), (2, 8, 7), (3, 8, 5), (8, 8, 2), (16, 8, 1), (64, 8, 1),
+    (16, 4, 2), (16, 2, 4)])
+def test_split_mapping(bsz, kh, want):
+    """How the 7 ranges of an 896-slot window run: a cluster of up to 7
+    blocks per (stream, KV head) while the grid fits one wave of 132
+    blocks, down to one block walking every range (B >= 9 at 8 KV heads);
+    the split itself is the same at every B."""
+    plan = flash_decode_plan(896, bsz, kh)
+    assert plan.cluster == want
+    assert (plan.splits, plan.chunk) == (flash_decode_splits(896, kh),
+                                         flash_decode_chunk(896, kh))
+    assert want == 1 or bsz * kh * want <= 132
+
+
+def _split_case(bsz, cap, seed, ring=np.float32):
+    k_all, v_all, q, k_rows, v_rows = _case(bsz, 2, 2, 4, 128, cap, seed,
+                                            dtype=ring)
+    rng = np.random.default_rng(seed + 1)
+    pos = rng.integers(0, 3 * cap, size=bsz).astype(np.int32)
+    pos[0] = cap + 5                 # stream 0 across every range
+    return k_all, v_all, q, k_rows, v_rows, pos
+
+
+@pytest.mark.parametrize("ring", [np.float32, jnp.bfloat16,
+                                  jnp.float8_e4m3fn])
+@pytest.mark.parametrize("cap,window", [(512, 8192), (384, 300)])
+def test_split_model_mappings_and_plain(ring, cap, window):
+    """flash_decode_split_plain (the kernel's ranges, partitions and fold
+    order) gives the same bits under every mapping, from one block walking
+    every range to one block a range, and stays within 1e-5 of
+    flash_decode_plain, rings bit-equal."""
+    k_all, v_all, q, k_rows, v_rows, pos = _split_case(3, cap, 21, ring)
+    args = lambda: (_torch(q).to(torch.bfloat16), _torch(k_all),
+                    _torch(v_all), 1, torch.from_numpy(pos), _torch(k_rows),
+                    _torch(v_rows))
+    kw = dict(window=window, out_dtype=torch.float32)
+    splits = flash_decode_splits(min(cap, window), 2)
+    assert splits > 1
+    outs = []
+    for c in range(1, splits + 1):
+        a = args()
+        outs.append((flash_decode_split_plain(*a, cluster=c, **kw), a[1]))
+    ref_args = args()
+    ref = flash_decode_plain(*ref_args, **kw)
+    for out, ring_k in outs:
+        assert torch.equal(out, outs[0][0])
+        assert torch.equal(ring_k.view(torch.uint8),
+                           ref_args[1].view(torch.uint8))
+    np.testing.assert_allclose(outs[0][0].numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("ring", [np.float32, jnp.bfloat16])
+def test_split_model_against_jax_kernel(ring):
+    """The split model at B=3 on a 512-slot ring (8 ranges of 64) against
+    the JAX package's fused Pallas kernel (#4) in interpret mode: outputs
+    within 1e-5, rings bit-equal; stream 0's output the same bits alone
+    and inside the batch."""
+    cap, window = 512, 8192
+    k_all, v_all, q, k_rows, v_rows, pos = _split_case(3, cap, 33, ring)
+    jo, jk, jv = flash_decode_write_attention_batched(
+        jnp.asarray(q), jnp.asarray(k_all), jnp.asarray(v_all),
+        jnp.asarray(k_rows), jnp.asarray(v_rows), jnp.int32(1),
+        jnp.asarray(pos), window=window, block=64, interpret=True,
+        out_dtype=jnp.float32)
+    tk, tv = _torch(k_all), _torch(v_all)
+    got = flash_decode_split_plain(
+        _torch(q), tk, tv, 1, torch.from_numpy(pos), _torch(k_rows),
+        _torch(v_rows), window=window, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), _f32(jo), atol=1e-5)
+    for t, j in ((tk, jk), (tv, jv)):
+        np.testing.assert_array_equal(t.view(torch.uint8).numpy(),
+                                      np.asarray(j).view(np.uint8))
+    alone = flash_decode_split_plain(
+        _torch(q[:1]), _torch(k_all[:1]), _torch(v_all[:1]), 1,
+        torch.from_numpy(pos[:1]), _torch(k_rows[:1]), _torch(v_rows[:1]),
+        window=window, out_dtype=torch.float32)
+    assert torch.equal(alone[0], got[0])

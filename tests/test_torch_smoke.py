@@ -86,13 +86,14 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
         "banded_attention_batched": 5 * cfg.encoder.n_layers,
         "flash_decode": 5 * cfg.decoder.n_layers * steps,
         "ring_rows_write": cfg.decoder.n_layers * 4,
-        "int4_mm": quant, "int8_mm": quant,
+        "int4_mm": quant, "int8_mm": quant, "bf16_mm": 0,
+        "rms_norm_rows": 0,
     }
     assert rungs["int8"]["launches"]["int8_mm"] == quant
     assert rungs["fp8kv"]["launches_xla_mid_fill"] == {
         "banded_attention_batched": 0, "flash_decode": 0,
         "ring_rows_write": cfg.decoder.n_layers * 4, "int4_mm": 0,
-        "int8_mm": 0}
+        "int8_mm": 0, "bf16_mm": 0, "rms_norm_rows": 0}
     assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
     for name in ("fp8kv", "int8", "int4", "int4deq"):
         assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0
@@ -200,8 +201,10 @@ def test_stream_and_bstream_phases_on_cpu(counted_kernels):
                 cfg.encoder.n_layers * r["encoder_chunks"],
             "flash_decode": cfg.decoder.n_layers * r["decode_steps"],
             "banded_attention_batched": 0}
-    # f32 on the CPU: every chunking gives the offline path's ids
+    # f32 on the CPU: every chunking gives the offline path's ids, and the
+    # offline path teacher-forced on each run's ids predicts every one
     assert set(st["agreement"].values()) == {1.0}
+    assert set(st["teacher_forced_offline"].values()) == {1.0}
     assert st["launches"]["flash_bulk_attention_batched"] == sum(
         r["launches"]["flash_bulk_attention_batched"] for r in st["runs"])
 
@@ -312,6 +315,11 @@ def test_pool_phases_on_cpu(counted_kernels):
         cfg.decoder.n_layers * pr["decoded_rows"] > 0
     assert pr["launches"]["banded_attention_batched"] == 0
     assert pr["slot0_agree_b1_voxstream"] == 1.0 and pr["compared"] > 0
+    # slot 0's encoder rows by position equal the B=1 stream's through the
+    # end: the encode calls it sat out (the churned slot catching up) are
+    # not recorded as its rows
+    assert pr["slot0_rows_diff_b1"] is None
+    assert "slot0_dec_rows_diff_b1" in pr
     assert pr["tokens_per_tick"] > 0 and pr["bursts_per_tick"] > 0
     pw = cs.phase_pool(cfg, params, "cpu", "pool_window", 4, "window", 1.0,
                        3, dec_ring=64, dec_kv_dtype="float8_e4m3fn",
@@ -425,3 +433,30 @@ def test_f32_encoder_auto_on_cpu():
     assert rec["f32_rel_err_stream"] <= cs.F32_ENCODER_REL_TOL
     assert rec["f32_rel_err_bulk"] <= cs.F32_ENCODER_REL_TOL
     assert "kernels" not in rec
+
+
+def test_batchinv_phase_on_cpu(counted_kernels, stand_in):
+    """The batchinv phase at tiny size in bf16 (the row-invariant route's
+    rule, plain functions on the CPU) with test_torch_graphs' stand-in
+    graph: stream 0's graphed step at B=1, 3 and 5 on all four rungs and
+    both routes, its prefill alone and inside B=4, each compared and
+    recorded; no timing off the card; the counters reset."""
+    cfg = tiny_config(compute_dtype="bfloat16", enc_kv_ring=128,
+                      dec_window=256, dec_kv_ring=256)
+    params = cs.make_params(cfg, "cpu")
+    bi = cs.phase_batchinv(cfg, params, "cpu", sizes=(1, 3, 5),
+                           time_sizes=(3,), dec_ring=256, pos=200,
+                           prefill_b=(4,))
+    assert [r["rung"] for r in bi["rungs"]] == ["bf16", "fp8kv", "int8",
+                                               "int4"]
+    for r in bi["rungs"]:
+        for route in cs.BATCHINV_ROUTES:
+            for bsz in (3, 5):
+                assert isinstance(r[f"step_{route}_b{bsz}_equal"], bool)
+            assert f"prefill_{route}_b4_rings_diff" in r
+        assert not any(k.startswith("step_ms") for k in r)
+        # the port's route on the CPU: every product the plain one, the
+        # T > 1 attention's products one stream at a time
+        assert r["prefill_rowinv_b4_rings_diff"] is None
+        assert r["prefill_rowinv_b4_first_diff"] is None
+    assert flash_decode.flash_decode.launches == 0

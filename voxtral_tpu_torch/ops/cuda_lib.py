@@ -124,7 +124,7 @@ def kernels() -> ctypes.CDLL:
             lib.vt_flash_decode.restype = i
             lib.vt_flash_decode.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
-                ll, ll, i, p,
+                ll, ll, i, i, i, p,
             ]
             lib.vt_flash_encode.restype = i
             lib.vt_flash_encode.argtypes = [
@@ -139,6 +139,8 @@ def kernels() -> ctypes.CDLL:
             lib.vt_int8_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
             lib.vt_int8_mm_occupancy.restype = i
             lib.vt_int8_mm_occupancy.argtypes = [i, i]
+            lib.vt_rms_norm.restype = i
+            lib.vt_rms_norm.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
             lib.vt_ring_rows_write.restype = i
             lib.vt_ring_rows_write.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,

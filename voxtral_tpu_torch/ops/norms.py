@@ -2,12 +2,22 @@
 
 Semantics follow python_simple_implementation.py:229-237 (RMSNorm always in
 float32) and voxtral_tpu/ops/norms.py (exact erf GELU, SiLU).
+
+`rms_norm_rows` is the same norm with each row's bits independent of how
+many rows share the call (the row-invariant route, models/decoder.py:
+_use_rowinv): torch's reduction picks its layout by the row count, so
+`rms_norm` rounds a 3072-wide row differently at B <= 3 than at B >= 16.
+CUDA tensors launch `voxtral_tpu_torch/csrc/rms_norm.cu` (one block a row,
+the sum of squares in an order fixed by the width); CPU tensors take
+`rms_norm`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import cuda_lib
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -18,6 +28,41 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     xf = x.float()
     rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * rms * weight.float()).to(x.dtype)
+
+
+def rms_norm_rows(x: torch.Tensor, weight: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """`rms_norm` with each row's bits independent of the row count on the
+    card.  x: [..., dim] bf16 or f32, contiguous; weight: [dim] f32."""
+    if x.device.type == "cpu":
+        return rms_norm(x, weight, eps)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"rms_norm_rows on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rms_norm kernel takes bf16 or f32 x, got {x.dtype}")
+    dim = x.shape[-1]
+    if weight.dtype != torch.float32 or weight.shape != (dim,) \
+            or weight.device != x.device:
+        raise ValueError(f"rms_norm kernel: weight {weight.dtype} "
+                         f"{tuple(weight.shape)} on {weight.device} (needs "
+                         f"f32 [{dim}] on {x.device})")
+    x = x.contiguous()
+    weight = weight.contiguous()
+    out = torch.empty_like(x)
+    rows = x.numel() // dim
+    if rows == 0:
+        return out
+    err = cuda_lib.kernels().vt_rms_norm(
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, dim,
+        int(x.dtype == torch.bfloat16), float(eps),
+        cuda_lib.stream_handle(x.device))
+    cuda_lib.check(err, "rms_norm")
+    rms_norm_rows.launches += 1
+    return out
+
+
+# kernel launches since the last reset (CPU calls never count)
+rms_norm_rows.launches = 0
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -181,6 +181,7 @@ def ring_attention(
     *,
     window: int,
     out_dtype=None,
+    per_stream: bool = False,
 ) -> torch.Tensor:
     """Sliding-window causal GQA attention over a ring cache.
 
@@ -195,6 +196,12 @@ def ring_attention(
     accumulate in float32 — done here by widening those operands to f32,
     which is exact for the products; the softmax is f32 and the
     probabilities are rounded to the matmul dtype before the PV product.
+
+    `per_stream`: the two products run one stream at a time, each as the
+    same [KH]-batched matmul whatever B is, so that a stream's bits do not
+    depend on how many streams share the call (a batched product's
+    library kernel may follow the batch count; models/decoder.py:
+    _use_rowinv); the rest is elementwise or row by row either way.
     """
     bsz, t, h, d = q.shape
     _, kh, cap, _ = k_ring.shape
@@ -212,9 +219,21 @@ def ring_attention(
     mm_dtype = k_ring.dtype if k_ring.dtype.itemsize >= 2 else q.dtype
     qg = q.reshape(bsz, t, kh, g, d).to(mm_dtype).float()
     kf = k_ring.to(mm_dtype).float()
-    scores = torch.einsum("btkgd,bksd->bkgts", qg, kf) * scale
-    scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
     vf = v_ring.to(mm_dtype).float()
-    out = torch.einsum("bkgts,bksd->btkgd", probs.to(mm_dtype).float(), vf)
+    if per_stream:
+        # [KH, G*T, D] x [KH, D, S] and [KH, G*T, S] x [KH, S, D] a stream
+        qp = qg.permute(0, 2, 3, 1, 4).reshape(bsz, kh, g * t, d)
+        scores = torch.stack([torch.matmul(qp[i], kf[i].transpose(1, 2))
+                              for i in range(bsz)])
+        scores = scores.view(bsz, kh, g, t, -1) * scale
+    else:
+        scores = torch.einsum("btkgd,bksd->bkgts", qg, kf) * scale
+    scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(mm_dtype).float()
+    if per_stream:
+        pp = probs.view(bsz, kh, g * t, -1)
+        out = torch.stack([torch.matmul(pp[i], vf[i]) for i in range(bsz)])
+        out = out.view(bsz, kh, g, t, d).permute(0, 3, 1, 2, 4)
+    else:
+        out = torch.einsum("bkgts,bksd->btkgd", probs, vf)
     return out.reshape(bsz, t, h, d).to(out_dtype)

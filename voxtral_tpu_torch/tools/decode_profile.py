@@ -72,7 +72,7 @@ def main(argv=None, cfg=None) -> int:
     from ..models import quant
     from ..models.params import init_params
     from ..ops.flash_decode import flash_decode
-    from ..ops.norms import rms_norm, silu
+    from ..ops.norms import rms_norm, rms_norm_rows, silu
     from ..ops.ring import ring_attention, ring_rows_write
     from ..parallel import serving as sv
 
@@ -168,7 +168,9 @@ def main(argv=None, cfg=None) -> int:
         def attn26_xla():
             for li in range(d.n_layers):
                 ring_attention(q4, cache.k[:, li], cache.v[:, li], pos,
-                               window=d.window, out_dtype=torch.bfloat16)
+                               window=d.window, out_dtype=torch.bfloat16,
+                               per_stream=dmod._use_rowinv(cfg.cdtype,
+                                                           "step"))
 
         t_ax = graph_time(attn26_xla, rep, dev)
         full_gib = 2 * batch * d.n_layers * d.n_kv_heads * ring * \
@@ -188,22 +190,26 @@ def main(argv=None, cfg=None) -> int:
     del cache
 
     # --- term: matmul+norm chain, attention stubbed ---------------------
+    # (on the step's route: row-invariant products in a bf16 config)
     cdtype = cfg.cdtype
+    ri = dmod._use_rowinv(cdtype, "step")
+    norm = rms_norm_rows if ri else rms_norm
     x_m = torch.zeros((batch, d.dim), device=dev)
 
     def matmuls_only():
         x = x_m
         for li in range(d.n_layers):
             lp = {k: v[li] for k, v in dp["layers"].items()}
-            xn = rms_norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
-            qkv = quant.mm(xn, lp, "wqkv")
+            xn = norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
+            qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)
             attn = qkv[:, : d.q_dim]                      # stub: no KV/flash
-            x = x + quant.mm(attn.to(cdtype), lp, "wo").to(x.dtype)
-            hn = rms_norm(x, lp["ffn_norm"], d.norm_eps).float()
+            x = x + quant.mm(attn.to(cdtype), lp, "wo",
+                             rowinv=ri).to(x.dtype)
+            hn = norm(x, lp["ffn_norm"], d.norm_eps).float()
             hn = (hn * (1.0 + ada[li])).to(cdtype)
-            g13 = quant.mm(hn, lp, "w13")
+            g13 = quant.mm(hn, lp, "w13", rowinv=ri)
             gate = silu(g13[:, : d.hidden]) * g13[:, d.hidden:]
-            ffn = quant.mm(gate.to(cdtype), lp, "w2")
+            ffn = quant.mm(gate.to(cdtype), lp, "w2", rowinv=ri)
             x = x + ffn.to(x.dtype)
         return x
 
