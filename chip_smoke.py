@@ -80,12 +80,13 @@ script exits non-zero:
                within tolerance of plain, two calls bitwise equal, one
                launch a call, bf16_mm's two ways to run its split bitwise
                equal; the plans against the card's occupancy; at which row
-               counts torch.mm gives a row other bits (printed) and that
-               torch's rms_norm gives none (gated); graph-replay times of
-               bf16_mm (both ways) against torch.mm(out_dtype=f32), of the
-               int kernels' row-invariant plans against their row-count
-               plans, with bounds; torch's rms_norm also at the decoder's
-               width (rows 1..80 and B x 38), gated; bf16_mm on the
+               counts torch.mm gives a row other bits (printed); graph-replay
+               times of bf16_mm (both ways) against torch.mm(out_dtype=f32),
+               of the int kernels' row-invariant plans against their
+               row-count plans, with bounds; the norm kernel
+               (csrc/rms_norm.cu) at the encoder's and the decoder's width
+               (rows 1..80 and B x 38) row-invariant, gated, torch's norm's
+               row dependence printed; bf16_mm on the
                decoder's five products (rows 1..2432 bitwise invariant,
                times at 16, 56, 64 rows against torch.mm and bound)
   8. slice    full_config() bf16 with seeded random weights: three
@@ -154,7 +155,9 @@ script exits non-zero:
                full-width serve pipeline (bulk encode, batched prefill,
                decode bursts) of 4 x 5 s clips at dp 1 x tp 2 against the
                same clips unsharded: exact launches per rank (banded at 16
-               heads, flash-decode at 16q/4kv), the prefill's last hidden
+               heads, flash-decode at 16q/4kv; bf16_mm and the norm kernel
+               against the rank's own count of its passes, mesh_rank), the
+               prefill's last hidden
                state against an f32 witness of the same clips within
                MESH_HIDDEN_REL_TOL and MESH_WITNESS_FACTOR x the tp-1
                run's error, ids' agreement printed;
@@ -263,6 +266,13 @@ DEQUANT_AGREE_MIN = 0.5
 # and cuBLAS picks its GEMM algorithm by row count, so other chunkings
 # round differently on the card)
 STREAM_AGREE_MIN = 0.5
+# stream: least share of positions at which the offline path,
+# teacher-forced on a streaming run's ids, predicts them: between the
+# readings of a sound decoder on the card (0.966-0.987, H100 80GB HBM3,
+# 700 W) and that of the same decoder with its middle layer's attention
+# output zeroed (0.779), which the phase reads beside it and which must
+# stay below this bar
+STREAM_FORCED_MIN = 0.9
 # jacobi: where f32 Jacobi ids first differ from sequential ones, a
 # sequential top-2 logit gap below this share of max |logit| is a near-tie
 # (f32 products in another order); any other difference fails
@@ -717,41 +727,51 @@ def _flash_times(gen, bsz: int, cap: int, pos_l, rdt, window: int,
 
 
 # flash: plans timed against each other at the serve and bench shapes
-# (ranges x slots, blocks per cluster): the split's cost by range count
+# (ranges x slots, blocks per cluster): the split's cost by range count;
+# at B=1 each split as a cluster of one block a range (its mapping there),
+# at caps 512 and 896 with the window full
 FLASH_SWEEP = ((1, 896, 1), (2, 448, 1), (4, 256, 1), (7, 128, 1),
                (7, 128, 7))
+FLASH_SWEEP_B1 = {512: ((1, 512, 1), (2, 256, 2), (4, 128, 4), (8, 64, 8)),
+                  896: ((1, 896, 1), (2, 448, 2), (4, 256, 4), (7, 128, 7))}
 
 
 def _flash_plan_sweep(gen, window: int = 8192) -> dict:
-    """Kernel (B)'s device ms (graph replay, write + attend, bf16 ring of
-    896 slots, positions around 500) at B=16 and 64 under each plan of
-    FLASH_SWEEP: what a range costs when one block walks them, and what
-    the cluster mapping costs where it passes a wave."""
+    """Kernel (B)'s device ms (graph replay, write + attend, bf16 rings)
+    under each plan: at B=16 and 64 on 896 slots, positions around 500,
+    each of FLASH_SWEEP (what a range costs when one block walks them, and
+    what the cluster mapping costs where it passes a wave); at B=1 on 512
+    and 896 slots, the window full, each of FLASH_SWEEP_B1 (what fewer
+    ranges cost a lone stream)."""
     import torch
 
     from voxtral_tpu_torch.ops.flash_decode import FlashPlan, flash_decode
 
     out = {}
-    for bsz in (16, 64):
-        shape = (bsz, 26, 8, 896, 128)
+    cases = [(16, 896, FLASH_SWEEP, [500 + 13 * (i - 8) for i in range(16)]),
+             (64, 896, FLASH_SWEEP,
+              [500 + 13 * (i % 16 - 8) for i in range(64)])]
+    cases += [(1, cap, plans, [cap + 123])
+              for cap, plans in FLASH_SWEEP_B1.items()]
+    for bsz, cap, plans, pos_l in cases:
+        shape = (bsz, 26, 8, cap, 128)
         k_all = _randn(gen, shape, torch.bfloat16)
         v_all = _randn(gen, shape, torch.bfloat16)
         q = _randn(gen, (bsz, 32, 128), torch.bfloat16)
         rows = [_randn(gen, (bsz, 8, 128), torch.float32) for _ in range(2)]
-        pos = torch.tensor([500 + 13 * (i % 16 - 8) for i in range(bsz)],
-                           dtype=torch.int32, device="cuda")
-        for plan in FLASH_SWEEP:
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        tag = f"b{bsz}_" if cap == 896 else f"b{bsz}_cap{cap}_"
+        for plan in plans:
             with flash_plan(lambda *a, p=plan: FlashPlan(*p)):
-                out[f"b{bsz}_{'x'.join(map(str, plan))}"] = graph_ms(
+                out[tag + "x".join(map(str, plan))] = graph_ms(
                     lambda: flash_decode(q, k_all, v_all, 25, pos, *rows,
                                          window=window,
                                          out_dtype=torch.bfloat16), 20)
         del k_all, v_all
-        log("flash", f"plans at B={bsz} bf16 cap 896 (ranges x slots x "
+        log("flash", f"plans at B={bsz} bf16 cap {cap} (ranges x slots x "
                      f"blocks per cluster: device ms): " + ", ".join(
-                         f"{k[len(f'b{bsz}_'):]} {v:.4f}"
-                         for k, v in out.items()
-                         if k.startswith(f"b{bsz}_")))
+                         f"{k[len(tag):]} {v:.4f}" for k, v in out.items()
+                         if k.startswith(tag) and "cap" not in k[len(tag):]))
     return out
 
 
@@ -1767,13 +1787,15 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
             raise AssertionError(f"[slice] clip {i}: flash launches {nb} != "
                                  f"{cfg.decoder.n_layers} x {steps} steps")
         # the decoder's products: 4 a layer of the prefill, 4 a layer and
-        # the table a step; its norms 2 a layer, and the final norm a step
-        nl = cfg.decoder.n_layers
+        # the table a step; the norms 2 a layer of the prefill and of each
+        # step and the final norm a step, and 2 a layer and the final norm
+        # of the clip's one bulk encoder pass
+        nl, ne = cfg.decoder.n_layers, cfg.encoder.n_layers
         want_h = (4 * nl + (4 * nl + 1) * steps) * _dec_route(cfg, on_gpu)
-        want_n = (2 * nl + (2 * nl + 1) * steps) * _dec_route(cfg, on_gpu)
+        want_n = 2 * nl + (2 * nl + 1) * steps + 2 * ne + 1
         if (nh, nn) != (want_h, want_n):
             raise AssertionError(f"[slice] clip {i}: bf16_mm and "
-                                 f"rms_norm_rows launches {nh}, {nn} != "
+                                 f"rms_norm launches {nh}, {nn} != "
                                  f"{want_h}, {want_n}")
         counts_total[0] += na
         counts_total[1] += nb
@@ -1874,28 +1896,48 @@ def _uncounted(plain):
 
 
 @contextlib.contextmanager
+def plain_norms():
+    """Routes every norm of the model (decoder, streaming and bulk encoder)
+    to torch's, `rms_norm_plain`, through an uncounted stand-in for the
+    duration."""
+    from voxtral_tpu_torch.models import bulk_encode
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.models import encoder as enc_mod
+    from voxtral_tpu_torch.ops.norms import rms_norm_plain
+
+    mods = (dec_mod, enc_mod, bulk_encode)
+    saved = [m.rms_norm for m in mods]
+    for m in mods:
+        m.rms_norm = _uncounted(rms_norm_plain)
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.rms_norm = fn
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Routes the decoder's products (int4, int8 and the row-invariant
-    bf16), its norms and decode-step row writes to their plain PyTorch
+    bf16), the norms and decode-step row writes to their plain PyTorch
     versions for the duration (the reference side of a kernel-path check;
     attn_impl="xla" keeps flash-decode, flash-encode and the bulk
     encoder's banded kernel off)."""
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.ops import bf16_mm, quant_mm, ring
-    from voxtral_tpu_torch.ops.norms import rms_norm
 
     saved = (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write,
-             bf16_mm.bf16_mm, dec_mod.rms_norm_rows)
+             bf16_mm.bf16_mm)
     quant_mm.int4_mm = _uncounted(quant_mm.int4_mm_plain)
     quant_mm.int8_mm = _uncounted(quant_mm.int8_mm_plain)
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
     bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
-    dec_mod.rms_norm_rows = _uncounted(rms_norm)
     try:
-        yield
+        with plain_norms():
+            yield
     finally:
         (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write,
-         bf16_mm.bf16_mm, dec_mod.rms_norm_rows) = saved
+         bf16_mm.bf16_mm) = saved
 
 
 def _agreement(a, b) -> float:
@@ -1995,11 +2037,11 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
     )
 
     from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm_rows
+    from voxtral_tpu_torch.ops.norms import rms_norm
 
     on_gpu = device == "cuda"
     counters = (banded_attention_batched, flash_decode, ring_rows_write,
-                int4_mm, int8_mm, bf16_mm, rms_norm_rows)
+                int4_mm, int8_mm, bf16_mm, rms_norm)
 
     def sync():
         if on_gpu:
@@ -2072,7 +2114,9 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         # every rung decodes through flash-decode (fp8 rings included), the
         # quantized ones their products through their kernel: one a layer
         # product of the prefill, 105 a decode step (the table's included);
-        # the float rungs theirs through bf16_mm on the card
+        # the float rungs theirs through bf16_mm on the card; the norms 2 a
+        # layer of the prefill and of each step, the final norm a step, and
+        # those of the one bulk encoder pass
         quant = 4 * n_layers + (4 * n_layers + 1) * steps
         want = {
             "banded_attention_batched": cfg.encoder.n_layers,
@@ -2081,8 +2125,8 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             "int4_mm": quant if quantize == "int4" else 0,
             "int8_mm": quant if quantize == "int8" else 0,
             "bf16_mm": quant * (_dec_route(rcfg, on_gpu) and not quantize),
-            "rms_norm_rows": (2 * n_layers + (2 * n_layers + 1) * steps)
-            * _dec_route(rcfg, on_gpu),
+            "rms_norm": (2 * n_layers + (2 * n_layers + 1) * steps
+                         + 2 * cfg.encoder.n_layers + 1),
         }
         if not st["launches"] == first["launches"] == want:
             raise AssertionError(f"[serve] {name}: launches {st['launches']}, "
@@ -2141,8 +2185,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                       "ring_rows_write": n_layers * n_steps * (impl == "xla"),
                       "bf16_mm": (4 * n_layers + 1) * n_steps
                       * (_dec_route(rcfg, on_gpu) and not quantize),
-                      "rms_norm_rows": (2 * n_layers + 1) * n_steps
-                      * _dec_route(rcfg, on_gpu)}
+                      "rms_norm": (2 * n_layers + 1) * n_steps}
             if quantize in ("int4", "int8"):
                 want_x[f"{quantize}_mm"] = (4 * n_layers + 1) * n_steps
             if got != want_x:
@@ -2279,10 +2322,10 @@ BF16_MM_REL_TOL = 1e-5
 # the rowinv phase's weight copies a timed call rotates over (the larger
 # products' copies exceed the 50 MB L2, as a layer's weights do in a chunk)
 ROWINV_COPIES = 4
-# rms_norm_rows against torch's rms_norm, relative to max |plain|: the
-# same f32 function with the sum of squares in another order; bf16
-# outputs round apart by one bf16 step (2^-8 relative) where the two f32
-# values straddle a rounding boundary
+# the norm kernel against torch's (rms_norm_plain), relative to max
+# |plain|: the same f32 function with the sum of squares in another
+# order; bf16 outputs round apart by one bf16 step (2^-8 relative) where
+# the two f32 values straddle a rounding boundary
 RMS_NORM_TOL = {"torch.bfloat16": 2 ** -7, "torch.float32": 1e-5}
 # rows at which the norm kernel is timed: a decode step at B = 16 and 64,
 # the B=64 prefill
@@ -2339,13 +2382,11 @@ def cublas_stream():
     """Routes the streaming encoder side (and with it the decoder's
     products and norms) through cuBLAS and torch again, through stand-ins:
     float products to torch.mm (`bf16_mm_plain`), the int kernels on their
-    row-count plans, the norms to torch's `rms_norm`, and T == 1 chunks to
-    `ring_attention`.  The stand-ins carry `launches = 0` (ops/graphs.py
-    reads every wrapper's count during a capture)."""
-    from voxtral_tpu_torch.models import decoder as dec_mod
+    row-count plans, the norms to torch's (`rms_norm_plain`), and T == 1
+    chunks to `ring_attention`.  The stand-ins carry `launches = 0`
+    (ops/graphs.py reads every wrapper's count during a capture)."""
     from voxtral_tpu_torch.models import encoder as enc_mod
     from voxtral_tpu_torch.ops import bf16_mm, quant_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm
     from voxtral_tpu_torch.runtime import stream as stream_mod
 
     def row_plans(fn):
@@ -2356,20 +2397,18 @@ def cublas_stream():
         return stand_in
 
     saved = (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
-             enc_mod.chunk_attention, stream_mod.chunk_attention,
-             enc_mod.rms_norm_rows, dec_mod.rms_norm_rows)
+             enc_mod.chunk_attention, stream_mod.chunk_attention)
     bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
     quant_mm.int4_mm = row_plans(saved[1])
     quant_mm.int8_mm = row_plans(saved[2])
     enc_mod.chunk_attention = stream_mod.chunk_attention = (
         lambda t, cdtype: t > 1)
-    enc_mod.rms_norm_rows = dec_mod.rms_norm_rows = _uncounted(rms_norm)
     try:
-        yield
+        with plain_norms():
+            yield
     finally:
         (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
-         enc_mod.chunk_attention, stream_mod.chunk_attention,
-         enc_mod.rms_norm_rows, dec_mod.rms_norm_rows) = saved
+         enc_mod.chunk_attention, stream_mod.chunk_attention) = saved
 
 
 def _stream_arg(args, kwargs, i: int) -> bool:
@@ -2524,7 +2563,6 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
 
         patch(enc_mod, "_enc_layer_step", layer)
         patch(enc_mod, "rms_norm", norm)
-        patch(enc_mod, "rms_norm_rows", norm)
         patch(enc_mod, "mm", product)
         patch(enc_mod, "matmul_rows", conv_mm)
         patch(enc_mod, "matmul_f32", conv_mm)
@@ -2643,7 +2681,6 @@ def decoder_probe(stream: int = 0):
     patch(dec_mod, "decoder_forward", forward)
     patch(dec_mod, "_layer_step", layer)
     patch(dec_mod, "rms_norm", norm)
-    patch(dec_mod, "rms_norm_rows", norm)
     patch(quant, "mm", product)
     patch(dec_mod, "final_logits", logits)
     patch(dec_mod, "_alts_from_logits", alts)
@@ -2687,22 +2724,34 @@ def _call_counter(name: str):
     return counter
 
 
-# the decoder's forward passes (any T) and logits calls: with
-# decoder_calls() on, counted like kernel launches, so a CUDA graph's
+# the passes whose norms run on the norm kernel (csrc/rms_norm.cu) on every
+# path: the decoder's forward passes (any T) and logits calls, the bulk
+# encoder's passes and the streaming encoder's chunks.  With
+# decoder_calls() on they count like kernel launches, so a CUDA graph's
 # capture records them and its replays add them
 DECODER_CALLS = (_call_counter("decoder_forward"),
                  _call_counter("final_logits"))
+ENCODER_CALLS = (_call_counter("bulk_transformer"),
+                 _call_counter("_encoder_layers"))
+_CALLS_ON = [0]
 
 
 @contextlib.contextmanager
 def decoder_calls():
     """Counts the decoder's forward passes and logits calls in
-    DECODER_CALLS for the duration, exactly under CUDA graphs: the two
+    DECODER_CALLS, and the bulk and streaming encoder's passes in
+    ENCODER_CALLS, for the duration, exactly under CUDA graphs: the
     counters ride among ops/graphs.py's counted wrappers.  The decoder's
-    share of bf16_mm's launches follows from them (_dec_rowinv_want)."""
+    share of bf16_mm's launches and every norm launch follow from them
+    (_dec_rowinv_want, _norms_want).  Re-entered, it counts once."""
+    from voxtral_tpu_torch.models import bulk_encode, jacobi
     from voxtral_tpu_torch.models import decoder as dec_mod
-    from voxtral_tpu_torch.models import jacobi
+    from voxtral_tpu_torch.models import encoder as enc_mod
     from voxtral_tpu_torch.ops import graphs
+
+    if _CALLS_ON[0]:
+        yield
+        return
 
     def counted(fn, counter):
         @functools.wraps(fn)
@@ -2714,99 +2763,108 @@ def decoder_calls():
     wrappers = graphs.counted_wrappers
     saved = [(m, n, getattr(m, n)) for m in (dec_mod, jacobi)
              for n in ("decoder_forward", "final_logits")]
-    graphs.counted_wrappers = lambda: wrappers() + DECODER_CALLS
+    saved += [(bulk_encode, "bulk_transformer", bulk_encode.bulk_transformer),
+              (enc_mod, "_encoder_layers", enc_mod._encoder_layers)]
+    counter = {c.__name__: c for c in DECODER_CALLS + ENCODER_CALLS}
+    graphs.counted_wrappers = (lambda: wrappers() + DECODER_CALLS
+                               + ENCODER_CALLS)
     for m, n, fn in saved:
-        setattr(m, n, counted(fn, DECODER_CALLS[n == "final_logits"]))
+        setattr(m, n, counted(fn, counter[n]))
+    _CALLS_ON[0] = 1
     try:
         yield
     finally:
+        _CALLS_ON[0] = 0
         graphs.counted_wrappers = wrappers
         for m, n, fn in saved:
             setattr(m, n, fn)
 
 
-def _dec_rowinv_want(cfg, on_gpu: bool, float_weights: bool = True) -> dict:
-    """The row-invariant kernels' launches by the decoder since
-    DECODER_CALLS were zeroed, on the card's row-invariant route
-    (`decoder._use_rowinv`), else 0: bf16_mm four a layer per forward pass
-    and one per logits call with float decoder weights (the int rungs' go
-    to their kernels), rms_norm_rows two a layer per forward pass and one
-    per logits call on every rung."""
-    from voxtral_tpu_torch.models.decoder import _use_rowinv
-
-    if not (on_gpu and _use_rowinv(cfg.cdtype, "step")):
-        return {"bf16_mm": 0, "rms_norm_rows": 0}
+def _dec_rowinv_want(cfg, on_gpu: bool, float_weights: bool = True) -> int:
+    """bf16_mm's launches by the decoder since DECODER_CALLS were zeroed,
+    on the card's row-invariant route (`decoder._use_rowinv`), else 0:
+    four a layer per forward pass and one per logits call with float
+    decoder weights (the int rungs' go to their kernels)."""
+    if not (_dec_route(cfg, on_gpu) and float_weights):
+        return 0
     fwd, logits = (c.launches for c in DECODER_CALLS)
-    n = cfg.decoder.n_layers
-    return {"bf16_mm": (4 * n * fwd + logits) * float_weights,
-            "rms_norm_rows": 2 * n * fwd + logits}
+    return 4 * cfg.decoder.n_layers * fwd + logits
+
+
+def _norms_want(cfg) -> int:
+    """The norm kernel's launches since the counters were zeroed, on every
+    rung and dtype: two a layer per decoder forward pass and one per
+    logits call, two a layer and the final norm per encoder pass (bulk or
+    streaming chunk).  CPU calls count only through the tests' stand-ins,
+    which count every call."""
+    fwd, logits = (c.launches for c in DECODER_CALLS)
+    enc = sum(c.launches for c in ENCODER_CALLS)
+    return (2 * cfg.decoder.n_layers * fwd + logits
+            + (2 * cfg.encoder.n_layers + 1) * enc)
 
 
 def _dec_route(cfg, on_gpu: bool) -> bool:
     """Whether the decoder runs on the card's row-invariant route
-    (`decoder._use_rowinv`): its norms on rms_norm_rows, its float
-    products on bf16_mm (an int rung's on the int kernels)."""
+    (`decoder._use_rowinv`): its float products on bf16_mm (an int rung's
+    on the int kernels' row-invariant plans)."""
     from voxtral_tpu_torch.models.decoder import _use_rowinv
 
-    return on_gpu and _use_rowinv(cfg.cdtype, "step")
+    return on_gpu and _use_rowinv(cfg.cdtype, "decoder")
 
 
-def _rowinv_want(cfg, calls: dict, quantized_encoder: bool = False) -> dict:
-    """The row-invariant kernels' exact launches on a stream's encoder
-    side: bf16_mm one per conv call, two per adapter call, four per layer
-    of each encoder chunk when its weights are float (the int kernels take
-    them otherwise); rms_norm_rows two per layer and the final norm of each
-    encoder chunk."""
+def _rowinv_want(cfg, calls: dict, quantized_encoder: bool = False) -> int:
+    """bf16_mm's exact launches on a stream's encoder side: one per conv
+    call, two per adapter call, four per layer of each encoder chunk when
+    its weights are float (the int kernels take them otherwise)."""
     n_layers = cfg.encoder.n_layers
-    return {"bf16_mm": calls["conv"] + 2 * calls["adapter"]
-            + (0 if quantized_encoder else 4 * n_layers * calls["encoder"]),
-            "rms_norm_rows": (2 * n_layers + 1) * calls["encoder"]}
+    return (calls["conv"] + 2 * calls["adapter"]
+            + (0 if quantized_encoder else 4 * n_layers * calls["encoder"]))
 
 
 def _rowinv_expect(cfg, calls: dict, on_gpu: bool,
                    quantized: bool = False) -> dict:
-    """_rowinv_want on the card's row-invariant route, else 0 each (CPU
-    calls never count; float32 configs keep torch.mm), plus the decoder's
-    share (_dec_rowinv_want; `quantized`: the encoder's and the decoder's
-    weights int, as the stream phase's int pairs run them)."""
+    """bf16_mm's launches: _rowinv_want on the card's row-invariant route,
+    else 0 (CPU calls never count; float32 configs keep torch.mm), plus
+    the decoder's share (_dec_rowinv_want; `quantized`: the encoder's and
+    the decoder's weights int, as the stream phase's int pairs run them);
+    the norm kernel's (_norms_want)."""
     from voxtral_tpu_torch.models.decoder import _use_rowinv
 
-    dec = _dec_rowinv_want(cfg, on_gpu, not quantized)
+    bf16 = _dec_rowinv_want(cfg, on_gpu, not quantized)
     if on_gpu and _use_rowinv(cfg.cdtype, "stream"):
-        enc = _rowinv_want(cfg, calls, quantized)
-        return {k: enc[k] + dec[k] for k in dec}
-    return dec
+        bf16 += _rowinv_want(cfg, calls, quantized)
+    return {"bf16_mm": bf16, "rms_norm": _norms_want(cfg)}
 
 
 def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
                   quantized: bool = False) -> dict:
-    """The row-invariant kernels' launches since _zero_rowinv, checked
-    exact against _rowinv_expect."""
+    """bf16_mm's and the norm kernel's launches since _zero_rowinv,
+    checked exact against _rowinv_expect."""
     got = _rowinv_launches()
     want = _rowinv_expect(cfg, calls, on_gpu, quantized)
     if got != want:
         raise AssertionError(f"[{tag}] row-invariant kernels' launches {got}"
-                             f" != {want} ({calls}, decoder calls "
-                             f"{[c.launches for c in DECODER_CALLS]})")
+                             f" != {want} ({calls}, decoder and encoder "
+                             f"calls {[c.launches for c in DECODER_CALLS]}"
+                             f" {[c.launches for c in ENCODER_CALLS]})")
     return got
 
 
 def _rowinv_launches() -> dict:
-    """The row-invariant kernels' launches: bf16_mm's and
-    rms_norm_rows' counters."""
+    """bf16_mm's and the norm kernel's counters."""
     from voxtral_tpu_torch.ops import bf16_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm_rows
+    from voxtral_tpu_torch.ops.norms import rms_norm
 
     return {"bf16_mm": bf16_mm.bf16_mm.launches,
-            "rms_norm_rows": rms_norm_rows.launches}
+            "rms_norm": rms_norm.launches}
 
 
 def _zero_rowinv() -> None:
     from voxtral_tpu_torch.ops import bf16_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm_rows
+    from voxtral_tpu_torch.ops.norms import rms_norm
 
-    bf16_mm.bf16_mm.launches = rms_norm_rows.launches = 0
-    for c in DECODER_CALLS:
+    bf16_mm.bf16_mm.launches = rms_norm.launches = 0
+    for c in DECODER_CALLS + ENCODER_CALLS:
         c.launches = 0
 
 
@@ -2829,28 +2887,28 @@ DEC_ROWINV_TIME_ROWS = (16, 56, 64)
 
 
 def _norm_times(gen, cfg, device: str = "cuda") -> dict:
-    """rms_norm_rows' graph-replay ms at the decoder's width in bf16 at
-    NORM_TIME_ROWS rows, against torch's rms_norm (the plain version) and
+    """The norm kernel's graph-replay ms at the decoder's width in bf16 at
+    NORM_TIME_ROWS rows, against torch's (rms_norm_plain) and
     torch.nn.functional.rms_norm (the library call), with its bound (each
     row read and written once, the weight read once)."""
     import torch
     import torch.nn.functional as F
 
-    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_plain
 
     width, out = cfg.decoder.dim, {}
     nw = torch.rand((width,), generator=gen, device=device) + 0.5
     for n in NORM_TIME_ROWS:
         x = _randn(gen, (n, width), torch.bfloat16, device)
-        n0 = rms_norm_rows.launches
-        tm = {"ms": graph_ms(lambda: rms_norm_rows(x, nw), 20),
-              "plain_ms": graph_ms(lambda: rms_norm(x, nw), 20),
+        n0 = rms_norm.launches
+        tm = {"ms": graph_ms(lambda: rms_norm(x, nw), 20),
+              "plain_ms": graph_ms(lambda: rms_norm_plain(x, nw), 20),
               "library_ms": graph_ms(lambda: F.rms_norm(
                   x.float(), (width,), nw).to(x.dtype), 20),
               **bound(2 * 2 * n * width + 4 * width, 4 * n * width)}
-        rms_norm_rows.launches = n0
+        rms_norm.launches = n0
         out.update({f"norm_{k}_rows{n}": v for k, v in tm.items()})
-        log("rowinv", f"rms_norm_rows [{n} x {width}] bf16: "
+        log("rowinv", f"rms_norm [{n} x {width}] bf16: "
                       f"{tm['ms']:.4f} ms, torch's rms_norm {tm['plain_ms']:.4f}"
                       f" ms, F.rms_norm {tm['library_ms']:.4f} ms, bound "
                       f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
@@ -2936,9 +2994,9 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     and row n - 1 computed alone to its row there; the full call within
     tolerance of the plain version, two calls bitwise equal, one launch a
     call.  It prints at which row counts torch.mm gives a row other bits
-    than the full call (the fault the kernels repair), and fails if
-    torch's rms_norm, which the streaming side keeps, does so at any row
-    count up to 80 or of `rows_list`.  On the card also the plans against
+    than the full call (the fault the kernels repair), and fails if the
+    norm kernel (ops/norms.py:rms_norm) does so at any row count up to 80
+    or of `rows_list`.  On the card also the plans against
     the card's occupancy and graph-replay times at every shape and row
     count (layer copies rotating): bf16_mm against
     torch.mm(out_dtype=f32), each int kernel's row-invariant plan against
@@ -2951,7 +3009,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     from voxtral_tpu_torch.models.quant import _quantize, _quantize4
     from voxtral_tpu_torch.ops import bf16_mm as bmod
     from voxtral_tpu_torch.ops import cuda_lib, quant_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_plain
 
     on_gpu = device == "cuda"
     cfg = cfg or full_config()
@@ -3104,7 +3162,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                 for k, v in tm.items():
                     out[f"{kind}_{k}_{name}_rows{n}"] = v
         del x
-    # the norms: rms_norm_rows (csrc/rms_norm.cu) at the encoder's width and
+    # the norms: rms_norm (csrc/rms_norm.cu) at the encoder's width and
     # the decoder's, in bf16 and f32, a row's bits at every row count up to
     # 80, of rows_list and (decoder) the prefills' B x 38, at two offsets;
     # torch's rms_norm beside it, whose f32 mean of squares shows where its
@@ -3118,18 +3176,18 @@ def phase_rowinv(device: str = "cuda", cfg=None,
         for dt in (torch.bfloat16, torch.float32):
             x = _randn(gen, (max(norm_rows) + ROWINV_SHIFT, width), dt,
                        device)
-            n0 = rms_norm_rows.launches
-            full = rms_norm_rows(x, nw)
+            n0 = rms_norm.launches
+            full = rms_norm(x, nw)
             bad = [(n, lo) for n in norm_rows for lo in (0, ROWINV_SHIFT)
-                   if not torch.equal(rms_norm_rows(x[lo: lo + n], nw),
+                   if not torch.equal(rms_norm(x[lo: lo + n], nw),
                                       full[lo: lo + n])]
-            want = rms_norm(x, nw).float()
+            want = rms_norm_plain(x, nw).float()
             err_abs = (full.float() - want).abs().max().item()
             err = err_abs / want.abs().max().item()
             out["max_abs_err_rms_norm"] = max(
                 out.get("max_abs_err_rms_norm", 0.0), err_abs)
             tol = RMS_NORM_TOL[str(dt)]
-            rms_norm_rows.launches = n0
+            rms_norm.launches = n0
             tag = f"{width}_{str(dt)[6:]}"
             norm_varies[tag] = bad
             out[f"rms_norm_rel_err_{tag}"] = err
@@ -3140,7 +3198,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                 norm_torch_varies[width] = [
                     n for n in norm_rows
                     if not torch.equal(sq[:n].mean(-1), mean[:n])]
-            log("rowinv", f"rms_norm_rows [n x {width}] {str(dt)[6:]} at "
+            log("rowinv", f"rms_norm [n x {width}] {str(dt)[6:]} at "
                           f"rows 1..80 and "
                           f"{sorted(set(rows_list) | set(extra))} "
                           f"(+{ROWINV_SHIFT} offset): "
@@ -3149,7 +3207,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                           + f"; rel {err:.3e} of torch's rms_norm (tol "
                           f"{tol})")
             if on_gpu and (bad or not err <= tol):
-                raise AssertionError(f"[rowinv] rms_norm_rows {tag}: rows "
+                raise AssertionError(f"[rowinv] rms_norm {tag}: rows "
                                      f"differ at {bad} or rel {err}")
             del x
         log("rowinv", f"torch's rms_norm [n x {width}]: its f32 mean of "
@@ -3162,7 +3220,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                           f"{k} {v}" for k, v in mm_varies.items()))
     out.update({"torch_mm_varies_at": mm_varies,
                 "torch_rms_norm_varies_at": norm_torch_varies,
-                "rms_norm_rows_varies_at": norm_varies,
+                "rms_norm_varies_at": norm_varies,
                 "checked": checked, "max_abs_err_bf16": worst["bf16"],
                 "max_abs_err_int8": worst["int8"],
                 "max_abs_err_int4": worst["int4"],
@@ -3257,14 +3315,17 @@ def _first_id_diff(a, b) -> int:
                 min(len(a), len(b)))
 
 
-def teacher_forced_agreement(engine, samples, ids) -> float:
+def teacher_forced_agreement(engine, samples, ids,
+                             zero_attn_layer=None) -> float:
     """The offline path teacher-forced on `ids` (a streaming run's): the
     clip's bulk-encoded rows, the prompt prefilled, then one decoder pass
     over the decode positions with each position's previous id taken from
     `ids` (the function a Jacobi window verifies); the share of those
     positions whose argmax is the id `ids` holds there.  Unlike two
     free-running greedy decodes, a near-tie that the two encoders'
-    rounding tips changes one position, not every position after it."""
+    rounding tips changes one position, not every position after it.
+    `zero_attn_layer`: that decoder layer's attention output projection
+    zeroed (a broken decoder, the gate's negative control)."""
     import torch
 
     from voxtral_tpu_torch.config import TOKEN_STREAMING_PAD
@@ -3280,8 +3341,13 @@ def teacher_forced_agreement(engine, samples, ids) -> float:
     if m <= 0:
         return 0.0
     dp = engine.params["decoder"]
+    if zero_attn_layer is not None:
+        wo = dp["layers"]["wo"].clone()
+        wo[zero_attn_layer] = 0
+        dp = {**dp, "layers": {**dp["layers"], "wo": wo}}
     cache = engine.new_dec_cache()
-    engine.prefill(engine.prompt_embeds(rows[:, : plen - 1]), cache, 0)
+    dec_mod.prefill(dp, cfg, engine.prompt_embeds(rows[:, : plen - 1]),
+                    cache, 0, engine.ada())
     prev = torch.tensor([TOKEN_STREAMING_PAD, *ids[: m - 1]],
                         dtype=torch.int32, device=dev)
     embeds = (rows[:, plen - 1: plen - 1 + m].float()
@@ -3289,8 +3355,8 @@ def teacher_forced_agreement(engine, samples, ids) -> float:
     x, _ = dec_mod.decoder_forward(
         dp, cfg, embeds, cache,
         torch.full((1,), plen - 1, dtype=torch.int32, device=dev),
-        engine.ada(), call="prefill")
-    pred = dec_mod.final_logits(dp, cfg, x, call="prefill")[0].argmax(-1)
+        engine.ada())
+    pred = dec_mod.final_logits(dp, cfg, x)[0].argmax(-1)
     return float((pred.cpu() == torch.tensor(ids[:m])).float().mean())
 
 
@@ -3307,11 +3373,13 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
     the three runs' rows must be bitwise equal and their ids equal; the
     offline path (bulk encoder: the banded softmax order and torch.mm,
     rows that differ by rounding) teacher-forced on each run's ids must
-    predict them on STREAM_AGREE_MIN of positions
-    (teacher_forced_agreement); transcribe_offline_ids' free-running
-    agreement is printed beside it.  Then, ungated, the same
-    three runs through the cuBLAS route (cublas_stream: torch.mm,
-    torch's norm, T == 1 on ring_attention) with their agreement, the
+    predict them on STREAM_FORCED_MIN of positions
+    (teacher_forced_agreement), and the same with its middle decoder
+    layer's attention zeroed must not (the gate's negative control);
+    transcribe_offline_ids' free-running agreement is printed beside it.
+    Then, ungated, the same three runs through the cuBLAS route
+    (cublas_stream: torch.mm, torch's norm, T == 1 on ring_attention) with
+    their agreement, the
     first stage at which their rows differ and their timings, and eager
     runs over the clip's first STREAM_LOCATE_S seconds of each route,
     probed inside every layer, which name the first stage (product, norm,
@@ -3471,17 +3539,29 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
         agree[key] = _agreement(ids[a], ids["offline"])
         first_diff[key] = _first_id_diff(ids[a], ids["offline"])
         forced[key] = teacher_forced_agreement(eng, clip, ids[a])
+    # the negative control: the first run's ids against the offline path
+    # with its middle decoder layer's attention zeroed
+    first_run = next(iter(stream_ids))
+    broken = teacher_forced_agreement(eng, clip, stream_ids[first_run],
+                                      zero_attn_layer=cfg.decoder.n_layers
+                                      // 2)
     log("stream", "against offline, teacher-forced on each run's ids: "
         + ", ".join(f"{k} {v:.3f}" for k, v in forced.items())
-        + f" (min {STREAM_AGREE_MIN}); free-running: " + ", ".join(
+        + f" (min {STREAM_FORCED_MIN}); with layer "
+        f"{cfg.decoder.n_layers // 2}'s attention zeroed {broken:.3f} "
+        f"(must stay below {STREAM_FORCED_MIN}); free-running: "
+        + ", ".join(
             f"{a}~offline {agree[f'{a}~offline']:.3f} (first differs at "
             f"{first_diff[f'{a}~offline']})" for a in stream_ids))
-    low = {k: v for k, v in {**forced, **{
-        k: v for k, v in agree.items() if "offline" not in k}}.items()
-        if not v >= STREAM_AGREE_MIN}
-    if low:
-        raise AssertionError(f"[stream] id agreement below "
-                             f"{STREAM_AGREE_MIN}: {low}")
+    low = {k: v for k, v in forced.items() if not v >= STREAM_FORCED_MIN}
+    low.update({k: v for k, v in agree.items()
+                if "offline" not in k and not v >= STREAM_AGREE_MIN})
+    if low or not broken < STREAM_FORCED_MIN:
+        raise AssertionError(f"[stream] id agreement below its bar "
+                             f"(teacher-forced {STREAM_FORCED_MIN}, between "
+                             f"runs {STREAM_AGREE_MIN}): {low}; or the "
+                             f"broken decoder's {broken} not below "
+                             f"{STREAM_FORCED_MIN}")
     parted = {k: d for k, d in rows_diff.items() if d is not None}
     unequal = {k: v for k, v in agree.items()
                if "offline" not in k and v != 1.0}
@@ -3560,6 +3640,7 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
         f.launches = 0
     return {"runs": table, "agreement": agree, "first_diff": first_diff,
             "teacher_forced_offline": forced,
+            "teacher_forced_offline_broken": broken,
             "rows_diff": rows_diff, "first_stage": first_stage,
             "cublas": cublas, **quant, "part_s": part_s,
             "launches": {f.__name__: sum(r["launches"][f.__name__]
@@ -3578,7 +3659,7 @@ def _gate_b1(tag: str, who: str, cfg, on_gpu: bool, agree: float, m: int,
     decoder's K/V rows bit-equal by position."""
     from voxtral_tpu_torch.models.decoder import _use_rowinv
 
-    if not (on_gpu and _use_rowinv(cfg.cdtype, "step")):
+    if not (on_gpu and _use_rowinv(cfg.cdtype, "decoder")):
         return
     if agree != 1.0 or m <= 0 or rows_diff is not None \
             or dec_diff is not None:
@@ -3725,26 +3806,28 @@ def parent_decoder_route():
     """The decoder as the parent ran it: the float products on torch.mm
     (cuBLAS, whose algorithm follows the row count), the int kernels on
     their row-count plans, the prefill's attention batched over B, and
-    flash-decode on the parent's batch-dependent split (parent_flash_plan);
-    the streaming encoder side keeps its route.  Launches count as
-    usual."""
+    flash-decode on the parent's batch-dependent split (parent_flash_plan),
+    the norms on torch's (rms_norm_plain, uncounted); the streaming encoder
+    side keeps its route.  The kernels' launches count as usual."""
     import torch
 
     from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.ops.norms import rms_norm_plain
 
-    saved = dec_mod._use_rowinv
+    saved = dec_mod._use_rowinv, dec_mod.rms_norm
     dec_mod._use_rowinv = (lambda cdtype, call: call == "stream"
                            and cdtype == torch.bfloat16)
+    dec_mod.rms_norm = _uncounted(rms_norm_plain)
     try:
         with flash_plan(parent_flash_plan, counted=True):
             yield
     finally:
-        dec_mod._use_rowinv = saved
+        dec_mod._use_rowinv, dec_mod.rms_norm = saved
 
 
 # batchinv: the batch sizes of stream 0's graphed step (bit-equal at each),
 # the sizes timed on both routes, stream 0's position (its live window
-# spans 5 of the 7 ranges of an 896-slot ring), the prefill's batch
+# spans both ranges of an 896-slot ring), the prefill's batch
 BATCHINV_SIZES = (1, 3, 16, 64)
 BATCHINV_TIME_SIZES = (16, 56, 64)
 BATCHINV_POS = 600
@@ -4078,11 +4161,13 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
                     banded_attention_batched.launches,
                     "flash_decode": flash_decode.launches,
                     **_rowinv_launches()}
-        # bf16_mm: the decoder's passes (the prefill, each sequential step,
-        # each Jacobi iteration), counted by DECODER_CALLS
+        # bf16_mm and the norms: the decoder's passes (the prefill, each
+        # sequential step, each Jacobi iteration), counted by
+        # DECODER_CALLS, and the norms of the clip's bulk encoder pass
         want = {"banded_attention_batched": cfg.encoder.n_layers,
                 "flash_decode": cfg.decoder.n_layers * (steps - j_steps),
-                **_dec_rowinv_want(cfg, on_gpu)}
+                "bf16_mm": _dec_rowinv_want(cfg, on_gpu),
+                "rms_norm": _norms_want(cfg)}
         if launches != want or (mode == "auto") != (j_steps > 0):
             raise AssertionError(f"[jacobi] {mode}: launches {launches} != "
                                  f"{want} ({steps} steps, {j_steps} by "
@@ -4143,8 +4228,8 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
                                          for r in runs.values()),
             "launches_bf16_mm": sum(r["launches"]["bf16_mm"]
                                     for r in runs.values()),
-            "launches_rms_norm_rows": sum(r["launches"]["rms_norm_rows"]
-                                          for r in runs.values()),
+            "launches_rms_norm": sum(r["launches"]["rms_norm"]
+                                     for r in runs.values()),
             "launches_banded": sum(r["launches"]["banded_attention_batched"]
                                    for r in runs.values())}
 
@@ -4307,7 +4392,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
 
     on_gpu = device == "cuda"
     wrappers = [f for f in graphs.counted_wrappers()
-                if f not in DECODER_CALLS]
+                if f not in DECODER_CALLS + ENCODER_CALLS]
     names = [f.__name__ for f in wrappers]
     totals = dict.fromkeys(names, 0)
     nl, el = cfg.decoder.n_layers, cfg.encoder.n_layers
@@ -4366,8 +4451,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                 qmm: 4 * nl + (4 * nl + 1) * steps,
                 "bf16_mm": (4 * nl + (4 * nl + 1) * steps)
                 * (_dec_route(rcfg, on_gpu) and not quantize),
-                "rms_norm_rows": (2 * nl + (2 * nl + 1) * steps)
-                * _dec_route(rcfg, on_gpu)})
+                "rms_norm": 2 * nl + (2 * nl + 1) * steps + 2 * el + 1})
             rec[f"serve_decode_ms_per_step_{tag}"] = (run["decode_s"] * 1e3
                                                      / steps)
             rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
@@ -4425,8 +4509,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                     qmm: (4 * nl + 1) * n,
                     "bf16_mm": (4 * nl + 1) * n
                     * (_dec_route(rcfg, on_gpu) and not quantize),
-                    "rms_norm_rows": (2 * nl + 1) * n
-                    * _dec_route(rcfg, on_gpu)})
+                    "rms_norm": (2 * nl + 1) * n})
                 if impl == "xla" and graphed:
                     rec["launches_xla_mid_fill_graph"] = got
                 burst_ids[graphed] = last[0].tolist()
@@ -4508,7 +4591,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
         take(f"jacobi {tag}", {
             "banded_attention_batched": el,
             "flash_decode": nl * (st["decode_steps"] - j_steps),
-            **_dec_rowinv_want(cfg, on_gpu)})
+            "bf16_mm": _dec_rowinv_want(cfg, on_gpu),
+            "rms_norm": _norms_want(cfg)})
         jacobi[f"decode_ms_per_token_{tag}"] = (st["decode_s"] * 1e3
                                                 / st["decode_steps"])
     both("jacobi", jids["eager"], jids["graph"])
@@ -4900,13 +4984,55 @@ def _first_diff(a, b) -> int:
         min(len(a), len(b)) if n is None else n)
 
 
+def mesh_rank(rank: int, fn_name: str, on_gpu: bool, *args) -> dict:
+    """dryrun.<fn_name>(rank, *args) in a spawned rank (mesh_serve or
+    mesh_pool; args[2] is the config), counted by _mesh_counted."""
+    from voxtral_tpu_torch import dryrun
+
+    return _mesh_counted(getattr(dryrun, fn_name), args[2], on_gpu, rank,
+                         *args)
+
+
+def _mesh_counted(fn, cfg, on_gpu: bool, *args, **kwargs) -> dict:
+    """fn(*args, **kwargs), a dryrun run (run_serving, run_pool, or a rank
+    of them) whose result's `launches` then also hold bf16_mm's and the
+    norm kernel's, and whose `rowinv_want` holds what they must be: the
+    model's passes (decoder_calls) and the streaming encoder side's calls
+    (encoder_probe) are counted from where the run zeroes its counters,
+    and _rowinv_expect reads them (the norms 0 off the card: the ranks
+    take no stand-ins)."""
+    from voxtral_tpu_torch import dryrun
+
+    reset = dryrun._reset_launches
+    with decoder_calls(), encoder_probe(cfg, record=False) as (calls, _):
+        def zero():
+            reset()
+            _zero_rowinv()
+            calls.update(dict.fromkeys(calls, 0))
+
+        dryrun._reset_launches = zero
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            dryrun._reset_launches = reset
+        out["launches"].update(_rowinv_launches())
+        want = _rowinv_expect(cfg, calls, on_gpu)
+        out["rowinv_want"] = {k: v * on_gpu for k, v in want.items()}
+        out["calls"] = {**calls, **{c.__name__: c.launches for c in
+                                    DECODER_CALLS + ENCODER_CALLS}}
+    return out
+
+
 def _check_rank_launches(tag: str, outs, want_fn) -> None:
-    """Every rank's launches against want_fn(rank's result)."""
+    """Every rank's launches against want_fn(rank's result) for the four
+    kernels dryrun counts, and against the rank's own model of its calls
+    (_mesh_counted) for bf16_mm and the norm kernel."""
     for o in outs:
-        want = want_fn(o)
+        want = {**want_fn(o), **o["rowinv_want"]}
         if o["launches"] != want:
             raise AssertionError(f"[mesh] {tag} rank {o['rank']}: launches "
-                                 f"{o['launches']} != {want}")
+                                 f"{o['launches']} != {want} (calls "
+                                 f"{o['calls']})")
 
 
 def _launch_dict(banded=0, flash=0, enc=0, int4=0) -> dict:
@@ -4946,7 +5072,8 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
               buckets=(64, 16, 4, 1))
     eng = VoxtralEngine(cfg, params, **kw)
     mel = np.stack([padded_clip_mel(eng, c) for c in clips])
-    ref = dryrun.run_serving(eng, mel, clips=True)
+    ref = _mesh_counted(dryrun.run_serving, cfg, on_gpu, eng, mel,
+                        clips=True)
     del eng
     wcfg = cfg.replace(
         param_dtype="float32", compute_dtype="float32", kv_dtype="float32",
@@ -4959,17 +5086,18 @@ def _mesh_full_width(cfg, params, device: str, seconds: float,
     if on_gpu:
         torch.cuda.empty_cache()
     t0 = time.monotonic()
-    outs = run_ranks(dryrun.mesh_serve, MESH_TP,
-                     (1, MESH_TP, cfg, 0, mel, kw, device, "gloo", True),
+    outs = run_ranks(mesh_rank, MESH_TP,
+                     ("mesh_serve", on_gpu, 1, MESH_TP, cfg, 0, mel, kw,
+                      device, "gloo", True),
                      device=device, backend="gloo")
     spawn_s = time.monotonic() - t0
     steps = ref["decode_steps"]
     n_enc, n_dec = cfg.encoder.n_layers, cfg.decoder.n_layers
     want = _launch_dict(banded=n_enc, flash=n_dec * steps) if on_gpu \
         else _launch_dict()
-    if ref["launches"] != want:
+    if ref["launches"] != {**want, **ref["rowinv_want"]}:
         raise AssertionError(f"[mesh] tp 1: launches {ref['launches']} != "
-                             f"{want}")
+                             f"{want}, {ref['rowinv_want']}")
     _check_rank_launches("tp 2", outs, lambda o: want)
     h0 = outs[0]["prefill_last_hidden"]
     if not all(np.array_equal(o["prefill_last_hidden"], h0) for o in outs):
@@ -5071,8 +5199,9 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
         if tag == "f32":
             mel = np.stack([padded_clip_mel(eng, a) for a in audios])
             ref = dryrun.run_serving(eng, mel)
-            outs = run_ranks(dryrun.mesh_serve, dp * tp,
-                             (dp, tp, cfg, 0, mel, kw, device, "gloo"),
+            outs = run_ranks(mesh_rank, dp * tp,
+                             ("mesh_serve", on_gpu, dp, tp, cfg, 0, mel, kw,
+                              device, "gloo"),
                              device=device, backend="gloo")
             steps = outs[0]["decode_steps"]
             _check_rank_launches(
@@ -5082,9 +5211,9 @@ def _mesh_small(device: str, seconds: float = 4.0) -> dict:
             runs.append(("serve", ref["tokens"], outs))
             rec["serve_decode_steps_per_rank"] = steps
         ref = dryrun.run_pool(eng, audios, pool_kw)
-        outs = run_ranks(dryrun.mesh_pool, dp * tp,
-                         (dp, tp, cfg, 0, audios, kw, pool_kw, device,
-                          "gloo"),
+        outs = run_ranks(mesh_rank, dp * tp,
+                         ("mesh_pool", on_gpu, dp, tp, cfg, 0, audios, kw,
+                          pool_kw, device, "gloo"),
                          device=device, backend="gloo")
         _check_rank_launches(
             f"{tag} pool", outs, lambda o: _launch_dict(
@@ -5241,7 +5370,9 @@ def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 5.0,
     rank).  (a) `cfg` with `params` (init_params(seed=0) on `device`) at
     dp 1 x tp 2 against the same clips unsharded: exact per-rank launch
     counts (banded once per layer of the bulk encode at 16 heads,
-    flash-decode once per layer per step at 16q/4kv), the prefill's last
+    flash-decode once per layer per step at 16q/4kv, bf16_mm and the norm
+    kernel from the rank's own count of its passes, _mesh_counted), the
+    prefill's last
     hidden state against an f32 witness (MESH_HIDDEN_REL_TOL,
     MESH_WITNESS_FACTOR), the ids' agreement printed;
     (b) small_config at dp 2 x tp 2 (_mesh_small); (c) on the card, the
@@ -5302,8 +5433,8 @@ BENCH_BULK_STREAMS = 4
 # probe; on the card in a bf16 config also the row-invariant product, the
 # "inc" encode's), the int4 product in int4
 BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched",
-                          "int8_mm"),
-                 "int4": ("int4_mm",)}
+                          "int8_mm", "rms_norm"),
+                 "int4": ("int4_mm", "rms_norm")}
 # bench.step_probe's decode steps: one warm burst of 64, then 4 timed
 BENCH_PROBE_STEPS = 5 * 64
 
@@ -5353,9 +5484,8 @@ def phase_bench(cfg, params, device: str, env: dict = BENCH_ENV,
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         faults = _bench_faults(res)
-        rowinv = (("bf16_mm",) if tag == "bf16" and _rowinv_expect(
-            cfg, {"conv": 1, "adapter": 0, "encoder": 0},
-            device == "cuda")["bf16_mm"] else ())
+        rowinv = (("bf16_mm",) if tag == "bf16"
+                  and _dec_route(cfg, device == "cuda") else ())
         faults += [f"no {k} launch" for k in BENCH_KERNELS[tag] + rowinv
                    if not got[k] > 0]
         # the int8 probe (bf16 mode): int8 layer stacks beside the bf16
@@ -5595,9 +5725,11 @@ def ckpt_config(layers=CKPT_LAYERS):
 
 
 def _ckpt_counters() -> dict:
-    """The ckpt phase's kernels (flash-encode, flash-decode, banded, int4)
-    by name."""
-    return {f.__name__: f for f in _pool_counters()[:4]}
+    """The ckpt phase's kernels (flash-encode, flash-decode, banded, int4,
+    the norm) by name."""
+    from voxtral_tpu_torch.ops.norms import rms_norm
+
+    return {f.__name__: f for f in (*_pool_counters()[:4], rms_norm)}
 
 
 def _counted_run(fn):
@@ -5779,7 +5911,8 @@ def phase_ckpt(cfg, device: str = "cuda", tag: str = "ckpt",
     log(tag, f"launches in the phase {total}")
     want = {"banded_attention_batched": "offline",
             "flash_bulk_attention_batched": "stream",
-            "flash_decode": "offline", "int4_mm": "int4"}
+            "flash_decode": "offline", "int4_mm": "int4",
+            "rms_norm": "offline"}
     idle = [k for k, step in want.items() if step in steps and total[k] <= 0]
     if idle:
         raise AssertionError(f"[{tag}] no launch of {idle}")
@@ -5822,8 +5955,9 @@ def _rowinv_kernel(rowinv: dict, by_path: dict) -> dict:
 
 def _norm_kernel(rowinv: dict, by_path: dict) -> dict:
     """The kernels line's entry of the row-invariant norm: launches by path
-    (the streaming encoder side's and the decoder's norms), the rowinv
-    phase's check and times at a B=16 step's rows."""
+    (every norm of the model: the decoder's, the streaming and the bulk
+    encoder's), the rowinv phase's check and times at a B=16 step's
+    rows."""
     n = NORM_TIME_ROWS[0]
     return {"name": "rms_norm", "route": "cuda",
             "source": "voxtral_tpu_torch/csrc/rms_norm.cu",
@@ -6119,16 +6253,17 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
             "jacobi": jac["launches_bf16_mm"],
             "pool_ring": pr["rowinv_launches"]["bf16_mm"],
             "pool_window": pw["rowinv_launches"]["bf16_mm"],
-            "bench": benched["bf16_mm"]}),
+            "mesh": meshed["bf16_mm"], "bench": benched["bf16_mm"]}),
         _norm_kernel(rowinv, {
-            "slice": sl["launches"][3], "serve": served["rms_norm_rows"],
-            "graphs": graphed["rms_norm_rows"],
-            "stream": st["rowinv_launches"]["rms_norm_rows"],
-            "bstream": bst["rowinv_launches"]["rms_norm_rows"],
-            "jacobi": jac["launches_rms_norm_rows"],
-            "pool_ring": pr["rowinv_launches"]["rms_norm_rows"],
-            "pool_window": pw["rowinv_launches"]["rms_norm_rows"],
-            "bench": benched["rms_norm_rows"]}),
+            "slice": sl["launches"][3], "serve": served["rms_norm"],
+            "graphs": graphed["rms_norm"],
+            "stream": st["rowinv_launches"]["rms_norm"],
+            "bstream": bst["rowinv_launches"]["rms_norm"],
+            "jacobi": jac["launches_rms_norm"],
+            "pool_ring": pr["rowinv_launches"]["rms_norm"],
+            "pool_window": pw["rowinv_launches"]["rms_norm"],
+            "mesh": meshed["rms_norm"], "ckpt": ckpt["rms_norm"],
+            "bench": benched["rms_norm"]}),
     ]
     for k in kernels:
         if k["launches"] <= 0:

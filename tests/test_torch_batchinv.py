@@ -39,12 +39,12 @@ KW = dict(buckets=(16, 4, 1), enc_kv_ring=64, dec_kv_ring=64)
 @pytest.fixture
 def seen(monkeypatch):
     """Counts the products that reach bf16_mm and the int kernels, by
-    their rowinv argument, and the decoder's norms that reach
-    rms_norm_rows."""
+    their rowinv argument, and the decoder's norms (ops/norms.py:rms_norm,
+    whose kernel is row-invariant)."""
     got = {"bf16": 0, "int8_rowinv": 0, "int8_rows": 0, "int4_rowinv": 0,
            "int4_rows": 0, "norm": 0}
     real = (bf16_mm.bf16_mm, quant_mm.int8_mm, quant_mm.int4_mm,
-            decoder.rms_norm_rows)
+            decoder.rms_norm)
 
     def bf16(x, w):
         got["bf16"] += 1
@@ -63,7 +63,7 @@ def seen(monkeypatch):
     monkeypatch.setattr(bf16_mm, "bf16_mm", bf16)
     monkeypatch.setattr(quant_mm, "int8_mm", counted("int8", real[1]))
     monkeypatch.setattr(quant_mm, "int4_mm", counted("int4", real[2]))
-    monkeypatch.setattr(decoder, "rms_norm_rows", norm)
+    monkeypatch.setattr(decoder, "rms_norm", norm)
     return got
 
 
@@ -73,8 +73,9 @@ def test_decoder_calls_take_the_rowinv_route(seen, rung):
     window of 4 rows at B=1: in bf16 every layer product (4 a layer and
     pass) and every logits call goes through bf16_mm, or, on the int8 and
     int4 rungs, through the int kernel's row-invariant plan, none through
-    a row-count plan, and every norm (2 a layer and pass, the final one a
-    logits call) through rms_norm_rows; float32 takes none of them."""
+    a row-count plan; float32 takes none of them.  Every norm (2 a layer
+    and pass, the final one a logits call) goes through the one norm,
+    whose kernel is row-invariant, on every rung."""
     cdtype = "float32" if rung == "float32" else "bfloat16"
     cfg = tiny_config(compute_dtype=cdtype)
     eng = teng.VoxtralEngine(cfg, init_params(cfg, seed=0, device="cpu"),
@@ -100,19 +101,18 @@ def test_decoder_calls_take_the_rowinv_route(seen, rung):
         want["bf16"] = 4 * nl * passes + logits
     elif rung in ("int8", "int4"):
         want[f"{rung}_rowinv"] = 4 * nl * passes + logits
-    if rung != "float32":
-        want["norm"] = 2 * nl * passes + logits
+    want["norm"] = 2 * nl * passes + logits
     assert seen == want
 
 
-@pytest.mark.parametrize("cdtype,call", [
-    (torch.bfloat16, "step"), (torch.bfloat16, "prefill"),
-    (torch.bfloat16, "jacobi"), (torch.bfloat16, "stream")])
-def test_rowinv_rule_covers_every_decoder_call(cdtype, call):
-    """One predicate: every decoder call of a bf16 config takes the route,
-    the same calls in float32 and the bulk encoder's do not."""
-    assert decoder._use_rowinv(cdtype, call) is True
-    assert decoder._use_rowinv(torch.float32, call) is False
+@pytest.mark.parametrize("cdtype,call,want", [
+    (torch.bfloat16, "decoder", True), (torch.bfloat16, "stream", True),
+    (torch.float32, "decoder", False), (torch.float32, "stream", False)])
+def test_rowinv_rule_covers_every_decoder_call(cdtype, call, want):
+    """One predicate, by caller and dtype alone: the decoder (every call
+    of it) and the streaming encoder side of a bf16 config take the route,
+    the same callers in float32 and the bulk encoder do not."""
+    assert decoder._use_rowinv(cdtype, call) is want
     assert decoder._use_rowinv(cdtype, "bulk") is False
 
 

@@ -217,7 +217,7 @@ def test_main_last_line(mode, capsys):
     assert set(extra["kernel_launches"]) == {
         "banded_attention_batched", "flash_decode",
         "flash_bulk_attention_batched", "int4_mm", "int8_mm",
-        "ring_rows_write", "bf16_mm", "rms_norm_rows"}
+        "ring_rows_write", "bf16_mm", "rms_norm"}
     assert not any(extra["kernel_launches"].values())     # CPU: no kernel
     probes = ("int8_decoder_step_ms_batched",
               "int4_fp8kv_decoder_step_ms_batched",

@@ -1767,21 +1767,21 @@ def test_decode_step_batch_invariant_on_every_rung(dev, graph_params, rung,
 def test_rms_norm_rows_bitwise_invariant(dev, width, dtype):
     """The norm kernel: every row's bits the same at 1..80 rows and at the
     prefills' B x 38 (at two offsets) as in one call over all of them,
-    and within one bf16 step (f32: 1e-5) of torch's rms_norm, relative to
-    its largest value; one launch a call."""
-    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_rows
+    and within one bf16 step (f32: 1e-5) of torch's (rms_norm_plain),
+    relative to its largest value; one launch a call."""
+    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_plain
 
     gen = torch.Generator(device=dev).manual_seed(width)
     x = _randn(gen, (64 * 38 + 7, width), dtype, dev)
     w = torch.rand((width,), generator=gen, device=dev) + 0.5
-    n0 = rms_norm_rows.launches
-    full = rms_norm_rows(x, w)
-    assert rms_norm_rows.launches == n0 + 1
+    n0 = rms_norm.launches
+    full = rms_norm(x, w)
+    assert rms_norm.launches == n0 + 1
     for n in list(range(1, 81)) + [38 * b for b in (3, 4, 16, 56, 64)]:
         for lo in (0, 7):
-            assert torch.equal(rms_norm_rows(x[lo: lo + n], w),
+            assert torch.equal(rms_norm(x[lo: lo + n], w),
                                full[lo: lo + n]), (n, lo)
-    want = rms_norm(x, w).float()
+    want = rms_norm_plain(x, w).float()
     tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert ((full.float() - want).abs().max()
             / want.abs().max()).item() <= tol

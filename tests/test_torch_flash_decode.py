@@ -235,29 +235,29 @@ def test_decoder_routes_fp8_rings_to_flash(params_np, monkeypatch):
 
 
 @pytest.mark.parametrize("span,kh,want", [
-    (512, 8, 8), (8192, 8, 8), (896, 8, 7), (1024, 8, 8),
-    (384, 8, 6), (64, 8, 1), (48, 2, 1), (896, 4, 7)])
+    (512, 8, 2), (8192, 8, 8), (896, 8, 2), (2048, 8, 4),
+    (384, 8, 2), (64, 8, 1), (48, 2, 1), (896, 4, 2)])
 def test_split_plan(span, kh, want):
-    """The kernel's split: at most 8 ranges, at least 64 window slots each,
-    ranges a multiple of 64 slots covering the window; shapes only, and no
-    batch size among them."""
+    """The kernel's split: ranges of about 448 window slots, at least 2
+    and at most 8, at least 64 slots each, a multiple of 64 slots covering
+    the window; shapes only, and no batch size among them."""
     assert flash_decode_splits(span, kh) == want
     chunk = flash_decode_chunk(span, kh)
     assert chunk % 64 == 0 and (want - 1) * chunk < span <= want * chunk
 
 
 @pytest.mark.parametrize("bsz,kh,want", [
-    (1, 8, 7), (2, 8, 7), (3, 8, 5), (8, 8, 2), (16, 8, 1), (64, 8, 1),
+    (1, 8, 8), (2, 8, 8), (3, 8, 5), (8, 8, 2), (16, 8, 1), (64, 8, 1),
     (16, 4, 2), (16, 2, 4)])
 def test_split_mapping(bsz, kh, want):
-    """How the 7 ranges of an 896-slot window run: a cluster of up to 7
+    """How the 8 ranges of an 8192-slot window run: a cluster of up to 8
     blocks per (stream, KV head) while the grid fits one wave of 132
     blocks, down to one block walking every range (B >= 9 at 8 KV heads);
     the split itself is the same at every B."""
-    plan = flash_decode_plan(896, bsz, kh)
+    plan = flash_decode_plan(8192, bsz, kh)
     assert plan.cluster == want
-    assert (plan.splits, plan.chunk) == (flash_decode_splits(896, kh),
-                                         flash_decode_chunk(896, kh))
+    assert (plan.splits, plan.chunk) == (flash_decode_splits(8192, kh),
+                                         flash_decode_chunk(8192, kh))
     assert want == 1 or bsz * kh * want <= 132
 
 
@@ -300,7 +300,7 @@ def test_split_model_mappings_and_plain(ring, cap, window):
 
 @pytest.mark.parametrize("ring", [np.float32, jnp.bfloat16])
 def test_split_model_against_jax_kernel(ring):
-    """The split model at B=3 on a 512-slot ring (8 ranges of 64) against
+    """The split model at B=3 on a 512-slot ring (2 ranges of 256) against
     the JAX package's fused Pallas kernel (#4) in interpret mode: outputs
     within 1e-5, rings bit-equal; stream 0's output the same bits alone
     and inside the batch."""

@@ -148,18 +148,20 @@ def test_rank_config_widths():
 def test_shape_plans_at_rank_head_counts():
     """Flash-decode's plan reads the KV heads and not the batch: at one
     tp-2 rank's 4 KV heads and at tp 4's 2 the 896-slot window splits into
-    the full 8 heads' 7 ranges; only the mapping follows the heads, a
-    cluster of 2 blocks (4 KV heads) or 4 (2) at B=16 where the full 8
-    take one block walking the ranges (one wave of 132 blocks either way)."""
+    the full 8 heads' 2 ranges of 448 (8192 slots: 8 of 1024); only the
+    mapping follows the heads, at B=16 a cluster of 2 blocks (4 KV heads)
+    or 4 (2, 8192 slots) where the full 8 take one block walking the
+    ranges (one wave of 132 blocks either way)."""
     from voxtral_tpu_torch.ops.flash_decode import flash_decode_plan
 
     assert flash_decode_plan(896, 16, 8).cluster == 1
     assert flash_decode_plan(896, 16, 4).cluster == 2
-    assert flash_decode_plan(896, 16, 2).cluster == 4
+    assert flash_decode_plan(8192, 16, 2).cluster == 4
     for kh in (2, 4, 8):
         plan = flash_decode_plan(896, 16, kh)
-        assert (plan.splits, plan.chunk) == (7, 128)
+        assert (plan.splits, plan.chunk) == (2, 448)
         assert 16 * kh * plan.cluster <= 132
+        assert flash_decode_plan(8192, 16, kh)[:2] == (8, 1024)
 
 
 def test_backend_is_explicit_and_nccl_refuses_shared_cards(monkeypatch):

@@ -18,6 +18,7 @@ from voxtral_tpu_torch.ops import (
     banded_encode,
     flash_decode,
     flash_encode,
+    norms,
     quant_mm,
     ring,
 )
@@ -54,10 +55,16 @@ def counted_kernels(monkeypatch):
         quant_mm.int4_mm, quant_mm.int4_mm_plain, own=True))
     monkeypatch.setattr(quant_mm, "int8_mm", _counted(
         quant_mm.int8_mm, quant_mm.int8_mm_plain, own=True))
-    yield
+    # every norm of the model, counted as the norm kernel's launches; the
+    # phases model them from the model's passes (chip_smoke.decoder_calls)
+    for mod in (decoder, encoder, bulk_encode):
+        monkeypatch.setattr(mod, "rms_norm", _counted(
+            norms.rms_norm, norms.rms_norm_plain))
+    with cs.decoder_calls():
+        yield
     for fn in (banded_encode.banded_attention_batched,
                flash_decode.flash_decode, ring.ring_rows_write,
-               flash_encode.flash_bulk_attention_batched):
+               flash_encode.flash_bulk_attention_batched, norms.rms_norm):
         fn.launches = 0
 
 
@@ -80,20 +87,23 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
     # every rung decodes through flash-decode, fp8 rings included; the
     # row-write kernel runs in the fp8kv rung's "xla" mid-fill burst; the
     # int4 and int8 rungs each their product, one launch a layer product of
-    # the prefill and 4 a layer + the table a step
-    quant = 4 * cfg.decoder.n_layers + (4 * cfg.decoder.n_layers + 1) * steps
+    # the prefill and 4 a layer + the table a step; every rung its norms:
+    # 2 a layer of the prefill and of each step, the final norm a step, 2 a
+    # layer and the final one of the bulk encoder pass
+    nl, ne = cfg.decoder.n_layers, cfg.encoder.n_layers
+    quant = 4 * nl + (4 * nl + 1) * steps
     assert sv["launches"] == {
-        "banded_attention_batched": 5 * cfg.encoder.n_layers,
-        "flash_decode": 5 * cfg.decoder.n_layers * steps,
-        "ring_rows_write": cfg.decoder.n_layers * 4,
+        "banded_attention_batched": 5 * ne,
+        "flash_decode": 5 * nl * steps,
+        "ring_rows_write": nl * 4,
         "int4_mm": quant, "int8_mm": quant, "bf16_mm": 0,
-        "rms_norm_rows": 0,
+        "rms_norm": 5 * (2 * nl + (2 * nl + 1) * steps + 2 * ne + 1),
     }
     assert rungs["int8"]["launches"]["int8_mm"] == quant
     assert rungs["fp8kv"]["launches_xla_mid_fill"] == {
         "banded_attention_batched": 0, "flash_decode": 0,
-        "ring_rows_write": cfg.decoder.n_layers * 4, "int4_mm": 0,
-        "int8_mm": 0, "bf16_mm": 0, "rms_norm_rows": 0}
+        "ring_rows_write": nl * 4, "int4_mm": 0,
+        "int8_mm": 0, "bf16_mm": 0, "rms_norm": (2 * nl + 1) * 4}
     assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
     for name in ("fp8kv", "int8", "int4", "int4deq"):
         assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0

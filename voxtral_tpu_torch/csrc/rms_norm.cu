@@ -1,11 +1,12 @@
 // Row-invariant RMSNorm: out[r] = (x[r] * rsqrt(mean(x[r]^2) + eps)) * w,
 // in float32, written in x's type (bf16 or f32).
 //
-// The counterpart of the norm XLA fuses into the JAX package's decoder
-// layers (voxtral_tpu/ops/norms.py rms_norm).  PyTorch's own reduction
-// picks its layout by the number of rows (the decoder's rows at B <= 3
-// sum a 3072-wide row in another order than at B >= 16), so a row's bits
-// there follow the batch size.  Here each row's sum of squares is taken in
+// The counterpart of the norm XLA fuses into the JAX package's encoder
+// and decoder layers (voxtral_tpu/ops/norms.py rms_norm); every norm of
+// the port's model takes it on the card.  PyTorch's own reduction picks
+// its layout by the number of rows (a 1280- or 3072-wide row at 2-15 rows
+// sums in another order than at more), so a row's bits there would follow
+// the batch size or the chunking.  Here each row's sum of squares is taken in
 // one order fixed by the width alone: one block of 256 threads a row;
 // thread t sums elements t, t + 256, ... in order, the 32 lanes of a warp
 // fold in a butterfly, and thread 0 adds the 8 warps' sums in warp order.

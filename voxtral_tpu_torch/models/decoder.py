@@ -52,7 +52,7 @@ from ..config import TOKEN_TEXT_MIN, DecoderConfig, VoxtralConfig
 from ..ops import quant_mm
 from ..ops.flash_decode import flash_decode
 from ..ops.graphs import GraphStore, graph_key
-from ..ops.norms import gelu, rms_norm, rms_norm_rows, silu
+from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_of, tp_sum
@@ -144,10 +144,9 @@ def _use_graph(cfg, cache, x: torch.Tensor, call: str) -> bool:
             and cache.graphs is not None and tp_of(cfg) is None)
 
 
-# the calls whose products take the row-invariant route in a bf16 config:
-# the streaming encoder side, and every decoder call (a step, a prefill, a
-# Jacobi window pass)
-ROWINV_CALLS = ("stream", "step", "prefill", "jacobi")
+# the callers whose products take the row-invariant route in a bf16
+# config: the streaming encoder side and the decoder
+ROWINV_CALLS = ("stream", "decoder")
 
 
 def _use_rowinv(cdtype, call: str) -> bool:
@@ -157,21 +156,21 @@ def _use_rowinv(cdtype, call: str) -> bool:
     rule: in a bf16 config (the bf16, fp8kv, int8 and int4 rungs: their
     activations are bf16) a row that one stream owns depends only on that
     stream's inputs and the weights, never on how many streams or rows
-    share the call.  So every call of ROWINV_CALLS takes the route: the
+    share the call.  So both callers of ROWINV_CALLS take the route: the
     streaming encoder side ("stream": the conv stem, the ring layers and
     the adapter of a streaming chunk, whose row count follows the feed),
-    and the decoder ("step": B rows, "prefill": B x T rows, "jacobi": a
-    window's rows; the tied-embedding logits too, the norms on
-    `ops/norms.py:rms_norm_rows`, and the ring path's attention products,
-    `ring_attention(per_stream=True)`; flash-decode's split takes no batch
-    size either), so that a stream's transcript depends neither on how
-    its audio was chunked nor on how many streams share its decode.  On a
-    tp > 1 mesh the same rule holds
-    for each rank's shards (the simplest; its all-reduces still sum in
-    rank order).  Everything else keeps torch.mm: the bulk encoder and
-    window mode ("bulk": one chunk per clip, or a recompute by design),
-    and float32 configs (the witnesses).  The device plays no part: on
-    CPU tensors the wrappers take their plain versions."""
+    and the decoder ("decoder": every call of it, a step's B rows, a
+    prefill's B x T, a Jacobi window's; the tied-embedding logits too, and
+    the ring path's attention products, `ring_attention(per_stream=True)`;
+    flash-decode's split takes no batch size and the norms' kernel none
+    either), so that a stream's transcript depends neither on how its
+    audio was chunked nor on how many streams share its decode.  On a
+    tp > 1 mesh the same rule holds for each rank's shards (the simplest;
+    its all-reduces still sum in rank order).  Everything else keeps
+    torch.mm: the bulk encoder and window mode ("bulk": one chunk per
+    clip, or a recompute by design), and float32 configs (the witnesses).
+    The device plays no part: on CPU tensors the wrappers take their
+    plain versions."""
     return call in ROWINV_CALLS and cdtype == torch.bfloat16
 
 
@@ -186,14 +185,12 @@ def _layer_step(
     pos0: torch.Tensor,       # int [B]: logical position of x[:, 0]
     cos: torch.Tensor,        # [B, T, D/2]
     sin: torch.Tensor,
-    call: str = "step",       # the caller, for _use_rowinv
 ) -> torch.Tensor:
     bsz, t, _ = x.shape
     q_dim = cfg.q_dim
-    ri = _use_rowinv(cdtype, call)
-    norm = rms_norm_rows if ri else rms_norm
+    ri = _use_rowinv(cdtype, "decoder")
 
-    xn = norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
+    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
     qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)        # f32
     q = qkv[..., :q_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., q_dim: q_dim + cfg.kv_dim].reshape(
@@ -227,7 +224,7 @@ def _layer_step(
     x = x + tp_sum(quant.mm(attn, lp, "wo", rowinv=ri), cfg).to(x.dtype)
 
     # ada-RMSNorm (python:607-616): the norm rounds to x's dtype first
-    hn = norm(x, lp["ffn_norm"], cfg.norm_eps).float()
+    hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).float()
     hn = (hn * (1.0 + ada)).to(cdtype)
     g13 = quant.mm(hn, lp, "w13", rowinv=ri)
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
@@ -242,7 +239,6 @@ def decoder_forward(
     cache: KVCache,
     pos0: torch.Tensor,       # int [B]
     ada: torch.Tensor,        # [L, dim] f32 precomputed ada scales
-    call: str = "step",       # "step", "prefill" or "jacobi" (_use_rowinv)
 ):
     """Run all layers over T embeddings per stream.  Writes the T positions'
     K/V into the cache in place.  Returns (hidden [B, T, dim], cache)."""
@@ -257,25 +253,23 @@ def decoder_forward(
     layers = params["layers"]
     for li in range(d.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _layer_step(d, cdtype, x, lp, ada[li], cache, li, pos0, cos, sin,
-                        call)
+        x = _layer_step(d, cdtype, x, lp, ada[li], cache, li, pos0, cos, sin)
     return x, cache
 
 
-def final_logits(params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
-                 call: str = "step") -> torch.Tensor:
+def final_logits(params: PyTree, cfg: VoxtralConfig,
+                 x: torch.Tensor) -> torch.Tensor:
     """RMSNorm + tied-embedding logits with f32 accumulation (python:657-664).
     Operands stay in the embedding dtype; int8 and int4 tables take bf16
     activations.  x: [..., dim] -> [..., vocab] f32; on a tp mesh, this
     rank's slice of the vocab [..., vocab / tp] (parallel/mesh.py).  On
-    the row-invariant route (`_use_rowinv(cfg.cdtype, call)`) a bf16 table
-    goes through `quant.matmul_rows` and the int tables through their
-    kernels' row-invariant plans."""
+    the row-invariant route (`_use_rowinv(cfg.cdtype, "decoder")`) a bf16
+    table goes through `quant.matmul_rows` and the int tables through
+    their kernels' row-invariant plans."""
     emb = params["tok_embeddings"]
     s = params.get("tok_embeddings_scale")
-    ri = _use_rowinv(cfg.cdtype, call)
-    xn = (rms_norm_rows if ri else rms_norm)(x, params["final_norm"],
-                                             cfg.decoder.norm_eps)
+    ri = _use_rowinv(cfg.cdtype, "decoder")
+    xn = rms_norm(x, params["final_norm"], cfg.decoder.norm_eps)
     if quant._is_packed4(emb, s):
         # nibble-packed int4 table, per-half scales [V, 2]: the int4 kernel
         y = quant_mm.int4_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
@@ -297,7 +291,7 @@ def prefill(params: PyTree, cfg: VoxtralConfig, embeds: torch.Tensor,
     """Teacher-forced prefill: write KV for `embeds` [B, T, dim] into the
     cache (in place), discard hidden states (vox_decoder_prefill analog,
     voxtral_decoder.c:410-558).  `params` is the decoder subtree."""
-    decoder_forward(params, cfg, embeds, cache, pos0, ada, call="prefill")
+    decoder_forward(params, cfg, embeds, cache, pos0, ada)
     return cache
 
 

@@ -41,10 +41,9 @@ Row invariance (decoder._use_rowinv): in a bf16 config the streaming side
 here (conv stem, ring layers, adapter) takes the products whose rows' bits
 do not depend on how many rows share a call (`quant.mm(rowinv=True)`,
 `quant.matmul_rows`), so that a stream's rows do not depend on how its
-audio was chunked, and its norms take `ops/norms.py:rms_norm_rows` (torch's
-reduction picks its layout by the row count).  The bulk encoder passes
-call="bulk" to the functions it shares with the stream and keeps torch.mm
-and torch's norm.
+audio was chunked (the norms' kernel, `ops/norms.py:rms_norm`, is
+row-invariant on every path).  The bulk encoder passes call="bulk" to the
+functions it shares with the stream and keeps torch.mm.
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ import torch
 from ..config import DOWNSAMPLE_FACTOR, EncoderConfig, VoxtralConfig
 from ..ops.flash_encode import flash_bulk_attention_batched
 from ..ops.graphs import GraphStore, graph_key
-from ..ops.norms import gelu, rms_norm, rms_norm_rows, silu
+from ..ops.norms import gelu, rms_norm, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
@@ -157,9 +156,8 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
     bsz, t, _ = x.shape
     qkv_dim = cfg.qkv_dim
     ri = _use_rowinv(cdtype, "stream")
-    norm = rms_norm_rows if ri else rms_norm
 
-    xn = norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
+    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
     qkv = mm(xn, lp, "wqkv", ri) + lp["bqkv"]
     q = qkv[..., :qkv_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, cfg.n_kv_heads,
@@ -186,7 +184,7 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
     # the bias added once after the sum (parallel/mesh.py)
     x = x + (tp_sum(mm(attn, lp, "wo", ri), cfg) + lp["bo"]).to(x.dtype)
 
-    hn = norm(x, lp["ffn_norm"], cfg.norm_eps).to(cdtype)
+    hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(cdtype)
     g13 = mm(hn, lp, "w13", ri)
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
     ffn = tp_sum(mm(gate.to(cdtype), lp, "w2", ri), cfg) + lp["b2"]
@@ -222,8 +220,7 @@ def _encoder_layers(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
     for li in range(e.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
         x = _enc_layer_step(e, cdtype, x, lp, cache, li, pos0, cos, sin)
-    norm = rms_norm_rows if _use_rowinv(cdtype, "stream") else rms_norm
-    return norm(x, enc_params["final_norm"], e.norm_eps).to(cdtype)
+    return rms_norm(x, enc_params["final_norm"], e.norm_eps).to(cdtype)
 
 
 @torch.no_grad()

@@ -66,9 +66,8 @@ def _jacobi_window(params: PyTree, cfg: VoxtralConfig,
     def window_pass(a32, prev_token, guesses, pos0):
         prev = torch.cat([prev_token, guesses[:-1]])
         embeds = a32 + quant.embed_rows(params, prev)
-        x, _ = decoder_forward(params, cfg, embeds[None], cache, pos0, ada,
-                               call="jacobi")
-        return final_logits(params, cfg, x, call="jacobi")[0]   # [W, V] f32
+        x, _ = decoder_forward(params, cfg, embeds[None], cache, pos0, ada)
+        return final_logits(params, cfg, x)[0]              # [W, V] f32
 
     if _use_graph(cfg, cache, a32, "jacobi"):
         # one CUDA graph per window size on this cache (ops/graphs.py); the

@@ -47,16 +47,23 @@ import torch
 from . import cuda_lib
 from .ring import RING_KINDS, ring_rows_write_plain, slot_logical_positions
 
-# the kernel's split plan: at most a portable thread-block cluster (8
-# blocks) of splits per KV head, at least 64 window slots per split, ranges
-# a multiple of 64 slots (a bf16 trip of the kernel's 32 partitions; an
-# fp8 trip is 128), and, for the mapping, at most one wave of blocks on an
+# the kernel's split plan: ranges of about RANGE_SLOTS window slots, at
+# least MIN_RANGES of them and at most a portable thread-block cluster (8
+# blocks) per KV head, at least 64 window slots per range, ranges a
+# multiple of 64 slots (a bf16 trip of the kernel's 32 partitions; an fp8
+# trip is 128), and, for the mapping, at most one wave of blocks on an
 # H100 (132 SMs; the kernel's 192-254 registers a thread hold one 256-thread
-# block per SM)
+# block per SM).  RANGE_SLOTS trades a lone stream's step against a
+# batch's (H100 80GB HBM3, 700 W, bf16, device ms a launch): on an
+# 896-slot ring 2 ranges of 448 take 0.0125 at B=1 (7 of 128 on a cluster:
+# 0.0089), 0.0195 at B=16 (0.0250) and 0.0774 at B=64 (0.0982); on 512
+# slots at B=1 2 of 256 take 0.0098 (8 of 64: 0.0079, 1 of 512: 0.0132)
 WAVE_BLOCKS = 132
 MAX_SPLITS = 8
 MIN_SPLIT_SLOTS = 64
 CHUNK_ALIGN = 64
+RANGE_SLOTS = 448
+MIN_RANGES = 2
 # csrc/flash_decode.cu: partitions of 8 lanes per block, and ring rows a
 # partition takes per trip by ring dtype (128 bytes of K and V per lane)
 NPART = 32
@@ -72,11 +79,13 @@ class FlashPlan(NamedTuple):
 
 def flash_decode_chunk(span: int, kv_heads: int) -> int:
     """Window indices per range of the split of span = min(cap, window)
-    slots: about span / 8 (fewer ranges where 8 would not give each 64
-    slots, or 8 clusters of kv_heads blocks would pass one wave), rounded
-    up to a multiple of CHUNK_ALIGN."""
+    slots: span / n for n ranges of about RANGE_SLOTS, at least MIN_RANGES
+    and at most MAX_SPLITS (fewer where they would not give each 64 slots,
+    or their clusters of kv_heads blocks would pass one wave), rounded up
+    to a multiple of CHUNK_ALIGN."""
     want = max(1, min(MAX_SPLITS, WAVE_BLOCKS // kv_heads,
-                      span // MIN_SPLIT_SLOTS))
+                      span // MIN_SPLIT_SLOTS,
+                      max(MIN_RANGES, span // RANGE_SLOTS)))
     return -(-(-(-span // want)) // CHUNK_ALIGN) * CHUNK_ALIGN
 
 
@@ -87,8 +96,8 @@ def flash_decode_splits(span: int, kv_heads: int) -> int:
     the ranges' partials fold in split order.  A function of the shapes
     alone, never of the batch size (so a stream's bits do not depend on
     how many streams share the step) nor of the positions (the host cannot
-    read them without a sync): 8 KV heads cut 512 slots into 8 ranges of
-    64, 896 into 7 of 128, 1024 into 8 of 128."""
+    read them without a sync): 8 KV heads cut 512 slots into 2 ranges of
+    256, 896 into 2 of 448, 2048 into 4 of 512, 8192 into 8 of 1024."""
     return -(-span // flash_decode_chunk(span, kv_heads))
 
 

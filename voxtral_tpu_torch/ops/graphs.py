@@ -65,13 +65,13 @@ def counted_wrappers() -> tuple:
     from .bf16_mm import bf16_mm
     from .flash_decode import flash_decode
     from .flash_encode import flash_bulk_attention_batched
-    from .norms import rms_norm_rows
+    from .norms import rms_norm
     from .quant_mm import int4_mm, int8_mm
     from .ring import ring_rows_write
 
     return (banded_attention_batched, flash_decode,
             flash_bulk_attention_batched, int4_mm, int8_mm, ring_rows_write,
-            bf16_mm, rms_norm_rows)
+            bf16_mm, rms_norm)
 
 
 def _counts() -> list[int]:

@@ -3,13 +3,12 @@
 Semantics follow python_simple_implementation.py:229-237 (RMSNorm always in
 float32) and voxtral_tpu/ops/norms.py (exact erf GELU, SiLU).
 
-`rms_norm_rows` is the same norm with each row's bits independent of how
-many rows share the call (the row-invariant route, models/decoder.py:
-_use_rowinv): torch's reduction picks its layout by the row count, so
-`rms_norm` rounds a 3072-wide row differently at B <= 3 than at B >= 16.
-CUDA tensors launch `voxtral_tpu_torch/csrc/rms_norm.cu` (one block a row,
-the sum of squares in an order fixed by the width); CPU tensors take
-`rms_norm`.
+`rms_norm` on CUDA tensors launches `voxtral_tpu_torch/csrc/rms_norm.cu`
+(one block a row, the sum of squares in an order fixed by the width), so
+a row's bits never depend on how many rows share the call: torch's own
+reduction picks its layout by the row count and rounds a 1280- or
+3072-wide row differently at 2-15 rows than at more.  CPU tensors take
+`rms_norm_plain`, the same arithmetic in torch.
 """
 
 from __future__ import annotations
@@ -20,7 +19,8 @@ import torch.nn.functional as F
 from . import cuda_lib
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm in float32, cast back to x.dtype.
 
     x: [..., dim]; weight: [dim] float32.
@@ -30,14 +30,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     return (xf * rms * weight.float()).to(x.dtype)
 
 
-def rms_norm_rows(x: torch.Tensor, weight: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """`rms_norm` with each row's bits independent of the row count on the
-    card.  x: [..., dim] bf16 or f32, contiguous; weight: [dim] f32."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in float32, cast back to x.dtype, each row's bits
+    independent of the row count on the card.  x: [..., dim] bf16 or f32;
+    weight: [dim] f32.  CPU tensors take `rms_norm_plain`."""
     if x.device.type == "cpu":
-        return rms_norm(x, weight, eps)
+        return rms_norm_plain(x, weight, eps)
     if x.device.type != "cuda":
-        raise NotImplementedError(f"rms_norm_rows on {x.device}")
+        raise NotImplementedError(f"rms_norm on {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rms_norm kernel takes bf16 or f32 x, got {x.dtype}")
     dim = x.shape[-1]
@@ -57,12 +58,12 @@ def rms_norm_rows(x: torch.Tensor, weight: torch.Tensor,
         int(x.dtype == torch.bfloat16), float(eps),
         cuda_lib.stream_handle(x.device))
     cuda_lib.check(err, "rms_norm")
-    rms_norm_rows.launches += 1
+    rms_norm.launches += 1
     return out
 
 
 # kernel launches since the last reset (CPU calls never count)
-rms_norm_rows.launches = 0
+rms_norm.launches = 0
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -150,7 +150,7 @@ def serve_clips(engine, mel):
     prompt = engine.prompt_embeds(rows[:, : plen - 1])
     zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
     x, _ = dec_mod.decoder_forward(dparams, cfg, prompt, cache, zero,
-                                   engine.ada(), call="prefill")
+                                   engine.ada())
     sync()
     t2 = time.monotonic()
     prev = torch.full((bsz,), TOKEN_STREAMING_PAD, dtype=torch.int32,

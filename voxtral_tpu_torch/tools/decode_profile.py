@@ -72,7 +72,7 @@ def main(argv=None, cfg=None) -> int:
     from ..models import quant
     from ..models.params import init_params
     from ..ops.flash_decode import flash_decode
-    from ..ops.norms import rms_norm, rms_norm_rows, silu
+    from ..ops.norms import rms_norm, silu
     from ..ops.ring import ring_attention, ring_rows_write
     from ..parallel import serving as sv
 
@@ -170,7 +170,7 @@ def main(argv=None, cfg=None) -> int:
                 ring_attention(q4, cache.k[:, li], cache.v[:, li], pos,
                                window=d.window, out_dtype=torch.bfloat16,
                                per_stream=dmod._use_rowinv(cfg.cdtype,
-                                                           "step"))
+                                                           "decoder"))
 
         t_ax = graph_time(attn26_xla, rep, dev)
         full_gib = 2 * batch * d.n_layers * d.n_kv_heads * ring * \
@@ -192,20 +192,19 @@ def main(argv=None, cfg=None) -> int:
     # --- term: matmul+norm chain, attention stubbed ---------------------
     # (on the step's route: row-invariant products in a bf16 config)
     cdtype = cfg.cdtype
-    ri = dmod._use_rowinv(cdtype, "step")
-    norm = rms_norm_rows if ri else rms_norm
+    ri = dmod._use_rowinv(cdtype, "decoder")
     x_m = torch.zeros((batch, d.dim), device=dev)
 
     def matmuls_only():
         x = x_m
         for li in range(d.n_layers):
             lp = {k: v[li] for k, v in dp["layers"].items()}
-            xn = norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
+            xn = rms_norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
             qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)
             attn = qkv[:, : d.q_dim]                      # stub: no KV/flash
             x = x + quant.mm(attn.to(cdtype), lp, "wo",
                              rowinv=ri).to(x.dtype)
-            hn = norm(x, lp["ffn_norm"], d.norm_eps).float()
+            hn = rms_norm(x, lp["ffn_norm"], d.norm_eps).float()
             hn = (hn * (1.0 + ada[li])).to(cdtype)
             g13 = quant.mm(hn, lp, "w13", rowinv=ri)
             gate = silu(g13[:, : d.hidden]) * g13[:, d.hidden:]
