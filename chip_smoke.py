@@ -8,6 +8,10 @@
                                          # checkout, for an A/B in one call)
     python3 chip_smoke.py --only jacobi,pool_ring  # device, build, then the
                                          # named phases (ONLY_PHASES)
+    python3 chip_smoke.py --bf16 [ROOT]  # device, build, the bf16_mm
+                                         # sweep (phase_bf16_sweep; ROOT:
+                                         # another checkout's package, its
+                                         # bits compared)
 
 Phases, in order, each printing its own lines; any failure raises and the
 script exits non-zero:
@@ -46,7 +50,12 @@ script exits non-zero:
                chunkings of 256 rows at B=1 and B=16; its times at B=16
                T=64 and B=1 T=100 by mapping, at the ring pool's B=8
                T=24 (checked there too) and the bench's B=1 T=512 on
-               1280 slots
+               1280 slots; all of it again on e4m3 rings (the kernel
+               widens them as it loads them), with the bench's load-ring
+               chunks (B=8 and 16, T=25 and 50, 896 slots) and times
+               against the plain ring_attention the encoder took there
+               before; then both mappings timed over a sweep of (B, T), the
+               data of the mapping rule
   6. int4     kernel (C) against its plain version at the five
                full-width int4 matrices (wqkv, wo, w13, w2, logits table;
                26-layer stacks, read at layer 25) at 1, 16, 64, 608, 56
@@ -122,7 +131,9 @@ script exits non-zero:
                first stage where their rows part, eager and probed inside
                every layer over the clip's first 3 s; an int8 and an int4
                pair (the encoder's layers quantized too), ids and rows
-               equal
+               equal; the three runs on an e4m3 encoder ring of 896 under
+               "auto" (flash-encode reads e4m3), gated the same way, and on
+               the encoder's plain attention (attn_impl "xla"), printed
  11. bstream  BatchedTranscriber at B=16 x 30 s, 200-frame intervals,
                decoder ring 896: exact launch counts, aggregate x realtime,
                stream 0 against a B=1 VoxStream of the same clip, gated:
@@ -146,6 +157,10 @@ script exits non-zero:
                exact launch counts, tick p50/p90, tokens and bursts per
                tick, the encode/decode split, peak memory, slot 0 against a
                B=1 VoxStream fed the same audio, gated as bstream's
+ 13b. pool_ring_fp8 the ring pool at the bench's load-ring settings: 8
+               slots, e4m3 encoder ring 896 and decoder ring 1024, -I 0.5,
+               2 rounds of 8 ticks, slot 0 gated against a B=1 VoxStream;
+               then the same on the encoder's plain attention, printed
  14. pool_window the StreamPool in window mode: 32 slots, fp8 decoder ring
                1024, -I 2.0, 2 rounds of 8 ticks, the same churn (banded
                attention at B=32 with per-slot kv_lo); slot 0 against the
@@ -1478,6 +1493,22 @@ BENCH_ENC_RING = dict(cap=1280, cases=((1, 512, (0, 512, 1536, 3072)),
                                        (2, 512, (0, 2560))))
 
 
+# the bench's load-ring rows (bench.py load_rows: 8 and 16 slots at -I 0.5
+# on an e4m3 encoder ring of 896): a 0.5 s feed is 25 encoder rows (the
+# 16-slot row's 0.4 s gate fires every tick), 50 where the 8-slot row's
+# gate of the interval fires every other tick; slots at their own
+# positions after the ring has wrapped
+LOAD_RING = dict(cap=896, cases=((8, 25, (3000,)), (16, 25, (3000,)),
+                                 (8, 50, (3000,))))
+# the mapping sweep: every (B, T) both mappings of the split walk are timed
+# at, on the 1024-slot streaming ring, full window, bf16 and e4m3 rings
+FLASH_ENC_SWEEP = dict(cap=1024, batches=(1, 2, 4, 8, 16),
+                       ts=(8, 25, 64, 100, 256, 512))
+# the rings the phase checks the kernel on: bf16 (the bf16 configs'
+# encoder ring) and e4m3 (fp8 encoder rings, the load-ring rows)
+FLASH_ENC_RINGS = ("bfloat16", "float8_e4m3fn")
+
+
 # the streaming encoder at full width: stacked rings [B, 32, 32, 1024, 64]
 # (1024 = the engine's ring for buckets (64, 16, 4, 1)) and, for the ragged
 # edge, 1000 slots; chunks of 4 to 274 rows (274 = the largest fused chunk
@@ -1489,7 +1520,8 @@ FLASH_ENC_FULL = dict(n_layers=32, heads=32, head_dim=64, cap=1024,
                       ragged_cap=1000, window=750, ts=(4, 64, 100, 256, 274),
                       positions=(0, 17, 40, 300, 5000), prefill=800,
                       splits=((256,), (64, 64, 64, 64), (100, 100, 56)),
-                      bench=BENCH_ENC_RING)
+                      bench=BENCH_ENC_RING, load=LOAD_RING,
+                      sweep=FLASH_ENC_SWEEP)
 
 
 def _stream_positions(positions, bsz: int) -> list[int]:
@@ -1511,15 +1543,76 @@ def _enc_mask(pos0, t: int, cap: int, window: int):
     return (lpos >= 0) & (lpos <= q_pos) & (lpos > q_pos - window)
 
 
+def _flash_enc_sweep(gen, sh: dict) -> dict:
+    """Both mappings of flash-encode's split walk timed (graph replay) at
+    every (B, T) of sh["sweep"] on bf16 and e4m3 rings: the data the
+    mapping rule (ops/flash_encode.py flash_encode_use_split) is read off.
+    Prints, per ring, each point's query tiles, split and walk ms and which
+    is faster, the tiles-per-SM crossover, and the points where the rule
+    picks the slower mapping (ungated: both mappings give the same bits)."""
+    import torch
+
+    from voxtral_tpu_torch.ops import cuda_lib
+    from voxtral_tpu_torch.ops.flash_encode import (
+        TILE_ROWS,
+        flash_bulk_attention_batched,
+        flash_encode_use_split,
+    )
+
+    sw, h, d, window = sh["sweep"], sh["heads"], sh["head_dim"], sh["window"]
+    sms = cuda_lib.sm_count(0)
+    cap, t_max = sw["cap"], max(sw["ts"])
+    out = {}
+    for dt in FLASH_ENC_RINGS:
+        rdt = getattr(torch, dt)
+        points, wrong = [], []
+        for bsz in sw["batches"]:
+            kr, vr = (_randn(gen, (bsz, h, cap, d), rdt) for _ in range(2))
+            q_all = _randn(gen, (bsz, t_max, h, d), torch.bfloat16)
+            pos = torch.tensor(_stream_positions((3000, 5000), bsz),
+                               dtype=torch.int32, device="cuda")
+            for t in sw["ts"]:
+                q = q_all[:, :t]
+                ms = {sp: graph_ms(lambda sp=sp: flash_bulk_attention_batched(
+                    q, kr, vr, pos, window=window, split=sp), 10)
+                    for sp in (True, False)}
+                tiles = -(-t // TILE_ROWS) * h * bsz
+                best = ms[True] < ms[False]
+                points.append({"B": bsz, "T": t, "tiles": tiles,
+                               "split_ms": ms[True], "walk_ms": ms[False]})
+                if flash_encode_use_split(tiles, sms,
+                                          kr.element_size()) != best:
+                    wrong.append((bsz, t))
+                log("flash_enc", f"sweep {dt} B={bsz} T={t} ({tiles} query "
+                                 f"tiles, {tiles / sms:.2f} an SM): split "
+                                 f"{ms[True]:.4f} ms, walk {ms[False]:.4f} "
+                                 f"ms ({'split' if best else 'walk'})")
+            del kr, vr, q_all
+        flash_bulk_attention_batched.launches = 0
+        won = sorted(p["tiles"] for p in points
+                     if p["split_ms"] < p["walk_ms"])
+        lost = sorted(p["tiles"] for p in points
+                      if p["split_ms"] >= p["walk_ms"])
+        log("flash_enc", f"sweep {dt}: the split wins at query tiles "
+                         f"{won}, the walk at {lost}; the rule picks the "
+                         f"slower mapping at (B, T) {wrong or 'none'}")
+        out[f"sweep_{dt}"] = {"points": points, "rule_slower_at": wrong}
+    return out
+
+
 def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
                     batches=(1, 16)) -> dict:
     """Kernel (E), flash encode, against its plain version over layer L-1 of
-    stacked rings read in place, at every (B, T, position) of `shapes`;
-    then the kernel's bitwise chunking invariance; then its times at the
-    two streaming shapes (B=16 T=64, the batched transcriber's chunk; B=1
-    T=100, the 2 s fused chunk).  main() runs it at full width on the card;
-    with device="cpu" a tiny `shapes` rehearses it (the wrapper then runs
-    the plain version and nothing is timed)."""
+    stacked rings read in place, on bf16 and e4m3 rings, at every (B, T,
+    position) of `shapes` and the bench's load-ring shapes (e4m3); then the
+    kernel's bitwise chunking invariance on both rings; then its times at
+    the streaming shapes (B=16 T=64, the batched transcriber's chunk; B=1
+    T=100, the 2 s fused chunk; the ring pool's; the bench's "inc" chunk;
+    on e4m3 rings also the load-ring rows), and on e4m3 rings against the
+    plain ring_attention path the encoder took there before (the parent's
+    route); last the mapping sweep.  main() runs it at full width on the
+    card; with device="cpu" a tiny `shapes` rehearses it (the wrapper then
+    runs the plain version and nothing is timed)."""
     import torch
 
     from voxtral_tpu_torch.ops.flash_encode import (
@@ -1527,7 +1620,7 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
         flash_encode_plain,
         flash_encode_segments,
     )
-    from voxtral_tpu_torch.ops.ring import ring_chunk_write
+    from voxtral_tpu_torch.ops.ring import ring_attention, ring_chunk_write
 
     on_gpu = device == "cuda"
     sh = shapes
@@ -1538,166 +1631,205 @@ def phase_flash_enc(device: str = "cuda", shapes: dict = FLASH_ENC_FULL,
     gen.manual_seed(5)
     kw = dict(window=window, out_dtype=torch.float32)
 
-    def rings(bsz, n_slots=cap):   # zeros but for layer li, which is read
+    def rings(bsz, n_slots=cap, rdt=torch.bfloat16):
+        """zeros but for layer li, which is read"""
         k_all, v_all = (torch.zeros((bsz, n_layers, h, n_slots, d),
-                                    dtype=torch.bfloat16, device=device)
+                                    dtype=rdt, device=device)
                         for _ in range(2))
         for x in (k_all, v_all):
-            x[:, li] = _randn(gen, (bsz, h, n_slots, d), torch.bfloat16,
-                              device)
+            x[:, li] = _randn(gen, (bsz, h, n_slots, d), rdt, device)
         return k_all, v_all
 
     def check(k_all, v_all, q, pos_l) -> float:
         """The kernel against plain at one case; both mappings of the split
         walk to blocks agree bit for bit (the default takes one)."""
         bsz, t, n_slots = q.shape[0], q.shape[1], k_all.shape[3]
+        tag = f"{str(k_all.dtype)[6:]} cap={n_slots} B={bsz} T={t}"
         pos = torch.tensor(pos_l, dtype=torch.int32, device=device)
         want = flash_encode_plain(q, k_all[:, li], v_all[:, li], pos, **kw)
         got, walk = (flash_bulk_attention_batched(
             q, k_all[:, li], v_all[:, li], pos, split=sp, **kw)
             for sp in (True, False))
         if not torch.equal(got, walk):
-            raise AssertionError(
-                f"[flash_enc] cap={n_slots} B={bsz} T={t} "
-                f"pos={pos_l[:3]}: the split mappings differ")
+            raise AssertionError(f"[flash_enc] {tag} pos={pos_l[:3]}: the "
+                                 "split mappings differ")
         del walk
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"[flash_enc] non-finite cap={n_slots} "
-                                 f"B={bsz} T={t} pos={pos_l[:3]}")
+            raise AssertionError(f"[flash_enc] non-finite {tag} "
+                                 f"pos={pos_l[:3]}")
         err = (got - want).abs().max().item()
         ok = err <= FLASH_ENC_TOL
-        log("flash_enc", f"cap={n_slots} B={bsz} T={t} pos={pos_l[:3]}: "
-                         f"max_abs_err {err:.3e} (tol {FLASH_ENC_TOL}) "
-                         f"{'ok' if ok else 'FAIL'}")
+        log("flash_enc", f"{tag} pos={pos_l[:3]}: max_abs_err {err:.3e} "
+                         f"(tol {FLASH_ENC_TOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"[flash_enc] cap={n_slots} B={bsz} T={t} "
-                                 f"pos={pos_l} err {err}")
+            raise AssertionError(f"[flash_enc] {tag} pos={pos_l} err {err}")
         return err
 
-    worst = 0.0
-    for n_slots in (cap, sh["ragged_cap"]):
-        for bsz in batches:
-            k_all, v_all = rings(bsz, n_slots)
-            pos_sets = ([[p] for p in sh["positions"]] if bsz == 1 else
-                        [_stream_positions(sh["positions"], bsz)])
-            for t in sh["ts"]:
-                q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
-                for pos_l in pos_sets:
-                    worst = max(worst, check(k_all, v_all, q, pos_l))
+    worst = {dt: 0.0 for dt in FLASH_ENC_RINGS}
+    for dt in FLASH_ENC_RINGS:
+        rdt = getattr(torch, dt)
+        for n_slots in (cap, sh["ragged_cap"]):
+            for bsz in batches:
+                k_all, v_all = rings(bsz, n_slots, rdt)
+                pos_sets = ([[p] for p in sh["positions"]] if bsz == 1 else
+                            [_stream_positions(sh["positions"], bsz)])
+                for t in sh["ts"]:
+                    q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+                    for pos_l in pos_sets:
+                        worst[dt] = max(worst[dt],
+                                        check(k_all, v_all, q, pos_l))
+                del k_all, v_all
+        # the bench's encoder ring: its chunks at the positions they take
+        # (every stream of a batched encode at the same one); on e4m3 rings
+        # also the load-ring rows' chunks, each slot at its own position
+        ring_cases = [(sh["bench"]["cap"], c, False)
+                      for c in sh["bench"]["cases"]]
+        if rdt == torch.float8_e4m3fn and "load" in sh:
+            ring_cases += [(sh["load"]["cap"], c, True)
+                           for c in sh["load"]["cases"]]
+        for n_slots, (bsz, t, positions), own in ring_cases:
+            k_all, v_all = rings(bsz, n_slots, rdt)
+            q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+            for p in positions:
+                pos_l = _stream_positions((p,), bsz) if own else [p] * bsz
+                worst[dt] = max(worst[dt], check(k_all, v_all, q, pos_l))
             del k_all, v_all
-    # the bench's encoder ring: its chunks at the positions they take
-    # (every stream of a batched encode at the same one)
-    bench = sh["bench"]
-    for bsz, t, positions in bench["cases"]:
-        k_all, v_all = rings(bsz, bench["cap"])
-        q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
-        for p in positions:
-            worst = max(worst, check(k_all, v_all, q, [p] * bsz))
-        del k_all, v_all
 
-    # bitwise invariance: `prefill` rows, then n more written and attended
-    # as each partition of `splits`, on fresh rings each time
-    n0, n = sh["prefill"], sum(sh["splits"][0])
-    for bsz in batches:
-        kv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
-        vv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
-        qq = _randn(gen, (bsz, n, h, d), torch.bfloat16, device)
+        # bitwise invariance: `prefill` rows, then n more written and
+        # attended as each partition of `splits`, on fresh rings each time
+        n0, n = sh["prefill"], sum(sh["splits"][0])
+        for bsz in batches:
+            kv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
+            vv = _randn(gen, (bsz, n0 + n, h, d), torch.bfloat16, device)
+            qq = _randn(gen, (bsz, n, h, d), torch.bfloat16, device)
 
-        def run(sizes):
-            k_all, v_all = (torch.zeros((bsz, n_layers, h, cap, d),
-                                        dtype=torch.bfloat16, device=device)
-                            for _ in range(2))
-            zero = torch.zeros(bsz, dtype=torch.int32, device=device)
-            ring_chunk_write(k_all, v_all, kv[:, :n0], vv[:, :n0], li, zero)
-            outs, at = [], 0
-            for s in sizes:
-                p = torch.full((bsz,), n0 + at, dtype=torch.int32,
-                               device=device)
-                _, _, kr, vr = ring_chunk_write(
-                    k_all, v_all, kv[:, n0 + at: n0 + at + s],
-                    vv[:, n0 + at: n0 + at + s], li, p)
-                outs.append(flash_bulk_attention_batched(
-                    qq[:, at: at + s], kr, vr, p, window=window))
-                at += s
-            return torch.cat(outs, dim=1)
+            def run(sizes):
+                k_all, v_all = (torch.zeros((bsz, n_layers, h, cap, d),
+                                            dtype=rdt, device=device)
+                                for _ in range(2))
+                zero = torch.zeros(bsz, dtype=torch.int32, device=device)
+                ring_chunk_write(k_all, v_all, kv[:, :n0], vv[:, :n0], li,
+                                 zero)
+                outs, at = [], 0
+                for s in sizes:
+                    p = torch.full((bsz,), n0 + at, dtype=torch.int32,
+                                   device=device)
+                    _, _, kr, vr = ring_chunk_write(
+                        k_all, v_all, kv[:, n0 + at: n0 + at + s],
+                        vv[:, n0 + at: n0 + at + s], li, p)
+                    outs.append(flash_bulk_attention_batched(
+                        qq[:, at: at + s], kr, vr, p, window=window))
+                    at += s
+                return torch.cat(outs, dim=1)
 
-        ref = run(sh["splits"][0])
-        for sizes in sh["splits"][1:]:
-            same = torch.equal(ref, run(sizes))
-            log("flash_enc", f"B={bsz}: {n} rows after {n0} as {list(sizes)} "
-                             f"vs {list(sh['splits'][0])}: "
-                             f"{'bitwise equal' if same else 'DIFFER'}")
-            if not same:
-                raise AssertionError(f"[flash_enc] B={bsz} chunking {sizes} "
-                                     "changed the output")
+            ref = run(sh["splits"][0])
+            for sizes in sh["splits"][1:]:
+                same = torch.equal(ref, run(sizes))
+                log("flash_enc", f"{dt} B={bsz}: {n} rows after {n0} as "
+                                 f"{list(sizes)} vs {list(sh['splits'][0])}:"
+                                 f" {'bitwise equal' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError(f"[flash_enc] {dt} B={bsz} "
+                                         f"chunking {sizes} changed the "
+                                         "output")
     flash_bulk_attention_batched.launches = 0
     log("flash_enc", "one block per segment and one block walking every "
-                     "segment: bitwise equal at every case")
-    out = {"max_abs_err": worst, "bitwise_invariant": True}
+                     "segment: bitwise equal at every case, both rings")
+    out = {"max_abs_err": max(worst.values()), "bitwise_invariant": True}
     if not on_gpu:
         return out
+    out["max_abs_err_fp8"] = worst["float8_e4m3fn"]
 
     # times at the streaming shapes, bf16 out as on the path, full window:
     # the default, and each mapping of the split forced (the default's
-    # numbers under the plain keys)
+    # numbers under the plain keys; e4m3 rings under keys ending "_fp8")
     plan = flash_encode_segments(cap)
+    bench = sh["bench"]
     # B=16 T=64, the batched transcriber's chunk; B=1 T=100, the 2 s fused
     # chunk; B=8 T=24, the ring-mode pool's tick at -I 0.5 (a 0.4 s gate:
     # 48 mel frames), its slots at their own positions; B=1 T=512 on the
-    # bench's ring, its 1024-frame fused chunk after the ring has wrapped
-    for bsz, t, tag, at, n_slots in (
-            (16, 64, "", (2000, 5000), cap),
-            (1, 100, "_b1_t100", (2000, 5000), cap),
-            (8, 24, "_pool_ring", (40, 300, 2000, 5000), cap),
-            (1, 512, "_bench_inc", (3072,), bench["cap"])):
-        k_all, v_all = rings(bsz, n_slots)
-        kr, vr = k_all[:, li], v_all[:, li]
-        q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
-        pos = torch.tensor(_stream_positions(at, bsz),
-                           dtype=torch.int32, device=device)
-        if tag == "_pool_ring":
-            err = (flash_bulk_attention_batched(q, kr, vr, pos, **kw)
-                   - flash_encode_plain(q, kr, vr, pos, **kw)).abs().max()
-            err = err.item()
-            out["max_abs_err_pool_ring"] = err
-            log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:4]}: "
-                             f"max_abs_err {err:.3e} (tol {FLASH_ENC_TOL})")
-            if not err <= FLASH_ENC_TOL:
-                raise AssertionError(f"[flash_enc] pool ring shape err {err}")
-        alts = {}   # device ms by mapping
-        for sp in (None, True, False):
-            def kern():
-                flash_bulk_attention_batched(q, kr, vr, pos, window=window,
-                                             split=sp)
+    # bench's ring, its 1024-frame fused chunk after the ring has wrapped;
+    # on e4m3 rings the load-ring rows
+    cases = [(16, 64, "", (2000, 5000), cap),
+             (1, 100, "_b1_t100", (2000, 5000), cap),
+             (8, 24, "_pool_ring", (40, 300, 2000, 5000), cap),
+             (1, 512, "_bench_inc", (3072,), bench["cap"])]
+    load_cases = [(bsz, t, f"_load_b{bsz}_t{t}", pos, sh["load"]["cap"])
+                  for bsz, t, pos in sh["load"]["cases"]]
+    for dt in FLASH_ENC_RINGS:
+        rdt = getattr(torch, dt)
+        fp8 = rdt == torch.float8_e4m3fn
+        sfx = "_fp8" if fp8 else ""
+        for bsz, t, tag, at, n_slots in cases + (load_cases if fp8 else []):
+            tag += sfx
+            k_all, v_all = rings(bsz, n_slots, rdt)
+            kr, vr = k_all[:, li], v_all[:, li]
+            q = _randn(gen, (bsz, t, h, d), torch.bfloat16, device)
+            pos = torch.tensor(_stream_positions(at, bsz),
+                               dtype=torch.int32, device=device)
+            if tag == "_pool_ring":
+                err = (flash_bulk_attention_batched(q, kr, vr, pos, **kw)
+                       - flash_encode_plain(q, kr, vr, pos, **kw)).abs().max()
+                err = err.item()
+                out["max_abs_err_pool_ring"] = err
+                log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:4]}: "
+                                 f"max_abs_err {err:.3e} (tol "
+                                 f"{FLASH_ENC_TOL})")
+                if not err <= FLASH_ENC_TOL:
+                    raise AssertionError(f"[flash_enc] pool ring shape err "
+                                         f"{err}")
+            alts = {}   # device ms by mapping
+            for sp in (None, True, False):
+                def kern():
+                    flash_bulk_attention_batched(q, kr, vr, pos,
+                                                 window=window, split=sp)
 
-            mode = {None: "auto", True: "split", False: "walk"}[sp]
-            out[f"ms_{mode}{tag}"] = cuda_ms(kern, 50)
-            out[f"device_ms_{mode}{tag}"] = alts[mode] = graph_ms(kern, 20)
-        ms, dms = out[f"ms_auto{tag}"], out[f"device_ms_auto{tag}"]
-        plain = cuda_ms(lambda: flash_encode_plain(q, kr, vr, pos,
-                                                   window=window), 5)
-        # the library call: SDPA over the layer's ring with the
-        # logical-position mask
-        valid = _enc_mask(pos, t, n_slots, window)
-        lib = sdpa_ms(q.transpose(1, 2).contiguous(), kr, vr, valid[:, None])
-        # the K/V rows some query of the chunk sees, read once; q read and
-        # the output written once (bf16); 4 D operations per (row, head,
-        # valid key)
-        n_slots = int(valid.any(dim=1).sum())
-        b = bound(2 * n_slots * h * d * 2 + 2 * q.numel() * 2,
-                  4 * d * h * int(valid.sum()))
-        flash_bulk_attention_batched.launches = 0
-        out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
-                    f"plain_ms{tag}": plain, f"library_ms{tag}": lib,
-                    f"bound_ms{tag}": b["bound_ms"],
-                    f"bound_by{tag}": b["bound_by"], "segments": plan,
-                    "segments_bench": flash_encode_segments(bench["cap"])})
-        alts = ", ".join(f"{k} {v:.4f}" for k, v in alts.items())
-        log("flash_enc", f"B={bsz} T={t} pos {pos.tolist()[:3]}: kernel "
-                         f"{ms:.4f} ms (device {dms:.4f}; {alts}), plain "
-                         f"{plain:.4f} ms, SDPA {lib:.4f} ms per call; bound "
-                         f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        del k_all, v_all, kr, vr
+                mode = {None: "auto", True: "split", False: "walk"}[sp]
+                out[f"ms_{mode}{tag}"] = cuda_ms(kern, 50)
+                out[f"device_ms_{mode}{tag}"] = alts[mode] = graph_ms(kern,
+                                                                      20)
+            ms, dms = out[f"ms_auto{tag}"], out[f"device_ms_auto{tag}"]
+            plain = cuda_ms(lambda: flash_encode_plain(q, kr, vr, pos,
+                                                       window=window), 5)
+            valid = _enc_mask(pos, t, n_slots, window)
+            if fp8:
+                # SDPA takes no e4m3 operand: no library call; beside it
+                # the path it replaced, the plain ring_attention (the
+                # parent's route for an fp8 encoder ring)
+                lib = None
+                out[f"replaced_ms{tag}"] = graph_ms(
+                    lambda: ring_attention(q, kr, vr, pos, window=window,
+                                           out_dtype=torch.bfloat16), 5)
+            else:
+                # the library call: SDPA over the layer's ring with the
+                # logical-position mask
+                lib = sdpa_ms(q.transpose(1, 2).contiguous(), kr, vr,
+                              valid[:, None])
+            # the K/V rows some query of the chunk sees, read once (2
+            # bytes an element, e4m3 1); q read and the output written once
+            # (bf16); 4 D operations per (row, head, valid key)
+            n_live = int(valid.any(dim=1).sum())
+            b = bound(2 * n_live * h * d * kr.element_size()
+                      + 2 * q.numel() * 2, 4 * d * h * int(valid.sum()))
+            flash_bulk_attention_batched.launches = 0
+            out.update({f"ms{tag}": ms, f"device_ms{tag}": dms,
+                        f"plain_ms{tag}": plain, f"library_ms{tag}": lib,
+                        f"bound_ms{tag}": b["bound_ms"],
+                        f"bound_by{tag}": b["bound_by"], "segments": plan,
+                        "segments_bench": flash_encode_segments(
+                            bench["cap"])})
+            alts = ", ".join(f"{k} {v:.4f}" for k, v in alts.items())
+            yard = (f"ring_attention (replaced) "
+                    f"{out[f'replaced_ms{tag}']:.4f} ms" if fp8
+                    else f"SDPA {lib:.4f} ms")
+            log("flash_enc", f"{dt} B={bsz} T={t} cap={n_slots} pos "
+                             f"{pos.tolist()[:3]}: kernel {ms:.4f} ms "
+                             f"(device {dms:.4f}; {alts}), plain "
+                             f"{plain:.4f} ms, {yard} per call; bound "
+                             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            del k_all, v_all, kr, vr
+    if "sweep" in sh:
+        out.update(_flash_enc_sweep(gen, sh))
     return out
 
 
@@ -2355,10 +2487,11 @@ ROWINV_LAYER = ("wqkv", "wo", "w13", "w2")
 ROWINV_CONV = ("conv0", "conv1")
 
 
-def bf16_mm_as(x, w, seq: bool):
+def bf16_mm_as(x, w, seq: bool, tile_rows=None):
     """ops.bf16_mm.bf16_mm's launch on its plan with the split's way to run
-    given (seq True: single blocks, False: clusters), for the checks that
-    both give the same bits and for the times of each; not counted."""
+    given (seq True: single blocks, False: clusters) and, if given, the
+    tile height, for the checks that each gives the same bits and for the
+    times of each; not counted."""
     import torch
 
     from voxtral_tpu_torch.ops import bf16_mm as bmod
@@ -2366,13 +2499,13 @@ def bf16_mm_as(x, w, seq: bool):
 
     (rows, k), n = x.shape, w.shape[0]
     sms = cuda_lib.sm_count(x.device)
-    plan = bmod.bf16_mm_plan(n, k, sms)
+    lp = bmod.bf16_mm_launch(rows, n, k, sms)
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
-    blocks = (sms * bmod.bf16_mm_blocks_per_sm(1, seq=True) if seq
-              else plan.clusters)
+    tile = tile_rows or lp.tile_rows
     cuda_lib.check(cuda_lib.kernels().vt_bf16_mm(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, n, k, plan.cs,
-        int(seq), int(bmod.weight_layout(w)), blocks,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, n, k,
+        len(lp.ranges), int(seq), int(bmod.weight_layout(w)),
+        bmod.bf16_mm_blocks(rows, n, k, tile, seq, sms), tile,
         cuda_lib.stream_handle(x.device)), "bf16_mm")
     return out
 
@@ -2952,6 +3085,11 @@ def _decoder_products(gen, device: str = "cuda") -> dict:
             tm = {"ms": graph_ms(_rotating(
                 lambda li: bmod.bf16_mm(xn, w[li]), ROWINV_COPIES),
                 ROWINV_COPIES),
+                **{f"{tag}_ms": graph_ms(_rotating(
+                    lambda li: bf16_mm_as(xn, w[li], seq, tile),
+                    ROWINV_COPIES), ROWINV_COPIES)
+                    for tag, seq, tile in (("seq", True, None),
+                                           ("cluster", False, 64))},
                 "mm_ms": graph_ms(_rotating(
                     lambda li: torch.mm(xn, w[li].t(),
                                         out_dtype=torch.float32),
@@ -2962,8 +3100,14 @@ def _decoder_products(gen, device: str = "cuda") -> dict:
                 out[f"dec_{name}_{k}_rows{n}"] = v
             step[n]["ms"] += per * tm["ms"]
             step[n]["mm_ms"] += per * tm["mm_ms"]
+            parent = dict(zip(DEC_ROWINV_TIME_ROWS,
+                              PARENT_BF16_DEC_MS.get(name, ()))).get(n)
             log("rowinv", f"decoder {name} [{o}x{i}] at {n} rows: bf16_mm "
-                          f"{tm['ms']:.4f} ms, torch.mm {tm['mm_ms']:.4f} ms "
+                          f"{tm['ms']:.4f} ms (the parent's {parent}; "
+                          f"single blocks "
+                          f"{tm['seq_ms']:.4f}, clusters "
+                          f"{tm['cluster_ms']:.4f}), torch.mm "
+                          f"{tm['mm_ms']:.4f} ms "
                           f"({tm['ms'] / tm['mm_ms']:.2f}x), bound "
                           f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
         log("rowinv", f"decoder {name} [{o}x{i}]: rows {DEC_ROWINV_ROWS} "
@@ -2977,7 +3121,8 @@ def _decoder_products(gen, device: str = "cuda") -> dict:
         for k, v in tm.items():
             out[f"dec_step105_{k}_rows{n}"] = v
         log("rowinv", f"a decode step's 105 products at {n} rows (summed): "
-                      f"bf16_mm {tm['ms']:.3f} ms, torch.mm "
+                      f"bf16_mm {tm['ms']:.3f} ms (the parent's "
+                      f"{PARENT_BF16_STEP105_MS.get(n)}), torch.mm "
                       f"{tm['mm_ms']:.3f} ms ({tm['ms'] / tm['mm_ms']:.2f}x),"
                       f" bound {tm['bound_ms']:.3f} ms ({tm['bound_by']})")
     return out
@@ -3022,17 +3167,19 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     if on_gpu:
         sms = cuda_lib.sm_count(0)
         lib = cuda_lib.kernels()
-        for (cs, seq), w_t in itertools.product(
-                ((1, False), (2, False), (1, True)), (False, True)):
-            got, assumed = (lib.vt_bf16_mm_occupancy(cs, int(seq), int(w_t)),
-                            bmod.bf16_mm_blocks_per_sm(cs, seq))
-            log("rowinv", f"bf16_mm {'single blocks' if seq else 'cluster'}"
-                          f" split={cs > 1} {'[K, out]' if w_t else '[out, K]'}"
-                          f" weights: {bmod.bf16_mm_smem(cs, seq)} "
-                          f"bytes of shared memory, {got} blocks per SM "
-                          f"(plan assumes {assumed})")
+        for (tr, seq), w_t in itertools.product(BF16_VARIANTS,
+                                                (False, True)):
+            got = lib.vt_bf16_mm_occupancy(int(seq), int(w_t), tr)
+            assumed = bmod.bf16_mm_blocks_per_sm(tr, seq)
+            log("rowinv", f"bf16_mm {tr}-row tile, "
+                          f"{'single blocks' if seq else 'cluster'} "
+                          f"{'[K, out]' if w_t else '[out, K]'} weights, "
+                          f"{bmod.bf16_mm_stages(tr, seq)} stages: "
+                          f"{bmod.bf16_mm_smem(tr, seq)} bytes of shared "
+                          f"memory, {got} blocks per SM (the launch assumes "
+                          f"{assumed})")
             if got < assumed:
-                raise AssertionError(f"[rowinv] bf16_mm cs={cs} seq={seq} "
+                raise AssertionError(f"[rowinv] bf16_mm {tr} rows seq={seq} "
                                      f"w_t={w_t}: the card holds {got} "
                                      f"blocks per SM, the plan assumes "
                                      f"{assumed}")
@@ -3121,11 +3268,12 @@ def phase_rowinv(device: str = "cuda", cfg=None,
             if not on_gpu:
                 continue
             if kind == "bf16":
-                # the split's two ways to run, bitwise, and the weights'
-                # two layouts
+                # the split's two ways to run (the cluster on its 64-row
+                # tile), bitwise, and the weights' two layouts
                 bad = [n for n in rows_list
                        if not torch.equal(bf16_mm_as(x[:n], wv(0), True),
-                                          bf16_mm_as(x[:n], wv(0), False))]
+                                          bf16_mm_as(x[:n], wv(0), False,
+                                                     64))]
                 flip = (wv(0).t().contiguous().t() if wv(0).is_contiguous()
                         else wv(0).contiguous())
                 if bad or not torch.equal(bmod.bf16_mm(x, flip), ref):
@@ -3137,12 +3285,12 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                 xn = x[:n]
                 if kind == "bf16":   # both ways timed; "ms" the one it takes
                     tm = {f"{tag}_ms": graph_ms(_rotating(
-                        lambda li: bf16_mm_as(xn, wv(li), seq),
+                        lambda li: bf16_mm_as(xn, wv(li), seq, tile),
                         ROWINV_COPIES), ROWINV_COPIES)
-                        for tag, seq in (("seq", True), ("cluster", False))}
+                        for tag, seq, tile in (("seq", True, None),
+                                               ("cluster", False, 64))}
                     tm["ms"] = tm["seq_ms" if bmod.bf16_mm_seq(
-                        n, bmod.bf16_mm_plan(o, i, sms), sms)
-                        else "cluster_ms"]
+                        n, o, i, sms) else "cluster_ms"]
                 else:
                     tm = {"ms": graph_ms(_rotating(lambda li: fn(xn, li),
                                                    ROWINV_COPIES),
@@ -3233,6 +3381,133 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     return out
 
 
+# the previous design's times (PERF.md section 6, runs F6 and C4: the
+# 64-row tile, both warpgroups loading and computing) printed beside this
+# run's: an encoder layer's four products by rows, a decode step's 105 and
+# each decoder product by rows
+PARENT_BF16_LAYER_MS = {1: 0.0554, 64: 0.0572, 512: 0.1541, 1696: 0.3794}
+PARENT_BF16_STEP105_MS = {16: 3.269, 56: 3.332, 64: 3.365}
+PARENT_BF16_DEC_MS = {  # the decoder's products by rows 16 / 56 / 64
+    "wqkv": (0.0266, 0.0275, 0.0278), "wo": (0.0141, 0.0142, 0.0143),
+    "w13": (0.0477, 0.0490, 0.0496), "w2": (0.0258, 0.0265, 0.0268),
+    "logits": (0.2965, 0.2848, 0.2865)}
+
+
+# the bf16_mm sweep (--bf16): every product of the streaming encoder side
+# at these rows, the decoder's at a decode step's and the prefills'
+BF16_SWEEP_ENC_ROWS = (1, 16, 64, 100, 124, 128, 192, 256, 512, 1024, 1696)
+BF16_SWEEP_DEC_ROWS = (16, 56, 64, 128, 608, 2432)
+# its variants: (tile rows, single blocks); the clusters run the 64-row
+# tile only
+BF16_VARIANTS = ((64, True), (64, False), (128, True))
+# the rows at which --bf16 ROOT compares this tree's bits with ROOT's
+BF16_PARENT_ROWS = (1, 64, 124, 512)
+
+_BF16_OTHER_TREE = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
+shapes, rows = eval(sys.argv[2]), eval(sys.argv[3])
+outs = {}
+for name, (o, i) in shapes.items():
+    g = torch.Generator(device="cuda").manual_seed(o * 7 + i)
+    w = (torch.randn((o, i), generator=g, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    x = torch.randn((max(rows), i), generator=g, device="cuda").to(
+        torch.bfloat16)
+    for n in rows:
+        outs[(name, n)] = bf16_mm(x[:n], w).cpu()
+torch.save(outs, sys.argv[4])
+"""
+
+
+def phase_bf16_sweep(root=None) -> dict:
+    """`--bf16 [ROOT]`: bf16_mm (csrc/bf16_mm.cu) at each tile height and
+    each way of running the split (BF16_VARIANTS), forced, at every
+    product of the
+    streaming encoder side (BF16_SWEEP_ENC_ROWS) and of the decoder
+    (BF16_SWEEP_DEC_ROWS), beside the wrapper's own choice and
+    torch.mm(out_dtype=f32): graph-replay ms, weight copies rotating.
+    Every variant's rows are gated bit-equal to the wrapper's call (the
+    choice moves only time); the data the tile-height and split rules of
+    ops/bf16_mm.py are read off.  With ROOT (another checkout's package,
+    e.g. the parent unpacked with git archive), that package's bf16_mm
+    runs in a subprocess on the same seeded inputs at BF16_PARENT_ROWS and
+    its rows are compared with this tree's bit for bit (printed: the bits
+    move where the plan's K ranges do)."""
+    import tempfile
+
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.ops import bf16_mm as bmod
+
+    shapes = {**rowinv_shapes(full_config()),
+              **{f"dec_{k}": v for k, v in INT4_SHAPES.items()}}
+    out, bad = {}, []
+    for name, (o, i) in shapes.items():
+        rows_list = (BF16_SWEEP_DEC_ROWS if name.startswith("dec_")
+                     else BF16_SWEEP_ENC_ROWS)
+        copies = 2 if name == "dec_logits" else ROWINV_COPIES
+        w = (torch.randn((copies, o, i), device="cuda") * 0.02).to(
+            torch.bfloat16)
+        x = torch.randn((max(rows_list), i), device="cuda").to(torch.bfloat16)
+        full = bmod.bf16_mm(x, w[0])
+        for n in rows_list:
+            xn, rec = x[:n], {}
+            for tile, seq in BF16_VARIANTS:
+                if not torch.equal(bf16_mm_as(xn, w[0], seq, tile),
+                                   full[:n]):
+                    bad.append((name, n, tile, seq))
+                rec[f"{tile}_{'seq' if seq else 'cluster'}_ms"] = graph_ms(
+                    _rotating(lambda li, t=tile, sq=seq: bf16_mm_as(
+                        xn, w[li], sq, t), copies), copies)
+            rec["ms"] = graph_ms(_rotating(
+                lambda li: bmod.bf16_mm(xn, w[li]), copies), copies)
+            rec["mm_ms"] = graph_ms(_rotating(
+                lambda li: torch.mm(xn, w[li].t(), out_dtype=torch.float32),
+                copies), copies)
+            lp = bmod.bf16_mm_launch(n, o, i)
+            rec["takes"] = f"{lp.tile_rows}_{'seq' if lp.seq else 'cluster'}"
+            out[f"{name}_rows{n}"] = rec
+            fastest = min((k for k in rec if k[:2] in ("64", "12")),
+                          key=rec.get)
+            log("bf16", f"{name} [{o}x{i}] at {n} rows: " + ", ".join(
+                f"{k[:-3]} {v:.4f}" for k, v in rec.items()
+                if k.endswith("_ms")) + f" ms; takes {rec['takes']}, "
+                f"fastest {fastest[:-3]}")
+        del w, x, full
+    bmod.bf16_mm.launches = 0
+    if bad:
+        raise AssertionError(f"[bf16] variants differ from the call: {bad}")
+    if root:
+        # the other tree's bf16_mm on the same seeded inputs
+        path = os.path.join(tempfile.gettempdir(), "bf16_other_tree.pt")
+        run = subprocess.run(
+            [sys.executable, "-c", _BF16_OTHER_TREE, root, repr(shapes),
+             repr(BF16_PARENT_ROWS), path], capture_output=True, text=True,
+            timeout=900)
+        if run.returncode:
+            raise AssertionError(f"[bf16] {root}: {run.stderr[-2000:]}")
+        other = torch.load(path)
+        os.remove(path)
+        same = {}
+        for name, (o, i) in shapes.items():
+            g = torch.Generator(device="cuda").manual_seed(o * 7 + i)
+            w = (torch.randn((o, i), generator=g, device="cuda")
+                 * 0.02).to(torch.bfloat16)
+            x = torch.randn((max(BF16_PARENT_ROWS), i), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            same[name] = [n for n in BF16_PARENT_ROWS
+                          if torch.equal(bmod.bf16_mm(x[:n], w).cpu(),
+                                         other[(name, n)])]
+        bmod.bf16_mm.launches = 0
+        log("bf16", f"bit-equal to {root}'s bf16_mm at rows: " + "; ".join(
+            f"{k} {v}" for k, v in same.items()))
+        out["same_bits_as_root"] = same
+    return out
+
+
 def _rowinv_summary(out: dict, shapes: dict, rows_list) -> None:
     """Sums of the rowinv phase's times: a layer's four products and all
     eight at each row count, each kernel against its yardstick."""
@@ -3248,11 +3523,14 @@ def _rowinv_summary(out: dict, shapes: dict, rows_list) -> None:
                         f"bf16_{group}_bound_by_rows{n}": b["bound_by"]})
             seq = sum(out[f"bf16_seq_ms_{k}_rows{n}"] for k in names)
             clu = sum(out[f"bf16_cluster_ms_{k}_rows{n}"] for k in names)
+            parent = (PARENT_BF16_LAYER_MS.get(n) if group == "layer"
+                      else None)
             log("rowinv", f"bf16 {group} ({len(names)} products) at {n} "
                           f"rows: kernel {ms:.4f} ms (single blocks "
-                          f"{seq:.4f}, clusters {clu:.4f}), torch.mm "
-                          f"{mm:.4f} ms ({ms / mm:.2f}x), bound "
-                          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                          f"{seq:.4f}, clusters {clu:.4f}"
+                          + (f"; the parent's {parent}" if parent else "")
+                          + f"), torch.mm {mm:.4f} ms ({ms / mm:.2f}x), "
+                          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         for kind in ("int8", "int4"):
             ms = sum(out[f"{kind}_ms_{k}_rows{n}"] for k in layer)
             rp = sum(out[f"{kind}_rowplan_ms_{k}_rows{n}"] for k in layer)
@@ -3265,6 +3543,9 @@ def _rowinv_summary(out: dict, shapes: dict, rows_list) -> None:
                           " ms (the products' bounds summed)")
 
 
+# the stream phase's fp8 runs: an e4m3 encoder ring of the bench's
+# load-ring size (bench.py load_rows)
+STREAM_FP8_ENC_RING = 896
 STREAM_RUNS = (("1s_at_2s", True, 1.0, None),
                ("0.5s_at_0.5s", True, 0.5, 0.5),
                ("1s_at_2s_unfused", False, 1.0, None))
@@ -3632,6 +3913,74 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
         if on_gpu:
             torch.cuda.empty_cache()
         part(tag)
+    # fp8 encoder rings (the bench's load-ring rows; any fp8kv config
+    # streamed without an encoder override): the three chunkings on an
+    # e4m3 encoder ring of STREAM_FP8_ENC_RING slots under "auto", where
+    # flash-encode reads e4m3 (gated as the bf16 runs are), and on the
+    # parent's route, the encoder's plain attention (attn_impl "xla" on
+    # the encoder alone; printed, with the first stage and row where its
+    # rows part: on the card the encoder's output at row 442 of the 748,
+    # past the reach of the eager localisation over the first seconds)
+    fp8 = {}
+    for route, impl in (("auto", "auto"), ("parent", "xla")):
+        fcfg = cfg.replace(enc_kv_dtype="float8_e4m3fn",
+                           encoder=dataclasses.replace(cfg.encoder,
+                                                       attn_impl=impl))
+        f_eng = {fused: VoxtralEngine(
+            fcfg, params, tokenizer=tok, dec_kv_ring=ring,
+            enc_kv_ring=STREAM_FP8_ENC_RING, buckets=(64, 16, 4, 1),
+            decode_mode="auto", fused_streaming=fused)
+            for fused in (True, False)}
+        f_ids, f_rows, f_runs = {}, {}, {}
+        for name, fused, feed_s, interval in STREAM_RUNS:
+            for f in counters:
+                f.launches = 0
+            _zero_rowinv()
+            js0 = f_eng[fused].jacobi_steps
+            s, walls, wall, calls, f_rows[name] = _stream_once(
+                f_eng[fused], clip, feed_s, interval, on_gpu,
+                probe=(fcfg, False))
+            launches = {f.__name__: f.launches for f in counters}
+            tag = f"stream fp8 ring {route} {name}"
+            if route == "auto":
+                _check_stream_launches(
+                    tag, fcfg, launches, s.n_enc_chunk_calls,
+                    s.n_decode_steps - (f_eng[fused].jacobi_steps - js0))
+                _check_rowinv(tag, fcfg, calls, on_gpu)
+            elif launches["flash_bulk_attention_batched"]:
+                raise AssertionError(f"[{tag}] the plain route launched "
+                                     "flash-encode")
+            f_ids[name] = s.generated_ids
+            f_runs[name] = {
+                "wall_s": wall, "ids": len(s.generated_ids),
+                "encoder_chunks": s.n_enc_chunk_calls,
+                "encoder_ms_per_feed": s.encoder_ms / len(walls),
+                "feed_p50_ms": _percentile(walls, 50) * 1e3,
+                "feed_p90_ms": _percentile(walls, 90) * 1e3,
+                "launches": launches}
+            log("stream", f"{tag}: {len(s.generated_ids)} ids, "
+                          f"{s.n_enc_chunk_calls} encoder chunks, encoder "
+                          f"{f_runs[name]['encoder_ms_per_feed']:.2f} "
+                          f"ms/feed (issue), feed() wall p50 "
+                          f"{f_runs[name]['feed_p50_ms']:.2f} p90 "
+                          f"{f_runs[name]['feed_p90_ms']:.2f} ms; launches "
+                          f"{launches}")
+        f_agree, f_first, f_diff = agreement(f_ids, f_rows,
+                                             f"fp8 ring {route}")
+        parted = {k: d for k, d in f_diff.items() if d is not None}
+        fp8[route] = {"enc_kv_ring": STREAM_FP8_ENC_RING, "attn_impl": impl,
+                      "agreement": f_agree, "first_diff": f_first,
+                      "rows_diff": f_diff, "runs": f_runs}
+        if route == "auto" and exact and (
+                parted or set(f_agree.values()) != {1.0}):
+            raise AssertionError(f"[stream] fp8 encoder ring under auto: "
+                                 f"the chunkings differ: ids {f_agree}, rows "
+                                 f"{parted}")
+        del f_eng
+        part(f"fp8_{route}")
+    for f in counters:
+        f.launches = 0
+    _zero_rowinv()
     log("stream", "parts (s): " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in part_s.items()))
     int8_mm.launches = int4_mm.launches = 0
@@ -3642,7 +3991,8 @@ def phase_stream(cfg, params, device: str, seconds: float = 11.0) -> dict:
             "teacher_forced_offline": forced,
             "teacher_forced_offline_broken": broken,
             "rows_diff": rows_diff, "first_stage": first_stage,
-            "cublas": cublas, **quant, "part_s": part_s,
+            "cublas": cublas, **quant, "fp8_enc_ring": fp8,
+            "part_s": part_s,
             "launches": {f.__name__: sum(r["launches"][f.__name__]
                                          for r in table) for f in counters},
             "rowinv_launches": {k: sum(r["rowinv_launches"][k]
@@ -4350,6 +4700,12 @@ def _int8_step_ab(engine, cfg, n_streams: int, dec_ring: int,
     return out
 
 
+# the rungs whose whole serve also runs eagerly in the graphs phase (the
+# script's time limit: the other rungs' graphs are held to eager by their
+# mid-fill bursts and one step's logits)
+GRAPHS_EAGER_SERVE = ("bf16", "int4")
+
+
 def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                  seconds: float = 30.0, dec_ring: int = 896,
                  extra_steps: int = 32, stream_seconds: float = 11.0,
@@ -4357,8 +4713,9 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
     """The engine's CUDA graphs (ops/graphs.py) against eager, both in this
     call, on engines that differ only in `cuda_graphs`:
       * serve_clips at B=`n_streams` x `seconds` on the bf16, fp8kv, int8
-        and int4 rungs: ids bit-equal, exact launch counts both ways,
-        decode ms/step; at mid fill (position 500, bursts of
+        and int4 rungs, graphed, and eagerly on GRAPHS_EAGER_SERVE: ids
+        bit-equal, exact launch counts both ways, decode ms/step; at mid
+        fill (position 500, bursts of
         `extra_steps`) decode ms/step, device ms/step, device events and
         the host's launch calls into the runtime per step (LAUNCH_CALLS)
         and the busy share, the bursts' ids bit-equal; on fp8kv also under
@@ -4439,7 +4796,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
         dp = engine.params["decoder"]
         qmm = f"{quantize}_mm" if quantize else None   # int4_mm, int8_mm
         rec, ids = {"rung": name}, {}
-        for graphed in (False, True):
+        for graphed in ((False, True) if name in GRAPHS_EAGER_SERVE
+                        else (True,)):
             tag = "graph" if graphed else "eager"
             engine.cuda_graphs = graphed
             zero()
@@ -4457,7 +4815,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
                                           + run["decode_s"])
             rec[f"serve_captures_{tag}"] = graphs.GraphedCall.captures - c0
-        both(f"{name} serve", ids["eager"], ids["graph"])
+        if "eager" in ids:
+            both(f"{name} serve", ids["eager"], ids["graph"])
         rec["decode_steps"] = steps
         rec["tokens"] = sum(len(t) for t in ids["graph"])
 
@@ -4526,7 +4885,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                                  "logits or rings differ from eager")
         table.append(rec)
         log("graphs", f"{name}: serve B={n_streams} x {seconds:.0f} s ids "
-                      f"bit-equal ({steps} steps, {rec['tokens']} ids), logits "
+                      + ("bit-equal" if "eager" in ids else "graphed only")
+                      + f" ({steps} steps, {rec['tokens']} ids), logits "
                       "bit-equal; " + ", ".join(
                           f"{k} {v:.3f}" for k, v in rec.items()
                           if isinstance(v, float)))
@@ -4616,6 +4976,15 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
 # slots, fp8 decoder ring 1024) at -I 2.0
 POOL_RING = dict(tag="pool_ring", n_slots=8, enc_mode="ring", interval_s=0.5,
                  n_ticks=16, dec_ring=896)
+# the bench's load-ring row (bench.py load_rows: 8 slots at -I 0.5, e4m3
+# encoder ring of 896, e4m3 decoder ring of 1024), one round of 8 ticks
+# each side of the churn; the engine's config holds the rings' dtypes, so
+# slot 0's B=1 VoxStream reads the same rings
+POOL_RING_FP8 = dict(tag="pool_ring_fp8", n_slots=8, enc_mode="ring",
+                     interval_s=0.5, n_ticks=8, dec_ring=1024,
+                     enc_kv_ring=896,
+                     cfg_kw=dict(kv_dtype="float8_e4m3fn",
+                                 enc_kv_dtype="float8_e4m3fn"))
 POOL_WINDOW = dict(tag="pool_window", n_slots=32, enc_mode="window",
                    interval_s=2.0, n_ticks=8, dec_ring=1024,
                    dec_kv_dtype="float8_e4m3fn")
@@ -4630,7 +4999,8 @@ def _pool_counters():
 
 def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
                enc_mode: str, interval_s: float, n_ticks: int,
-               dec_ring: int, dec_kv_dtype=None, ref_ids=None) -> dict:
+               dec_ring: int, dec_kv_dtype=None, ref_ids=None,
+               enc_kv_ring=None, cfg_kw=None, enc_attn=None) -> dict:
     """Drives the StreamPool as bench.py's load rows do: `n_slots`
     continuous slots, each fed its own synthetic audio 1x realtime,
     `interval_s` per tick with a 0.8x encode gate (the gate fires every
@@ -4642,14 +5012,20 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
     row, parked rows included) and the ids; reports tick p50/p90, tokens
     per tick, the split, bursts per tick, peak memory, and slot 0's id
     agreement with a B=1 VoxStream fed the same audio (ring mode) or with
-    `ref_ids` (window mode, the ring pool's slot 0).  main() runs it at
-    full width on the card; a tiny CPU config rehearses it."""
+    `ref_ids` (window mode, the ring pool's slot 0).  `cfg_kw` replaces
+    fields of the config (the rings' dtypes), `enc_kv_ring` sizes the
+    encoder ring, `enc_attn` sets the encoder's attn_impl ("xla": the
+    plain attention, whose slot 0 is printed against the B=1 stream, not
+    gated).  main() runs it at full width on the card; a tiny CPU config
+    rehearses it."""
     import torch
 
     from voxtral_tpu_torch.config import SAMPLE_RATE
     from voxtral_tpu_torch.parallel.scheduler import StreamPool
     from voxtral_tpu_torch.runtime.engine import VoxtralEngine
     from voxtral_tpu_torch.runtime.stream import VoxStream
+
+    from voxtral_tpu_torch.models.decoder import _use_flash
 
     on_gpu = device == "cuda"
     counters = _pool_counters()
@@ -4658,9 +5034,15 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
         if on_gpu:
             torch.cuda.synchronize()
 
+    cfg = cfg.replace(**(cfg_kw or {}))
+    if enc_attn is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                      attn_impl=enc_attn))
     tok = byte_tokenizer(cfg.decoder.vocab_size)
     engine = VoxtralEngine(cfg, params, tokenizer=tok, dec_kv_ring=dec_ring,
-                           buckets=(64, 16, 4, 1))
+                           enc_kv_ring=enc_kv_ring, buckets=(64, 16, 4, 1))
+    flash_enc = enc_mode == "ring" and _use_flash(
+        cfg.encoder, torch.zeros(1, dtype=cfg.enc_kvdtype))
     gate = 0.8 * interval_s
     feed_n = int(interval_s * SAMPLE_RATE)
     clips = [make_audio(2 * n_ticks * interval_s, seed=200 + i)
@@ -4732,7 +5114,7 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
     rowinv_launches = _check_rowinv(tag, cfg, calls, on_gpu)
     n_enc, rows = pool.n_enc_calls - e0, pool.burst_rows - r0
     want = {"flash_bulk_attention_batched":
-            cfg.encoder.n_layers * n_enc * (enc_mode == "ring"),
+            cfg.encoder.n_layers * n_enc * flash_enc,
             "banded_attention_batched":
             cfg.encoder.n_layers * n_enc * (enc_mode == "window"),
             "flash_decode": cfg.decoder.n_layers * rows,
@@ -4763,12 +5145,14 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
         ref = "pool_ring"
     m = min(len(ids0), len(ref_ids))
     agree = _agreement(ids0[:m], ref_ids[:m])
-    if ref == "b1_voxstream":
+    if ref == "b1_voxstream" and enc_attn is None:
         _gate_b1(tag, "slot 0", cfg, on_gpu, agree, m, rows_diff, dec_diff)
     n_t = len(ticks)
     rec = {"slots": n_slots, "enc_mode": pool.enc_mode,
            "interval_s": interval_s, "gate_s": gate, "ticks": n_t,
-           "dec_ring": dec_ring,
+           "dec_ring": dec_ring, "enc_ring": engine.enc_kv_ring,
+           "enc_kv_dtype": str(cfg.enc_kvdtype)[6:],
+           "enc_attn_impl": cfg.encoder.attn_impl,
            "dec_kv_dtype": str(pool.dec_cache.k.dtype)[6:],
            "tick_p50_ms": _percentile(ticks, 50),
            "tick_p90_ms": _percentile(ticks, 90),
@@ -5987,8 +6371,22 @@ def _leaves(tree):
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
                "rows", "rowinv", "slice", "serve", "batchinv",
                "graphs", "stream", "bstream", "jacobi", "pool_ring",
-               "pool_window",
+               "pool_ring_fp8", "pool_window",
                "mesh", "mel_device", "bench", "ckpt", "ckpt_full")
+
+
+def pool_ring_fp8(cfg, params, device: str = "cuda") -> dict:
+    """The ring pool at the bench's load-ring settings (POOL_RING_FP8):
+    under "auto", flash-encode on the e4m3 encoder ring, slot 0 gated
+    against a B=1 VoxStream; then the parent's route in the same call (the
+    encoder's plain attention), slot 0's agreement printed, ungated."""
+    auto = phase_pool(cfg, params, device, **POOL_RING_FP8)
+    parent = phase_pool(cfg, params, device,
+                        **{**POOL_RING_FP8, "tag": "pool_ring_fp8_parent"},
+                        enc_attn="xla")
+    for rec in (auto, parent):
+        rec.pop("slot0_ids")
+    return {**auto, "parent_route": parent}
 
 
 def run_only(names) -> dict:
@@ -6002,8 +6400,8 @@ def run_only(names) -> dict:
         if name not in names:
             continue
         if name in ("slice", "serve", "batchinv", "graphs", "stream",
-                    "bstream", "jacobi", "pool_ring", "pool_window", "mesh",
-                    "bench") and params is None:
+                    "bstream", "jacobi", "pool_ring", "pool_ring_fp8",
+                    "pool_window", "mesh", "bench") and params is None:
             params = make_params(cfg, "cuda")
         if name == "slice":
             out[name] = phase_slice(cfg, params, "cuda", (4.0, 11.0, 30.0))
@@ -6026,6 +6424,8 @@ def run_only(names) -> dict:
             out[name] = phase_bench(cfg, params, "cuda")
         elif name == "pool_ring":
             out[name] = phase_pool(cfg, params, "cuda", **POOL_RING)
+        elif name == "pool_ring_fp8":
+            out[name] = pool_ring_fp8(cfg, params)
         elif name == "pool_window":
             out[name] = phase_pool(cfg, params, "cuda", **POOL_WINDOW,
                                    ref_ids=out.get("pool_ring", {}).get(
@@ -6050,10 +6450,11 @@ def main(argv: list[str]) -> int:
     import torch
 
     if not (argv in ([], ["--profile"])
-            or (argv[:1] == ["--int4"] and len(argv) <= 2)
+            or (argv[:1] in (["--int4"], ["--bf16"]) and len(argv) <= 2)
             or (argv[:1] == ["--only"] and len(argv) == 2
                 and set(argv[1].split(",")) <= set(ONLY_PHASES))):
         raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT] "
+                         f"| --bf16 [ROOT] "
                          f"| --only PHASE[,PHASE..] of {ONLY_PHASES}]")
     if argv[1:2] and argv[0] == "--int4":
         # the package of another checkout (an A/B of two trees in one call)
@@ -6080,6 +6481,10 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
         return 0
     if argv[:1] == ["--only"]:
         print(json.dumps(run_only(argv[1].split(","))))
+        return 0
+    if argv[:1] == ["--bf16"]:
+        print(json.dumps({"bf16": phase_bf16_sweep(*argv[1:2]),
+                          "total_s": time.monotonic() - t_start}))
         return 0
     if argv == ["--profile"]:
         from voxtral_tpu_torch.config import full_config
@@ -6125,10 +6530,14 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
     bi = timed("batchinv", phase_batchinv, cfg, params, "cuda")
     streamed = {k: st["launches"][k] + bst["launches"][k]
                 for k in st["launches"]}
+    # the e4m3 encoder ring's runs under "auto" (the stream phase's)
+    stream_fp8 = sum(r["launches"]["flash_bulk_attention_batched"]
+                     for r in st["fp8_enc_ring"]["auto"]["runs"].values())
     streamed.update({k: st["rowinv_launches"][k] + bst["rowinv_launches"][k]
                      for k in st["rowinv_launches"]})
     jac = timed("jacobi", phase_jacobi, cfg, params, "cuda")
     pr = timed("pool_ring", phase_pool, cfg, params, "cuda", **POOL_RING)
+    pr8 = timed("pool_ring_fp8", pool_ring_fp8, cfg, params)
     pw = timed("pool_window", phase_pool, cfg, params, "cuda", **POOL_WINDOW,
                ref_ids=pr.pop("slot0_ids"))
     pw.pop("slot0_ids")
@@ -6206,8 +6615,10 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
          "source": "voxtral_tpu_torch/csrc/flash_encode.cu",
          "replaces": "voxtral_tpu/ops/flash_encode.py:51",
          "launches": (streamed["flash_bulk_attention_batched"]
+                      + stream_fp8
                       + graphed["flash_bulk_attention_batched"]
                       + pr["launches"]["flash_bulk_attention_batched"]
+                      + pr8["launches"]["flash_bulk_attention_batched"]
                       + meshed["flash_bulk_attention_batched"]
                       + ckpt["flash_bulk_attention_batched"]
                       + f32_enc["launches_f32"]
@@ -6219,6 +6630,9 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
          "launches_bstream": bst["launches"]["flash_bulk_attention_batched"],
          "launches_graphs": graphed["flash_bulk_attention_batched"],
          "launches_pool_ring": pr["launches"]["flash_bulk_attention_batched"],
+         "launches_stream_fp8": stream_fp8,
+         "launches_pool_ring_fp8":
+             pr8["launches"]["flash_bulk_attention_batched"],
          **flash_enc, **rank_keys(shapes["flash_encode"], "tp2_rank"),
          **f32_enc},
         {"name": "int4_mm", "route": "cuda",
@@ -6273,9 +6687,11 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
         raise AssertionError(f"flash_decode: no launch on {idle}")
     if not (kernels[2]["launches_stream"] > 0
             and kernels[2]["launches_bstream"] > 0
-            and kernels[2]["launches_pool_ring"] > 0):
-        raise AssertionError("flash_encode: no launch on stream, bstream or "
-                             "pool_ring")
+            and kernels[2]["launches_pool_ring"] > 0
+            and kernels[2]["launches_stream_fp8"] > 0
+            and kernels[2]["launches_pool_ring_fp8"] > 0):
+        raise AssertionError("flash_encode: no launch on stream, bstream, "
+                             "pool_ring or their e4m3 encoder rings")
     if not kernels[0]["launches_pool_window"] > 0:
         raise AssertionError("banded_attention: no launch on pool_window")
     if not (kernels[0]["launches_mesh"] > 0 and kernels[2]["launches_mesh"] > 0):
@@ -6307,7 +6723,7 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
                       "step_rel_err": sl["step_rel_err"],
                       "serve": sv["rungs"], "stream": st,
                       "bstream": bst, "batchinv": bi, "jacobi": jac,
-                      "pool_ring": pr,
+                      "pool_ring": pr, "pool_ring_fp8": pr8,
                       "pool_window": pw, "mesh": ms, "mel_device": mel_dev,
                       "f32_auto": f32_auto, "ckpt": ck, "graphs": gr,
                       "bench": bn,

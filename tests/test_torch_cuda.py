@@ -773,7 +773,8 @@ def _enc_rings(gen, bsz, cap, dtype, dev, n_layers=3):
 @pytest.mark.parametrize("bsz,t,pos", [
     (1, 4, [0]), (1, 100, [300]), (1, 274, [5000]), (1, 64, [1020]),
     (3, 64, [0, 300, 5000]), (3, 256, [17, 750, 4099])])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float8_e4m3fn])
 def test_flash_encode_kernel_matches_plain(dev, bsz, t, pos, dtype):
     """Full-width encoder shape (H=KH=32, D=64, cap 1024, window 750),
     layer 2 of a stacked cache read in place through its view: both
@@ -835,9 +836,17 @@ def test_flash_encode_wrapper_refuses(dev):
     p = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="bf16 or f32"):
         flash_bulk_attention_batched(q.half(), ring, ring, p, window=750)
-    f8 = ring.to(torch.float8_e4m3fn)
+    f8 = ring.to(torch.float8_e4m3fn)      # e4m3 rings: taken, as a pair
+    flash_bulk_attention_batched(q, f8, f8, p, window=750)
     with pytest.raises(ValueError, match="rings"):
-        flash_bulk_attention_batched(q, f8, f8, p, window=750)
+        flash_bulk_attention_batched(q, f8, ring, p, window=750)
+    e5 = ring.to(torch.float8_e5m2)
+    with pytest.raises(ValueError, match="rings"):
+        flash_bulk_attention_batched(q, e5, e5, p, window=750)
+    odd = torch.zeros((1, 32, 128, 72), dtype=torch.float8_e4m3fn,
+                      device=dev)[..., :64]   # 72-byte rows
+    with pytest.raises(ValueError, match="aligned"):
+        flash_bulk_attention_batched(q, odd, odd, p, window=750)
     with pytest.raises(ValueError, match="head_dim"):
         flash_bulk_attention_batched(q[..., :32], ring[..., :32],
                                      ring[..., :32], p, window=750)
@@ -1012,6 +1021,12 @@ def test_tile_wrappers_refuse(dev):
     (1, 41, 1024, [0], torch.float32),         # first lap: empty segments
     (3, 100, 1000, [0, 500, 3000], torch.bfloat16),
     (2, 300, 200, [0, 50], torch.float32),     # rows that see no key
+    # e4m3 rings: the bench's load-ring chunks on 896 slots, the fused
+    # chunk, the first lap
+    (8, 25, 896, [3000 + 37 * i for i in range(8)], torch.float8_e4m3fn),
+    (16, 25, 896, None, torch.float8_e4m3fn),
+    (1, 100, 1024, [2000], torch.float8_e4m3fn),
+    (1, 41, 1024, [0], torch.float8_e4m3fn),
 ])
 def test_flash_encode_split_mappings_bitwise_equal(dev, bsz, t, cap, pos,
                                                    dtype):
@@ -1027,9 +1042,46 @@ def test_flash_encode_split_mappings_bitwise_equal(dev, bsz, t, cap, pos,
     outs = [flash_bulk_attention_batched(q, k_all[:, 1], v_all[:, 1], p,
                                          window=750, split=split)
             for split in (None, True, False)]
+    want = flash_encode_plain(q, k_all[:, 1], v_all[:, 1], p, window=750,
+                              out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], outs[2])
+    assert (outs[0].float() - want).abs().max().item() <= 2e-2
+
+
+def test_flash_encode_e4m3_chunking_invariant_bitwise(dev):
+    """On an e4m3 ring of 896 slots (the bench's load-ring encoder ring),
+    B=3, 144 rows (the most a chunk may have beside the window of 750)
+    written and attended after 800 as [144], [48] * 3 and [64, 64, 16]:
+    bit-identical outputs, each stream's rows its own."""
+    from voxtral_tpu_torch.ops.ring import ring_chunk_write
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bsz, n0, n = 3, 800, 144
+    kv = _randn(gen, (bsz, n0 + n, 32, 64), torch.bfloat16, dev)
+    vv = _randn(gen, (bsz, n0 + n, 32, 64), torch.bfloat16, dev)
+    qq = _randn(gen, (bsz, n, 32, 64), torch.bfloat16, dev)
+
+    def run(sizes):
+        k, v = (torch.zeros((bsz, 1, 32, 896, 64), dtype=torch.float8_e4m3fn,
+                            device=dev) for _ in range(2))
+        zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
+        ring_chunk_write(k, v, kv[:, :n0], vv[:, :n0], 0, zero)
+        outs, at = [], 0
+        for sz in sizes:
+            p = torch.full((bsz,), n0 + at, dtype=torch.int32, device=dev)
+            _, _, kr, vr = ring_chunk_write(
+                k, v, kv[:, n0 + at: n0 + at + sz],
+                vv[:, n0 + at: n0 + at + sz], 0, p)
+            outs.append(flash_bulk_attention_batched(
+                qq[:, at: at + sz], kr, vr, p, window=750))
+            at += sz
+        return torch.cat(outs, dim=1)
+
+    a = run([144])
+    assert torch.equal(a, run([48] * 3))
+    assert torch.equal(a, run([64, 64, 16]))
 
 
 # --- Jacobi decoding and the StreamPool on the card -------------------------
@@ -1565,10 +1617,72 @@ def test_bf16_mm_rows_bitwise_invariant(dev, name):
     # the split's two ways to run give the same bits at every row count
     for n in ROWINV_ROWS:
         assert torch.equal(cs.bf16_mm_as(x[:n], w, True),
-                           cs.bf16_mm_as(x[:n], w, False))
+                           cs.bf16_mm_as(x[:n], w, False, 64))
     want = bf16_mm_plain(x, w)
     assert (full - want).abs().max().item() <= \
         1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name,out_dim,in_dim", [
+    ("wqkv", 6144, 1280), ("wo", 1280, 2048), ("dec_w2", 3072, 9216),
+    ("dec_w13", 18432, 3072)])
+def test_bf16_mm_rows_invariant_across_tile_heights(dev, name, out_dim,
+                                                    in_dim):
+    """bf16_mm's tile holds 64 rows up to 64 and 128 above: at rows 1..200
+    every row is bit-equal to the same row of a 263-row call (both sides
+    of the change, and of every change in how the split runs), and each
+    tile height forced on each way of running the split it has
+    (chip_smoke.BF16_VARIANTS) gives those bits at 64, 65 and 200 rows."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
+
+    gen = torch.Generator(device=dev).manual_seed(out_dim + 3 * in_dim)
+    w = _randn(gen, (out_dim, in_dim), torch.bfloat16, dev) * 0.02
+    x = _randn(gen, (263, in_dim), torch.bfloat16, dev)
+    full = bf16_mm(x, w)
+    for n in range(1, 201):
+        assert torch.equal(bf16_mm(x[:n], w), full[:n]), n
+    for n in (64, 65, 200):
+        for tile, seq in cs.BF16_VARIANTS:
+            assert torch.equal(cs.bf16_mm_as(x[:n], w, seq, tile),
+                               full[:n]), (n, tile, seq)
+
+
+def test_fp8_encoder_ring_stream_rows_equal_across_chunkings(dev):
+    """Full widths, 2 encoder layers, bf16, an e4m3 encoder ring of 896
+    (the bench's load-ring rows): 128 mel frames through fused_encode as
+    one chunk, as 8 of 16 frames and as 16 + 48 + 64 give bit-equal
+    adapter rows, every chunk's attention on flash-encode."""
+    from voxtral_tpu_torch.models.fused_stream import ConvTails
+    from voxtral_tpu_torch.models.params import init_params
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = full_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, n_layers=2),
+                      decoder=dataclasses.replace(cfg.decoder, n_layers=1),
+                      enc_kv_dtype="float8_e4m3fn")
+    params = init_params(cfg, seed=1, device=dev)
+    eng = VoxtralEngine(cfg, params, dec_kv_ring=256, enc_kv_ring=896,
+                        buckets=(64, 16, 4, 1))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mel = torch.randn((1, 128, 128), generator=gen, device=dev)
+
+    def fused(sizes):
+        tails, cache, pos, out = ConvTails.create(cfg, device=dev), \
+            eng.new_enc_cache(), 0, []
+        assert cache.k.dtype == torch.float8_e4m3fn
+        for a, b in zip(np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)):
+            rows, tails, cache = eng.fused_encode(mel[:, a:b], tails, cache,
+                                                  pos)
+            pos += (b - a) // 2
+            out.append(rows)
+        return torch.cat(out, dim=1)
+
+    n0 = flash_bulk_attention_batched.launches
+    whole = fused([128])
+    assert flash_bulk_attention_batched.launches > n0
+    assert torch.equal(fused([16] * 8), whole)
+    assert torch.equal(fused([16, 48, 64]), whole)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -1617,10 +1731,12 @@ def test_bf16_mm_refuses_and_fits(dev):
     with pytest.raises(ValueError):
         bmod.bf16_mm(x, torch.zeros((128, 60), dtype=torch.bfloat16,
                                     device=dev).t())
-    for cs, seq in ((1, False), (2, False), (1, True)):
-        for w_t in (0, 1):
-            assert cuda_lib.kernels().vt_bf16_mm_occupancy(
-                cs, int(seq), w_t) >= bmod.bf16_mm_blocks_per_sm(cs, seq)
+    for tile in bmod.TILE_ROWS:
+        for seq in (False, True) if tile == 64 else (True,):
+            for w_t in (0, 1):
+                assert cuda_lib.kernels().vt_bf16_mm_occupancy(
+                    int(seq), w_t, tile) >= \
+                    bmod.bf16_mm_blocks_per_sm(tile, seq)
 
 
 def test_fused_stream_rows_equal_across_chunkings(dev):

@@ -164,7 +164,8 @@ def _counting(monkeypatch):
     ("auto", "float32", "float32", 8, "flash"),
     ("auto", "float32", "bfloat16", 8, "flash"),
     ("flash", "float32", "float32", 8, "flash"),
-    ("auto", "bfloat16", "float8_e4m3fn", 8, "ring"),  # byte-wide ring
+    # a byte-wide e4m3 ring: the kernel widens it as it loads it
+    ("auto", "bfloat16", "float8_e4m3fn", 8, "flash"),
     ("xla", "bfloat16", "bfloat16", 8, "ring"),
     ("auto", "float32", "float32", 1, "ring"),  # T == 1: direct slot write
     # bf16 takes the row-invariant route (decoder._use_rowinv): a T == 1
@@ -173,9 +174,9 @@ def _counting(monkeypatch):
 ])
 def test_encoder_attention_dispatch(monkeypatch, impl, cdt, enc_kv, t, route):
     """attn_impl "auto" takes the flash-encode wrapper for every chunk of
-    T > 1 rows on a float ring of >= 2 bytes, at any B and for bf16 and
-    float32 queries alike, and for T == 1 chunks on the row-invariant
-    route (bf16); fp8 rings, "xla" and float32 T == 1 chunks take the
+    T > 1 rows on a float ring of >= 2 bytes or an e4m3 ring, at any B and
+    for bf16 and float32 queries alike, and for T == 1 chunks on the
+    row-invariant route (bf16); "xla" and float32 T == 1 chunks take the
     plain ring_attention."""
     cfg = tiny_config(enc_kv_ring=64, compute_dtype=cdt).replace(
         enc_kv_dtype=enc_kv)

@@ -55,8 +55,9 @@ def _rowinv_plans():
     row-invariant plan."""
     return [
         ("bf16", bf16_mm.bf16_mm_plan, lambda i: i, 8,
-         lambda nj, cs: bf16_mm.bf16_mm_blocks_per_sm(cs),
-         lambda nj, cs: bf16_mm.bf16_mm_smem(cs), bf16_mm.K_CHUNK),
+         lambda nj, cs: bf16_mm.bf16_mm_blocks_per_sm(),
+         lambda nj, cs: max(bf16_mm.bf16_mm_smem(64, seq)
+                            for seq in (False, True)), bf16_mm.K_CHUNK),
         ("int8", quant_mm.int8_mm_rowinv_plan, lambda i: i, 8,
          quant_mm.int8_mm_blocks_per_sm, quant_mm.int8_mm_smem,
          quant_mm.INT8_K_CHUNK),
@@ -89,6 +90,73 @@ def test_rowinv_plans_take_no_row_count(kind):
         assert plan.clusters * plan.cs <= SMS * plan.per_sm
         assert plan.clusters >= 1 and plan.tiles >= 1
         assert smem(nj, plan.cs) <= 233472 // plan.per_sm
+
+
+BF16_ROWS = list(range(1, 300)) + [383, 384, 385, 511, 512, 513, 1696,
+                                   2128, 2432, 3040]
+
+
+@pytest.mark.parametrize("name", list(STREAM_SHAPES) + [
+    "dec_wqkv", "dec_wo", "dec_w13", "dec_w2", "dec_logits"])
+def test_bf16_mm_every_tile_height_one_instruction_sequence(name):
+    """bf16_mm's launch at rows 1..299 and up to 3040 (both sides of
+    every change of the tile height and of how the split runs): the tile
+    holds 64 rows up to 64, and above 128 where its 128-row tiles number
+    at least half an SM each; whatever the tile, the grid and the way the
+    split runs, a row's sums are the same program: the plan's K ranges (contiguous, non-empty, 1..8 of them,
+    covering K, fixed by (out, K)) folded in order, every 64-column chunk
+    as four k16 steps of the one wgmma m64n64k16."""
+    out, in_dim = (STREAM_SHAPES[name] if name in STREAM_SHAPES
+                   else DECODE_SHAPES[name[4:]])
+    chunks = in_dim // bf16_mm.K_CHUNK
+    want = bf16_mm.bf16_mm_launch(1, out, in_dim, SMS)
+    assert want.ranges[0][0] == 0 and want.ranges[-1][1] == chunks
+    assert 1 <= len(want.ranges) <= 8
+    assert all(lo < hi for lo, hi in want.ranges)
+    assert all(a[1] == b[0] for a, b in zip(want.ranges, want.ranges[1:]))
+    assert len(want.ranges) == bf16_mm.bf16_mm_plan(out, in_dim, SMS).cs
+    seen = set()
+    for rows in BF16_ROWS:
+        lp = bf16_mm.bf16_mm_launch(rows, out, in_dim, SMS)
+        assert (lp.ranges, lp.instruction) == (want.ranges, want.instruction)
+        assert lp.instruction == "wgmma.m64n64k16.f32.bf16.bf16"
+        tall = -(-out // bf16_mm.BLOCK_N) * -(-rows // 128) >= SMS / 2
+        assert lp.tile_rows == (128 if rows > 64 and tall else 64)
+        assert lp.seq == bf16_mm.bf16_mm_seq(rows, out, in_dim, SMS)
+        assert lp.seq or lp.tile_rows == 64   # clusters: the 64-row tile
+        n_tiles = -(-out // bf16_mm.BLOCK_N) * -(-rows // lp.tile_rows)
+        per_sm = bf16_mm.bf16_mm_blocks_per_sm(lp.tile_rows, True)
+        assert lp.blocks == (min(n_tiles, SMS * per_sm) if lp.seq
+                             else n_tiles)
+        seen.add((lp.tile_rows, lp.seq))
+    assert {t for t, _ in seen} == set(bf16_mm.TILE_ROWS)
+
+
+def test_bf16_mm_tiles_fit_the_card():
+    """Every (tile height, way of running the split) of csrc/bf16_mm.cu
+    (the clusters on the 64-row tile only) fits its blocks an SM, two of
+    the 64-row tile and one of the 128-row tile: their shared
+    memory (ring, barriers, the cluster's fold buffer) within the H100's
+    227 KB a block and 228 KB an SM, their 384 threads within the
+    register file at the registers a thread the launch gives (80 or 168),
+    setmaxnreg's split of those (32 a producer thread and 104 a consumer,
+    or 40 and 232) within that allocation, and a consumer's accumulators
+    (a range's sums and the ranges folded so far, 32 a 64-row fragment)
+    within its share."""
+    assert bf16_mm.THREADS == bf16_mm.CONSUMER_THREADS + 128
+    for tile, blocks, launch_regs in ((64, 2, 80), (128, 1, 168)):
+        assert 65536 // (blocks * bf16_mm.THREADS) // 8 * 8 == launch_regs
+        assert (bf16_mm.CONSUMER_THREADS * bf16_mm.CONSUMER_REGS[tile]
+                + (bf16_mm.THREADS - bf16_mm.CONSUMER_THREADS)
+                * bf16_mm.PRODUCER_REGS[tile]) <= \
+            launch_regs * bf16_mm.THREADS
+        assert 2 * 32 * (tile // 64) + 32 <= bf16_mm.CONSUMER_REGS[tile]
+        for seq in (False, True) if tile == 64 else (True,):
+            stages = bf16_mm.bf16_mm_stages(tile, seq)
+            smem = bf16_mm.bf16_mm_smem(tile, seq)
+            assert smem <= 232448 and blocks * (smem + 1024) <= 233472
+            assert bf16_mm.bf16_mm_blocks_per_sm(tile, seq) == blocks
+            assert stages >= 3 and 16 * stages + 8 <= 256
 
 
 # the decode and prefill plans (int8_mm_plan, int4_mm_plan), pinned as

@@ -238,8 +238,7 @@ def test_bdecode_burst_attention_paths_agree(params_np):
             ids[impl] = _run_port(cfg, tp)[0]
         np.testing.assert_array_equal(ids["auto"], ids["xla"])
     for dt in (torch.float32, torch.float8_e4m3fn):
-        assert tdec._use_flash(base.decoder, torch.zeros(1, dtype=dt),
-                               fp8=True)
+        assert tdec._use_flash(base.decoder, torch.zeros(1, dtype=dt))
 
 
 # --- the lockstep batched streaming transcriber at B=3 ----------------------

@@ -217,6 +217,20 @@ def test_stream_and_bstream_phases_on_cpu(counted_kernels):
     assert set(st["teacher_forced_offline"].values()) == {1.0}
     assert st["launches"]["flash_bulk_attention_batched"] == sum(
         r["launches"]["flash_bulk_attention_batched"] for r in st["runs"])
+    # the e4m3 encoder ring: "auto" sends every chunk to flash-encode (its
+    # stand-in), the parent's route none; f32 on the CPU: equal ids (CPU
+    # products are not row-invariant: rows are compared, not gated)
+    fp8 = st["fp8_enc_ring"]
+    assert set(fp8) == {"auto", "parent"}
+    assert fp8["parent"]["attn_impl"] == "xla"
+    for route, rec in fp8.items():
+        assert set(rec["agreement"].values()) == {1.0}
+        assert set(rec["rows_diff"]) == set(st["rows_diff"])
+        for r in rec["runs"].values():
+            assert r["encoder_chunks"] > 0
+            assert r["launches"]["flash_bulk_attention_batched"] == (
+                cfg.encoder.n_layers * r["encoder_chunks"]
+                if route == "auto" else 0)
 
     bst = cs.phase_bstream(cfg, params, "cpu", n_streams=3, seconds=2.0,
                            dec_ring=64, interval_frames=48)
@@ -253,10 +267,10 @@ def test_jacobi_phase_on_cpu(counted_kernels):
 def test_graphs_phase_on_cpu(counted_kernels, stand_in, monkeypatch):
     """The graphs phase at tiny size with test_torch_graphs' stand-in for
     the CUDA graph and the rule's device test dropped, so the graphed
-    paths run: serve, mid-fill bursts (fp8kv also under "xla"), the B=1
-    stream and the Jacobi clip give the eager ids, each way with its exact
-    launch counts; one step's logits are bit-equal; every graphed path
-    captured."""
+    paths run: serve (eagerly too on GRAPHS_EAGER_SERVE's rungs), mid-fill
+    bursts (fp8kv also under "xla"), the B=1 stream and the Jacobi clip
+    give the eager ids, each way with its exact launch counts; one step's
+    logits are bit-equal; every graphed path captured."""
     for mod in (decoder, encoder, jacobi):
         monkeypatch.setattr(mod, "_use_graph", lambda cfg, cache, x, call:
                             call in decoder.GRAPHED_CALLS
@@ -269,9 +283,12 @@ def test_graphs_phase_on_cpu(counted_kernels, stand_in, monkeypatch):
     rungs = {r["rung"]: r for r in gr["rungs"]}
     assert list(rungs) == ["bf16", "fp8kv", "int8", "int4"]
     nl = cfg.decoder.n_layers
-    for r in rungs.values():
+    for name, r in rungs.items():
         assert r["logits_bit_equal"] and r["decode_steps"] > 0
-        assert r["serve_captures_eager"] == 0 < r["serve_captures_graph"]
+        assert r["serve_captures_graph"] > 0
+        # the whole serve also runs eagerly on these rungs only
+        assert (r.get("serve_captures_eager") == 0) == (
+            name in cs.GRAPHS_EAGER_SERVE)
     assert rungs["fp8kv"]["launches_xla_mid_fill_graph"]["ring_rows_write"] \
         == nl * 8
     # the int8 rung's graphed step on the plain path and on the kernel
@@ -339,6 +356,30 @@ def test_pool_phases_on_cpu(counted_kernels):
         cfg.encoder.n_layers * pw["encode_calls"] > 0
     assert pw["launches"]["flash_bulk_attention_batched"] == 0
     assert 0.0 <= pw["slot0_agree_pool_ring"] <= 1.0
+
+
+def test_pool_ring_fp8_on_cpu(counted_kernels):
+    """The ring pool at the load-ring settings (e4m3 encoder and decoder
+    rings) at tiny size, 3 slots: "auto" launches the flash-encode
+    stand-in per encoder layer per encode call and slot 0 equals the B=1
+    VoxStream on the same rings (f32); the parent's route (the encoder's
+    plain attention) launches none and is only compared."""
+    cfg = tiny_config(enc_kv_ring=128)
+    params = cs.make_params(cfg, "cpu")
+    kw = {**cs.POOL_RING_FP8, "n_slots": 3, "n_ticks": 4, "dec_ring": 64,
+          "enc_kv_ring": 128}
+    for enc_attn in (None, "xla"):
+        pr = cs.phase_pool(cfg, params, "cpu", enc_attn=enc_attn, **kw)
+        assert pr["enc_kv_dtype"] == "float8_e4m3fn"
+        assert pr["dec_kv_dtype"] == "float8_e4m3fn"
+        assert pr["enc_ring"] == 128
+        flash = pr["launches"]["flash_bulk_attention_batched"]
+        if enc_attn is None:
+            assert flash == cfg.encoder.n_layers * pr["encode_calls"] > 0
+        else:
+            assert flash == 0 and pr["enc_attn_impl"] == "xla"
+        assert pr["slot0_agree_b1_voxstream"] == 1.0 and pr["compared"] > 0
+        assert pr["slot0_rows_diff_b1"] is None
 
 
 def test_bench_phase_on_cpu(counted_kernels):

@@ -31,8 +31,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace attn32 {
 
@@ -46,7 +49,7 @@ constexpr float SCALE = 0.125f;  // 1/sqrt(64)
 constexpr int NO_KEY = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 
-// 4 consecutive elements of a K/V row as f32 (16- resp. 8-byte loads)
+// 4 consecutive elements of a K/V row as f32 (16-, 8- or 4-byte loads)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -56,6 +59,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
   return make_float4(fa.x, fa.y, fb.x, fb.y);
+}
+
+// e4m3: 4 bytes, widened exactly (e4m3 -> half2 -> float2)
+__device__ __forceinline__ float2 widen_e4m3x2(uint32_t bits) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(bits), __NV_E4M3)));
+}
+__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  const float2 a = widen_e4m3x2(u & 0xffffu), b = widen_e4m3x2(u >> 16);
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }

@@ -31,7 +31,8 @@
 //     XOR swizzle (one bf16 row of D = 64 is exactly 128 bytes: chunk c of
 //     row r sits at chunk c ^ (r & 7)) keeps ldmatrix free of bank
 //     conflicts without padding.  f32 tiles (flash-encode's f32 rings) are
-//     rounded to bf16 through registers, since cp.async cannot convert.
+//     rounded to bf16 and e4m3 tiles (its fp8 rings) widened to bf16
+//     through registers, since cp.async cannot convert.
 //   * Tiles that lie wholly inside every row's valid band skip the
 //     per-element mask; only edge tiles evaluate it.
 //
@@ -51,6 +52,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -184,6 +187,35 @@ __device__ __forceinline__ void load_tile(uint32_t s, const float* g,
       const float4 a = __ldg(p), b = __ldg(p + 1);
       v = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
                      pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    st_shared16(s + swz(r, c), v);
+  }
+}
+
+// e4m3 rows are widened to bf16 on the way in: 8 bytes a 16-byte chunk of
+// the tile, e4m3 -> half2 -> float2 -> bf16x2, exact at every step (e4m3's
+// 3 mantissa bits and exponents 2^-9 .. 2^8 fit both half and bf16), so
+// the tile holds the ring's values as the bf16 query reads them
+__device__ __forceinline__ uint32_t widen_e4m3x2(uint32_t bits) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(bits), __NV_E4M3));
+  const float2 f = __half22float2(h);
+  return pack_bf16(f.x, f.y);
+}
+
+template <int NT, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t s, const __nv_fp8_e4m3* g,
+                                          int stride, int valid,
+                                          int tid) {
+#pragma unroll
+  for (int k = 0; k < ROWS * 8 / NT; ++k) {
+    const int i = tid + k * NT, r = i >> 3, c = i & 7;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(g + r * stride
+                                                           + c * 8));
+      v = make_uint4(widen_e4m3x2(u.x & 0xffffu), widen_e4m3x2(u.x >> 16),
+                     widen_e4m3x2(u.y & 0xffffu), widen_e4m3x2(u.y >> 16));
     }
     st_shared16(s + swz(r, c), v);
   }

@@ -46,16 +46,19 @@
 // mask, which changes no value.
 //
 // The ragged T edge (query rows past T) and a ragged cap (slots past cap)
-// are masked here, so the caller pads nothing.  Rings are bf16, or f32
+// are masked here, so the caller pads nothing.  Rings are bf16, f32
 // rounded to bf16 as they are loaded (the compute dtype of the query, as in
-// the TPU kernel); f32 tiles go through registers, since cp.async cannot
-// convert.
+// the TPU kernel), or fp8 e4m3 widened to bf16 as they are loaded (exact:
+// the JAX package's ring_attention reads a byte-wide ring in the query's
+// dtype, voxtral_tpu/ops/ring.py:379, so this is the same function); f32
+// and e4m3 tiles go through registers, since cp.async cannot convert.  An
+// e4m3 ring moves half a bf16 ring's bytes: the byte bound halves.
 //
 // Float32 queries (a float32 config, whose TPU kernel computes in f32) take
 // the f32 row walk of attn_f32.cuh: the ring's live 32-slot tiles in
-// ascending slot order, bf16 or f32 rings read as f32, CUDA-core FMA, no
-// split; a row's output is again bitwise the same however the feed was
-// chunked (attn_f32.cuh, row independence).
+// ascending slot order, bf16, f32 or e4m3 rings read as f32 (exactly),
+// CUDA-core FMA, no split; a row's output is again bitwise the same however
+// the feed was chunked (attn_f32.cuh, row independence).
 
 #include <cooperative_groups.h>
 
@@ -470,7 +473,8 @@ int launch_split(int split, const void* q, const void* k, const void* v,
 
 // q [B,T,H,D] contiguous, bf16 or (q_f32 != 0) f32 with a 16-byte aligned
 // base; k_ring/v_ring: the layer's rings [B,KH,cap,D]
-// (bf16, or f32 with ring_f32 != 0) at element strides stride_b, stride_h,
+// (bf16, f32 with ring_f32 != 0, or fp8 e4m3 with ring_fp8 != 0; not
+// both) at element strides stride_b, stride_h,
 // stride_s (stride_s < 2^31 / 64), D contiguous, 16-byte aligned rows; pos0
 // [B] int32, >= 0; out [B,T,H,D] in f32 (out_f32 != 0) or bf16; segments
 // 1 .. min(8, ceil(cap/64)), the caller's plan, a function of cap alone
@@ -485,17 +489,21 @@ extern "C" int vt_flash_encode(const void* q, const void* k_ring,
                                int head_dim, int cap, int window,
                                long long stride_b, long long stride_h,
                                long long stride_s, int q_f32, int ring_f32,
-                               int out_f32, int segments, int split,
-                               void* stream) {
+                               int ring_fp8, int out_f32, int segments,
+                               int split, void* stream) {
   if (head_dim != D || KH <= 0 || H % KH != 0 || T <= 0 || B <= 0 ||
       cap <= 0 || window <= 0 || segments < 1 || segments > MAX_SEGMENTS ||
-      segments > (cap + BK - 1) / BK || split < 0 || split > 1)
+      segments > (cap + BK - 1) / BK || split < 0 || split > 1 ||
+      (ring_f32 && ring_fp8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VT_F32(R, O)                                                          \
   launch_f32<R, O>(q, k_ring, v_ring, pos0, out, B, T, H, KH, cap, window,    \
                    stride_b, stride_h, stride_s, s)
   if (q_f32) {
+    if (ring_fp8)
+      return out_f32 ? VT_F32(__nv_fp8_e4m3, float)
+                     : VT_F32(__nv_fp8_e4m3, __nv_bfloat16);
     if (ring_f32)
       return out_f32 ? VT_F32(float, float) : VT_F32(float, __nv_bfloat16);
     return out_f32 ? VT_F32(__nv_bfloat16, float)
@@ -505,6 +513,9 @@ extern "C" int vt_flash_encode(const void* q, const void* k_ring,
 #define VT_SPLIT(R, O)                                                        \
   launch_split<R, O>(split, q, k_ring, v_ring, pos0, out, B, T, H, KH, cap,  \
                      window, stride_b, stride_h, stride_s, segments, s)
+  if (ring_fp8)
+    return out_f32 ? VT_SPLIT(__nv_fp8_e4m3, float)
+                   : VT_SPLIT(__nv_fp8_e4m3, __nv_bfloat16);
   if (ring_f32)
     return out_f32 ? VT_SPLIT(float, float) : VT_SPLIT(float, __nv_bfloat16);
   return out_f32 ? VT_SPLIT(__nv_bfloat16, float)

@@ -107,24 +107,23 @@ def ada_scales(dec_params: PyTree, cfg: VoxtralConfig) -> torch.Tensor:
     return torch.einsum("la,lda->ld", hid, lp["ada_up"].float())
 
 
-def _use_flash(cfg, ring: torch.Tensor | None = None,
-               fp8: bool = False) -> bool:
+def _use_flash(cfg, ring: torch.Tensor | None = None) -> bool:
     """Whether cfg.attn_impl (decoder or encoder config) takes the kernel
-    path for this ring (module docstring): float rings of >= 2 bytes, and
-    fp8 e4m3fn rings where the kernel reads them (`fp8`: the decoder's
-    flash-decode does, unlike the JAX package's; the encoder's
-    flash-encode does not).  No ring: the bulk encoder's banded attention,
-    which reads plain activations.  The query's dtype plays no part: every
-    kernel takes the compute dtypes (bf16, float32)."""
+    path for this ring (module docstring): float rings of >= 2 bytes and
+    fp8 e4m3fn rings, which both attention kernels read (flash-decode and
+    flash-encode widen e4m3 as they load it; the JAX package keeps fp8
+    rings on its plain path, a deliberate divergence: the same function,
+    since e4m3 widens exactly).  No ring: the bulk encoder's banded
+    attention, which reads plain activations.  The query's dtype plays no
+    part: every kernel takes the compute dtypes (bf16, float32)."""
     if cfg.attn_impl == "xla":
         return False
     if cfg.attn_impl not in ("flash", "auto"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if ring is None:
         return True
-    if ring.dtype == torch.float8_e4m3fn:
-        return fp8
-    return ring.dtype.is_floating_point and ring.element_size() >= 2
+    return ring.dtype == torch.float8_e4m3fn or (
+        ring.dtype.is_floating_point and ring.element_size() >= 2)
 
 
 # the calls that replay as CUDA graphs (ops/graphs.py); every other call
@@ -200,7 +199,7 @@ def _layer_step(
     q = apply_rope_interleaved(q, cos, sin)
     k = apply_rope_interleaved(k, cos, sin)
 
-    if t == 1 and _use_flash(cfg, cache.k, fp8=True):
+    if t == 1 and _use_flash(cfg, cache.k):
         # one call writes the row at pos % cap of layer li (in place) and
         # attends over the live window: one kernel launch per layer per step
         attn = flash_decode(

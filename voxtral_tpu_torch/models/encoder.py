@@ -22,14 +22,18 @@ Chunk attention (EncoderConfig.attn_impl), for chunks of T > 1 rows after
   - "flash": ops/flash_encode.py (the hand-written CUDA kernel for CUDA
     tensors, its plain version for CPU tensors);
   - "xla":   the plain `ring_attention` over the whole ring with a mask;
-  - "auto":  "flash" whenever the ring is a float type of >= 2 bytes, at
-    any B, for bf16 and float32 queries alike (the kernel has a float32
-    instantiation, as the TPU kernel computes an f32 config in f32); fp8
-    rings take "xla".  The JAX package resolves "auto" to xla from a TPU
-    measurement (voxtral_tpu/ops/flash_encode.py STATUS); on the GPU the
-    plain path widens the whole ring to f32 and keeps an f32
-    [B, KH, G, T, cap] score tensor per layer, which the kernel never
-    writes.
+  - "auto":  "flash" whenever the ring is a float type of >= 2 bytes or
+    fp8 e4m3fn (the kernel widens e4m3 exactly as it loads it), at any B,
+    for bf16 and float32 queries alike (the kernel has a float32
+    instantiation, as the TPU kernel computes an f32 config in f32).  The
+    JAX package resolves "auto" to xla from a TPU measurement
+    (voxtral_tpu/ops/flash_encode.py STATUS) and keeps fp8 rings on xla
+    (voxtral_tpu/models/encoder.py:132); on the GPU the plain path widens
+    the whole ring to f32 and keeps an f32 [B, KH, G, T, cap] score tensor
+    per layer, which the kernel never writes, and its batched einsums
+    round a row by the rows and streams that share the call, so on the
+    card an fp8 ring's chunk takes the kernel too (the rows' bits then
+    follow neither the feed nor the batch).
 Both compute the same function; decoder._use_flash holds the rule, for
 the bulk encoder too.  A T == 1 chunk writes its slot directly and takes
 `ring_attention`, as in the JAX package, but on the row-invariant route

@@ -11,21 +11,24 @@ count (`models/decoder.py:_use_rowinv` holds the routing rule):
   * CUDA tensors launch `voxtral_tpu_torch/csrc/bf16_mm.cu` (the
     counterpart of the einsum XLA compiles in the JAX package; its header
     says what bounds it on the H100 and how the design meets it) on the
-    plan of `bf16_mm_plan`: one tile, and a K split whose ranges and fold
-    order are a function of (out, K) and the card's SM count, never of the
-    rows.  How the split runs (a cluster of blocks, one range each, or
-    single blocks walking the ranges in turn: the same bits) follows the
-    tile count, `bf16_mm_seq`.  It takes bf16 x [rows, K], contiguous,
-    and w [out, K] either contiguous (the weights as the JAX package stores
-    them) or the transpose view of a contiguous [K, out] (the conv stem's
-    im2col weights as stored, read in place: `out` a multiple of 8), K a
-    multiple of 64, and raises on anything else.
+    plan of `bf16_mm_plan`: one instruction shape (wgmma m64n64k16) for
+    every output element, and a K split whose ranges and fold order are a
+    function of (out, K) and the card's SM count, never of the rows.  The
+    tile's height (`bf16_mm_tile_rows`: 64 or 128 rows of x, one or two
+    64-row fragments) and how the split runs (`bf16_mm_seq`: a cluster of
+    blocks per tile, one range each, or single blocks walking the ranges in
+    turn) follow the rows, and change no bit.  It takes bf16 x [rows, K],
+    contiguous, and w [out, K] either contiguous (the weights as the JAX
+    package stores them) or the transpose view of a contiguous [K, out]
+    (the conv stem's im2col weights as stored, read in place: `out` a
+    multiple of 8), K a multiple of 64, and raises on anything else.
   * CPU tensors take `bf16_mm_plain`, `matmul_f32`.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,60 +42,152 @@ from .quant_mm import (
     _check_operands,
 )
 
-# csrc/bf16_mm.cu's tile: columns of K per ring stage, output columns and
-# rows of x per tile (wgmma m64n64k16 on two warpgroups), threads, ring
-# stages (a cluster's blocks, the single blocks), and the blocks an SM
-# holds by registers (its __launch_bounds__)
+# csrc/bf16_mm.cu's tile: columns of K per ring stage, output columns of a
+# tile (two consumer warpgroups of 64), rows of x of the wgmma (its n), the
+# tile heights, threads (two consumer warpgroups and a producer one)
 K_CHUNK = 64
 BLOCK_N = 128
 BLOCK_M = 64
-THREADS = 256
-STAGES = {False: 3, True: 4}
-REG_BLOCKS = 2
+TILE_ROWS = (64, 128)
+THREADS = 384
+CONSUMER_THREADS = 256
+# blocks an SM holds by registers (__launch_bounds__), by tile rows, and
+# setmaxnreg's registers a thread: the producer warpgroup's, the consumers'
+REG_BLOCKS = {64: 2, 128: 1}
+PRODUCER_REGS = {64: 32, 128: 40}
+CONSUMER_REGS = {64: 104, 128: 232}
+# a block's shared memory: the H100's most for one block
+_BLOCK_SMEM = 232448
+# the split's aim: the tiles of one row tile fill this many blocks an SM
+SPLIT_BLOCKS_PER_SM = 2
+# the rules below are read off chip_smoke.py's bf16_mm sweep (--bf16:
+# every product at 1-2432 rows, each tile height and each way of running
+# the split timed; PERF.md section 6): the 128-row tile where its tiles
+# give at least half an SM each, and clusters only for a full cluster of
+# MAX_CLUSTER blocks whose blocks fill at most CLUSTER_SM_WAVES blocks an
+# SM (smaller clusters measured 1.4-2x slower than single blocks)
+TALL_TILES_PER_SM = 0.5
+CLUSTER_SM_WAVES = 3
+# the most tiles a cluster launch takes (gridDim.y)
+MAX_CLUSTER_TILES = 65535
 
 
-def bf16_mm_smem(cs: int, seq: bool = False) -> int:
-    """Dynamic shared memory of a block: 1 KB to start on a 1024-byte
-    boundary, the ring (stages of x's and the weights' boxes), its barriers
-    (128 bytes) and, for a cluster's split, the partial sums (32 f32 a
-    thread); `seq`: a single block's."""
-    ring = 1024 + STAGES[seq] * (BLOCK_M + BLOCK_N) * K_CHUNK * 2 + 128
-    return ring + (BLOCK_M * 64 // 128 * THREADS * 4
-                   if cs > 1 and not seq else 0)
+def bf16_mm_tile_rows(rows: int, out: int, sms: int = 132) -> int:
+    """Rows of x a tile of csrc/bf16_mm.cu holds for a [rows, in] x
+    [out, in] product: one 64-row wgmma fragment up to 64 rows; above, two
+    (the weights' stage then feeds twice the rows) where the 128-row tiles
+    number at least TALL_TILES_PER_SM an SM, else still one (two blocks of
+    the 64-row tile an SM keep more of the card busy).  Every output
+    element is summed by the same wgmma m64n64k16 sequence at either
+    height, so a row's bits do not follow it."""
+    tall = TILE_ROWS[1]
+    if rows <= TILE_ROWS[0] or (-(-out // BLOCK_N) * -(-rows // tall)
+                                < TALL_TILES_PER_SM * sms):
+        return TILE_ROWS[0]
+    return tall
 
 
-def bf16_mm_blocks_per_sm(cs: int, seq: bool = False) -> int:
-    """Blocks (a cluster's of split cs, or `seq` single ones) one SM holds,
-    by shared memory and registers."""
-    return min(REG_BLOCKS,
-               _SM_SMEM // (bf16_mm_smem(cs, seq) + _BLOCK_RESERVED))
+def bf16_mm_stages(tile_rows: int = 64, seq: bool = False) -> int:
+    """The ring's depth: as deep as the tile's blocks an SM allow (two of
+    the 64-row tile, one of the 128-row tile)."""
+    stage = (tile_rows + BLOCK_N) * K_CHUNK * 2
+    room = (_BLOCK_SMEM if REG_BLOCKS[tile_rows] == 1
+            else _SM_SMEM // REG_BLOCKS[tile_rows] - _BLOCK_RESERVED)
+    return (room - _smem_fixed(tile_rows, seq)) // stage
+
+
+def _smem_fixed(tile_rows: int, seq: bool) -> int:
+    """A block's shared memory besides the ring: 1 KB to start on a
+    1024-byte boundary, the barriers (256 bytes) and, for a cluster's
+    split, the fold's receive buffer ((accumulators of a thread + 7) x 256
+    floats)."""
+    return 1024 + 256 + (0 if seq else (tile_rows // 2 + MAX_CLUSTER - 1)
+                         * CONSUMER_THREADS * 4)
+
+
+def bf16_mm_smem(tile_rows: int = 64, seq: bool = False) -> int:
+    """Dynamic shared memory of a block: the ring (stages of x's and the
+    weights' boxes) and `_smem_fixed`."""
+    return (_smem_fixed(tile_rows, seq) + bf16_mm_stages(tile_rows, seq)
+            * (tile_rows + BLOCK_N) * K_CHUNK * 2)
+
+
+def bf16_mm_blocks_per_sm(tile_rows: int = 64, seq: bool = False) -> int:
+    """Blocks (single, or a cluster's) of a tile height one SM holds, by
+    shared memory and registers: two of the 64-row tile, one of the
+    128-row tile."""
+    return min(REG_BLOCKS[tile_rows],
+               _SM_SMEM // (bf16_mm_smem(tile_rows, seq) + _BLOCK_RESERVED))
 
 
 @functools.lru_cache(maxsize=None)
 def bf16_mm_plan(out: int, in_dim: int, sms: int = 132) -> MmPlan:
     """csrc/bf16_mm.cu's launch for a [rows, in] x [out, in] product at any
-    row count: the K range split over a cluster of cs blocks so that the
-    tiles of one row tile (`tiles`: ceil(out / 128)) fill about one wave,
-    and a full wave of clusters walking the tiles (those past the last
-    tile exit).  A function of (out, in) and the card alone, so a row's
-    bits never depend on how many rows share the call."""
+    row count: the K range split over cs blocks so that the tiles of one
+    row tile (`tiles`: ceil(out / 128)) fill about SPLIT_BLOCKS_PER_SM
+    blocks an SM; `clusters`, the clusters of cs blocks one wave holds.  A
+    function of (out, in) and the card alone, so a row's bits never depend
+    on how many rows share the call."""
     col_tiles = -(-out // BLOCK_N)
     chunks = -(-in_dim // K_CHUNK)
     cs = max(1, min(MAX_CLUSTER, chunks,
-                    sms * bf16_mm_blocks_per_sm(2) // col_tiles))
-    per_sm = bf16_mm_blocks_per_sm(cs)
+                    SPLIT_BLOCKS_PER_SM * sms // col_tiles))
+    per_sm = bf16_mm_blocks_per_sm()
     return MmPlan(BLOCK_M // 8, cs, sms * per_sm // cs, col_tiles, per_sm)
 
 
-def bf16_mm_seq(rows: int, plan: MmPlan, sms: int = 132) -> bool:
+def bf16_mm_blocks(rows: int, out: int, in_dim: int, tile_rows: int,
+                   seq: bool, sms: int = 132) -> int:
+    """Blocks of a launch with this tile height and way of running the
+    split: single blocks persistent over the tiles (at most what the card
+    holds at once), or a cluster a tile (the clusters)."""
+    plan = bf16_mm_plan(out, in_dim, sms)
+    n_tiles = plan.tiles * -(-rows // tile_rows)
+    return (min(n_tiles, sms * bf16_mm_blocks_per_sm(tile_rows, seq)) if seq
+            else n_tiles)
+
+
+def bf16_mm_seq(rows: int, out: int, in_dim: int, sms: int = 132) -> bool:
     """How the plan's split runs at `rows` rows: on single blocks, each
-    walking the split's ranges in turn (True), once the tiles fill at
-    least half a wave of them; below that on the plan's clusters of cs
-    blocks, one range each, where the split keeps the card's loads in
-    flight.  Both give the same bits (csrc/bf16_mm.cu), so only time
-    follows the rows."""
-    n_tiles = plan.tiles * -(-rows // BLOCK_M)
-    return 2 * n_tiles >= sms * bf16_mm_blocks_per_sm(1, seq=True)
+    walking the split's ranges in turn, persistent over the tiles (True),
+    or on a cluster of cs blocks per tile, one range each, every tile at
+    once (False): the cluster for a full cluster on the 64-row tile whose
+    blocks number at most CLUSTER_SM_WAVES an SM (the split's few K chunks
+    a block then beat one block's walk of all of K).  Both give the same
+    bits (csrc/bf16_mm.cu), so only time follows the rows."""
+    plan = bf16_mm_plan(out, in_dim, sms)
+    tile = bf16_mm_tile_rows(rows, out, sms)
+    n_tiles = plan.tiles * -(-rows // tile)
+    return (tile != TILE_ROWS[0] or plan.cs < MAX_CLUSTER
+            or n_tiles * plan.cs > CLUSTER_SM_WAVES * sms
+            or n_tiles > MAX_CLUSTER_TILES)
+
+
+class Bf16MmLaunch(NamedTuple):
+    tile_rows: int       # rows of x a tile holds (bf16_mm_tile_rows)
+    seq: bool            # the split on single blocks, else a cluster a tile
+    blocks: int          # single blocks launched, or clusters (a tile each)
+    ranges: tuple        # the K ranges, [lo, hi) in 64-column chunks, in
+                         # the order their sums are folded from zero
+    instruction: str     # the wgmma each 64-row fragment issues a k16 step
+
+
+def bf16_mm_launch(rows: int, out: int, in_dim: int,
+                   sms: int = 132) -> Bf16MmLaunch:
+    """csrc/bf16_mm.cu's launch of a [rows, in] x [out, in] product as the
+    wrapper sends it: what follows the rows (the tile height, how the split
+    runs, the grid) and what a row's sums are (the
+    plan's K ranges in fold order, each 64-column chunk of a range as four
+    k16 steps of one instruction), which does not."""
+    plan = bf16_mm_plan(out, in_dim, sms)
+    chunks = -(-in_dim // K_CHUNK)
+    tile = bf16_mm_tile_rows(rows, out, sms)
+    seq = bf16_mm_seq(rows, out, in_dim, sms)
+    return Bf16MmLaunch(
+        tile, seq, bf16_mm_blocks(rows, out, in_dim, tile, seq, sms),
+        tuple((r * chunks // plan.cs, (r + 1) * chunks // plan.cs)
+              for r in range(plan.cs)),
+        "wgmma.m64n64k16.f32.bf16.bf16")
 
 
 def bf16_mm_plain(x, w):
@@ -141,13 +236,11 @@ def bf16_mm(x, w):
     if rows == 0:
         return out
     sms = cuda_lib.sm_count(x.device)
-    plan = bf16_mm_plan(out_dim, in_dim, sms)
-    seq = bf16_mm_seq(rows, plan, sms)
-    blocks = (sms * bf16_mm_blocks_per_sm(1, seq=True) if seq
-              else plan.clusters)
+    lp = bf16_mm_launch(rows, out_dim, in_dim, sms)
     err = cuda_lib.kernels().vt_bf16_mm(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, out_dim, in_dim,
-        plan.cs, int(seq), int(w_t), blocks, cuda_lib.stream_handle(x.device))
+        len(lp.ranges), int(lp.seq), int(w_t), lp.blocks, lp.tile_rows,
+        cuda_lib.stream_handle(x.device))
     cuda_lib.check(err, "bf16_mm")
     bf16_mm.launches += 1
     return out

@@ -114,7 +114,7 @@ def kernels() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.vt_bf16_mm.restype = i
-            lib.vt_bf16_mm.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            lib.vt_bf16_mm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
             lib.vt_bf16_mm_occupancy.restype = i
             lib.vt_bf16_mm_occupancy.argtypes = [i, i, i]
             lib.vt_banded_attention.restype = i
@@ -129,7 +129,7 @@ def kernels() -> ctypes.CDLL:
             lib.vt_flash_encode.restype = i
             lib.vt_flash_encode.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, i, i,
-                i, p,
+                i, i, p,
             ]
             lib.vt_int4_mm.restype = i
             lib.vt_int4_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]

@@ -17,11 +17,12 @@ gets 0.
     is the attention tile `csrc/attn_tile.cuh`, shared with the banded
     kernel).  It takes bf16 queries, or float32 ones (a float32 config:
     the f32 row walk of `csrc/attn_f32.cuh`, which reads the ring as f32
-    and has no split), with head_dim 64 and bf16 or f32 rings,
-    reads the rings in place through their strides (pass the layer's view
-    of the stacked cache, `k_all[:, li]`), and raises on anything else: fp8
-    rings stay on the plain `ring_attention` path (models/encoder.py).  It
-    walks the ring's blocks in absolute slot order, split into the
+    and has no split), with head_dim 64 and bf16, f32 or fp8 e4m3fn rings
+    (e4m3 widened exactly to the query's dtype as it is loaded, the JAX
+    package's ring_attention reading a byte-wide ring in the query's
+    dtype), reads the rings in place through their strides (pass the
+    layer's view of the stacked cache, `k_all[:, li]`), and raises on
+    anything else.  It walks the ring's blocks in absolute slot order, split into the
     segments of `flash_encode_segments(cap)` (a function of cap alone),
     whose partial rows it combines in segment order, so its output is
     bitwise the same however the feed was chunked, at every B.
@@ -45,6 +46,8 @@ from .ring import slot_logical_positions
 TILE_ROWS = 64
 BLOCK = 64          # ring slots per block of the kernel's walk
 MAX_SEGMENTS = 8    # blocks of one thread-block cluster (portable size)
+# the rings the kernel reads (e4m3 widened exactly as it is loaded)
+RING_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
 
 
 def flash_encode_segments(cap: int) -> int:
@@ -56,6 +59,30 @@ def flash_encode_segments(cap: int) -> int:
     blocks per segment, at most 8 segments (4 for the 1024-slot ring)."""
     n_blocks = -(-cap // BLOCK)
     return max(1, min(MAX_SEGMENTS, n_blocks // 4))
+
+
+# the mapping of the split walk: one block a segment (a cluster a query
+# tile) below this many query tiles an SM, one block walking every segment
+# from it up, read off the flash_enc phase's sweep of both mappings over
+# (B, T) on the 1024-slot ring (chip_smoke.py, PERF.md section 6): on bf16
+# rings the split won at up to 0.48 tiles an SM and lost from 0.97 on; on
+# rings the kernel widens through registers (e4m3, f32), whose walk is
+# slower, it won up to 0.97 and lost from 1.94
+SPLIT_BELOW_TILES_PER_SM = 0.75
+SPLIT_BELOW_TILES_PER_SM_WIDENED = 1.5
+
+
+def flash_encode_use_split(tiles: int, sms: int, ring_bytes: int = 2) -> bool:
+    """Whether the kernel maps its segments one block each (a cluster per
+    query tile) for a launch of `tiles` query tiles (ceil(T / 64) x H x B)
+    on a card of `sms` SMs over a ring of `ring_bytes`-byte elements: below
+    SPLIT_BELOW_TILES_PER_SM tiles an SM (bf16 rings; the _WIDENED value
+    for the others), where one block a tile would leave the card short of
+    blocks.  Both mappings fold the segments in the same order with one
+    formula, so the choice moves only time, never a bit."""
+    per_sm = (SPLIT_BELOW_TILES_PER_SM if ring_bytes == 2
+              else SPLIT_BELOW_TILES_PER_SM_WIDENED)
+    return tiles < per_sm * sms
 
 
 def _logical_mask(pos0, t: int, cap: int, window: int, device):
@@ -145,31 +172,22 @@ def flash_encode_split_plain(q, k_ring, v_ring, pos0, *, window: int,
     return out.permute(0, 3, 1, 2, 4).reshape(bsz, t, h, d).to(out_dtype)
 
 
-def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
-                                 out_dtype=None, split: bool | None = None):
-    """Sliding-window attention of a T-row chunk over its layer's ring.
-    q [B,T,H,D]; k_ring/v_ring [B,KH,cap,D] (views of the stacked cache are
-    read in place); pos0 int [B] -> [B,T,H,D].  The kernel's walk is split
-    as `flash_encode_segments(cap)` says.  `split` maps the segments to
-    blocks: True, one block each (a cluster per query tile); False, one
-    block walks them all; None, one block each when the query tiles
-    (ceil(T / 64) x H x B) would not fill two waves of the card's SMs.  It
-    changes no bit of the output.  CPU and float32 queries: ignored."""
-    out_dtype = out_dtype or q.dtype
-    if q.device.type == "cpu":
-        return flash_encode_plain(q, k_ring, v_ring, pos0, window=window,
-                                  out_dtype=out_dtype)
-    if q.device.type != "cuda":
-        raise NotImplementedError(f"flash_encode on {q.device}")
+def check_operands(q, k_ring, v_ring, out_dtype) -> None:
+    """Raise ValueError unless the kernel takes these operands: bf16 or f32
+    queries [B, T, H, 64]; K and V rings [B, KH, cap, 64] of one dtype of
+    RING_DTYPES, on q's device, with equal strides, a contiguous head_dim
+    and 16-byte aligned rows (every stride and both bases, in bytes: the
+    kernel reads rows 16 bytes at a time, e4m3 8); out_dtype bf16 or
+    f32.  Device-independent, so the CPU tests hold it too."""
     bsz, t, h, d = q.shape
     _, kh, cap, _ = k_ring.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("flash-encode kernel: q must be bf16 or f32, got "
                          f"{q.dtype}")
     rdt = k_ring.dtype
-    if rdt not in (torch.bfloat16, torch.float32) or v_ring.dtype != rdt:
-        raise ValueError("flash-encode kernel takes bf16 or f32 rings, got "
-                         f"{rdt}, {v_ring.dtype}")
+    if rdt not in RING_DTYPES or v_ring.dtype != rdt:
+        raise ValueError("flash-encode kernel takes bf16, f32 or fp8 e4m3fn "
+                         f"rings of one dtype, got {rdt}, {v_ring.dtype}")
     if d != 64:
         raise ValueError(f"flash-encode kernel supports head_dim 64, got {d}")
     if (k_ring.shape != (bsz, kh, cap, d) or v_ring.shape != k_ring.shape
@@ -179,7 +197,7 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
     if k_ring.stride() != v_ring.stride() or k_ring.stride(-1) != 1:
         raise ValueError("flash-encode kernel: rings need equal strides and "
                          "a contiguous head_dim")
-    # 16-byte row loads: row starts aligned for both ring dtypes
+    # 16-byte row loads: row starts aligned for every ring dtype
     if any(s * k_ring.element_size() % 16 for s in k_ring.stride()[:3]) or any(
             r.data_ptr() % 16 for r in (k_ring, v_ring)):
         raise ValueError("flash-encode kernel: ring rows must be 16-byte "
@@ -189,9 +207,32 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
             raise ValueError(f"flash-encode kernel: ring on {x.device}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash-encode kernel: out_dtype {out_dtype}")
+
+
+def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
+                                 out_dtype=None, split: bool | None = None):
+    """Sliding-window attention of a T-row chunk over its layer's ring.
+    q [B,T,H,D]; k_ring/v_ring [B,KH,cap,D] (views of the stacked cache are
+    read in place); pos0 int [B] -> [B,T,H,D].  The kernel's walk is split
+    as `flash_encode_segments(cap)` says.  `split` maps the segments to
+    blocks: True, one block each (a cluster per query tile); False, one
+    block walks them all; None, as `flash_encode_use_split` says from the
+    query tiles (ceil(T / 64) x H x B) and the card's SMs.  It
+    changes no bit of the output.  CPU and float32 queries: ignored."""
+    out_dtype = out_dtype or q.dtype
+    if q.device.type == "cpu":
+        return flash_encode_plain(q, k_ring, v_ring, pos0, window=window,
+                                  out_dtype=out_dtype)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_encode on {q.device}")
+    check_operands(q, k_ring, v_ring, out_dtype)
+    bsz, t, h, d = q.shape
+    _, kh, cap, _ = k_ring.shape
+    rdt = k_ring.dtype
     if split is None:
-        tiles = -(-t // TILE_ROWS) * h * bsz
-        split = tiles < 2 * cuda_lib.sm_count(q.device)
+        split = flash_encode_use_split(-(-t // TILE_ROWS) * h * bsz,
+                                       cuda_lib.sm_count(q.device),
+                                       k_ring.element_size())
     q = q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("flash-encode kernel: q must be 16-byte aligned")
@@ -203,7 +244,8 @@ def flash_bulk_attention_batched(q, k_ring, v_ring, pos0, *, window: int,
     err = lib.vt_flash_encode(
         q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), pos32.data_ptr(),
         out.data_ptr(), bsz, t, h, kh, d, cap, window, sb, sh, ss,
-        int(q.dtype == torch.float32), int(rdt == torch.float32), int(out_dtype == torch.float32),
+        int(q.dtype == torch.float32), int(rdt == torch.float32),
+        int(rdt == torch.float8_e4m3fn), int(out_dtype == torch.float32),
         flash_encode_segments(cap), int(split),
         cuda_lib.stream_handle(q.device),
     )
