@@ -12,6 +12,10 @@
                                          # sweep (phase_bf16_sweep; ROOT:
                                          # another checkout's package, its
                                          # bits compared)
+    python3 chip_smoke.py --int8 [ROOT]  # device, build, the int8_mm
+                                         # sweep (phase_int8_sweep; ROOT:
+                                         # another checkout's package,
+                                         # timed in the same call)
 
 Phases, in order, each printing its own lines; any failure raises and the
 script exits non-zero:
@@ -66,17 +70,19 @@ script exits non-zero:
                plain and the bf16 yardstick, and of one decode step's 105
                products (26 layers + the table, 1.71 GB packed)
   6b. int8    kernel (G), csrc/int8_mm.cu (the counterpart of the int8
-               convert XLA fuses into the JAX package's int8 product),
+               convert XLA fuses into the JAX package's int8 product: the
+               ring's wgmma tile), on both plans (row-count, row-invariant)
                against its plain version (the layer widened to bf16, then
                torch.mm) on full 26-layer int8 stacks and the table: every
-               product of the decode step at 16 and 56 rows, layer 25's
-               four and the table at 1 and 64 rows, its four at 608 and
-               2128 (the B=16 and B=56 prefills), two calls bitwise equal;
-               its plans and the card's occupancy for them; graph-replay
-               times of the kernel, the path it replaces, the bf16 mm
-               yardstick and torch._weight_int8pack_mm where the card's
-               torch has it; the decode step's 105 products at 16 and 56
-               rows, kernel, plain, bf16 mm and torch._weight_int8pack_mm
+               product of the decode step at 16, 56 and 64 rows, layer
+               25's four and the table at 1 and 64 rows, its four at 608,
+               2128 and 2432 (the B=16, 56 and 64 prefills), two calls
+               bitwise equal; its plans and the card's occupancy for them;
+               graph-replay times of the kernel on both plans, the path it
+               replaces, the bf16 mm yardstick and
+               torch._weight_int8pack_mm where the card's torch has it;
+               the decode step's 105 products at 16, 56 and 64 rows on
+               both plans, plain, bf16 mm and torch._weight_int8pack_mm
   7. rows     kernel (D) against its plain version on [16, 26, 8, 896,
                128] rings in fp8, bf16 and f32 (bit-equal rings); its
                graph-replay time beside the card's launch floor
@@ -95,9 +101,10 @@ script exits non-zero:
                row-count plans, with bounds; the norm kernel
                (csrc/rms_norm.cu) at the encoder's and the decoder's width
                (rows 1..80 and B x 38) row-invariant, gated, torch's norm's
-               row dependence printed; bf16_mm on the
-               decoder's five products (rows 1..2432 bitwise invariant,
-               times at 16, 56, 64 rows against torch.mm and bound)
+               row dependence printed; bf16_mm and the int8 kernel's
+               row-invariant plan on the decoder's five products (rows
+               1..2432 bitwise invariant, times at 16, 56, 64 rows against
+               torch.mm, the int8 row-count plan and bound)
   8. slice    full_config() bf16 with seeded random weights: three
                synthetic clips through transcribe_offline_ids on one
                VoxtralEngine, with launch counts, timings and checks
@@ -168,7 +175,8 @@ script exits non-zero:
  15. mesh     multi-device serving with ranks spawned on this one card,
                joined over gloo (NCCL takes one card per rank): (a) the
                full-width serve pipeline (bulk encode, batched prefill,
-               decode bursts) of 4 x 5 s clips at dp 1 x tp 2 against the
+               decode bursts; MESH_LAYERS deep) of 4 x 5 s clips at dp 1 x
+               tp 2 against the
                same clips unsharded: exact launches per rank (banded at 16
                heads, flash-decode at 16q/4kv; bf16_mm and the norm kernel
                against the rank's own count of its passes, mesh_rank), the
@@ -263,7 +271,7 @@ INT8_REL_TOL = 1e-5
 NO_SPILL_KERNELS = ("banded_attention_kernel", "flash_encode_kernel",
                     "flash_decode_kernel", "int4_mm_kernel",
                     "banded_attention_f32_kernel", "flash_encode_f32_kernel",
-                    "int8_mm_kernel", "int8_mm_wgmma_kernel",
+                    "int8_mm_kernel",
                     "bf16_mm_kernel", "rms_norm_kernel")
 # slice/serve: one decoder step through the kernel path and through the
 # plain path, bf16 hidden state (and f32 logits) compared relative to
@@ -494,6 +502,9 @@ def phase_build() -> None:
                 spills += n
                 if name and name.startswith(NO_SPILL_KERNELS):
                     kept_spills += n
+            elif "Potential Performance Loss" in line:
+                # ptxas serialized a kernel's wgmma chain (C7515 and kin)
+                log("build", f"{name}: {line.split('info    : ')[-1].strip()}")
             elif "Used" in line and "registers" in line and name:
                 log("build", f"{name}: {line.split('Used ')[1].strip()}; "
                              f"spill stores {stores}")
@@ -1130,27 +1141,38 @@ def _mm_plans(bits: int, rows_list) -> None:
     if not hasattr(quant_mm, f"{tag}_mm_plan"):   # an older tree (A/B runs)
         return
     lib = cuda_lib.kernels()
-    occupancy = getattr(lib, f"vt_{tag}_mm_occupancy")
-    per_sm = getattr(quant_mm, f"{tag}_mm_blocks_per_sm")
-    smem_of = getattr(quant_mm, f"{tag}_mm_smem")
     plan_of = getattr(quant_mm, f"{tag}_mm_plan")
-    for nj in (2, 4, 8, 16) if bits == 8 else (2, 4, 16):
-        for cs in ((1,) if nj == 16 else (1, 2)):
-            assumed = per_sm(nj, cs)
-            got = occupancy(nj, cs)
-            log(tag, f"tile nj={nj} split={cs > 1}: {smem_of(nj, cs)} bytes "
-                     f"of shared memory, {got} blocks per SM (plan assumes "
-                     f"{assumed})")
-            if got < assumed:
-                raise AssertionError(f"[{tag}] nj={nj} cs={cs}: the card "
-                                     f"holds {got} blocks per SM, the plan "
-                                     f"assumes {assumed}")
+    if bits == 4:   # (nj, K split)
+        tiles = [(nj, cs) for nj in (2, 4, 16)
+                 for cs in ((1,) if nj == 16 else (1, 2))]
+        occupancy = lib.vt_int4_mm_occupancy
+        per_sm, smem_of = quant_mm.int4_mm_blocks_per_sm, quant_mm.int4_mm_smem
+    else:   # (tile rows, single blocks) of the ring; the model follows rows
+        tiles = [(64, True), (64, False), (128, True)]
+        occupancy = lambda rows, seq: lib.vt_int8_mm_occupancy(int(seq), rows)
+        per_sm = lambda rows, seq: quant_mm.int8_mm_blocks_per_sm(rows)
+        smem_of = lambda rows, seq: quant_mm.int8_mm_smem(rows)
+    for a, b in tiles:
+        assumed = per_sm(a, b)
+        got = occupancy(a, b)
+        log(tag, f"tile {a} {b}: {smem_of(a, b)} bytes of shared memory, "
+                 f"{got} blocks per SM (plan assumes {assumed})")
+        if got < assumed:
+            raise AssertionError(f"[{tag}] tile {a} {b}: the card holds "
+                                 f"{got} blocks per SM, the plan assumes "
+                                 f"{assumed}")
     sms = cuda_lib.sm_count(0)
     for rows in rows_list:
         for name, (out_dim, in_dim) in INT4_SHAPES.items():
-            plan = plan_of(rows, out_dim, in_dim // 2 if bits == 4 else in_dim,
-                           sms)
-            log(tag, f"plan {name} rows={rows}: {plan}")
+            k = in_dim // 2 if bits == 4 else in_dim
+            plan = plan_of(rows, out_dim, k, sms)
+            txt = ""
+            if bits == 8:
+                lp = quant_mm.int8_mm_launch(rows, out_dim, k, sms, True)
+                txt = (f"; row-invariant "
+                       f"{quant_mm.int8_mm_rowinv_plan(out_dim, k, sms)}, "
+                       f"launch {lp[:3]}")
+            log(tag, f"plan {name} rows={rows}: {plan}{txt}")
 
 
 # the int8 phase at full width: the int8 rung's products (INT4_SHAPES'
@@ -1158,8 +1180,14 @@ def _mm_plans(bits: int, rows_list) -> None:
 # counts: a B=1 stream, the smoke's B=16 serve and the bench's B=56 decode
 # (step_rows: every product of the decode step), a B=1 Jacobi window, the
 # B=16 and B=56 prefills (16 x 38 and 56 x 38 rows: the four layer products)
-INT8_FULL = dict(products=INT4_SHAPES, layers=INT4_LAYERS, step_rows=(16, 56),
-                 rows=(1, 16, 56, 64, 608, 2128), prefill_rows=(608, 2128))
+INT8_FULL = dict(products=INT4_SHAPES, layers=INT4_LAYERS,
+                 step_rows=(16, 56, 64),
+                 rows=(1, 16, 56, 64, 608, 2128, 2432),
+                 prefill_rows=(608, 2128, 2432))
+# the int8 kernel's two plans: the row-count plan (int8_mm_plan) and the
+# row-invariant one (int8_mm_rowinv_plan, every decoder call's route)
+INT8_PLANS = (("", False), ("rowinv_", True))
+PLAN_NAME = {"": "row-count plan", "rowinv_": "row-invariant plan"}
 
 
 def _int8_bound(shapes, rows: int) -> dict:
@@ -1194,20 +1222,21 @@ def _int8pack_mm():
 
 def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
     """Kernel (G) on int8 stacks of random bytes in [-127, 127] (`shapes`:
-    full width, 26 layers and the table): within INT8_REL_TOL of
-    int8_mm_plain and two calls bitwise equal on every product of the
-    decode step (every layer's four and the table) at each of `step_rows`,
-    and on the last layer's four and the table at each of `rows` (the four
-    alone at `prefill_rows`), one launch a call, counted; on the card
-    also its plans and the card's occupancy for them, graph-replay times
-    per shape (layers rotating) of the kernel, of the path it replaces
-    (int8_mm_plain: the layer widened to bf16, then torch.mm), of torch.mm
-    on a bf16 weight (the bf16 rung's product, a yardstick) and of
+    full width, 26 layers and the table), on both of its plans
+    (INT8_PLANS): within INT8_REL_TOL of int8_mm_plain and two calls
+    bitwise equal on every product of the decode step (every layer's four
+    and the table) at each of `step_rows`, and on the last layer's four
+    and the table at each of `rows` (the four alone at `prefill_rows`),
+    one launch a call, counted; on the card also its plans and the card's
+    occupancy for them, graph-replay times per shape (layers rotating) of
+    the kernel on each plan, of the path it replaces (int8_mm_plain: the
+    layer widened to bf16, then torch.mm), of torch.mm on a bf16 weight
+    (the bf16 rung's product, a yardstick) and of
     torch._weight_int8pack_mm where the card's torch has it (bf16 scales
     and output: a library yardstick, not this function), and the decode
-    step's products at `step_rows` in decode order, kernel and plain.  A
-    tiny CPU config rehearses it (the plain function counted as the
-    kernel)."""
+    step's products at `step_rows` in decode order, the kernel on each
+    plan, plain, bf16 mm and torch._weight_int8pack_mm.  A tiny CPU config
+    rehearses it (the plain function counted as the kernel)."""
     import torch
 
     from voxtral_tpu_torch.ops.quant_mm import int8_mm, int8_mm_plain
@@ -1235,12 +1264,12 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
         lib_mm = _int8pack_mm()
     worst_abs, worst_rel, out, checked = 0.0, 0.0, {}, 0
 
-    def check(name, rows, li, x):
+    def check(name, rows, li, x, rowinv):
         nonlocal worst_abs, worst_rel, checked
         w, s = stacks[name]
         n0 = int8_mm.launches
-        got = int8_mm(x, w, s, li)
-        again = int8_mm(x, w, s, li)
+        got = int8_mm(x, w, s, li, rowinv=rowinv)
+        again = int8_mm(x, w, s, li, rowinv=rowinv)
         want = int8_mm_plain(x, w, s, li)
         if int8_mm.launches != n0 + 2:
             raise AssertionError(f"[int8] {name} rows={rows}: "
@@ -1254,23 +1283,27 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         checked += 1
         if not (rel <= INT8_REL_TOL and same):
-            raise AssertionError(f"[int8] {name} rows={rows} layer {li}: rel "
-                                 f"{rel} (tol {INT8_REL_TOL}), two calls "
+            raise AssertionError(f"[int8] {name} rows={rows} layer {li} "
+                                 f"rowinv={rowinv}: rel {rel} (tol "
+                                 f"{INT8_REL_TOL}), two calls "
                                  f"{'equal' if same else 'DIFFER'}")
         return err, rel
 
-    # every product of the decode step at its row counts
+    # every product of the decode step at its row counts, on both plans
     for rows in shapes["step_rows"]:
         xs = {i: _randn(gen, (rows, i), torch.bfloat16, device)
               for _, i in products.values()}
-        step_rel = 0.0
-        for name, (_, in_dim) in products.items():
-            for li in range(stacks[name][0].shape[0]):
-                step_rel = max(step_rel, check(name, rows, li, xs[in_dim])[1])
-        log("int8", f"decode step at {rows} rows: {4 * n_layers + 1} products "
-                    f"({n_layers} layers x 4 + table) within rel "
-                    f"{step_rel:.3e} of plain (tol {INT8_REL_TOL}), two calls "
-                    "bitwise equal, ok")
+        for plan, rowinv in INT8_PLANS:
+            step_rel = 0.0
+            for name, (_, in_dim) in products.items():
+                for li in range(stacks[name][0].shape[0]):
+                    step_rel = max(step_rel, check(name, rows, li,
+                                                   xs[in_dim], rowinv)[1])
+            log("int8", f"decode step at {rows} rows, {PLAN_NAME[plan]}: "
+                        f"{4 * n_layers + 1} products ({n_layers} "
+                        f"layers x 4 + table) within rel {step_rel:.3e} of "
+                        f"plain (tol {INT8_REL_TOL}), two calls bitwise "
+                        "equal, ok")
     for name, (out_dim, in_dim) in products.items():
         w, s = stacks[name]
         n_w = w.shape[0]
@@ -1281,15 +1314,18 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
             if name == "logits" and rows in shapes["prefill_rows"]:
                 continue
             x = _randn(gen, (rows, in_dim), torch.bfloat16, device)
-            err, rel = check(name, rows, n_w - 1, x)
-            log("int8", f"{name} [{out_dim}x{in_dim}] rows={rows} layer "
-                        f"{n_w - 1}: max_abs_err {err:.3e}, rel {rel:.3e} "
-                        f"(tol {INT8_REL_TOL}), two calls bitwise equal ok")
+            for plan, rowinv in INT8_PLANS:
+                err, rel = check(name, rows, n_w - 1, x, rowinv)
+                log("int8", f"{name} [{out_dim}x{in_dim}] rows={rows} layer "
+                            f"{n_w - 1}, {PLAN_NAME[plan]}: "
+                            f"max_abs_err {err:.3e}, rel {rel:.3e} (tol "
+                            f"{INT8_REL_TOL}), two calls bitwise equal ok")
             if rows == 1 or not on_gpu:
                 continue
             tm = {
-                "ms": graph_ms(_rotating(
-                    lambda li: int8_mm(x, w, s, li), n_w), n_w),
+                **{f"{plan}ms": graph_ms(_rotating(
+                    lambda li, ri=rowinv: int8_mm(x, w, s, li, rowinv=ri),
+                    n_w), n_w) for plan, rowinv in INT8_PLANS},
                 "plain_ms": graph_ms(_rotating(
                     lambda li: int8_mm_plain(x, w, s, li), len(wd)), len(wd)),
                 "bf16_mm_ms": graph_ms(_rotating(
@@ -1309,8 +1345,9 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
                     lib_txt = f", int8pack_mm refused ({str(e)[:80]})"
             for k, v in tm.items():
                 out[f"{k}_{name}_rows{rows}"] = v
-            log("int8", f"{name} rows={rows}: kernel {tm['ms']:.4f} ms, "
-                        f"widen + mm (plain) {tm['plain_ms']:.4f}, bf16 mm "
+            log("int8", f"{name} rows={rows}: kernel {tm['ms']:.4f} ms "
+                        f"(row-invariant plan {tm['rowinv_ms']:.4f}), widen "
+                        f"+ mm (plain) {tm['plain_ms']:.4f}, bf16 mm "
                         f"{tm['bf16_mm_ms']:.4f}{lib_txt} ms (graph replay, "
                         f"layers rotating); {w[0].numel() / tm['ms'] / 1e6:.0f}"
                         f" GB/s of int8 weights; bound {tm['bound_ms']:.4f} "
@@ -1326,7 +1363,7 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
         xs = {i: _randn(gen, (rows, i), torch.bfloat16, device)
               for _, i in products.values()}
 
-        def step(prod=lambda name, x, li: int8_mm(x, *stacks[name], li)):
+        def step(prod):
             for li in range(n_layers):
                 for name in layer_names:
                     prod(name, xs[products[name][1]], li)
@@ -1334,8 +1371,11 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
 
         sb = _int8_bound(step_shapes, rows)
         tag = f"step_rows{rows}"
-        out.update({f"{tag}_ms": graph_ms(step, 2, reps=3),
-                    f"{tag}_plain_ms": graph_ms(lambda: step(
+        for plan, rowinv in INT8_PLANS:
+            out[f"{tag}_{plan}ms"] = graph_ms(lambda: step(
+                lambda name, x, li: int8_mm(x, *stacks[name], li,
+                                            rowinv=rowinv)), 2, reps=3)
+        out.update({f"{tag}_plain_ms": graph_ms(lambda: step(
                         lambda name, x, li: int8_mm_plain(
                             x, *stacks[name], li)), 1, reps=3),
                     f"{tag}_bound_ms": sb["bound_ms"]})
@@ -1358,7 +1398,8 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
             del sb8
         log("int8", f"decode step, {len(step_shapes)} products at {rows} rows "
                     f"over {n_layers} layers + table: kernel "
-                    f"{out[f'{tag}_ms']:.4f} ms, widen + mm "
+                    f"{out[f'{tag}_ms']:.4f} ms (row-invariant plan "
+                    f"{out[f'{tag}_rowinv_ms']:.4f}), widen + mm "
                     f"{out[f'{tag}_plain_ms']:.4f}, bf16 mm "
                     f"{out[f'{tag}_bf16_mm_ms']:.4f}{lib_txt} ms (graph "
                     f"replay); bound {sb['bound_ms']:.4f} ms "
@@ -1376,7 +1417,7 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
         group = layer_names if rows in shapes["prefill_rows"] else names
         tag = ("" if rows == r0 else f"_rows{rows}" if len(group) == len(names)
                else f"_layers_rows{rows}")
-        for k in ("ms", "plain_ms", "bf16_mm_ms", "library_ms"):
+        for k in ("ms", "rowinv_ms", "plain_ms", "bf16_mm_ms", "library_ms"):
             keys = [f"{k}_{n}_rows{rows}" for n in group]
             if all(key in out for key in keys):
                 out[f"{k}{tag}"] = sum(out[key] for key in keys)
@@ -1386,13 +1427,15 @@ def phase_int8(device: str = "cuda", shapes: dict = INT8_FULL) -> dict:
                                                              b["bound_by"])
         lib = out.get(f"library_ms{tag}")
         log("int8", f"{len(group)} products at {rows} rows: kernel "
-                    f"{out[f'ms{tag}']:.4f} ms, widen + mm "
+                    f"{out[f'ms{tag}']:.4f} ms (row-invariant plan "
+                    f"{out[f'rowinv_ms{tag}']:.4f}), widen + mm "
                     f"{out[f'plain_ms{tag}']:.4f}, bf16 mm "
                     f"{out[f'bf16_mm_ms{tag}']:.4f}, int8pack_mm "
                     f"{'none' if lib is None else f'{lib:.4f}'}, bound "
                     f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    log("int8", f"{checked} products checked, worst rel {worst_rel:.3e} (tol "
-                f"{INT8_REL_TOL}), every pair of calls bitwise equal")
+    log("int8", f"{checked} products checked on both plans, worst rel "
+                f"{worst_rel:.3e} (tol {INT8_REL_TOL}), every pair of calls "
+                "bitwise equal")
     return out
 
 
@@ -3128,6 +3171,113 @@ def _decoder_products(gen, device: str = "cuda") -> dict:
     return out
 
 
+# rowinv: the int8 kernel's row-invariant plan on the decoder's products,
+# checked at DEC_ROWINV_ROWS and across its tiles' edges (64-row and
+# 128-row tiles), timed at DEC_ROWINV_TIME_ROWS
+DEC_INT8_ROWS = tuple(sorted(set(DEC_ROWINV_ROWS)
+                             | {2, 63, 65, 127, 128, 129}))
+
+
+def decoder_shapes(cfg) -> dict:
+    """(out, in) of the decoder's five products (INT4_SHAPES at full
+    width): a layer's four and the tied table."""
+    d = cfg.decoder
+    qkv = (d.n_heads + 2 * d.n_kv_heads) * d.head_dim
+    return {"wqkv": (qkv, d.dim), "wo": (d.dim, d.n_heads * d.head_dim),
+            "w13": (2 * d.hidden, d.dim), "w2": (d.dim, d.hidden),
+            "logits": (d.vocab_size, d.dim)}
+
+
+def _int8_decoder_products(gen, device: str = "cuda", cfg=None) -> dict:
+    """The int8 kernel's row-invariant plan (int8_mm(rowinv=True), every
+    decoder call of the int8 rung) on the decoder's five products at full
+    width, weights quantized from random bf16 ones: at each row count of
+    DEC_INT8_ROWS rows [0, n) and [SHIFT, SHIFT + n) bitwise equal to one
+    call over the most rows, within INT8_REL_TOL of plain, two calls
+    bitwise equal; graph-replay times at DEC_ROWINV_TIME_ROWS (ROWINV_COPIES
+    layers rotating) against its row-count plan, torch.mm(out_dtype=f32)
+    on the bf16 weights and the bound, and their sums over a decode step's
+    105 products.  `cfg` (a tiny config) rehearses it on the CPU, where
+    nothing bitwise is gated."""
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.models.quant import _quantize
+    from voxtral_tpu_torch.ops import quant_mm
+
+    on_gpu = device == "cuda"
+    shapes = decoder_shapes(cfg or full_config())
+    n_layers = (cfg or full_config()).decoder.n_layers
+    out = {}
+    n_max = max(DEC_INT8_ROWS) + ROWINV_SHIFT
+    keys = ("ms", "rowplan_ms", "mm_ms")
+    step = {n: dict.fromkeys(keys, 0.0) for n in DEC_ROWINV_TIME_ROWS}
+    mm = quant_mm.int8_mm
+    for name, (o, i) in shapes.items():
+        copies = 2 if name == "logits" else ROWINV_COPIES
+        w = _randn(gen, (copies, o, i), torch.bfloat16, device) * 0.02
+        q8, s8 = _quantize(w)
+        s8 = s8.squeeze(-1).contiguous()
+        x = _randn(gen, (n_max, i), torch.bfloat16, device)
+        n0 = mm.launches
+        ref = mm(x, q8, s8, 0, rowinv=True)
+        same = torch.equal(ref, mm(x, q8, s8, 0, rowinv=True))
+        want = quant_mm.int8_mm_plain(x, q8, s8, 0)
+        rel = ((ref - want).abs().max() / want.abs().max()).item()
+        del want
+        bad = [(n, lo) for n in DEC_INT8_ROWS for lo in (0, ROWINV_SHIFT)
+               if not torch.equal(mm(x[lo: lo + n], q8, s8, 0, rowinv=True),
+                                  ref[lo: lo + n])]
+        mm.launches = n0
+        if bad and on_gpu or not same or not rel <= INT8_REL_TOL:
+            raise AssertionError(f"[rowinv] int8 decoder {name} [{o}x{i}]: "
+                                 f"rows differ at {bad}, two calls "
+                                 f"{'equal' if same else 'DIFFER'}, rel {rel}")
+        log("rowinv", f"int8 decoder {name} [{o}x{i}]: rows {DEC_INT8_ROWS} "
+                      f"(+{ROWINV_SHIFT}) "
+                      + ("bitwise equal to the full call" if not bad
+                         else f"DIFFER at {bad}") + ", "
+                      f"two calls equal, rel {rel:.3e} of plain (tol "
+                      f"{INT8_REL_TOL})")
+        out[f"int8_dec_{name}_rel_err"] = rel
+        per = 1 if name == "logits" else n_layers
+        for n in DEC_ROWINV_TIME_ROWS if on_gpu else ():
+            xn = x[:n]
+            tm = {"ms": graph_ms(_rotating(
+                      lambda li: mm(xn, q8, s8, li, rowinv=True), copies),
+                      copies),
+                  "rowplan_ms": graph_ms(_rotating(
+                      lambda li: mm(xn, q8, s8, li), copies), copies),
+                  "mm_ms": graph_ms(_rotating(
+                      lambda li: torch.mm(xn, w[li].t(),
+                                          out_dtype=torch.float32), copies),
+                      copies),
+                  **_int8_bound([(o, i)], n)}
+            mm.launches = n0
+            for k, v in tm.items():
+                out[f"int8_dec_{name}_{k}_rows{n}"] = v
+            for k in keys:
+                step[n][k] += per * tm[k]
+            log("rowinv", f"int8 decoder {name} [{o}x{i}] at {n} rows: "
+                          f"row-invariant plan {tm['ms']:.4f} ms, row-count "
+                          f"plan {tm['rowplan_ms']:.4f}, torch.mm (bf16 "
+                          f"weights) {tm['mm_ms']:.4f}, bound "
+                          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']})")
+        del w, q8, s8, x, ref
+    shapes105 = ([shapes[k] for k in ROWINV_LAYER] * n_layers
+                 + [shapes["logits"]])
+    for n, tm in (step.items() if on_gpu else ()):
+        tm.update(_int8_bound(shapes105, n))
+        for k, v in tm.items():
+            out[f"int8_dec_step105_{k}_rows{n}"] = v
+        log("rowinv", f"int8: a decode step's 105 products at {n} rows "
+                      f"(summed): row-invariant plan {tm['ms']:.3f} ms, "
+                      f"row-count plan {tm['rowplan_ms']:.3f}, torch.mm "
+                      f"(bf16 weights) {tm['mm_ms']:.3f}, bound "
+                      f"{tm['bound_ms']:.3f} ms ({tm['bound_by']})")
+    return out
+
+
 def phase_rowinv(device: str = "cuda", cfg=None,
                  rows_list=ROWINV_ROWS) -> dict:
     """The row-invariant products of the streaming encoder side: (H)
@@ -3376,6 +3526,8 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     if on_gpu:
         _rowinv_summary(out, shapes, rows_list)
         out.update(_decoder_products(gen, device))
+    out.update(_int8_decoder_products(gen, device,
+                                      None if on_gpu else cfg))
     _zero_rowinv()
     quant_mm.int8_mm.launches = quant_mm.int4_mm.launches = 0
     return out
@@ -3505,6 +3657,205 @@ def phase_bf16_sweep(root=None) -> dict:
         log("bf16", f"bit-equal to {root}'s bf16_mm at rows: " + "; ".join(
             f"{k} {v}" for k, v in same.items()))
         out["same_bits_as_root"] = same
+    return out
+
+
+def int8_mm_as(x, w, s, li: int, split: int, seq: bool, tile_rows: int):
+    """csrc/int8_mm.cu's launch with the K split, the way to run it (seq
+    True: single blocks, False: clusters; single blocks of the 64-row tile
+    take split 1 only) and the tile height given, for the sweep's checks
+    that each way and height gives the same bits and for the times of
+    each; not counted."""
+    import torch
+
+    from voxtral_tpu_torch.ops import cuda_lib
+    from voxtral_tpu_torch.ops import quant_mm as qmod
+
+    (rows, k), n = x.shape, w.shape[1]
+    sms = cuda_lib.sm_count(x.device)
+    n_tiles = -(-n // qmod.RING_BLOCK_N) * -(-rows // tile_rows)
+    blocks = (min(n_tiles, sms * qmod.int8_mm_blocks_per_sm(tile_rows))
+              if seq else n_tiles)
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    cuda_lib.check(cuda_lib.kernels().vt_int8_mm(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), rows, n, k,
+        li, split, int(seq), blocks, tile_rows,
+        cuda_lib.stream_handle(x.device)), "int8_mm")
+    return out
+
+
+# the int8 sweep (--int8): the decoder's products at these rows (a B=1
+# step, the B=16, 32, 56, 64 steps, a tile's edge, the B=16, 56, 64
+# prefills)
+INT8_SWEEP_ROWS = (1, 16, 32, 56, 64, 128, 608, 2128, 2432)
+# the K splits it times besides the plans' own
+INT8_SWEEP_SPLITS = (1, 2, 4, 8)
+
+_INT8_OTHER_TREE = r"""
+import inspect, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from voxtral_tpu_torch.ops.quant_mm import int8_mm
+shapes, rows_list = eval(sys.argv[2]), eval(sys.argv[3])
+plans = ((False, True) if "rowinv" in inspect.signature(int8_mm).parameters
+         else (False,))
+
+def graph_ms(fn, iters, reps=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(); fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * iters)
+
+out = {}
+for name, (o, i) in shapes.items():
+    copies = 2 if name == "logits" else 4
+    w = torch.randint(-127, 128, (copies, o, i), device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((copies, o), device="cuda") * 0.02 + 0.001
+    x = torch.randn((max(rows_list), i), device="cuda").to(torch.bfloat16)
+    for n in rows_list:
+        xn = x[:n]
+        for ri in plans:
+            kw = {"rowinv": True} if ri else {}
+            calls = iter(range(10 ** 9))
+            out[f"{name}_rows{n}_{'rowinv' if ri else 'rowplan'}"] = graph_ms(
+                lambda: int8_mm(xn, w, s, next(calls) % copies, **kw), copies)
+json.dump(out, open(sys.argv[4], "w"))
+"""
+
+
+def phase_int8_sweep(root=None) -> dict:
+    """`--int8 [ROOT]`: the int8 kernel (csrc/int8_mm.cu) on the decoder's
+    five products at INT8_SWEEP_ROWS, each tile height (64 rows; 128 above
+    64 rows) x way of running the split (single blocks; clusters on the
+    64-row tile) x K split (INT8_SWEEP_SPLITS and the two plans';
+    single blocks of the 64-row tile take no split), forced,
+    beside the wrapper's two plans: graph-replay ms, layers rotating, and
+    a decode step's 105 summed.  Every way and height of one split is gated
+    bit-equal to the others, and the row-invariant plan's call to its
+    split's (the choice moves only time); the data the rules of
+    ops/quant_mm.py (INT8_*: the split's aim, the tile height, clusters)
+    are read off.  With ROOT (another checkout's package, e.g. the parent
+    unpacked with git archive), that package's int8_mm on both of its plans
+    is timed at the same shapes in a subprocess, in this call."""
+    import tempfile
+
+    import torch
+
+    from voxtral_tpu_torch.ops import quant_mm as qmod
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, bad = {}, []
+    step = {}
+    for name, (o, i) in INT4_SHAPES.items():
+        copies = 2 if name == "logits" else ROWINV_COPIES
+        w = torch.randint(-127, 128, (copies, o, i), device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((copies, o), device="cuda") * 0.02 + 0.001
+        x = torch.randn((max(INT8_SWEEP_ROWS), i), device="cuda").to(
+            torch.bfloat16)
+        per = 1 if name == "logits" else INT4_LAYERS
+        for n in INT8_SWEEP_ROWS:
+            xn, rec = x[:n], {}
+            ri_cs = qmod.int8_mm_rowinv_plan(o, i, sms).cs
+            rp_cs = qmod.int8_mm_plan(n, o, i, sms).cs
+            for ri, tag in ((True, "rowinv"), (False, "rowplan")):
+                rec[f"{tag}_ms"] = graph_ms(_rotating(
+                    lambda li, r=ri: qmod.int8_mm(xn, w, s, li, rowinv=r),
+                    copies), copies)
+            got = qmod.int8_mm(xn, w, s, 0, rowinv=True)
+            for cs in sorted(set(INT8_SWEEP_SPLITS) | {ri_cs, rp_cs}):
+                if cs > i // qmod.INT8_K_CHUNK:
+                    continue
+                first = None
+                for tile, seq in ((64, True), (64, False), (128, True)):
+                    if (tile == 128 and n <= 64) or (tile, seq, cs > 1) == (
+                            64, True, True):
+                        continue
+                    y = int8_mm_as(xn, w, s, 0, cs, seq, tile)
+                    if first is None:
+                        first = y
+                    elif not torch.equal(y, first):
+                        bad.append((name, n, cs, tile, seq))
+                    if cs == ri_cs and not torch.equal(y, got):
+                        bad.append((name, n, "rowinv", tile, seq))
+                    rec[f"{tile}_{'seq' if seq else 'cluster'}_cs{cs}_ms"] = \
+                        graph_ms(_rotating(
+                            lambda li, c=cs, sq=seq, t=tile: int8_mm_as(
+                                xn, w, s, li, c, sq, t), copies), copies)
+            lp = qmod.int8_mm_launch(n, o, i, sms, True)
+            rec["takes"] = (f"{lp.tile_rows}_{'seq' if lp.seq else 'cluster'}"
+                            f"_cs{len(lp.ranges)}")
+            rec.update(_int8_bound([(o, i)], n))
+            out[f"{name}_rows{n}"] = rec
+            forced = {k: v for k, v in rec.items()
+                      if k[:2] in ("64", "12") and k.endswith("_ms")}
+            fastest = min(forced, key=forced.get)
+            for k in ("rowinv_ms", "rowplan_ms", "bound_ms"):
+                step.setdefault((n, k), 0.0)
+                step[(n, k)] += per * rec[k]
+            step.setdefault((n, "fastest_ms"), 0.0)
+            step[(n, "fastest_ms")] += per * forced[fastest]
+            log("int8", f"sweep {name} [{o}x{i}] at {n} rows: row-invariant "
+                        f"plan {rec['rowinv_ms']:.4f} ms (takes "
+                        f"{rec['takes']}), row-count plan "
+                        f"{rec['rowplan_ms']:.4f}; fastest {fastest[:-3]} "
+                        f"{forced[fastest]:.4f}; bound {rec['bound_ms']:.4f} "
+                        f"({rec['bound_by']}); " + ", ".join(
+                            f"{k[:-3]} {v:.4f}" for k, v in forced.items()))
+        qmod.int8_mm.launches = 0
+        del w, s, x
+    for n in INT8_SWEEP_ROWS:
+        out[f"step105_rows{n}"] = {k: step[(n, k)] for k in
+                                   ("rowinv_ms", "rowplan_ms", "fastest_ms",
+                                    "bound_ms")}
+        log("int8", f"sweep: a decode step's 105 products at {n} rows "
+                    f"(summed): row-invariant plan "
+                    f"{step[(n, 'rowinv_ms')]:.4f} ms, row-count plan {step[(n, 'rowplan_ms')]:.4f}, each "
+                    f"product's fastest variant {step[(n, 'fastest_ms')]:.4f}"
+                    f", bound {step[(n, 'bound_ms')]:.4f}")
+    if bad:
+        raise AssertionError(f"[int8] variants differ from each other or "
+                             f"from the call: {bad}")
+    if root:
+        path = os.path.join(tempfile.gettempdir(), "int8_other_tree.json")
+        run = subprocess.run(
+            [sys.executable, "-c", _INT8_OTHER_TREE, root, repr(INT4_SHAPES),
+             repr(INT8_SWEEP_ROWS), path], capture_output=True, text=True,
+            timeout=900)
+        if run.returncode:
+            raise AssertionError(f"[int8] {root}: {run.stderr[-2000:]}")
+        with open(path) as f:
+            other = json.load(f)
+        os.remove(path)
+        for n in INT8_SWEEP_ROWS:
+            for tag in ("rowinv", "rowplan"):
+                keys = [f"{k}_rows{n}_{tag}" for k in INT4_SHAPES]
+                if not all(k in other for k in keys):
+                    continue
+                them = sum((1 if k.startswith("logits") else INT4_LAYERS)
+                           * other[k] for k in keys)
+                out[f"step105_rows{n}"][f"root_{tag}_ms"] = them
+                log("int8", f"{root} at {n} rows, its {tag} plan: a decode "
+                            f"step's 105 {them:.4f} ms (this tree's "
+                            f"{out[f'step105_rows{n}'][f'{tag}_ms']:.4f}); "
+                            + ", ".join(f"{k.split('_')[0]} "
+                                        f"{other[k]:.4f}" for k in keys))
+        out["root"] = other
     return out
 
 
@@ -5351,6 +5702,10 @@ MESH_TP = 2
 # (max |h - h_ref| / max |h_ref|) and tp 2 against tp 1 directly.
 MESH_HIDDEN_REL_TOL = 2e-2
 MESH_WITNESS_FACTOR = 2.0
+# (a) runs full_config() cut to this (encoder, decoder) depth: the eager
+# tp runs over gloo are the run's slowest per layer, and the tp collectives
+# and kernel shapes are the same at every depth
+MESH_LAYERS = (8, 8)
 
 
 def _rel_errs(h, ref) -> tuple[float, float]:
@@ -5748,7 +6103,7 @@ def _rank_shape_times() -> dict:
 
 
 def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 5.0,
-               n_streams: int = 4) -> dict:
+               n_streams: int = 4, layers=None) -> dict:
     """Multi-device serving on one card: ranks spawned by
     parallel/mesh.py run_ranks share it over gloo (NCCL takes one card per
     rank).  (a) `cfg` with `params` (init_params(seed=0) on `device`) at
@@ -5761,8 +6116,14 @@ def phase_mesh(cfg, params, device: str = "cuda", seconds: float = 5.0,
     MESH_WITNESS_FACTOR), the ids' agreement printed;
     (b) small_config at dp 2 x tp 2 (_mesh_small); (c) on the card, the
     kernels at one rank's shapes (_rank_shape_times).  main() runs it at
-    full width on the card; a tiny config rehearses it on the CPU (no
-    kernel launches there, none expected)."""
+    full width on the card, (a) cut to `layers` (encoder, decoder) depth
+    with its own init_params(seed=0); a tiny config rehearses it on the
+    CPU (no kernel launches there, none expected)."""
+    if layers:
+        cfg = cfg.replace(
+            encoder=dataclasses.replace(cfg.encoder, n_layers=layers[0]),
+            decoder=dataclasses.replace(cfg.decoder, n_layers=layers[1]))
+        params = make_params(cfg, device)
     out = {"full_width": _mesh_full_width(cfg, params, device, seconds,
                                           n_streams),
            "small": _mesh_small(device)}
@@ -6417,7 +6778,7 @@ def run_only(names) -> dict:
         elif name == "stream":
             out[name] = phase_stream(cfg, params, "cuda")
         elif name == "mesh":
-            out[name] = phase_mesh(cfg, params, "cuda")
+            out[name] = phase_mesh(cfg, params, "cuda", layers=MESH_LAYERS)
         elif name == "jacobi":
             out[name] = phase_jacobi(cfg, params, "cuda")
         elif name == "bench":
@@ -6450,11 +6811,12 @@ def main(argv: list[str]) -> int:
     import torch
 
     if not (argv in ([], ["--profile"])
-            or (argv[:1] in (["--int4"], ["--bf16"]) and len(argv) <= 2)
+            or (argv[:1] in (["--int4"], ["--bf16"], ["--int8"])
+                and len(argv) <= 2)
             or (argv[:1] == ["--only"] and len(argv) == 2
                 and set(argv[1].split(",")) <= set(ONLY_PHASES))):
         raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT] "
-                         f"| --bf16 [ROOT] "
+                         f"| --bf16 [ROOT] | --int8 [ROOT] "
                          f"| --only PHASE[,PHASE..] of {ONLY_PHASES}]")
     if argv[1:2] and argv[0] == "--int4":
         # the package of another checkout (an A/B of two trees in one call)
@@ -6484,6 +6846,10 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
         return 0
     if argv[:1] == ["--bf16"]:
         print(json.dumps({"bf16": phase_bf16_sweep(*argv[1:2]),
+                          "total_s": time.monotonic() - t_start}))
+        return 0
+    if argv[:1] == ["--int8"]:
+        print(json.dumps({"int8": phase_int8_sweep(*argv[1:2]),
                           "total_s": time.monotonic() - t_start}))
         return 0
     if argv == ["--profile"]:
@@ -6541,7 +6907,7 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
     pw = timed("pool_window", phase_pool, cfg, params, "cuda", **POOL_WINDOW,
                ref_ids=pr.pop("slot0_ids"))
     pw.pop("slot0_ids")
-    ms = timed("mesh", phase_mesh, cfg, params, "cuda")
+    ms = timed("mesh", phase_mesh, cfg, params, "cuda", layers=MESH_LAYERS)
     mel_dev = timed("mel_device", phase_mel_device, "cuda")
     bn = timed("bench", phase_bench, cfg, params, "cuda")
     benched = bn["launches"]
@@ -6652,6 +7018,8 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
                       + benched["int8_mm"]),
          "launches_serve": served["int8_mm"],
          "launches_bench": benched["int8_mm"],
+         # `ms` the row-count plan's, `rowinv_ms` the row-invariant
+         # plan's (the decoder's every int8 call)
          "launches_graphs": graphed["int8_mm"], **int8,
          **{k: v for k, v in rowinv.items() if k.startswith("int8_")}},
         {"name": "ring_rows_write", "route": "cuda",

@@ -486,13 +486,15 @@ def _int8_stack(gen, n_layers, out_dim, in_dim, dev):
     return q["wqkv"], q["wqkv_scale"]
 
 
-@pytest.mark.parametrize("rows", [1, 16, 56, 64, 608])
+@pytest.mark.parametrize("rowinv", [False, True])
+@pytest.mark.parametrize("rows", [1, 16, 56, 64, 608, 2432])
 @pytest.mark.parametrize("name", list(INT4_SHAPES))
-def test_int8_kernel_matches_plain(dev, name, rows):
+def test_int8_kernel_matches_plain(dev, name, rows, rowinv):
     """bf16 x against int8 weights (layer 1 of a 2-layer stack, one layer
-    for the table) at the int8 rung's row counts: the products are exact,
-    only the f32 summation order differs, so max abs error <= 1e-5 x max
-    |plain| (chip_smoke.py's INT8_REL_TOL); one launch."""
+    for the table) at the int8 rung's row counts, on both plans: the
+    products are exact, only the f32 summation order differs, so max abs
+    error <= 1e-5 x max |plain| (chip_smoke.py's INT8_REL_TOL); one
+    launch."""
     out_dim, in_dim = INT4_SHAPES[name]
     n_layers = 1 if name == "logits" else 2
     gen = torch.Generator(device=dev).manual_seed(out_dim + rows + 8)
@@ -500,7 +502,7 @@ def test_int8_kernel_matches_plain(dev, name, rows):
     x = _randn(gen, (rows, in_dim), torch.bfloat16, dev)
     li = n_layers - 1
     n0 = int8_mm.launches
-    got = int8_mm(x, w, s, li)
+    got = int8_mm(x, w, s, li, rowinv=rowinv)
     want = int8_mm_plain(x, w, s, li)
     torch.cuda.synchronize()
     assert int8_mm.launches == n0 + 1
@@ -509,10 +511,10 @@ def test_int8_kernel_matches_plain(dev, name, rows):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
-# rows across every tile edge of the int8 kernel's plans, and the prefills
-# of B=16 and B=56 (38 rows a stream)
+# rows across every tile edge of the int8 kernel's tiles (64 and 128 rows),
+# and the prefills of B=16, 56 and 64 (38 rows a stream)
 INT8_ROWS = (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64, 65, 127, 128,
-             129, 608, 2128)
+             129, 608, 2128, 2432)
 
 
 @pytest.fixture(scope="module")
@@ -527,17 +529,19 @@ def int8_stacks():
                                     ("ragged", (1, 200, 3200)))}
 
 
+@pytest.mark.parametrize("rowinv", [False, True])
 @pytest.mark.parametrize("rows", INT8_ROWS)
 @pytest.mark.parametrize("name", ["wo26", "ragged"])
-def test_int8_kernel_rows_sweep(dev, int8_stacks, name, rows):
-    """Every row count's plan against the plain version, 1e-5 x max
-    |plain|, one launch a call; a second call is bitwise equal."""
+def test_int8_kernel_rows_sweep(dev, int8_stacks, name, rows, rowinv):
+    """Every row count's launch on both plans against the plain version,
+    1e-5 x max |plain|, one launch a call; a second call is bitwise
+    equal."""
     w, s, li = int8_stacks[name]
     gen = torch.Generator(device=dev).manual_seed(rows)
     x = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
     n0 = int8_mm.launches
-    got = int8_mm(x, w, s, li)
-    again = int8_mm(x, w, s, li)
+    got = int8_mm(x, w, s, li, rowinv=rowinv)
+    again = int8_mm(x, w, s, li, rowinv=rowinv)
     want = int8_mm_plain(x, w, s, li)
     torch.cuda.synchronize()
     assert int8_mm.launches == n0 + 2
@@ -547,29 +551,72 @@ def test_int8_kernel_rows_sweep(dev, int8_stacks, name, rows):
 
 
 @pytest.mark.parametrize("rows", [5, 40, 100, 129])
-@pytest.mark.parametrize("nj,cs,clusters", [(2, 1, 1), (2, 5, 2), (4, 1, 3),
-                                            (4, 8, 1), (8, 1, 2), (8, 3, 1),
-                                            (16, 1, 1), (16, 1, 2)])
-def test_int8_kernel_every_tile_on_ragged_edges(dev, int8_stacks, nj, cs,
-                                                clusters, rows):
-    """Each tile forced onto the ragged [200, 3200] product: the 16-, 32-
-    and 64-row decode tiles with and without a K split, the wgmma prefill
-    tile, clusters that
-    walk several tiles each; against plain, 1e-5 x max |plain|."""
-    from voxtral_tpu_torch.ops import cuda_lib
+@pytest.mark.parametrize("tile,seq,split,blocks", [
+    (64, True, 1, 1), (64, True, 1, 2), (64, True, 1, 300),
+    (64, False, 1, 0), (64, False, 3, 0), (64, False, 8, 0),
+    (128, True, 1, 1), (128, True, 2, 3), (128, True, 7, 132)])
+def test_int8_kernel_every_tile_on_ragged_edges(dev, int8_stacks, tile, seq,
+                                                split, blocks, rows):
+    """Each tile height and way of running the split forced onto the ragged
+    [200, 3200] product: single blocks walking several tiles each or one
+    (the 64-row tile's without a split), clusters of 1, 3 and 8 (blocks 0:
+    a cluster a tile); against plain, 1e-5 x max |plain|; every (tile, way)
+    of one split gives the same bits."""
+    import chip_smoke as cs
 
     w, s, li = int8_stacks["ragged"]
     gen = torch.Generator(device=dev).manual_seed(rows)
     x = _randn(gen, (rows, w.shape[-1]), torch.bfloat16, dev)
-    got = torch.full((rows, w.shape[1]), float("nan"), device=dev)
-    cuda_lib.check(cuda_lib.kernels().vt_int8_mm(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), got.data_ptr(), rows,
-        w.shape[1], w.shape[-1], li, nj, cs, clusters,
-        cuda_lib.stream_handle(dev)), "int8_mm")
+    if blocks:   # single blocks: a grid given here, capped at the tiles
+        from voxtral_tpu_torch.ops import cuda_lib
+
+        got = torch.full((rows, w.shape[1]), float("nan"), device=dev)
+        cuda_lib.check(cuda_lib.kernels().vt_int8_mm(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), got.data_ptr(), rows,
+            w.shape[1], w.shape[-1], li, split, 1, blocks, tile,
+            cuda_lib.stream_handle(dev)), "int8_mm")
+    else:
+        got = cs.int8_mm_as(x, w, s, li, split, seq, tile)
     want = int8_mm_plain(x, w, s, li)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), err
+    assert torch.equal(got, cs.int8_mm_as(x, w, s, li, split, split == 1,
+                                          64))
+
+
+# the decoder's five products on the int8 kernel's row-invariant plan:
+# every row bit-equal at these row counts (a B=1 step, the steps of B = 16,
+# 56, 64, the tiles' edges, the prefills of B = 16, 56, 64)
+INT8_ROWINV_ROWS = (1, 2, 16, 56, 63, 64, 65, 127, 128, 129, 608, 2128,
+                    2432)
+
+
+@pytest.mark.parametrize("name", list(INT4_SHAPES))
+def test_int8_rowinv_rows_bitwise_invariant(dev, name):
+    """csrc/int8_mm.cu on its row-invariant plan at the decoder's products
+    (the int8 rung's every decoder call): every row bit-equal to the same
+    row at every other row count up to 2432, at an offset and alone, two
+    calls bitwise equal, within 1e-5 x max |plain|; the split run on
+    single blocks of the 128-row tile and on clusters of the 64-row one
+    gives the same bits."""
+    import chip_smoke as cs
+    from voxtral_tpu_torch.ops.quant_mm import int8_mm_launch
+
+    out_dim, in_dim = INT4_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(out_dim + in_dim + 8)
+    w, s = _int8_stack(gen, 1, out_dim, in_dim, dev)
+    x = _randn(gen, (max(INT8_ROWINV_ROWS) + 7, in_dim), torch.bfloat16, dev)
+    full = _rows_invariant(lambda a: int8_mm(a, w, s, 0, rowinv=True), x,
+                           INT8_ROWINV_ROWS)
+    assert torch.equal(int8_mm(x, w, s, 0, rowinv=True), full)
+    cs_ = len(int8_mm_launch(16, out_dim, in_dim, 132, True).ranges)
+    for n in (16, 64, 200):
+        assert torch.equal(cs.int8_mm_as(x[:n], w, s, 0, cs_, True, 128),
+                           cs.int8_mm_as(x[:n], w, s, 0, cs_, cs_ == 1, 64))
+    want = int8_mm_plain(x, w, s, 0)
+    assert (full - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("rows", [16, 608])
@@ -621,16 +668,15 @@ def test_int8_wrapper_refuses(dev):
         int8_mm(x, flat[1:].view(2, 64, 128), s, 0)
 
 
-@pytest.mark.parametrize("nj,cs", [(2, 1), (2, 8), (4, 1), (4, 8), (8, 1),
-                                   (8, 8), (16, 1)])
-def test_int8_plan_residency_fits_the_card(dev, nj, cs):
-    """The int8 plan's blocks per SM are no more than the card's occupancy
-    query gives for the kernel."""
-    from voxtral_tpu_torch.ops import cuda_lib
-    from voxtral_tpu_torch.ops.quant_mm import int8_mm_blocks_per_sm
+@pytest.mark.parametrize("tile,seq", [(64, True), (64, False), (128, True)])
+def test_int8_plan_residency_fits_the_card(dev, tile, seq):
+    """The int8 launches' blocks per SM (the ring's tiles by rows and way
+    to run the split) are no more than the card's occupancy query gives
+    for the kernel."""
+    from voxtral_tpu_torch.ops import cuda_lib, quant_mm
 
-    got = cuda_lib.kernels().vt_int8_mm_occupancy(nj, cs)
-    assert got >= int8_mm_blocks_per_sm(nj, cs) >= 1, got
+    got = cuda_lib.kernels().vt_int8_mm_occupancy(int(seq), tile)
+    assert got >= quant_mm.int8_mm_blocks_per_sm(tile) >= 1, got
 
 
 @pytest.mark.parametrize("bsz", [1, 16, 64])

@@ -1,15 +1,16 @@
-"""The int8 kernel's launch plan, its K-split fold and the int8 route of the
-port's products, on the CPU.
+"""The int8 kernel's launch plans, its K-split fold and the int8 route of
+the port's products, on the CPU.
 
-`int8_mm_plan` (ops/quant_mm.py) decides, from the shapes alone, the tile
-width, the K split over a thread-block cluster and the clusters that
-csrc/int8_mm.cu launches; `int8_mm_split_plain` is a plain model of the
-kernel's fold of the split's partial sums.  Both are held against the JAX
-package's int8 product (voxtral_tpu/models/quant.py `mm`, whose int8 ->
-bf16 convert XLA fuses into the product).  Every comparison is within
-1e-5 x max |ref|: an int8 weight times a bf16 value is exact in f32, so
-only the order of the f32 sums differs.  The kernel itself is tested on the
-card (tests/test_torch_cuda.py).
+`int8_mm_plan` and `int8_mm_rowinv_plan` (ops/quant_mm.py) decide the K
+split that csrc/int8_mm.cu runs (from the shapes, or from (out, K) alone),
+and `int8_mm_launch` the tile height, the way the split runs and the grid;
+`int8_mm_split_plain` is a plain model of the kernel's fold of the split's
+partial sums.  Both are held against the JAX package's int8 product
+(voxtral_tpu/models/quant.py `mm`, whose int8 -> bf16 convert XLA fuses
+into the product).  Every comparison is within 1e-5 x max |ref|: an int8
+weight times a bf16 value is exact in f32, so only the order of the f32
+sums differs.  The kernel itself is tested on the card
+(tests/test_torch_cuda.py).
 """
 
 import jax
@@ -28,13 +29,17 @@ from voxtral_tpu_torch.ops import quant_mm
 from voxtral_tpu_torch.ops.quant_mm import (
     INT8_K_CHUNK,
     MAX_CLUSTER,
+    RING_TILE_ROWS,
     int8_mm,
     int8_mm_blocks_per_sm,
+    int8_mm_launch,
     int8_mm_plain,
     int8_mm_plan,
+    int8_mm_rowinv_plan,
     int8_mm_smem,
     int8_mm_split_plain,
     int8_mm_splits,
+    int8_mm_stages,
 )
 
 torch.set_num_threads(1)
@@ -46,9 +51,9 @@ REL = 1e-5
 # logits table)
 PRODUCTS = {"wqkv": (6144, 3072), "wo": (3072, 4096), "w13": (18432, 3072),
             "w2": (3072, 9216), "logits": (131072, 3072)}
-# a B=1 stream, the B=16 serve and B=56 bench decodes, a Jacobi window, the
-# B=16 and B=56 prefills (38 rows a stream)
-ROWS = (1, 16, 56, 64, 608, 2128)
+# a B=1 stream, the B=16 serve, a B=32, the B=56 bench decodes, a Jacobi
+# window, the B=16, B=56 and B=64 prefills (38 rows a stream)
+ROWS = (1, 16, 32, 56, 64, 608, 2128, 2432)
 
 
 def _close(got, ref, what=""):
@@ -61,21 +66,35 @@ def _close(got, ref, what=""):
 def test_plan_fits_one_wave_and_covers_k(name, rows):
     out, in_dim = PRODUCTS[name]
     plan = int8_mm_plan(rows, out, in_dim)
-    assert plan.nj in (2, 4, 8, 16)
-    # the narrowest decode tile that holds the rows, one n8 tile of 8 rows
-    assert plan.nj == 16 or rows <= 8 * plan.nj <= max(16, 2 * rows)
     assert 1 <= plan.cs <= MAX_CLUSTER
-    assert plan.nj != 16 or plan.cs == 1
-    # at most one wave: no more blocks than 132 SMs hold at once
-    assert plan.per_sm == int8_mm_blocks_per_sm(plan.nj, plan.cs) >= 1
-    assert plan.cs * plan.clusters <= 132 * plan.per_sm
     assert 1 <= plan.clusters <= plan.tiles
+    chunk = INT8_K_CHUNK
+    # the ring's tile: 64 rows of x (nj 8) up to 64 rows, where the split
+    # is the row-invariant plan's, 64 or 128 above; single blocks one wave
+    # holds, or clusters, a tile each
+    if rows <= 64:
+        assert plan.nj == 8
+        assert plan.cs == int8_mm_rowinv_plan(out, in_dim).cs
+    else:
+        assert 8 * plan.nj in RING_TILE_ROWS
+    assert plan.per_sm == int8_mm_blocks_per_sm(8 * plan.nj) >= 1
+    assert plan.clusters <= 132 * plan.per_sm
+    lp = int8_mm_launch(rows, out, in_dim)
+    assert lp.tile_rows == 8 * plan.nj and len(lp.ranges) == plan.cs
+    if lp.seq:   # single blocks: one wave, persistent over the tiles
+        assert lp.blocks == plan.clusters
+        assert lp.tile_rows == 128 or plan.cs == 1
+    else:        # a split of the 64-row tile: clusters, a tile each
+        assert (lp.tile_rows, lp.blocks) == (64, plan.tiles)
+        assert plan.cs > 1
+    assert [(a * chunk, b * chunk) for a, b in lp.ranges] == \
+        int8_mm_splits(in_dim, plan.cs)
     # non-empty ranges of whole K chunks, in order, covering the input dim
     splits = int8_mm_splits(in_dim, plan.cs)
     assert len(splits) == plan.cs
     assert splits[0][0] == 0 and splits[-1][1] == in_dim
     for (a, b), (c, _) in zip(splits, splits[1:] + [(in_dim, None)]):
-        assert a < b == c and a % INT8_K_CHUNK == 0
+        assert a < b == c and a % chunk == 0
     # the same plan on every call, and from a fresh cache
     assert int8_mm_plan(rows, out, in_dim) is plan
     int8_mm_plan.cache_clear()
@@ -83,37 +102,66 @@ def test_plan_fits_one_wave_and_covers_k(name, rows):
 
 
 def test_plan_splits_the_narrow_decode_products():
-    """At 16, 56 and 64 rows the narrow layer products split K over a
-    cluster and every product launches at least a block per SM (two at 16
-    rows, where four of its tile fit an SM; two of the 64-row one); the
-    logits table does not split; at 608 and 2128 rows nothing splits and
-    the wgmma prefill tile is taken."""
-    for rows, per_sm in ((16, 2), (56, 1), (64, 1)):
-        for name in ("wqkv", "wo", "w2"):
-            assert int8_mm_plan(rows, *PRODUCTS[name]).cs > 1, (name, rows)
-        for name in PRODUCTS:
+    """At 1-64 rows (one 64-row tile of each product) the narrow layer
+    products split K so that their tiles fill about two blocks an SM (wo
+    and w2 over a full cluster of 8, wqkv over 4), w13 and the logits
+    table do not split, and the row-count plan equals the row-invariant
+    one; at 608 rows the 128-row tile splits wo and w2 in two; at 2128 and
+    2432 rows nothing splits."""
+    for rows in (1, 16, 32, 56, 64):
+        for name, cs in (("wqkv", 4), ("wo", 8), ("w13", 1), ("w2", 8),
+                         ("logits", 1)):
             plan = int8_mm_plan(rows, *PRODUCTS[name])
-            assert plan.cs * plan.clusters >= per_sm * 132, (name, rows)
-        assert int8_mm_plan(rows, *PRODUCTS["logits"]).cs == 1
-    for rows in (608, 2128):
+            assert (plan.nj, plan.cs) == (8, cs), (name, rows)
+            assert plan.cs == int8_mm_rowinv_plan(*PRODUCTS[name]).cs
+            assert plan.cs * plan.tiles >= 132 or name == "w13", (name, rows)
+            assert int8_mm_launch(rows, *PRODUCTS[name]).seq == (cs == 1)
+    for rows, split in ((608, {"wo": 2, "w2": 2}), (2128, {}), (2432, {})):
         for name in ("wqkv", "wo", "w13", "w2"):
             plan = int8_mm_plan(rows, *PRODUCTS[name])
-            assert (plan.nj, plan.cs) == (16, 1), (name, rows)
+            assert (plan.nj, plan.cs) == (16, split.get(name, 1)), (name,
+                                                                     rows)
 
 
 def test_tiles_fit_a_block_and_the_sm():
-    """The shared memory of csrc/int8_mm.cu's tiles (its Ring and MAX_SMEM
-    constants: 4 stages, 3 for the 64-row tile, of x's two boxes, the
-    weights' two boxes and the scales, 1 KB for alignment, the barriers, a
-    split's partials) stays within a block's 227 KB, and the residency the
-    plan assumes: 4 blocks of the 16-row tile, 3 of the 32-row one, 3 of
-    the 64-row one (2 with a split), 1 of the prefill tile."""
-    want = {(2, 1): 51328, (2, 2): 55424, (4, 1): 67712, (4, 2): 75904,
-            (8, 1): 75648, (8, 2): 92032, (16, 1): 199808}
-    for (nj, cs), smem in want.items():
-        assert int8_mm_smem(nj, cs) == smem <= 232448
-    assert [int8_mm_blocks_per_sm(nj, cs) for nj, cs in want] == \
-        [4, 4, 3, 3, 3, 2, 1]
+    """The shared memory of csrc/int8_mm.cu's tiles stays within a block's
+    227 KB and the SM's 228 KB at the residency the plans assume: the
+    ring's (wgmma_ring.cuh's Tile with one byte a weight: stages of 32 KB
+    at 64 rows, 48 KB at 128, 1 KB for alignment, 256 bytes of barriers; a
+    cluster's fold staged and received in the idle ring) two blocks of the
+    64-row tile on 3 stages, one of the 128-row tile on 4, clusters and
+    single blocks alike."""
+    want = {64: (3, 99584, 2), 128: (4, 197888, 1)}
+    for tile, (stages, smem, blocks) in want.items():
+        assert int8_mm_stages(tile) == stages >= 3
+        assert int8_mm_smem(tile) == smem <= 232448
+        assert int8_mm_blocks_per_sm(tile) == blocks
+        assert blocks * (smem + 1024) <= 233472
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_rowinv_launch_one_instruction_sequence(name):
+    """The row-invariant launch at rows 1..300 and the prefills up to 3040:
+    whatever the tile height, the grid and the way the split runs, a row's
+    sums are the same program (the plan's K ranges, contiguous, non-empty,
+    1..8 of them, covering K, fixed by (out, K), folded in order, every
+    128-column chunk as eight k16 steps of the one wgmma m64n64k16 with the
+    widened weights as register A); clusters only on the 64-row tile."""
+    out, in_dim = PRODUCTS[name]
+    want = int8_mm_launch(1, out, in_dim, 132, True)
+    chunks = in_dim // INT8_K_CHUNK
+    assert want.ranges[0][0] == 0 and want.ranges[-1][1] == chunks
+    assert all(a[1] == b[0] and a[0] < a[1]
+               for a, b in zip(want.ranges, want.ranges[1:]))
+    assert len(want.ranges) == int8_mm_rowinv_plan(out, in_dim).cs
+    heights = set()
+    for rows in list(range(1, 301)) + [608, 1216, 2128, 2432, 3040]:
+        lp = int8_mm_launch(rows, out, in_dim, 132, True)
+        assert (lp.ranges, lp.instruction) == (want.ranges, want.instruction)
+        assert "m64n64k16" in lp.instruction
+        assert lp.seq or lp.tile_rows == 64
+        heights.add(lp.tile_rows)
+    assert heights == set(RING_TILE_ROWS)
 
 
 def _stack(rng, n_layers, out, in_dim):
@@ -124,9 +172,10 @@ def _stack(rng, n_layers, out, in_dim):
     return np.asarray(lp["wqkv"]), np.asarray(lp["wqkv_scale"])
 
 
-# tiny and odd shapes: (rows, out, in)
+# tiny and odd shapes: (rows, out, in); the last at the B=64 prefill's
+# rows
 SPLIT_SHAPES = ((1, 16, 128), (5, 48, 384), (17, 40, 1024), (33, 64, 1152),
-                (3, 200, 3072))
+                (3, 200, 3072), (2432, 24, 640))
 
 
 @pytest.mark.parametrize("rows,out,in_dim", SPLIT_SHAPES)
@@ -156,6 +205,10 @@ def test_split_fold_matches_plain_and_jax(rows, out, in_dim):
         _close(got, plain, f"cs={cs} against plain")
         np.testing.assert_array_equal(
             int8_mm_split_plain(tx.bfloat16(), tw, ts, 1, cs).numpy(), got)
+        # the kernel's chain: each range's k16 steps summed in order
+        chain = int8_mm_split_plain(tx, tw, ts, 1, cs, k_step=16).numpy()
+        _close(chain, ref, f"cs={cs} k16 chain against JAX")
+        _close(chain, plain, f"cs={cs} k16 chain against plain")
 
 
 def test_wrapper_refuses_other_devices():

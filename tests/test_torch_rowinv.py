@@ -59,8 +59,8 @@ def _rowinv_plans():
          lambda nj, cs: max(bf16_mm.bf16_mm_smem(64, seq)
                             for seq in (False, True)), bf16_mm.K_CHUNK),
         ("int8", quant_mm.int8_mm_rowinv_plan, lambda i: i, 8,
-         quant_mm.int8_mm_blocks_per_sm, quant_mm.int8_mm_smem,
-         quant_mm.INT8_K_CHUNK),
+         lambda nj, cs: quant_mm.int8_mm_blocks_per_sm(),
+         lambda nj, cs: quant_mm.int8_mm_smem(64), quant_mm.INT8_K_CHUNK),
         ("int4", quant_mm.int4_mm_rowinv_plan, lambda i: i // 2, 4,
          quant_mm.int4_mm_blocks_per_sm, quant_mm.int4_mm_smem,
          quant_mm.K_CHUNK),
@@ -70,11 +70,11 @@ def _rowinv_plans():
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_rowinv_plans_take_no_row_count(kind):
     """Each row-invariant plan is a function of (out, K) and the card: no
-    row argument; one mma family for every product (bf16: the 64-row wgmma
-    tile, int8 and int4: their widest mma.sync decode tile, never the wgmma
-    prefill tile); a K split of 1..8 blocks of at least one chunk each; a
-    wave of clusters the card holds at once, in the shared memory an SM
-    has."""
+    row argument; one mma family for every product (bf16 and int8: the
+    ring's 64-row wgmma m64n64k16 tile, int4: its widest mma.sync decode
+    tile, never the wgmma prefill tile); a K split of 1..8 blocks of at
+    least one chunk each; a wave of clusters the card holds at once, in the
+    shared memory an SM has."""
     _, plan_of, k_of, nj, per_sm, smem, chunk = next(
         p for p in _rowinv_plans() if p[0] == kind)
     params = list(inspect.signature(plan_of).parameters)
@@ -159,22 +159,26 @@ def test_bf16_mm_tiles_fit_the_card():
             assert stages >= 3 and 16 * stages + 8 <= 256
 
 
-# the decode and prefill plans (int8_mm_plan, int4_mm_plan), pinned as
-# they were before the row-invariant plans came beside them, at the
-# decoder's products (out, in) for rows 1..128 and the prefills (38 rows
-# a stream): the sha256 of repr([(name, rows, int8 plan, int4 plan),
-# ...]); a few of them written out below
+# the decode and prefill plans (int8_mm_plan, int4_mm_plan) at the
+# decoder's products (out, in) for rows 1..128 and the prefills (38 rows a
+# stream), pinned: the sha256 of repr([(name, rows, int4 plan), ...]) as it
+# was before the row-invariant plans came beside it, and of repr([(name,
+# rows, int8 plan, int8 row-invariant launch's (tile rows, seq, blocks)),
+# ...]) since the int8 kernel runs the ring's wgmma tile on both plans; a
+# few of them written out below
 DECODE_SHAPES = {"wqkv": (6144, 3072), "wo": (3072, 4096),
                  "w13": (18432, 3072), "w2": (3072, 9216),
                  "logits": (131072, 3072)}
 DECODE_ROWS = list(range(1, 129)) + [152, 304, 608, 1216, 2128, 3040]
-DECODE_PLANS_SHA256 = \
-    "364850ce47b4b4350bf0cc9ba2d00b3ac22ccd1f7c83eb9e50ab965d3d3b95d7"
+DECODE_PLANS_SHA256 = {
+    "int4": "9e5b309b9c35f1c494b2507053b3e4e2c9f6d863b9815d10c40c3360ce01fd48",
+    "int8": "3290cadd8a5498e50ff36edf7173ff98a8d5a20b27d27c8e20cbc2dda9965e99",
+}
 DECODE_PLANS = {  # (name, rows): (int8 plan, int4 plan)
-    ("wqkv", 16): ((2, 5, 96, 96, 4), (2, 6, 96, 96, 5)),
-    ("wo", 56): ((8, 5, 48, 48, 2), (4, 4, 96, 96, 3)),
-    ("w13", 1): ((2, 1, 288, 288, 4), (2, 2, 288, 288, 5)),
-    ("logits", 56): ((8, 1, 396, 2048, 3), (4, 1, 396, 4096, 3)),
+    ("wqkv", 16): ((8, 4, 48, 48, 2), (2, 6, 96, 96, 5)),
+    ("wo", 56): ((8, 8, 24, 24, 2), (4, 4, 96, 96, 3)),
+    ("w13", 1): ((8, 1, 144, 144, 2), (2, 2, 288, 288, 5)),
+    ("logits", 56): ((8, 1, 264, 1024, 2), (4, 1, 396, 4096, 3)),
     ("w2", 2128): ((16, 1, 132, 408, 1), (16, 1, 132, 408, 1)),
 }
 
@@ -182,12 +186,20 @@ DECODE_PLANS = {  # (name, rows): (int8 plan, int4 plan)
 def test_decode_plans_unchanged():
     """The decode and prefill plans of the int8 and int4 kernels are the
     pinned ones for every decoder product at every row count (the decode
-    path keeps its bits)."""
-    plans = [(name, r, tuple(quant_mm.int8_mm_plan(r, o, i)),
-              tuple(quant_mm.int4_mm_plan(r, o, i // 2)))
-             for name, (o, i) in DECODE_SHAPES.items() for r in DECODE_ROWS]
-    assert hashlib.sha256(repr(plans).encode()).hexdigest() == \
-        DECODE_PLANS_SHA256
+    path keeps its bits; the int4 plans as before the row-invariant plans,
+    the int8 ones as the ring tile's), and so are the int8 kernel's
+    row-invariant launches."""
+    plans = {
+        "int4": [(name, r, tuple(quant_mm.int4_mm_plan(r, o, i // 2)))
+                 for name, (o, i) in DECODE_SHAPES.items()
+                 for r in DECODE_ROWS],
+        "int8": [(name, r, tuple(quant_mm.int8_mm_plan(r, o, i)),
+                  tuple(quant_mm.int8_mm_launch(r, o, i, SMS, True)[:3]))
+                 for name, (o, i) in DECODE_SHAPES.items()
+                 for r in DECODE_ROWS]}
+    for kind, got in plans.items():
+        assert hashlib.sha256(repr(got).encode()).hexdigest() == \
+            DECODE_PLANS_SHA256[kind], kind
     for (name, r), (p8, p4) in DECODE_PLANS.items():
         o, i = DECODE_SHAPES[name]
         assert tuple(quant_mm.int8_mm_plan(r, o, i)) == p8

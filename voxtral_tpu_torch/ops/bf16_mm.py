@@ -35,29 +35,39 @@ import torch
 from ..models.quant import matmul_f32
 from . import cuda_lib
 from .quant_mm import (
-    _BLOCK_RESERVED,
-    _SM_SMEM,
     MAX_CLUSTER,
+    RING_BLOCK_M,
+    RING_BLOCK_N,
+    RING_CONSUMER_REGS,
+    RING_CONSUMER_THREADS,
+    RING_K_CHUNK,
+    RING_PRODUCER_REGS,
+    RING_REG_BLOCKS,
+    RING_THREADS,
+    RING_TILE_ROWS,
     MmPlan,
     _check_operands,
+    ring_blocks_per_sm,
+    ring_smem,
+    ring_split,
+    ring_stages,
 )
 
-# csrc/bf16_mm.cu's tile: columns of K per ring stage, output columns of a
-# tile (two consumer warpgroups of 64), rows of x of the wgmma (its n), the
-# tile heights, threads (two consumer warpgroups and a producer one)
-K_CHUNK = 64
-BLOCK_N = 128
-BLOCK_M = 64
-TILE_ROWS = (64, 128)
-THREADS = 384
-CONSUMER_THREADS = 256
-# blocks an SM holds by registers (__launch_bounds__), by tile rows, and
-# setmaxnreg's registers a thread: the producer warpgroup's, the consumers'
-REG_BLOCKS = {64: 2, 128: 1}
-PRODUCER_REGS = {64: 32, 128: 40}
-CONSUMER_REGS = {64: 104, 128: 232}
-# a block's shared memory: the H100's most for one block
-_BLOCK_SMEM = 232448
+# csrc/bf16_mm.cu's tile, the ring of csrc/wgmma_ring.cuh (int8_mm.cu's
+# too) with two bytes a weight: columns of K per ring stage, output columns
+# of a tile (two consumer warpgroups of 64), rows of x of the wgmma (its
+# n), the tile heights, threads (two consumer warpgroups and a producer
+# one), blocks an SM by registers and setmaxnreg's registers a thread
+K_CHUNK = RING_K_CHUNK
+BLOCK_N = RING_BLOCK_N
+BLOCK_M = RING_BLOCK_M
+TILE_ROWS = RING_TILE_ROWS
+THREADS = RING_THREADS
+CONSUMER_THREADS = RING_CONSUMER_THREADS
+REG_BLOCKS = RING_REG_BLOCKS
+PRODUCER_REGS = RING_PRODUCER_REGS
+CONSUMER_REGS = RING_CONSUMER_REGS
+W_BYTES = 2
 # the split's aim: the tiles of one row tile fill this many blocks an SM
 SPLIT_BLOCKS_PER_SM = 2
 # the rules below are read off chip_smoke.py's bf16_mm sweep (--bf16:
@@ -88,36 +98,23 @@ def bf16_mm_tile_rows(rows: int, out: int, sms: int = 132) -> int:
 
 
 def bf16_mm_stages(tile_rows: int = 64, seq: bool = False) -> int:
-    """The ring's depth: as deep as the tile's blocks an SM allow (two of
-    the 64-row tile, one of the 128-row tile)."""
-    stage = (tile_rows + BLOCK_N) * K_CHUNK * 2
-    room = (_BLOCK_SMEM if REG_BLOCKS[tile_rows] == 1
-            else _SM_SMEM // REG_BLOCKS[tile_rows] - _BLOCK_RESERVED)
-    return (room - _smem_fixed(tile_rows, seq)) // stage
-
-
-def _smem_fixed(tile_rows: int, seq: bool) -> int:
-    """A block's shared memory besides the ring: 1 KB to start on a
-    1024-byte boundary, the barriers (256 bytes) and, for a cluster's
-    split, the fold's receive buffer ((accumulators of a thread + 7) x 256
-    floats)."""
-    return 1024 + 256 + (0 if seq else (tile_rows // 2 + MAX_CLUSTER - 1)
-                         * CONSUMER_THREADS * 4)
+    """The ring's depth (`ring_stages`): as deep as the tile's blocks an SM
+    allow (two of the 64-row tile, one of the 128-row tile)."""
+    return ring_stages(tile_rows, not seq, W_BYTES, K_CHUNK)
 
 
 def bf16_mm_smem(tile_rows: int = 64, seq: bool = False) -> int:
-    """Dynamic shared memory of a block: the ring (stages of x's and the
-    weights' boxes) and `_smem_fixed`."""
-    return (_smem_fixed(tile_rows, seq) + bf16_mm_stages(tile_rows, seq)
-            * (tile_rows + BLOCK_N) * K_CHUNK * 2)
+    """Dynamic shared memory of a block (`ring_smem`): the ring (stages of
+    x's and the weights' boxes), the barriers and a cluster's fold
+    buffer."""
+    return ring_smem(tile_rows, not seq, W_BYTES, K_CHUNK)
 
 
 def bf16_mm_blocks_per_sm(tile_rows: int = 64, seq: bool = False) -> int:
     """Blocks (single, or a cluster's) of a tile height one SM holds, by
     shared memory and registers: two of the 64-row tile, one of the
     128-row tile."""
-    return min(REG_BLOCKS[tile_rows],
-               _SM_SMEM // (bf16_mm_smem(tile_rows, seq) + _BLOCK_RESERVED))
+    return ring_blocks_per_sm(tile_rows, not seq, W_BYTES, K_CHUNK)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,8 +127,7 @@ def bf16_mm_plan(out: int, in_dim: int, sms: int = 132) -> MmPlan:
     on how many rows share the call."""
     col_tiles = -(-out // BLOCK_N)
     chunks = -(-in_dim // K_CHUNK)
-    cs = max(1, min(MAX_CLUSTER, chunks,
-                    SPLIT_BLOCKS_PER_SM * sms // col_tiles))
+    cs = ring_split(col_tiles, chunks, SPLIT_BLOCKS_PER_SM, sms)
     per_sm = bf16_mm_blocks_per_sm()
     return MmPlan(BLOCK_M // 8, cs, sms * per_sm // cs, col_tiles, per_sm)
 

@@ -136,7 +136,8 @@ def kernels() -> ctypes.CDLL:
             lib.vt_int4_mm_occupancy.restype = i
             lib.vt_int4_mm_occupancy.argtypes = [i, i]
             lib.vt_int8_mm.restype = i
-            lib.vt_int8_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.vt_int8_mm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                       p]
             lib.vt_int8_mm_occupancy.restype = i
             lib.vt_int8_mm_occupancy.argtypes = [i, i]
             lib.vt_rms_norm.restype = i

@@ -20,10 +20,13 @@ one byte a weight and one f32 scale per output row, y = (x @ w.T) * s.
     int8: of 128) and raise on anything else.  One launch per call, on the
     plan of `int4_mm_plan` / `int8_mm_plan` (tile, K split over a
     thread-block cluster, clusters), a function of the shapes alone; with
-    `rowinv` (the streaming encoder side, models/decoder.py:_use_rowinv)
-    on `int4_mm_rowinv_plan` / `int8_mm_rowinv_plan`, a function of
-    (out, K) and the card without the row count, so that a row's bits do
-    not depend on how many rows share the call.
+    `rowinv` (the streaming encoder side and the decoder,
+    models/decoder.py:_use_rowinv) on `int4_mm_rowinv_plan` /
+    `int8_mm_rowinv_plan`, a function of (out, K) and the card without the
+    row count, so that a row's bits do not depend on how many rows share
+    the call.  The int8 kernel runs one tile on both plans at every row
+    count (wgmma m64n64k16 with the widened weights as register A, on the
+    ring of csrc/wgmma_ring.cuh that `bf16_mm` shares; `int8_mm_launch`).
   * CPU tensors take `int4_mm_plain` (the JAX package's `_mm4`) or
     `int8_mm_plain` (the JAX expression: the weights widened to x's dtype,
     one f32-result product, the row scales).
@@ -59,20 +62,75 @@ _TILES = {  # nj: (block_n, threads, reg_blocks)
     4: (64, 128, 3),
     16: (128, 256, 1),
 }
-# csrc/int8_mm.cu's: columns of K per chunk (a ring stage of two 64-column
-# TMA boxes), the same cluster, and its tiles as above plus a 64-row decode
-# tile, with their ring stages (one accumulator set, twice the weight bytes
-# a stage: the 16-row tile holds 4 blocks an SM by shared memory, not 5;
-# the 64-row one 3 on 3 stages, 2 with a K split's partials)
-INT8_K_CHUNK = 128
-_TILES8 = {  # nj: (block_n, threads, reg_blocks, stages)
-    2: (64, 128, 4, 4),
-    4: (64, 128, 3, 4),
-    8: (64, 128, 3, 3),
-    16: (128, 256, 1, 4),
-}
 _SM_SMEM = 233472          # shared memory per SM on the H100 (228 KB)
 _BLOCK_RESERVED = 1024     # the runtime's per-block share
+
+# csrc/wgmma_ring.cuh's block (bf16_mm.cu and int8_mm.cu): columns of K per
+# ring stage, output columns of a tile (two consumer warpgroups of 64), rows
+# of x of the wgmma (its n), the tile heights (one or two 64-row
+# fragments), threads (two consumer warpgroups and a producer one)
+RING_K_CHUNK = 64
+RING_BLOCK_N = 128
+RING_BLOCK_M = 64
+RING_TILE_ROWS = (64, 128)
+RING_THREADS = 384
+RING_CONSUMER_THREADS = 256
+# blocks an SM holds by registers (__launch_bounds__), by tile rows, and
+# setmaxnreg's registers a thread: the producer warpgroup's, the consumers'
+RING_REG_BLOCKS = {64: 2, 128: 1}
+RING_PRODUCER_REGS = {64: 32, 128: 40}
+RING_CONSUMER_REGS = {64: 104, 128: 232}
+_BLOCK_SMEM = 232448       # the H100's most shared memory for one block
+
+
+def ring_smem_fixed(tile_rows: int, recv: bool) -> int:
+    """A ring block's shared memory besides the ring: 1 KB to start on a
+    1024-byte boundary, the barriers (256 bytes) and, `recv`, a cluster's
+    fold receive buffer of its own ((accumulators of a thread + 7) x 256
+    floats)."""
+    return 1024 + 256 + ((tile_rows // 2 + MAX_CLUSTER - 1)
+                         * RING_CONSUMER_THREADS * 4 if recv else 0)
+
+
+def ring_stage_bytes(tile_rows: int, w_bytes: int, k_chunk: int) -> int:
+    """A ring stage of k_chunk columns of K: x's bf16 boxes of tile_rows
+    rows and the weights' box of RING_BLOCK_N rows of w_bytes-byte
+    weights."""
+    return (tile_rows * 2 + RING_BLOCK_N * w_bytes) * k_chunk
+
+
+def ring_stages(tile_rows: int, recv: bool, w_bytes: int,
+                k_chunk: int) -> int:
+    """The ring's depth: as deep as the tile's blocks an SM allow (two of
+    the 64-row tile, one of the 128-row tile)."""
+    room = (_BLOCK_SMEM if RING_REG_BLOCKS[tile_rows] == 1
+            else _SM_SMEM // RING_REG_BLOCKS[tile_rows] - _BLOCK_RESERVED)
+    return ((room - ring_smem_fixed(tile_rows, recv))
+            // ring_stage_bytes(tile_rows, w_bytes, k_chunk))
+
+
+def ring_smem(tile_rows: int, recv: bool, w_bytes: int, k_chunk: int) -> int:
+    """Dynamic shared memory of a ring block: the ring and
+    `ring_smem_fixed`."""
+    return (ring_smem_fixed(tile_rows, recv)
+            + ring_stages(tile_rows, recv, w_bytes, k_chunk)
+            * ring_stage_bytes(tile_rows, w_bytes, k_chunk))
+
+
+def ring_blocks_per_sm(tile_rows: int, recv: bool, w_bytes: int,
+                       k_chunk: int) -> int:
+    """Blocks (single, or a cluster's) of a ring tile one SM holds, by
+    shared memory and registers: two of the 64-row tile, one of the
+    128-row tile."""
+    return min(RING_REG_BLOCKS[tile_rows], _SM_SMEM // (
+        ring_smem(tile_rows, recv, w_bytes, k_chunk) + _BLOCK_RESERVED))
+
+
+def ring_split(tiles: int, chunks: int, blocks_per_sm: int, sms: int) -> int:
+    """A ring product's K split: the ranges that let `tiles` tiles fill
+    about `blocks_per_sm` blocks an SM, 1..MAX_CLUSTER of them, each of at
+    least one chunk."""
+    return max(1, min(MAX_CLUSTER, chunks, blocks_per_sm * sms // tiles))
 
 
 def int4_mm_smem(nj: int, cs: int) -> int:
@@ -256,44 +314,141 @@ int4_mm.launches = 0
 
 # ---- int8 (W8A16) ---------------------------------------------------------
 
-def int8_mm_smem(nj: int, cs: int) -> int:
-    """Dynamic shared memory of a block of csrc/int8_mm.cu: 1 KB to start
-    on a 1024-byte boundary, the ring (stages of x's two bf16 boxes, the
-    weights' two byte boxes and the tile's f32 scales), its barriers (128
-    bytes) and, with a K split, the decode tile's partial sums (4 nj
-    outputs per thread, f32)."""
-    bn, threads, _, stages = _TILES8[nj]
-    ring = 1024 + stages * (8 * nj * 2 * INT8_K_CHUNK + bn * INT8_K_CHUNK
-                            + bn * 4) + 128
-    return ring + (4 * nj * threads * 4 if cs > 1 and nj != 16 else 0)
+# csrc/int8_mm.cu: the ring of RING_* above with one byte a weight and
+# INT8_K_CHUNK columns of K a stage (a stage of 32 KB at 64 rows, 48 KB at
+# 128), one wgmma m64n64k16 with the widened weights as register A at every
+# row count.  The rules below are read off chip_smoke.py's int8 sweep
+# (--int8: every decoder product at a decode step's rows and the
+# prefills', each tile height, way to run the split and split timed;
+# PERF.md section 6): the split aims at INT8_SPLIT_BLOCKS_PER_SM blocks an
+# SM (a power of two), the 128-row tile where its tiles give at least
+# INT8_TALL_TILES_PER_SM an SM, a split of the 64-row tile on clusters
+INT8_K_CHUNK = 128
+INT8_W_BYTES = 1
+INT8_SPLIT_BLOCKS_PER_SM = 2
+INT8_TALL_TILES_PER_SM = 0.5
+INT8_INSTRUCTION = ("wgmma.m64n64k16.f32.bf16.bf16 "
+                    "(A: int8 widened in registers)")
 
 
-def int8_mm_blocks_per_sm(nj: int, cs: int) -> int:
-    """Blocks of the int8 kernel's tile width nj (K split cs) one SM holds,
-    by shared memory and registers."""
-    return min(_TILES8[nj][2],
-               _SM_SMEM // (int8_mm_smem(nj, cs) + _BLOCK_RESERVED))
+def int8_mm_stages(tile_rows: int = 64) -> int:
+    """The int8 ring's depth (`ring_stages`; a cluster's fold receives in
+    the idle ring, so clusters and single blocks hold the same ring): 3
+    stages of 32 KB at 64 rows, 4 of 48 KB at 128."""
+    return ring_stages(tile_rows, False, INT8_W_BYTES, INT8_K_CHUNK)
 
 
-@functools.lru_cache(maxsize=None)
-def int8_mm_plan(rows: int, out: int, in_dim: int, sms: int = 132) -> MmPlan:
-    """csrc/int8_mm.cu's launch for an [rows, in] x [out, in] product
-    (`_plan`, in K chunks of INT8_K_CHUNK columns)."""
-    return _plan(rows, out, -(-in_dim // INT8_K_CHUNK), _TILES8,
-                 int8_mm_blocks_per_sm, sms)
+def int8_mm_smem(tile_rows: int = 64) -> int:
+    """Dynamic shared memory of a block of csrc/int8_mm.cu (`ring_smem`)."""
+    return ring_smem(tile_rows, False, INT8_W_BYTES, INT8_K_CHUNK)
+
+
+def int8_mm_blocks_per_sm(tile_rows: int = 64) -> int:
+    """Blocks of the int8 kernel's tile one SM holds, by shared memory and
+    registers: two of the 64-row tile, one of the 128-row tile."""
+    return ring_blocks_per_sm(tile_rows, False, INT8_W_BYTES, INT8_K_CHUNK)
+
+
+def int8_mm_tile_rows(rows: int, out: int, sms: int = 132) -> int:
+    """Rows of x a tile holds for a [rows, in] x [out, in] product: one
+    64-row fragment up to 64 rows; above, two (a weights' stage then feeds
+    twice the rows) where the 128-row tiles number at least
+    INT8_TALL_TILES_PER_SM an SM.  Every output element is summed by the
+    same instruction sequence at either height."""
+    tall = RING_TILE_ROWS[1]
+    if rows <= RING_TILE_ROWS[0] or (-(-out // RING_BLOCK_N) * -(-rows // tall)
+                                     < INT8_TALL_TILES_PER_SM * sms):
+        return RING_TILE_ROWS[0]
+    return tall
+
+
+def _int8_split(tiles: int, chunks: int, sms: int) -> int:
+    """The int8 kernel's K split for `tiles` tiles: `ring_split`'s, down to
+    a power of two (clusters of 3, 5, 6 or 7 blocks measured slower than
+    the power of two below them)."""
+    cs = ring_split(tiles, chunks, INT8_SPLIT_BLOCKS_PER_SM, sms)
+    return 1 << (cs.bit_length() - 1)
 
 
 @functools.lru_cache(maxsize=None)
 def int8_mm_rowinv_plan(out: int, in_dim: int, sms: int = 132) -> MmPlan:
-    """csrc/int8_mm.cu's row-invariant launch for an [any, in] x [out, in]
-    product (`_rowinv_plan`)."""
-    return _rowinv_plan(out, -(-in_dim // INT8_K_CHUNK), _TILES8,
-                        int8_mm_blocks_per_sm, sms)
+    """csrc/int8_mm.cu's row-invariant launch for a [rows, in] x [out, in]
+    product at ANY row count: the K range split over cs blocks so that the
+    tiles of one 64-row tile (`tiles`: ceil(out / 128)) fill about
+    INT8_SPLIT_BLOCKS_PER_SM blocks an SM; `clusters`, the clusters of cs
+    blocks one wave holds.  A function of (out, in) and the card alone, so
+    a row's sums are taken in the same order however many rows share the
+    call (the tile height and the way the split runs follow the rows and
+    change no bit: int8_mm_launch)."""
+    col_tiles = -(-out // RING_BLOCK_N)
+    chunks = -(-in_dim // INT8_K_CHUNK)
+    cs = _int8_split(col_tiles, chunks, sms)
+    per_sm = int8_mm_blocks_per_sm()
+    return MmPlan(RING_BLOCK_M // 8, cs, sms * per_sm // cs, col_tiles,
+                  per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_mm_plan(rows: int, out: int, in_dim: int, sms: int = 132) -> MmPlan:
+    """csrc/int8_mm.cu's launch for an [rows, in] x [out, in] product by
+    its row count: the tile of `int8_mm_tile_rows` (nj = its rows / 8) and
+    a K split that lets the tiles of all the rows fill about
+    INT8_SPLIT_BLOCKS_PER_SM blocks an SM (none once they fill the card);
+    `clusters`, the single blocks one wave holds, or the tiles.  Up to 64
+    rows the tiles are the column tiles, so the split is the row-invariant
+    plan's."""
+    tile = int8_mm_tile_rows(rows, out, sms)
+    n_tiles = -(-out // RING_BLOCK_N) * -(-rows // tile)
+    chunks = -(-in_dim // INT8_K_CHUNK)
+    cs = _int8_split(n_tiles, chunks, sms)
+    per_sm = int8_mm_blocks_per_sm(tile)
+    return MmPlan(tile // 8, cs, min(n_tiles, sms * per_sm), n_tiles, per_sm)
+
+
+def int8_mm_seq(rows: int, out: int, cs: int, sms: int = 132) -> bool:
+    """How a split of cs ranges runs at `rows` rows: on single blocks, each
+    walking the ranges in turn, persistent over the tiles (True: the
+    128-row tile, or no split), or on a cluster of cs blocks per tile, one
+    range each, every tile at once (False: a split on the 64-row tile, whose
+    single blocks have no registers for folded sums).  Both give the same
+    bits (csrc/wgmma_ring.cuh), so only time follows the rows."""
+    return int8_mm_tile_rows(rows, out, sms) != RING_TILE_ROWS[0] or cs == 1
+
+
+class Int8MmLaunch(NamedTuple):
+    tile_rows: int       # rows of x a tile holds (int8_mm_tile_rows)
+    seq: bool            # the split on single blocks, else a cluster a tile
+    blocks: int          # single blocks launched, or clusters (a tile each)
+    ranges: tuple        # the K ranges, [lo, hi) in 128-column chunks, in
+                         # the order their sums are folded from zero
+    instruction: str     # the wgmma each 64-row fragment issues a k16 step
+
+
+def int8_mm_launch(rows: int, out: int, in_dim: int, sms: int = 132,
+                   rowinv: bool = False) -> Int8MmLaunch:
+    """csrc/int8_mm.cu's launch of a [rows, in] x [out, in] product as the
+    wrapper sends it: the split of `int8_mm_rowinv_plan` (rowinv) or of
+    `int8_mm_plan`, and what follows the rows (the tile height, how the
+    split runs, the grid).  On the row-invariant plan a row's sums (the K
+    ranges in fold order, each 128-column chunk as eight k16 steps of one
+    instruction) do not follow the rows."""
+    plan = (int8_mm_rowinv_plan(out, in_dim, sms) if rowinv
+            else int8_mm_plan(rows, out, in_dim, sms))
+    chunks = -(-in_dim // INT8_K_CHUNK)
+    tile = int8_mm_tile_rows(rows, out, sms)
+    seq = int8_mm_seq(rows, out, plan.cs, sms)
+    n_tiles = -(-out // RING_BLOCK_N) * -(-rows // tile)
+    blocks = (min(n_tiles, sms * int8_mm_blocks_per_sm(tile)) if seq
+              else n_tiles)
+    return Int8MmLaunch(
+        tile, seq, blocks,
+        tuple((r * chunks // plan.cs, (r + 1) * chunks // plan.cs)
+              for r in range(plan.cs)), INT8_INSTRUCTION)
 
 
 def int8_mm_splits(in_dim: int, cs: int) -> list[tuple[int, int]]:
-    """The column ranges [lo, hi) of the cs blocks of the int8 kernel's K
-    split: contiguous runs of K chunks, rank order (the kernel's c_lo)."""
+    """The column ranges [lo, hi) of the cs ranges of the int8 kernel's K
+    split: contiguous runs of K chunks, rank order."""
     return _splits(in_dim, INT8_K_CHUNK, cs)
 
 
@@ -305,14 +460,21 @@ def int8_mm_plain(x, w_all, s_all, li: int):
     return matmul_f32(x, w_all[li].to(x.dtype).t()) * s_all[li]
 
 
-def int8_mm_split_plain(x, w_all, s_all, li: int, cs: int):
-    """Plain model of the int8 kernel's K split: each of the cs ranges of
-    `int8_mm_splits` sums its share in f32, the partials are added in rank
-    order, then scaled per row -- the kernel's fold."""
+def int8_mm_split_plain(x, w_all, s_all, li: int, cs: int,
+                        k_step: int | None = None):
+    """Plain model of the int8 kernel's fold: each of the cs ranges of
+    `int8_mm_splits` sums its share in f32 from zero (with `k_step`, as
+    the kernel's chain does: one f32 product a k_step columns, added in
+    order), the ranges' sums are added in rank order from zero, then
+    scaled per output column."""
     w = w_all[li].to(x.dtype)
     acc = 0.0
     for a, b in int8_mm_splits(w.shape[-1], cs):
-        acc = acc + matmul_f32(x[:, a:b], w[:, a:b].t())
+        part = 0.0
+        for lo in range(a, b, k_step or b - a):
+            hi = min(b, lo + (k_step or b - a))
+            part = part + matmul_f32(x[:, lo:hi], w[:, lo:hi].t())
+        acc = acc + part
     return acc * s_all[li]
 
 
@@ -345,13 +507,11 @@ def int8_mm(x, w_all, s_all, li: int, rowinv: bool = False):
     if rows == 0:
         return out
     sms = cuda_lib.sm_count(x.device)
-    plan = (int8_mm_rowinv_plan(out_dim, in_dim, sms) if rowinv
-            else int8_mm_plan(rows, out_dim, in_dim, sms))
+    lp = int8_mm_launch(rows, out_dim, in_dim, sms, rowinv)
     err = cuda_lib.kernels().vt_int8_mm(
         x.data_ptr(), w_all.data_ptr(), s_all.data_ptr(), out.data_ptr(),
-        rows, out_dim, in_dim, li, plan.nj, plan.cs, plan.clusters,
-        cuda_lib.stream_handle(x.device),
-    )
+        rows, out_dim, in_dim, li, len(lp.ranges), int(lp.seq), lp.blocks,
+        lp.tile_rows, cuda_lib.stream_handle(x.device))
     cuda_lib.check(err, "int8_mm")
     int8_mm.launches += 1
     return out
