@@ -16,6 +16,12 @@
                                          # sweep (phase_int8_sweep; ROOT:
                                          # another checkout's package,
                                          # timed in the same call)
+    python3 chip_smoke.py --norm [ROOT]  # device, build, the norm kernel
+                                         # (phase_norm; ROOT: another
+                                         # checkout's norm and its layer
+                                         # sequence, compared bit for bit
+                                         # and timed in the same call,
+                                         # phase_norm_other_tree)
 
 Phases, in order, each printing its own lines; any failure raises and the
 script exits non-zero:
@@ -99,9 +105,17 @@ script exits non-zero:
                times of bf16_mm (both ways) against torch.mm(out_dtype=f32),
                of the int kernels' row-invariant plans against their
                row-count plans, with bounds; the norm kernel
-               (csrc/rms_norm.cu) at the encoder's and the decoder's width
-               (rows 1..80 and B x 38) row-invariant, gated, torch's norm's
-               row dependence printed; bf16_mm and the int8 kernel's
+               (csrc/rms_norm.cu: the residual add, norm and ada scale in
+               one launch, phase_norm) in each of its modes (the norm
+               alone, the add, the add with a bias, the add with ada) at
+               the encoder's and the decoder's width, bf16 and f32 (rows
+               1..80 and B x 38) row-invariant, bit-equal to the unfused
+               sequence it replaced and within a bf16 step of torch's,
+               gated; its graph-replay times at a decode step's 16, 56 and
+               64 rows, the B=64 prefill and the encoder's chunks beside
+               the norm alone, the unfused sequence, torch's, F.rms_norm
+               and the bound; torch's norm's row dependence printed;
+               bf16_mm and the int8 kernel's
                row-invariant plan on the decoder's five products (rows
                1..2432 bitwise invariant, times at 16, 56, 64 rows against
                torch.mm, the int8 row-count plan and bound)
@@ -121,7 +135,8 @@ script exits non-zero:
                on bf16, fp8kv, int8 and int4 with ids bit-equal, decode
                ms/step, device ms, device events, the host's launch calls
                (at most LAUNCH_CALLS_MAX per graphed step) and busy share at
-               mid fill (fp8kv also under "xla", the row-write kernel; int8
+               mid fill (fp8kv also under "xla",
+               the row-write kernel; int8
                also on its plain products, widen + mm, against the int8
                kernel: ms/step, device ms, burst memory), one
                step's f32 logits bit-equal; the B=1 stream's feed() p50/p90
@@ -236,6 +251,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -371,14 +387,22 @@ def device_events(fn, iters: int = 1) -> tuple[list, float]:
     return events, wall
 
 
-def device_ms(fn, iters: int, with_events: bool = False):
-    """Mean device time of fn() in ms: the summed durations of its device
-    events over `iters` calls (and, `with_events`, the events per call).
-    Unlike cuda_ms it has no host gaps, which dominate when the host issues
-    small kernels slower than the device runs them."""
-    events, _ = device_events(fn, iters)
-    ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
-    return (ms, len(events) / iters) if with_events else ms
+def busy_us(events) -> float:
+    """The time in us in which at least one of `events` ran on the device:
+    the union of their intervals, so that kernels that overlap (a
+    programmatic dependent launch starts before the kernel ahead of it
+    ends) count once.  Over a wall time it is the busy share; one minus it
+    the device's idle share."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            if hi is not None:
+                total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + (hi - lo if hi is not None else 0.0)
 
 
 def graph_ms(fn, iters: int, reps: int = 5) -> float:
@@ -2073,22 +2097,23 @@ def _uncounted(plain):
 @contextlib.contextmanager
 def plain_norms():
     """Routes every norm of the model (decoder, streaming and bulk encoder)
-    to torch's, `rms_norm_plain`, through an uncounted stand-in for the
-    duration."""
+    to torch's, `add_rms_norm_plain` (the residual add, the sum of squares
+    in torch's order and the ada scale), through an uncounted stand-in for
+    the duration."""
     from voxtral_tpu_torch.models import bulk_encode
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.models import encoder as enc_mod
-    from voxtral_tpu_torch.ops.norms import rms_norm_plain
+    from voxtral_tpu_torch.ops.norms import add_rms_norm_plain
 
     mods = (dec_mod, enc_mod, bulk_encode)
-    saved = [m.rms_norm for m in mods]
+    saved = [m.add_rms_norm for m in mods]
     for m in mods:
-        m.rms_norm = _uncounted(rms_norm_plain)
+        m.add_rms_norm = _uncounted(add_rms_norm_plain)
     try:
         yield
     finally:
         for m, fn in zip(mods, saved):
-            m.rms_norm = fn
+            m.add_rms_norm = fn
 
 
 @contextlib.contextmanager
@@ -2343,12 +2368,12 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                 st[f"step_ms_mid_fill{tag}"] = (cuda_ms(burst, 2, warmup=1)
                                                 / extra_steps)
                 xchunk = xchunk[:, :8]   # device time over 8 profiled steps
-                dms, n_ev = device_ms(burst, 1, with_events=True)
-                st[f"device_ms_per_step_mid_fill{tag}"] = dms / 8
-                st[f"device_events_per_step_mid_fill{tag}"] = n_ev / 8
-                st[f"busy_mid_fill{tag}"] = (
-                    st[f"device_ms_per_step_mid_fill{tag}"]
-                    / st[f"step_ms_mid_fill{tag}"])
+                ev, _ = device_events(burst)
+                st[f"device_ms_per_step_mid_fill{tag}"] = sum(
+                    e.time_range.elapsed_us() for e in ev) / 8e3
+                st[f"device_events_per_step_mid_fill{tag}"] = len(ev) / 8
+                st[f"busy_mid_fill{tag}"] = (busy_us(ev) / 8e3
+                                             / st[f"step_ms_mid_fill{tag}"])
             else:
                 burst()
             sync()
@@ -2502,9 +2527,19 @@ ROWINV_COPIES = 4
 # order; bf16 outputs round apart by one bf16 step (2^-8 relative) where
 # the two f32 values straddle a rounding boundary
 RMS_NORM_TOL = {"torch.bfloat16": 2 ** -7, "torch.float32": 1e-5}
-# rows at which the norm kernel is timed: a decode step at B = 16 and 64,
-# the B=64 prefill
-NORM_TIME_ROWS = (16, 64, 2432)
+# the modes of the norm kernel (ops/norms.py:add_rms_norm): the norm alone
+# (the final norms, layer 0's attn_norm), the residual add (the decoder's
+# attn_norm), the add with a bias (the encoders' norms), the add with the
+# ada scale (the decoder's ffn_norm)
+NORM_MODES = ("norm", "add", "bias", "ada")
+# where the norm kernel is timed, each in the mode of its layer's ffn_norm:
+# the decoder at a decode step's rows (B = 16, 56, 64) and the B=64
+# prefill; the encoder at a B=1 stream's 1 s chunk, the ring pool's 8 x 24
+# and the bench's "inc" chunk of 512
+NORM_TIME_SHAPES = (("dec", 16, "ada"), ("dec", 56, "ada"),
+                    ("dec", 64, "ada"), ("dec", 2432, "ada"),
+                    ("enc", 50, "bias"), ("enc", 192, "bias"),
+                    ("enc", 512, "bias"))
 # rowinv: the decoder's prefill rows, B x 38, at these B (the smoke's
 # serve and batchinv prefills, the bench's B=56 and B=64)
 ROWINV_PREFILL_ROWS = 38
@@ -2558,7 +2593,7 @@ def cublas_stream():
     """Routes the streaming encoder side (and with it the decoder's
     products and norms) through cuBLAS and torch again, through stand-ins:
     float products to torch.mm (`bf16_mm_plain`), the int kernels on their
-    row-count plans, the norms to torch's (`rms_norm_plain`), and T == 1
+    row-count plans, the norms to torch's (`add_rms_norm_plain`), and T == 1
     chunks to `ring_attention`.  The stand-ins carry `launches = 0`
     (ops/graphs.py reads every wrapper's count during a capture)."""
     from voxtral_tpu_torch.models import encoder as enc_mod
@@ -2691,19 +2726,23 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
     patch(sched, "pool_encode_window", pool_call)
     if deep:
         def layer(fn):
-            def f(cfg, cdtype, x, lp, cache, li, *rest):
+            def f(cfg, cdtype, x, tail, lp, cache, li, *rest):
                 state["layer"], state["norms"] = li, 0
                 try:
-                    y = fn(cfg, cdtype, x, lp, cache, li, *rest)
+                    x, tail = fn(cfg, cdtype, x, tail, lp, cache, li, *rest)
                 finally:
                     state["layer"] = None
-                put(f"L{li:02d}.out", y)
-                return y
+                # the layer's output: its FFN output is added in the next
+                # norm's call, so the residual is formed here as that
+                # call forms it
+                y, b = tail
+                put(f"L{li:02d}.out", x + (y + b).to(x.dtype))
+                return x, tail
             return f
 
         def norm(fn):
             def f(x, *a, **k):
-                y = fn(x, *a, **k)
+                x_new, y = fn(x, *a, **k)
                 li = state["layer"]
                 if li is None:
                     put("final_norm", y)
@@ -2711,7 +2750,7 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
                     put(f"L{li:02d}."
                         f"{('attn', 'ffn')[state['norms'] % 2]}_norm", y)
                     state["norms"] += 1
-                return y
+                return x_new, y
             return f
 
         def product(fn):
@@ -2738,7 +2777,7 @@ def encoder_probe(cfg, deep: bool = False, record: bool = True,
             return f
 
         patch(enc_mod, "_enc_layer_step", layer)
-        patch(enc_mod, "rms_norm", norm)
+        patch(enc_mod, "add_rms_norm", norm)
         patch(enc_mod, "mm", product)
         patch(enc_mod, "matmul_rows", conv_mm)
         patch(enc_mod, "matmul_f32", conv_mm)
@@ -2777,8 +2816,9 @@ def decoder_probe(stream: int = 0):
     Python): `rows` holds batch entry `stream`'s rows of each stage in call
     order: "embed" (the step's or prefill's input embeddings), per layer li
     "Lli.attn_norm", "Lli.wqkv", "Lli.attention" (the input of wo),
-    "Lli.wo", "Lli.ffn_norm", "Lli.w13", "Lli.w2", "Lli.out", then
-    "final_norm", "logits", "argmax" and, for a step with alternatives,
+    "Lli.wo", "Lli.ffn_norm" (after the ada scale), "Lli.w13", "Lli.w2",
+    "Lli.out", then "final_norm", "logits", "argmax" and, for a step with
+    alternatives,
     "alts" (the argmax's probability and the alternatives', after the
     softmax over the vocabulary)."""
     import torch
@@ -2806,19 +2846,22 @@ def decoder_probe(stream: int = 0):
         return f
 
     def layer(fn):
-        def f(cfg, cdtype, x, lp, ada, cache, li, *rest):
+        def f(cfg, cdtype, x, y, lp, ada, cache, li, *rest):
             state["layer"], state["norms"] = li, 0
             try:
-                y = fn(cfg, cdtype, x, lp, ada, cache, li, *rest)
+                x, y = fn(cfg, cdtype, x, y, lp, ada, cache, li, *rest)
             finally:
                 state["layer"] = None
-            put(f"L{li:02d}.out", y)
-            return y
+            # the layer's output: its FFN output is added in the next
+            # norm's call, so the residual is formed here as that call
+            # forms it
+            put(f"L{li:02d}.out", x + y.to(x.dtype))
+            return x, y
         return f
 
     def norm(fn):
         def f(x, *a, **k):
-            y = fn(x, *a, **k)
+            x_new, y = fn(x, *a, **k)
             li = state["layer"]
             if li is None:
                 put("final_norm", y)
@@ -2826,7 +2869,7 @@ def decoder_probe(stream: int = 0):
                 put(f"L{li:02d}.{('attn', 'ffn')[state['norms'] % 2]}_norm",
                     y)
                 state["norms"] += 1
-            return y
+            return x_new, y
         return f
 
     def product(fn):
@@ -2854,9 +2897,9 @@ def decoder_probe(stream: int = 0):
             return out
         return f
 
-    patch(dec_mod, "decoder_forward", forward)
+    patch(dec_mod, "decoder_layers", forward)
     patch(dec_mod, "_layer_step", layer)
-    patch(dec_mod, "rms_norm", norm)
+    patch(dec_mod, "add_rms_norm", norm)
     patch(quant, "mm", product)
     patch(dec_mod, "final_logits", logits)
     patch(dec_mod, "_alts_from_logits", alts)
@@ -2905,7 +2948,7 @@ def _call_counter(name: str):
 # encoder's passes and the streaming encoder's chunks.  With
 # decoder_calls() on they count like kernel launches, so a CUDA graph's
 # capture records them and its replays add them
-DECODER_CALLS = (_call_counter("decoder_forward"),
+DECODER_CALLS = (_call_counter("decoder_layers"),
                  _call_counter("final_logits"))
 ENCODER_CALLS = (_call_counter("bulk_transformer"),
                  _call_counter("_encoder_layers"))
@@ -2938,7 +2981,7 @@ def decoder_calls():
 
     wrappers = graphs.counted_wrappers
     saved = [(m, n, getattr(m, n)) for m in (dec_mod, jacobi)
-             for n in ("decoder_forward", "final_logits")]
+             for n in ("decoder_layers", "final_logits")]
     saved += [(bulk_encode, "bulk_transformer", bulk_encode.bulk_transformer),
               (enc_mod, "_encoder_layers", enc_mod._encoder_layers)]
     counter = {c.__name__: c for c in DECODER_CALLS + ENCODER_CALLS}
@@ -3062,32 +3105,406 @@ DEC_ROWINV_ROWS = (1, 16, 56, 64, 608, 2128, 2432)
 DEC_ROWINV_TIME_ROWS = (16, 56, 64)
 
 
+def _norm_inputs(gen, mode: str, rows: int, width: int, dtype,
+                 device: str = "cuda"):
+    """Seeded inputs of one mode of add_rms_norm (NORM_MODES): x [rows,
+    width] in dtype, the weight, and the keywords y (f32, a product's
+    output), bias and ada (f32 [width]) the mode takes."""
+    import torch
+
+    x = _randn(gen, (rows, width), dtype, device)
+    w = torch.rand((width,), generator=gen, device=device) + 0.5
+    kw = {}
+    if mode != "norm":
+        kw["y"] = _randn(gen, (rows, width), torch.float32, device) * 0.5
+    if mode == "bias":
+        kw["bias"] = _randn(gen, (width,), torch.float32, device) * 0.1
+    if mode == "ada":
+        kw["ada"] = _randn(gen, (width,), torch.float32, device) * 0.2
+    return x, w, kw
+
+
+def norm_unfused(x, w, eps: float = 1e-5, y=None, bias=None, ada=None):
+    """The sequence the layers ran around the norm kernel before its fused
+    form: torch's bias add, cast and residual add, the kernel's norm alone
+    (`rms_norm`), torch's ada ops and cast."""
+    from voxtral_tpu_torch.ops.norms import rms_norm
+
+    if y is not None:
+        x = x + (y if bias is None else y + bias).to(x.dtype)
+    n = rms_norm(x, w, eps)
+    if ada is not None:
+        n = (n.float() * (1.0 + ada)).to(x.dtype)
+    return x, n
+
+
+# the decode step's norm side timed as one chain (decode_profile's "norms"
+# term): 26 layers' two norms with their residual adds and ada scale, at a
+# step's rows
+NORM_CHAIN_ROWS = (16, 56, 64)
+
+
+def norm_chain_ms(fused: bool, rows: int, width: int = 3072,
+                  layers: int = 26, device: str = "cuda") -> float:
+    """Graph-replay ms of a decode step's norm side without its products
+    (one seeded f32 tensor stands in for each product's output), as the
+    layers run it: `fused`, two add_rms_norm calls a layer (the ada scale
+    in the ffn_norm's); else the sequence before the fused call, torch's
+    cast and add, the norm alone (`rms_norm`) and torch's ada ops.  The
+    norm is that of the package on sys.path, so a subprocess on another
+    checkout times that tree's."""
+    import torch
+
+    from voxtral_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=device).manual_seed(rows)
+    bf16 = torch.bfloat16
+    x0 = _randn(gen, (rows, width), bf16, device)
+    y = _randn(gen, (rows, width), torch.float32, device) * 0.5
+    w = [torch.rand((width,), generator=gen, device=device) + 0.5
+         for _ in range(2 * layers)]
+    ada = [_randn(gen, (width,), torch.float32, device) * 0.2
+           for _ in range(layers)]
+
+    def chain():
+        x, yy = x0, None
+        for li in range(layers):
+            if fused:
+                x, _ = norms.add_rms_norm(x, w[2 * li], y=yy)
+                x, _ = norms.add_rms_norm(x, w[2 * li + 1], y=y,
+                                          ada=ada[li])
+                yy = y
+                continue
+            norms.rms_norm(x, w[2 * li]).to(bf16)
+            x = x + y.to(x.dtype)
+            hn = norms.rms_norm(x, w[2 * li + 1]).float()
+            (hn * (1.0 + ada[li])).to(bf16)
+            x = x + y.to(x.dtype)
+        return x
+
+    n0 = norms.rms_norm.launches
+    ms = graph_ms(chain, 1)
+    norms.rms_norm.launches = n0
+    return ms
+
+
+def _norm_bound(mode: str, rows: int, width: int, x_bytes: int) -> dict:
+    """bound of one add_rms_norm call: x and y read once, x_new (with y)
+    and the normed rows written once, the weight, bias and ada read once;
+    its f32 operations (the square and sum, two products, the add, bias
+    and ada) at the card's f32 rate."""
+    per = x_bytes * 2 + (4 + x_bytes) * (mode != "norm")
+    vec = 4 * width * (1 + (mode == "bias") + (mode == "ada"))
+    ops = 4 + (mode != "norm") + (mode == "bias") + 2 * (mode == "ada")
+    return bound(rows * width * per + vec, rows * width * ops, F32_FLOPS)
+
+
 def _norm_times(gen, cfg, device: str = "cuda") -> dict:
-    """The norm kernel's graph-replay ms at the decoder's width in bf16 at
-    NORM_TIME_ROWS rows, against torch's (rms_norm_plain) and
-    torch.nn.functional.rms_norm (the library call), with its bound (each
-    row read and written once, the weight read once)."""
+    """Graph-replay ms of the norm kernel at NORM_TIME_SHAPES in bf16: the
+    fused call in its layer's mode, beside the norm alone, the unfused
+    sequence it replaced (norm_unfused, in one graph), torch's
+    (add_rms_norm_plain), F.rms_norm (the library's norm alone: no
+    PyTorch call computes the fused function) and the bound."""
     import torch
     import torch.nn.functional as F
 
-    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_plain
+    from voxtral_tpu_torch.ops.norms import (
+        add_rms_norm,
+        add_rms_norm_plain,
+        rms_norm,
+    )
 
-    width, out = cfg.decoder.dim, {}
-    nw = torch.rand((width,), generator=gen, device=device) + 0.5
-    for n in NORM_TIME_ROWS:
-        x = _randn(gen, (n, width), torch.bfloat16, device)
+    out = {}
+    for kind, n, mode in NORM_TIME_SHAPES:
+        width = cfg.decoder.dim if kind == "dec" else cfg.encoder.dim
+        x, w, kw = _norm_inputs(gen, mode, n, width, torch.bfloat16, device)
         n0 = rms_norm.launches
-        tm = {"ms": graph_ms(lambda: rms_norm(x, nw), 20),
-              "plain_ms": graph_ms(lambda: rms_norm_plain(x, nw), 20),
+        tm = {"ms": graph_ms(lambda: add_rms_norm(x, w, **kw), 20),
+              "norm_only_ms": graph_ms(lambda: rms_norm(x, w), 20),
+              "unfused_ms": graph_ms(lambda: norm_unfused(x, w, **kw), 20),
+              "plain_ms": graph_ms(lambda: add_rms_norm_plain(x, w, **kw),
+                                   20),
               "library_ms": graph_ms(lambda: F.rms_norm(
-                  x.float(), (width,), nw).to(x.dtype), 20),
-              **bound(2 * 2 * n * width + 4 * width, 4 * n * width)}
+                  x.float(), (width,), w).to(x.dtype), 20),
+              **_norm_bound(mode, n, width, 2)}
         rms_norm.launches = n0
-        out.update({f"norm_{k}_rows{n}": v for k, v in tm.items()})
-        log("rowinv", f"rms_norm [{n} x {width}] bf16: "
-                      f"{tm['ms']:.4f} ms, torch's rms_norm {tm['plain_ms']:.4f}"
-                      f" ms, F.rms_norm {tm['library_ms']:.4f} ms, bound "
-                      f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
+        out.update({f"norm_{k}_{kind}{n}": v for k, v in tm.items()})
+        log("norm", f"[{n} x {width}] bf16 {mode}: fused {tm['ms']:.4f} ms, "
+                    f"norm alone {tm['norm_only_ms']:.4f}, unfused sequence "
+                    f"{tm['unfused_ms']:.4f}, torch's "
+                    f"{tm['plain_ms']:.4f}, F.rms_norm "
+                    f"{tm['library_ms']:.4f} ms; bound "
+                    f"{tm['bound_ms']:.6f} ms ({tm['bound_by']})")
+    for n in NORM_CHAIN_ROWS:
+        tm = {"fused": norm_chain_ms(True, n, cfg.decoder.dim,
+                                     cfg.decoder.n_layers, device),
+              "unfused": norm_chain_ms(False, n, cfg.decoder.dim,
+                                       cfg.decoder.n_layers, device)}
+        out.update({f"norm_chain_{k}_ms_dec{n}": v for k, v in tm.items()})
+        log("norm", f"a decode step's norm side at {n} rows "
+                    f"({cfg.decoder.n_layers} layers): fused "
+                    f"{tm['fused']:.4f} ms, unfused sequence "
+                    f"{tm['unfused']:.4f} ms")
+    return out
+
+
+# --norm ROOT: the rows at which this tree's norm alone is compared bit for
+# bit with ROOT's rms_norm, and at which a layer's norm sequence is
+NORM_PARENT_ROWS = (1, 16, 50, 56, 64, 512, 2432)
+NORM_PARENT_LAYER_ROWS = {"dec": (16, 56, 64, 2432), "enc": (50, 192, 512)}
+
+_NORM_OTHER_TREE = r"""
+import importlib.util, sys, torch
+sys.path.insert(0, sys.argv[1])
+from voxtral_tpu_torch.ops import norms
+from voxtral_tpu_torch.ops.norms import rms_norm
+spec = importlib.util.spec_from_file_location("this_smoke", sys.argv[4])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+inp, outs = torch.load(sys.argv[2]), {}
+for key, (x, w) in inp["norm"].items():
+    x, w = x.cuda(), w.cuda()
+    for n in inp["rows"]:
+        outs[key + (n,)] = rms_norm(x[:n], w).cpu()
+def seq(x, y, b, ada, w):   # the tree's lines around its norm
+    x = x + (y if b is None else y + b).to(x.dtype)
+    n = rms_norm(x, w)
+    if ada is not None:
+        n = n.float() * (1.0 + ada)
+    return x, n.to(torch.bfloat16)
+for key, t in inp["layer"].items():
+    x, y, b1, ada, w1, y2, b2, w2 = (None if v is None else v.cuda()
+                                     for v in t)
+    x1, n1 = seq(x, y, b1, ada, w1)
+    x2, n2 = seq(x1, y2, b2, None, w2)
+    outs[key] = [v.cpu() for v in (x1, n1, x2, n2)]
+# the tree's times at this tree's shapes (chip_smoke._norm_times and
+# norm_chain_ms): its norm alone, its sequence around the norm, and its
+# fused call where it has one
+fused = getattr(norms, "add_rms_norm", None)
+gen, times = torch.Generator(device="cuda").manual_seed(19), {}
+for kind, n, mode in smoke.NORM_TIME_SHAPES:
+    width = inp["widths"][kind]
+    x, w, kw = smoke._norm_inputs(gen, mode, n, width, torch.bfloat16)
+    times[f"norm_only_ms_{kind}{n}"] = smoke.graph_ms(lambda: rms_norm(x, w),
+                                                      20)
+    times[f"unfused_ms_{kind}{n}"] = smoke.graph_ms(
+        lambda: smoke.norm_unfused(x, w, **kw), 20)
+    if fused is not None:
+        times[f"ms_{kind}{n}"] = smoke.graph_ms(lambda: fused(x, w, **kw),
+                                                20)
+for n in smoke.NORM_CHAIN_ROWS:
+    times[f"chain_unfused_ms_dec{n}"] = smoke.norm_chain_ms(
+        False, n, inp["widths"]["dec"], inp["layers"])
+    if fused is not None:
+        times[f"chain_fused_ms_dec{n}"] = smoke.norm_chain_ms(
+            True, n, inp["widths"]["dec"], inp["layers"])
+outs["times"] = times
+torch.save(outs, sys.argv[3])
+"""
+
+
+def phase_norm_other_tree(root: str) -> dict:
+    """`--norm ROOT`: ROOT's norm (another checkout's package, e.g. the
+    parent unpacked with git archive) in a subprocess on the same seeded
+    inputs: its rms_norm's rows at NORM_PARENT_ROWS, both widths and
+    dtypes, against this tree's norm alone, and its sequence of torch ops
+    and norms around a decoder layer's ffn_norm and tail (the wo output
+    added, the norm, the ada scale; the w2 output added, the next
+    attn_norm) and an encoder layer's (with the biases) against this
+    tree's two fused calls: every row gated bit-equal.  The subprocess
+    also times ROOT's norm alone, its sequence around the norm and (where
+    ROOT has one) its fused call at NORM_TIME_SHAPES, and a decode step's
+    norm side (norm_chain_ms) at NORM_CHAIN_ROWS: the "before" of this
+    tree's _norm_times in the same call."""
+    import tempfile
+
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.ops.norms import add_rms_norm, rms_norm
+
+    cfg = full_config()
+    gen = torch.Generator().manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def vec(width, scale=None):
+        if scale is None:
+            return torch.rand((width,), generator=gen) + 0.5
+        return torch.randn((width,), generator=gen) * scale
+
+    inp = {"rows": NORM_PARENT_ROWS, "norm": {}, "layer": {},
+           "widths": {"dec": cfg.decoder.dim, "enc": cfg.encoder.dim},
+           "layers": cfg.decoder.n_layers}
+    for width in (cfg.encoder.dim, cfg.decoder.dim):
+        for dt in (bf16, f32):
+            inp["norm"][(width, str(dt))] = (torch.randn(
+                (max(NORM_PARENT_ROWS), width), generator=gen).to(dt),
+                vec(width))
+    for kind, rows in NORM_PARENT_LAYER_ROWS.items():
+        width = cfg.decoder.dim if kind == "dec" else cfg.encoder.dim
+        dec = kind == "dec"
+        for n in rows:
+            def act(scale):
+                return torch.randn((n, width), generator=gen) * scale
+            inp["layer"][(kind, n)] = (
+                act(1.0).to(bf16), act(0.5), None if dec else vec(width, 0.1),
+                vec(width, 0.2) if dec else None, vec(width), act(0.5),
+                None if dec else vec(width, 0.1), vec(width))
+    tmp = tempfile.mkdtemp()
+    src, dst = os.path.join(tmp, "in.pt"), os.path.join(tmp, "out.pt")
+    torch.save(inp, src)
+    run = subprocess.run([sys.executable, "-c", _NORM_OTHER_TREE, root, src,
+                          dst, os.path.abspath(__file__)],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise AssertionError(f"[norm] {root}: {run.stderr[-2000:]}")
+    other = torch.load(dst)
+    shutil.rmtree(tmp)
+    n0 = rms_norm.launches
+    differ = []
+    for key, (x, w) in inp["norm"].items():
+        x, w = x.cuda(), w.cuda()
+        differ += [key + (n,) for n in NORM_PARENT_ROWS
+                   if not torch.equal(rms_norm(x[:n], w).cpu(),
+                                      other[key + (n,)])]
+    for key, t in inp["layer"].items():
+        x, y, b1, ada, w1, y2, b2, w2 = (None if v is None else v.cuda()
+                                         for v in t)
+        x1, n1 = add_rms_norm(x, w1, y=y, bias=b1, ada=ada)
+        x2, n2 = add_rms_norm(x1, w2, y=y2, bias=b2)
+        if not all(torch.equal(a.cpu(), b)
+                   for a, b in zip((x1, n1, x2, n2), other[key])):
+            differ.append(key)
+    rms_norm.launches = n0
+    log("norm", f"{root}: its rms_norm at rows {NORM_PARENT_ROWS} (widths "
+                f"{cfg.encoder.dim} and {cfg.decoder.dim}, bf16 and f32) "
+                f"and its torch sequence around a layer's ffn_norm and tail "
+                f"(decoder rows {NORM_PARENT_LAYER_ROWS['dec']}, encoder "
+                f"{NORM_PARENT_LAYER_ROWS['enc']}) against this tree's "
+                + ("norm alone and fused calls: bit-equal" if not differ
+                   else f"calls: DIFFER at {differ}"))
+    times = other["times"]
+    for kind, n, mode in NORM_TIME_SHAPES:
+        log("norm", f"{root} [{n} x {inp['widths'][kind]}] bf16 {mode}: "
+                    f"its norm alone {times[f'norm_only_ms_{kind}{n}']:.4f}"
+                    f" ms, its sequence around the norm "
+                    f"{times[f'unfused_ms_{kind}{n}']:.4f} ms"
+                    + (f", its fused call {times[f'ms_{kind}{n}']:.4f} ms"
+                       if f"ms_{kind}{n}" in times else ""))
+    for n in NORM_CHAIN_ROWS:
+        log("norm", f"{root}: a decode step's norm side at {n} rows, its "
+                    f"sequence {times[f'chain_unfused_ms_dec{n}']:.4f} ms"
+                    + (f", its fused calls "
+                       f"{times[f'chain_fused_ms_dec{n}']:.4f} ms"
+                       if f"chain_fused_ms_dec{n}" in times else ""))
+    if differ:
+        raise AssertionError(f"[norm] {root} differs at {differ}")
+    return {"root": root, "norm_rows": NORM_PARENT_ROWS,
+            "layer_rows": NORM_PARENT_LAYER_ROWS, "bit_equal": True,
+            "times": times}
+
+
+def phase_norm(device: str = "cuda", cfg=None,
+               rows_list=ROWINV_ROWS) -> dict:
+    """The norm kernel (csrc/rms_norm.cu through ops/norms.py:
+    add_rms_norm) in every mode of NORM_MODES, at the encoder's width and
+    the decoder's, in bf16 and f32: each row's bits (x_new and the normed
+    rows) at every row count up to 80, of `rows_list` and (decoder) the
+    prefills' B x 38, at two offsets, equal to the same rows of one full
+    call; the full call bit-equal to a second call and to the unfused
+    sequence it replaced (norm_unfused: torch's cast and add, the norm
+    alone, torch's ada ops), x_new bit-equal to torch's, the normed rows
+    within RMS_NORM_TOL of torch's (add_rms_norm_plain); one launch a
+    call.  Printed beside: where torch's mean of squares gives a row other
+    bits (the reason for the kernel).  On the card also the graph-replay
+    times (_norm_times).  Run by the rowinv phase and by `--norm`; on the
+    CPU (tiny config) the plain version against itself, nothing gated."""
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.ops.norms import (
+        add_rms_norm,
+        add_rms_norm_plain,
+        rms_norm,
+    )
+
+    on_gpu = device == "cuda"
+    cfg = cfg or full_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    out, varies, torch_varies, faults = {}, {}, {}, []
+    worst_rel, worst_abs = 0.0, 0.0
+    for width, extra in ((cfg.encoder.dim, ()),
+                         (cfg.decoder.dim, tuple(b * ROWINV_PREFILL_ROWS
+                                                 for b in ROWINV_PREFILL_B))):
+        norm_rows = sorted(set(rows_list) | set(range(1, 81)) | set(extra))
+        n_max = max(norm_rows) + ROWINV_SHIFT
+        for dt, mode in itertools.product((torch.bfloat16, torch.float32),
+                                          NORM_MODES):
+            x, w, kw = _norm_inputs(gen, mode, n_max, width, dt, device)
+            n0 = rms_norm.launches
+            full = add_rms_norm(x, w, **kw)
+            calls = 1
+            again = add_rms_norm(x, w, **kw)
+            bad = []
+            for n in norm_rows:
+                for lo in (0, ROWINV_SHIFT):
+                    part = add_rms_norm(
+                        x[lo: lo + n], w,
+                        **{k: v[lo: lo + n] if k == "y" else v
+                           for k, v in kw.items()})
+                    if not all(torch.equal(a, b[lo: lo + n])
+                               for a, b in zip(part, full)):
+                        bad.append((n, lo))
+            calls += 1 + 2 * len(norm_rows)
+            launched = rms_norm.launches - n0
+            unfused = norm_unfused(x, w, **kw)
+            rms_norm.launches = n0
+            plain = add_rms_norm_plain(x, w, **kw)
+            want = plain[1].float()
+            err_abs = (full[1].float() - want).abs().max().item()
+            err = err_abs / want.abs().max().item()
+            worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel,
+                                                                 err)
+            tol = RMS_NORM_TOL[str(dt)]
+            tag = f"{mode}_{width}_{str(dt)[6:]}"
+            same = {"twice": all(map(torch.equal, full, again)),
+                    "unfused": all(map(torch.equal, full, unfused)),
+                    "x_new": torch.equal(full[0], plain[0])}
+            varies[tag] = bad
+            out[f"rms_norm_rel_err_{tag}"] = err
+            log("norm", f"[n x {width}] {str(dt)[6:]} {mode}: rows 1..80 "
+                        f"and {sorted(set(rows_list) | set(extra))} "
+                        f"(+{ROWINV_SHIFT} offset) "
+                        + ("bitwise equal to the full call" if not bad
+                           else f"DIFFER at {bad}")
+                        + "; " + ", ".join(
+                            f"{k} {'bit-equal' if v else 'DIFFERS'}"
+                            for k, v in same.items())
+                        + f"; rel {err:.3e} of torch's (tol {tol}); "
+                        f"{launched} launches for {calls} calls")
+            if on_gpu and (bad or not all(same.values()) or not err <= tol
+                           or launched != calls):
+                faults.append((tag, bad, same, err, launched, calls))
+            if dt == torch.float32 and mode == "norm":
+                sq = x * x
+                mean = sq.mean(-1)
+                torch_varies[width] = [
+                    n for n in norm_rows
+                    if not torch.equal(sq[:n].mean(-1), mean[:n])]
+            del x, kw, full, again, unfused, plain
+        log("norm", f"torch's rms_norm [n x {width}]: its f32 mean of "
+                    f"squares gives a row other bits than the full call at "
+                    f"rows {torch_varies[width] or 'none'}")
+    if faults:
+        raise AssertionError(f"[norm] the norm kernel: {faults}")
+    out.update({"torch_rms_norm_varies_at": torch_varies,
+                "rms_norm_varies_at": varies,
+                "max_abs_err_rms_norm": worst_abs,
+                "max_rel_err_rms_norm": worst_rel})
+    if on_gpu:
+        out.update(_norm_times(gen, cfg, device))
     return out
 
 
@@ -3304,7 +3721,6 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     from voxtral_tpu_torch.models.quant import _quantize, _quantize4
     from voxtral_tpu_torch.ops import bf16_mm as bmod
     from voxtral_tpu_torch.ops import cuda_lib, quant_mm
-    from voxtral_tpu_torch.ops.norms import rms_norm, rms_norm_plain
 
     on_gpu = device == "cuda"
     cfg = cfg or full_config()
@@ -3313,7 +3729,7 @@ def phase_rowinv(device: str = "cuda", cfg=None,
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     out = {}
-    worst = {"bf16": 0.0, "int8": 0.0, "int4": 0.0, "rms_norm": 0.0}
+    worst = {"bf16": 0.0, "int8": 0.0, "int4": 0.0}
     if on_gpu:
         sms = cuda_lib.sm_count(0)
         lib = cuda_lib.kernels()
@@ -3460,69 +3876,16 @@ def phase_rowinv(device: str = "cuda", cfg=None,
                 for k, v in tm.items():
                     out[f"{kind}_{k}_{name}_rows{n}"] = v
         del x
-    # the norms: rms_norm (csrc/rms_norm.cu) at the encoder's width and
-    # the decoder's, in bf16 and f32, a row's bits at every row count up to
-    # 80, of rows_list and (decoder) the prefills' B x 38, at two offsets;
-    # torch's rms_norm beside it, whose f32 mean of squares shows where its
-    # reduction changes layout (printed: the reason for the kernel)
-    norm_varies, norm_torch_varies = {}, {}
-    for width, extra in ((cfg.encoder.dim, ()),
-                         (cfg.decoder.dim, tuple(b * ROWINV_PREFILL_ROWS
-                                                 for b in ROWINV_PREFILL_B))):
-        norm_rows = sorted(set(rows_list) | set(range(1, 81)) | set(extra))
-        nw = torch.rand((width,), generator=gen, device=device) + 0.5
-        for dt in (torch.bfloat16, torch.float32):
-            x = _randn(gen, (max(norm_rows) + ROWINV_SHIFT, width), dt,
-                       device)
-            n0 = rms_norm.launches
-            full = rms_norm(x, nw)
-            bad = [(n, lo) for n in norm_rows for lo in (0, ROWINV_SHIFT)
-                   if not torch.equal(rms_norm(x[lo: lo + n], nw),
-                                      full[lo: lo + n])]
-            want = rms_norm_plain(x, nw).float()
-            err_abs = (full.float() - want).abs().max().item()
-            err = err_abs / want.abs().max().item()
-            out["max_abs_err_rms_norm"] = max(
-                out.get("max_abs_err_rms_norm", 0.0), err_abs)
-            tol = RMS_NORM_TOL[str(dt)]
-            rms_norm.launches = n0
-            tag = f"{width}_{str(dt)[6:]}"
-            norm_varies[tag] = bad
-            out[f"rms_norm_rel_err_{tag}"] = err
-            worst["rms_norm"] = max(worst["rms_norm"], err)
-            if dt == torch.float32:
-                sq = x * x
-                mean = sq.mean(-1)
-                norm_torch_varies[width] = [
-                    n for n in norm_rows
-                    if not torch.equal(sq[:n].mean(-1), mean[:n])]
-            log("rowinv", f"rms_norm [n x {width}] {str(dt)[6:]} at "
-                          f"rows 1..80 and "
-                          f"{sorted(set(rows_list) | set(extra))} "
-                          f"(+{ROWINV_SHIFT} offset): "
-                          + ("bitwise equal to the full call" if not bad
-                             else f"DIFFERS at {bad}")
-                          + f"; rel {err:.3e} of torch's rms_norm (tol "
-                          f"{tol})")
-            if on_gpu and (bad or not err <= tol):
-                raise AssertionError(f"[rowinv] rms_norm {tag}: rows "
-                                     f"differ at {bad} or rel {err}")
-            del x
-        log("rowinv", f"torch's rms_norm [n x {width}]: its f32 mean of "
-                      f"squares gives a row other bits than the full call "
-                      f"at rows {norm_torch_varies[width] or 'none'}")
+    # the norms (csrc/rms_norm.cu, every mode of add_rms_norm)
+    out.update(phase_norm(device, cfg, rows_list))
     if on_gpu:
-        out.update(_norm_times(gen, cfg, device))
         log("rowinv", "torch.mm(out_dtype=f32) gives a row other bits than "
                       "the full call at rows: " + "; ".join(
                           f"{k} {v}" for k, v in mm_varies.items()))
     out.update({"torch_mm_varies_at": mm_varies,
-                "torch_rms_norm_varies_at": norm_torch_varies,
-                "rms_norm_varies_at": norm_varies,
                 "checked": checked, "max_abs_err_bf16": worst["bf16"],
                 "max_abs_err_int8": worst["int8"],
-                "max_abs_err_int4": worst["int4"],
-                "max_rel_err_rms_norm": worst["rms_norm"]})
+                "max_abs_err_int4": worst["int4"]})
     if on_gpu:
         _rowinv_summary(out, shapes, rows_list)
         out.update(_decoder_products(gen, device))
@@ -4508,22 +4871,23 @@ def parent_decoder_route():
     (cuBLAS, whose algorithm follows the row count), the int kernels on
     their row-count plans, the prefill's attention batched over B, and
     flash-decode on the parent's batch-dependent split (parent_flash_plan),
-    the norms on torch's (rms_norm_plain, uncounted); the streaming encoder
-    side keeps its route.  The kernels' launches count as usual."""
+    the norms and the residual adds around them on torch's
+    (add_rms_norm_plain, uncounted); the streaming encoder side keeps its
+    route.  The kernels' launches count as usual."""
     import torch
 
     from voxtral_tpu_torch.models import decoder as dec_mod
-    from voxtral_tpu_torch.ops.norms import rms_norm_plain
+    from voxtral_tpu_torch.ops.norms import add_rms_norm_plain
 
-    saved = dec_mod._use_rowinv, dec_mod.rms_norm
+    saved = dec_mod._use_rowinv, dec_mod.add_rms_norm
     dec_mod._use_rowinv = (lambda cdtype, call: call == "stream"
                            and cdtype == torch.bfloat16)
-    dec_mod.rms_norm = _uncounted(rms_norm_plain)
+    dec_mod.add_rms_norm = _uncounted(add_rms_norm_plain)
     try:
         with flash_plan(parent_flash_plan, counted=True):
             yield
     finally:
-        dec_mod._use_rowinv, dec_mod.rms_norm = saved
+        dec_mod._use_rowinv, dec_mod.add_rms_norm = saved
 
 
 # batchinv: the batch sizes of stream 0's graphed step (bit-equal at each),
@@ -5054,9 +5418,7 @@ def _int8_step_ab(engine, cfg, n_streams: int, dec_ring: int,
 # the rungs whose whole serve also runs eagerly in the graphs phase (the
 # script's time limit: the other rungs' graphs are held to eager by their
 # mid-fill bursts and one step's logits)
-GRAPHS_EAGER_SERVE = ("bf16", "int4")
-
-
+GRAPHS_EAGER_SERVE = ("bf16",)
 def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                  seconds: float = 30.0, dec_ring: int = 896,
                  extra_steps: int = 32, stream_seconds: float = 11.0,
@@ -5207,7 +5569,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                         f"device_ms_per_step_mid_fill_{tag}": dms,
                         f"device_events_per_step_mid_fill_{tag}": len(ev) / 8,
                         f"launch_calls_per_step_mid_fill_{tag}": calls / 8,
-                        f"busy_mid_fill_{tag}": dms / step_ms})
+                        f"busy_mid_fill_{tag}": (busy_us(ev) / 8e3
+                                                 / step_ms)})
                 else:
                     burst()
                     burst()
@@ -5548,7 +5911,9 @@ def phase_pool(cfg, params, device: str, tag: str, n_slots: int,
 
 def _print_profile(tag: str, events: list, wall_s: float, steps: int,
                    unit: str = "step") -> None:
-    """Per-step device time, busy share and the largest device items."""
+    """Per-step device time (summed kernel time), busy share (the union
+    of the kernels' intervals over the wall: busy_us) and the largest
+    device items."""
     from collections import defaultdict
 
     by_name = defaultdict(lambda: [0.0, 0])
@@ -5558,7 +5923,8 @@ def _print_profile(tag: str, events: list, wall_s: float, steps: int,
     total = sum(us for us, _ in by_name.values())
     log("profile", f"{tag}: wall {wall_s * 1e3 / steps:.3f} ms/{unit} "
                    f"profiled, device {total / 1e3 / steps:.3f} ms/{unit}, "
-                   f"busy {total / 1e6 / wall_s:.3f}, device events "
+                   f"busy {busy_us(events) / 1e6 / wall_s:.3f}, "
+                   f"device events "
                    f"{len(events) / steps:.1f}/{unit}")
     for name, (us, cnt) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:12]:
@@ -6702,18 +7068,23 @@ def _norm_kernel(rowinv: dict, by_path: dict) -> dict:
     """The kernels line's entry of the row-invariant norm: launches by path
     (every norm of the model: the decoder's, the streaming and the bulk
     encoder's), the rowinv phase's check and times at a B=16 step's
-    rows."""
-    n = NORM_TIME_ROWS[0]
+    ffn_norm (the residual add, the norm and the ada scale in one call):
+    its plain version is torch's sequence; no PyTorch call computes the
+    fused function, so library_ms is null and F.rms_norm, the library's
+    norm alone, stands beside it as `library_ms_norm_alone`."""
+    k = "dec16"
     return {"name": "rms_norm", "route": "cuda",
             "source": "voxtral_tpu_torch/csrc/rms_norm.cu",
-            # no Pallas kernel: the norm XLA fuses into the layers
+            # no Pallas kernel: the residual add, norm and ada scale XLA
+            # fuses into the layers
             "replaces": "voxtral_tpu/ops/norms.py:13",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "ms": rowinv[f"norm_ms_rows{n}"],
-            "plain_ms": rowinv[f"norm_plain_ms_rows{n}"],
-            "library_ms": rowinv[f"norm_library_ms_rows{n}"],
-            "bound_ms": rowinv[f"norm_bound_ms_rows{n}"],
-            "bound_by": rowinv[f"norm_bound_by_rows{n}"],
+            "ms": rowinv[f"norm_ms_{k}"],
+            "plain_ms": rowinv[f"norm_plain_ms_{k}"],
+            "library_ms": None,
+            "library_ms_norm_alone": rowinv[f"norm_library_ms_{k}"],
+            "bound_ms": rowinv[f"norm_bound_ms_{k}"],
+            "bound_by": rowinv[f"norm_bound_by_{k}"],
             "max_abs_err": rowinv["max_abs_err_rms_norm"],
             "max_rel_err": rowinv["max_rel_err_rms_norm"],
             **{k: v for k, v in rowinv.items() if k.startswith("norm_")},
@@ -6730,7 +7101,7 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
-               "rows", "rowinv", "slice", "serve", "batchinv",
+               "rows", "rowinv", "norm", "slice", "serve", "batchinv",
                "graphs", "stream", "bstream", "jacobi", "pool_ring",
                "pool_ring_fp8", "pool_window",
                "mesh", "mel_device", "bench", "ckpt", "ckpt_full")
@@ -6811,12 +7182,12 @@ def main(argv: list[str]) -> int:
     import torch
 
     if not (argv in ([], ["--profile"])
-            or (argv[:1] in (["--int4"], ["--bf16"], ["--int8"])
+            or (argv[:1] in (["--int4"], ["--bf16"], ["--int8"], ["--norm"])
                 and len(argv) <= 2)
             or (argv[:1] == ["--only"] and len(argv) == 2
                 and set(argv[1].split(",")) <= set(ONLY_PHASES))):
         raise SystemExit(f"usage: {sys.argv[0]} [--profile | --int4 [ROOT] "
-                         f"| --bf16 [ROOT] | --int8 [ROOT] "
+                         f"| --bf16 [ROOT] | --int8 [ROOT] | --norm [ROOT] "
                          f"| --only PHASE[,PHASE..] of {ONLY_PHASES}]")
     if argv[1:2] and argv[0] == "--int4":
         # the package of another checkout (an A/B of two trees in one call)
@@ -6851,6 +7222,12 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
     if argv[:1] == ["--int8"]:
         print(json.dumps({"int8": phase_int8_sweep(*argv[1:2]),
                           "total_s": time.monotonic() - t_start}))
+        return 0
+    if argv[:1] == ["--norm"]:
+        out = {"norm": phase_norm()}
+        if argv[1:]:
+            out["other_tree"] = phase_norm_other_tree(argv[1])
+        print(json.dumps({**out, "total_s": time.monotonic() - t_start}))
         return 0
     if argv == ["--profile"]:
         from voxtral_tpu_torch.config import full_config

@@ -39,20 +39,20 @@ KW = dict(buckets=(16, 4, 1), enc_kv_ring=64, dec_kv_ring=64)
 @pytest.fixture
 def seen(monkeypatch):
     """Counts the products that reach bf16_mm and the int kernels, by
-    their rowinv argument, and the decoder's norms (ops/norms.py:rms_norm,
-    whose kernel is row-invariant)."""
+    their rowinv argument, and the decoder's norms (ops/norms.py:
+    add_rms_norm, whose kernel is row-invariant)."""
     got = {"bf16": 0, "int8_rowinv": 0, "int8_rows": 0, "int4_rowinv": 0,
            "int4_rows": 0, "norm": 0}
     real = (bf16_mm.bf16_mm, quant_mm.int8_mm, quant_mm.int4_mm,
-            decoder.rms_norm)
+            decoder.add_rms_norm)
 
     def bf16(x, w):
         got["bf16"] += 1
         return real[0](x, w)
 
-    def norm(x, w, eps):
+    def norm(x, w, eps, *a, **k):
         got["norm"] += 1
-        return real[3](x, w, eps)
+        return real[3](x, w, eps, *a, **k)
 
     def counted(kind, fn):
         def f(x, w, s, li, rowinv=False):
@@ -63,7 +63,7 @@ def seen(monkeypatch):
     monkeypatch.setattr(bf16_mm, "bf16_mm", bf16)
     monkeypatch.setattr(quant_mm, "int8_mm", counted("int8", real[1]))
     monkeypatch.setattr(quant_mm, "int4_mm", counted("int4", real[2]))
-    monkeypatch.setattr(decoder, "rms_norm", norm)
+    monkeypatch.setattr(decoder, "add_rms_norm", norm)
     return got
 
 

@@ -1947,3 +1947,114 @@ def test_rms_norm_rows_bitwise_invariant(dev, width, dtype):
     tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert ((full.float() - want).abs().max()
             / want.abs().max()).item() <= tol
+
+
+def _norm_args(gen, mode, rows, width, dtype, dev):
+    """x, weight and the keywords of one mode of add_rms_norm: the norm
+    alone, the residual add, the add with a bias, the add with the ada
+    scale."""
+    x = _randn(gen, (rows, width), dtype, dev)
+    w = torch.rand((width,), generator=gen, device=dev) + 0.5
+    kw = {}
+    if mode != "norm":
+        kw["y"] = torch.randn((rows, width), generator=gen, device=dev) * 0.5
+    if mode == "bias":
+        kw["bias"] = torch.randn((width,), generator=gen, device=dev) * 0.1
+    if mode == "ada":
+        kw["ada"] = torch.randn((width,), generator=gen, device=dev) * 0.2
+    return x, w, kw
+
+
+@pytest.mark.parametrize("mode", ["norm", "add", "bias", "ada"])
+@pytest.mark.parametrize("width", [1280, 3072])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_add_rms_norm_kernel(dev, mode, width, dtype):
+    """The fused norm kernel in every mode: bit-equal to the unfused
+    sequence it replaced (torch's bias add, cast and residual add, the
+    kernel's norm alone, torch's ada ops) and to a second call; x_new
+    bit-equal to torch's and the normed rows within one bf16 step (f32:
+    1e-5) of add_rms_norm_plain; every row's bits (both outputs) the same
+    at 1..80 rows and the prefills' B x 38, at two offsets; one launch a
+    call."""
+    from voxtral_tpu_torch.ops.norms import (
+        add_rms_norm,
+        add_rms_norm_plain,
+        rms_norm,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(width + len(mode))
+    x, w, kw = _norm_args(gen, mode, 64 * 38 + 7, width, dtype, dev)
+    n0 = rms_norm.launches
+    full = add_rms_norm(x, w, **kw)
+    assert rms_norm.launches == n0 + 1
+    assert all(map(torch.equal, full, add_rms_norm(x, w, **kw)))
+    want_x = x
+    if "y" in kw:
+        y = kw["y"] + kw["bias"] if "bias" in kw else kw["y"]
+        want_x = x + y.to(x.dtype)
+    else:
+        assert full[0] is x
+    n = rms_norm(want_x, w)
+    if "ada" in kw:
+        n = n.float() * (1.0 + kw["ada"])
+    assert torch.equal(full[0], want_x) and torch.equal(full[1], n.to(dtype))
+    plain = add_rms_norm_plain(x, w, **kw)
+    assert torch.equal(full[0], plain[0])
+    want = plain[1].float()
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert ((full[1].float() - want).abs().max()
+            / want.abs().max()).item() <= tol
+    for n in list(range(1, 81)) + [38 * b for b in (3, 4, 16, 56, 64)]:
+        for lo in (0, 7):
+            part = add_rms_norm(x[lo: lo + n], w, **{
+                k: v[lo: lo + n] if k == "y" else v for k, v in kw.items()})
+            assert all(torch.equal(a, b[lo: lo + n])
+                       for a, b in zip(part, full)), (n, lo)
+
+
+def test_add_rms_norm_kernel_in_a_graph_and_refusals(dev):
+    """Captured in a CUDA graph between two products (a chain of
+    programmatic dependent launches), with its ada scale written by the
+    kernel just before it, the fused call's bits equal eager's and the
+    unfused sequence's; the wrapper refuses what the kernel does not
+    take."""
+    from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
+    from voxtral_tpu_torch.ops.norms import add_rms_norm, rms_norm
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, w, kw = _norm_args(gen, "ada", 64, 3072, torch.bfloat16, dev)
+    wo = _randn(gen, (3072, 4096), torch.bfloat16, dev)
+    w13 = _randn(gen, (2048, 3072), torch.bfloat16, dev)
+    a = _randn(gen, (64, 4096), torch.bfloat16, dev)
+
+    def chain():
+        y = bf16_mm(a, wo)
+        ada = kw["ada"] * 2.0
+        x_new, hn = add_rms_norm(x, w, y=y, ada=ada)
+        return x_new, hn, bf16_mm(hn, w13)
+
+    eager = chain()
+    want_x = x + bf16_mm(a, wo).to(x.dtype)
+    want_n = (rms_norm(want_x, w).float() * (1.0 + kw["ada"] * 2.0)
+              ).to(x.dtype)
+    assert torch.equal(eager[0], want_x) and torch.equal(eager[1], want_n)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        static = chain()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, static, eager))
+    with pytest.raises(ValueError, match="bias without y"):
+        add_rms_norm(x, w, bias=kw["ada"])
+    with pytest.raises(ValueError, match="f32"):
+        add_rms_norm(x, w, y=kw["y"].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="weight"):
+        add_rms_norm(x, w.to(torch.bfloat16))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        add_rms_norm(torch.zeros((2, 8192), device=dev),
+                     torch.ones(8192, device=dev))

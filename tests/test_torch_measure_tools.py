@@ -131,16 +131,23 @@ def test_microbench_decode_variants(monkeypatch, capsys, same_weights, env):
 
 def test_decode_profile_prints_the_jax_tools_ledger(monkeypatch, capsys,
                                                     same_weights):
-    """Every term: the GiB it moves, the burst and batch equal."""
+    """Every term: the GiB it moves, the burst and batch equal; the port's
+    own "norms" term (a part of "matmuls": the chain's norm calls without
+    its products, fused and unfused) beside them."""
     for k, v in (("DP_BATCH", "2"), ("DP_RING", "64"), ("DP_POS", "40"),
                  ("DP_BURST", "4"), ("DP_REP", "1")):
         monkeypatch.setenv(k, v)
     port = _run_port(decode_profile, [], capsys)
     ref = _run_jax(jax_profile, [], monkeypatch, capsys)
-    labels = [ln.split(":")[0].strip() for ln in _lines(port)]
+    got = _lines(port)
+    labels = [ln.split(":")[0].strip() for ln in got]
     assert labels == ["weights", "logits", "attn/grid", "attn/flat",
-                      "attn/xla", "rowwrite", "matmuls", "step"]
-    assert _lines(port) == _lines(ref)
+                      "attn/xla", "rowwrite", "matmuls", "norms", "step"]
+    nl = tiny_config().decoder.n_layers
+    assert got.pop(labels.index("norms")) == (
+        f"norms : T ms ({nl}-layer residual adds, norms, ada and casts, "
+        f"{2 * nl} fused calls; the unfused sequence T ms)")
+    assert got == _lines(ref)
 
 
 @pytest.mark.parametrize("quant", ["int8", "int4"])

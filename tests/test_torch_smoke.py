@@ -55,11 +55,12 @@ def counted_kernels(monkeypatch):
         quant_mm.int4_mm, quant_mm.int4_mm_plain, own=True))
     monkeypatch.setattr(quant_mm, "int8_mm", _counted(
         quant_mm.int8_mm, quant_mm.int8_mm_plain, own=True))
-    # every norm of the model, counted as the norm kernel's launches; the
-    # phases model them from the model's passes (chip_smoke.decoder_calls)
+    # every norm of the model (each an add_rms_norm call), counted as the
+    # norm kernel's launches; the phases model them from the model's
+    # passes (chip_smoke.decoder_calls)
     for mod in (decoder, encoder, bulk_encode):
-        monkeypatch.setattr(mod, "rms_norm", _counted(
-            norms.rms_norm, norms.rms_norm_plain))
+        monkeypatch.setattr(mod, "add_rms_norm", _counted(
+            norms.rms_norm, norms.add_rms_norm_plain))
     with cs.decoder_calls():
         yield
     for fn in (banded_encode.banded_attention_batched,
@@ -326,6 +327,23 @@ def test_jacobi_near_tie_rule():
         jacobi.decode_burst_jacobi = real
     assert res["first_diff"] == 0 and res["near_tie"] is False
     assert res["gap"] > 0
+
+
+def test_busy_counts_overlapping_kernels_once():
+    """busy_us is the union of the events' intervals: a kernel that starts
+    before the one ahead of it ends (a programmatic dependent launch)
+    adds only the time past that one's end; gaps add nothing."""
+    from types import SimpleNamespace
+
+    def ev(start, end):
+        return SimpleNamespace(time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    assert cs.busy_us([]) == 0.0
+    assert cs.busy_us([ev(0, 10)]) == 10
+    # 0-10 and 6-14 overlap, 12-13 lies inside, 20-25 after a gap
+    assert cs.busy_us([ev(20, 25), ev(6, 14), ev(0, 10), ev(12, 13)]) == 19
+    assert cs.busy_us([ev(0, 5), ev(5, 8)]) == 8
 
 
 def test_pool_phases_on_cpu(counted_kernels):

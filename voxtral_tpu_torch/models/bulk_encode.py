@@ -26,7 +26,7 @@ import torch
 
 from ..config import VoxtralConfig
 from ..ops.banded_encode import banded_attention_batched, banded_attention_plain
-from ..ops.norms import rms_norm, silu
+from ..ops.norms import add_rms_norm, silu
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
 from .decoder import _use_flash
@@ -62,11 +62,14 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
     qkv_dim = e.qkv_dim
     banded = (banded_attention_batched if _use_flash(e)
               else banded_attention_plain)
-    x = x.to(cdtype)
+    # each norm is one add_rms_norm call with the residual add of the
+    # previous product's output (and its bias) fused in; `tail` holds the
+    # last FFN output still to add
+    x, tail = x.to(cdtype), ()
     layers = enc_params["layers"]
     for li in range(e.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        xn = rms_norm(x, lp["attn_norm"], e.norm_eps).to(cdtype)
+        x, xn = add_rms_norm(x, lp["attn_norm"], e.norm_eps, *tail)
         qkv = mm(xn, lp, "wqkv") + lp["bqkv"]
         q = qkv[..., :qkv_dim].reshape(bsz, t, e.n_heads, e.head_dim)
         k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, e.n_kv_heads, e.head_dim)
@@ -78,13 +81,12 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
                       ).reshape(bsz, t, qkv_dim)
         # row-parallel products: on a tp mesh, summed over the ranks in
         # f32, the bias added once after the sum (parallel/mesh.py)
-        x = x + (tp_sum(mm(attn, lp, "wo"), e) + lp["bo"]).to(x.dtype)
-        hn = rms_norm(x, lp["ffn_norm"], e.norm_eps).to(cdtype)
+        x, hn = add_rms_norm(x, lp["ffn_norm"], e.norm_eps,
+                             tp_sum(mm(attn, lp, "wo"), e), lp["bo"])
         g13 = mm(hn, lp, "w13")
         gate = silu(g13[..., : e.hidden]) * g13[..., e.hidden:]
-        ffn = tp_sum(mm(gate.to(cdtype), lp, "w2"), e) + lp["b2"]
-        x = x + ffn.to(x.dtype)
-    return rms_norm(x, enc_params["final_norm"], e.norm_eps).to(cdtype)
+        tail = (tp_sum(mm(gate.to(cdtype), lp, "w2"), e), lp["b2"])
+    return add_rms_norm(x, enc_params["final_norm"], e.norm_eps, *tail)[1]
 
 
 @torch.no_grad()

@@ -52,7 +52,7 @@ from ..config import TOKEN_TEXT_MIN, DecoderConfig, VoxtralConfig
 from ..ops import quant_mm
 from ..ops.flash_decode import flash_decode
 from ..ops.graphs import GraphStore, graph_key
-from ..ops.norms import gelu, rms_norm, silu
+from ..ops.norms import add_rms_norm, gelu, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_of, tp_sum
@@ -176,7 +176,8 @@ def _use_rowinv(cdtype, call: str) -> bool:
 def _layer_step(
     cfg: DecoderConfig,
     cdtype,
-    x: torch.Tensor,          # [B, T, dim]
+    x: torch.Tensor,          # [B, T, dim] the residual
+    y: torch.Tensor | None,   # [B, T, dim] f32: the FFN output still to add
     lp: PyTree,               # one layer's params (leading L axis indexed away)
     ada: torch.Tensor,        # [dim] f32
     cache: KVCache,           # [B, L, KH, cap, D], written in place
@@ -184,12 +185,18 @@ def _layer_step(
     pos0: torch.Tensor,       # int [B]: logical position of x[:, 0]
     cos: torch.Tensor,        # [B, T, D/2]
     sin: torch.Tensor,
-) -> torch.Tensor:
+):
+    """One layer.  The previous layer's FFN output y (None before layer 0)
+    is added to the residual x in the call of this layer's attn_norm, and
+    this layer's own is handed on: returns (x, y) for the next layer (or
+    the final norm, `final_logits`).  Each norm is one `add_rms_norm` call
+    with the residual add, the ada scale and the casts around it, as XLA
+    fuses them into one pass."""
     bsz, t, _ = x.shape
     q_dim = cfg.q_dim
     ri = _use_rowinv(cdtype, "decoder")
 
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
+    x, xn = add_rms_norm(x, lp["attn_norm"], cfg.norm_eps, y=y)
     qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)        # f32
     q = qkv[..., :q_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., q_dim: q_dim + cfg.kv_dim].reshape(
@@ -219,16 +226,14 @@ def _layer_step(
         ).reshape(bsz, t, q_dim)
 
     # row-parallel products: on a tp mesh, summed over the ranks in f32
-    # before the cast (parallel/mesh.py)
-    x = x + tp_sum(quant.mm(attn, lp, "wo", rowinv=ri), cfg).to(x.dtype)
-
-    # ada-RMSNorm (python:607-616): the norm rounds to x's dtype first
-    hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).float()
-    hn = (hn * (1.0 + ada)).to(cdtype)
+    # before the cast (parallel/mesh.py); the residual add and the
+    # ada-RMSNorm (python:607-616: the norm rounds to x's dtype first)
+    x, hn = add_rms_norm(
+        x, lp["ffn_norm"], cfg.norm_eps,
+        y=tp_sum(quant.mm(attn, lp, "wo", rowinv=ri), cfg), ada=ada)
     g13 = quant.mm(hn, lp, "w13", rowinv=ri)
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
-    ffn = tp_sum(quant.mm(gate.to(cdtype), lp, "w2", rowinv=ri), cfg)
-    return x + ffn.to(x.dtype)
+    return x, tp_sum(quant.mm(gate.to(cdtype), lp, "w2", rowinv=ri), cfg)
 
 
 def decoder_forward(
@@ -240,7 +245,25 @@ def decoder_forward(
     ada: torch.Tensor,        # [L, dim] f32 precomputed ada scales
 ):
     """Run all layers over T embeddings per stream.  Writes the T positions'
-    K/V into the cache in place.  Returns (hidden [B, T, dim], cache)."""
+    K/V into the cache in place.  Returns (hidden [B, T, dim], cache): the
+    last layer's FFN output is added here in torch (the callers that go on
+    to the logits take `decoder_layers` and fuse that add into the final
+    norm instead)."""
+    x, y = decoder_layers(params, cfg, embeds, cache, pos0, ada)
+    return x + y.to(x.dtype), cache
+
+
+def decoder_layers(
+    params: PyTree,
+    cfg: VoxtralConfig,
+    embeds: torch.Tensor,     # [B, T, dim] input embeddings
+    cache: KVCache,
+    pos0: torch.Tensor,       # int [B]
+    ada: torch.Tensor,        # [L, dim] f32 precomputed ada scales
+):
+    """`decoder_forward` without the last residual add: returns (x, y),
+    the residual before the last layer's FFN output y (f32) is added,
+    for `final_logits(params, cfg, x, y)`.  Writes the cache in place."""
     d = cfg.decoder
     cdtype = cfg.cdtype
     bsz, t, _ = embeds.shape
@@ -248,17 +271,20 @@ def decoder_forward(
     positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
                                              device=embeds.device)
     cos, sin = rope_cos_sin(positions, d.head_dim, d.rope_theta)
-    x = embeds.to(cdtype)
+    x, y = embeds.to(cdtype), None
     layers = params["layers"]
     for li in range(d.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _layer_step(d, cdtype, x, lp, ada[li], cache, li, pos0, cos, sin)
-    return x, cache
+        x, y = _layer_step(d, cdtype, x, y, lp, ada[li], cache, li, pos0,
+                           cos, sin)
+    return x, y
 
 
-def final_logits(params: PyTree, cfg: VoxtralConfig,
-                 x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm + tied-embedding logits with f32 accumulation (python:657-664).
+def final_logits(params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor:
+    """RMSNorm + tied-embedding logits with f32 accumulation (python:657-664),
+    of x, or with y (`decoder_layers`' pending FFN output) of x + y, the
+    add fused into the norm's call.
     Operands stay in the embedding dtype; int8 and int4 tables take bf16
     activations.  x: [..., dim] -> [..., vocab] f32; on a tp mesh, this
     rank's slice of the vocab [..., vocab / tp] (parallel/mesh.py).  On
@@ -268,17 +294,17 @@ def final_logits(params: PyTree, cfg: VoxtralConfig,
     emb = params["tok_embeddings"]
     s = params.get("tok_embeddings_scale")
     ri = _use_rowinv(cfg.cdtype, "decoder")
-    xn = rms_norm(x, params["final_norm"], cfg.decoder.norm_eps)
+    _, xn = add_rms_norm(x, params["final_norm"], cfg.decoder.norm_eps, y=y)
     if quant._is_packed4(emb, s):
         # nibble-packed int4 table, per-half scales [V, 2]: the int4 kernel
-        y = quant_mm.int4_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
-                             emb[None], s[None], 0, rowinv=ri)
-        return y.reshape(*x.shape[:-1], emb.shape[0])
+        lg = quant_mm.int4_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
+                              emb[None], s[None], 0, rowinv=ri)
+        return lg.reshape(*x.shape[:-1], emb.shape[0])
     if emb.dtype == torch.int8:
         # int8 table, one scale per vocab row [V]: the int8 kernel
-        y = quant_mm.int8_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
-                             emb[None], s[None], 0, rowinv=ri)
-        return y.reshape(*x.shape[:-1], emb.shape[0])
+        lg = quant_mm.int8_mm(xn.to(torch.bfloat16).reshape(-1, x.shape[-1]),
+                              emb[None], s[None], 0, rowinv=ri)
+        return lg.reshape(*x.shape[:-1], emb.shape[0])
     if ri and emb.dtype == torch.bfloat16:
         return quant.matmul_rows(xn.to(emb.dtype), emb)
     return quant.matmul_f32(xn.to(emb.dtype), emb.t())
@@ -290,7 +316,7 @@ def prefill(params: PyTree, cfg: VoxtralConfig, embeds: torch.Tensor,
     """Teacher-forced prefill: write KV for `embeds` [B, T, dim] into the
     cache (in place), discard hidden states (vox_decoder_prefill analog,
     voxtral_decoder.c:410-558).  `params` is the decoder subtree."""
-    decoder_forward(params, cfg, embeds, cache, pos0, ada)
+    decoder_layers(params, cfg, embeds, cache, pos0, ada)
     return cache
 
 
@@ -324,8 +350,8 @@ def _step(params: PyTree, cfg: VoxtralConfig, row: torch.Tensor,
     (token, best_prob, alt_ids, alt_probs)."""
     tp = tp_of(cfg)
     embed = (row.float() + quant.embed_rows(params, prev, tp=tp))[:, None]
-    x, _ = decoder_forward(params, cfg, embed, cache, pos, ada)
-    logits = final_logits(params, cfg, x)[:, 0]
+    x, y = decoder_layers(params, cfg, embed, cache, pos, ada)
+    logits = final_logits(params, cfg, x, y)[:, 0]
     if n_alt > 0:
         if tp is not None:
             logits = tp.gather_last(logits)

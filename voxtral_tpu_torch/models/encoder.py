@@ -45,7 +45,7 @@ Row invariance (decoder._use_rowinv): in a bf16 config the streaming side
 here (conv stem, ring layers, adapter) takes the products whose rows' bits
 do not depend on how many rows share a call (`quant.mm(rowinv=True)`,
 `quant.matmul_rows`), so that a stream's rows do not depend on how its
-audio was chunked (the norms' kernel, `ops/norms.py:rms_norm`, is
+audio was chunked (the norms' kernel, `ops/norms.py:add_rms_norm`, is
 row-invariant on every path).  The bulk encoder passes call="bulk" to the
 functions it shares with the stream and keeps torch.mm.
 """
@@ -60,7 +60,7 @@ import torch
 from ..config import DOWNSAMPLE_FACTOR, EncoderConfig, VoxtralConfig
 from ..ops.flash_encode import flash_bulk_attention_batched
 from ..ops.graphs import GraphStore, graph_key
-from ..ops.norms import gelu, rms_norm, silu
+from ..ops.norms import add_rms_norm, gelu, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
 from ..ops.rope import apply_rope_interleaved, rope_cos_sin
 from ..parallel.mesh import tp_sum
@@ -155,13 +155,19 @@ def chunk_attention(t: int, cdtype) -> bool:
     return t > 1 or _use_rowinv(cdtype, "stream")
 
 
-def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
-                    li: int, pos0, cos, sin):
+def _enc_layer_step(cfg: EncoderConfig, cdtype, x, tail, lp,
+                    cache: EncKVCache, li: int, pos0, cos, sin):
+    """One ring-cache layer.  `tail` is the previous layer's FFN output
+    still to add to the residual x, (y f32, its bias), or () before layer
+    0: it is added in the call of this layer's attn_norm.  Returns (x,
+    tail) for the next layer or the final norm; each norm is one
+    `add_rms_norm` call with the residual add, the bias and the casts
+    around it."""
     bsz, t, _ = x.shape
     qkv_dim = cfg.qkv_dim
     ri = _use_rowinv(cdtype, "stream")
 
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps).to(cdtype)
+    x, xn = add_rms_norm(x, lp["attn_norm"], cfg.norm_eps, *tail)
     qkv = mm(xn, lp, "wqkv", ri) + lp["bqkv"]
     q = qkv[..., :qkv_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
     k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, cfg.n_kv_heads,
@@ -186,13 +192,11 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, lp, cache: EncKVCache,
     attn = attn.reshape(bsz, t, qkv_dim)
     # row-parallel products: on a tp mesh, summed over the ranks in f32,
     # the bias added once after the sum (parallel/mesh.py)
-    x = x + (tp_sum(mm(attn, lp, "wo", ri), cfg) + lp["bo"]).to(x.dtype)
-
-    hn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).to(cdtype)
+    x, hn = add_rms_norm(x, lp["ffn_norm"], cfg.norm_eps,
+                         tp_sum(mm(attn, lp, "wo", ri), cfg), lp["bo"])
     g13 = mm(hn, lp, "w13", ri)
     gate = silu(g13[..., : cfg.hidden]) * g13[..., cfg.hidden:]
-    ffn = tp_sum(mm(gate.to(cdtype), lp, "w2", ri), cfg) + lp["b2"]
-    return x + ffn.to(x.dtype)
+    return x, (tp_sum(mm(gate.to(cdtype), lp, "w2", ri), cfg), lp["b2"])
 
 
 def encoder_layers(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
@@ -219,12 +223,13 @@ def _encoder_layers(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
     positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
                                              device=x.device)
     cos, sin = rope_cos_sin(positions, e.head_dim, e.rope_theta)
-    x = x.to(cdtype)
+    x, tail = x.to(cdtype), ()
     layers = enc_params["layers"]
     for li in range(e.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _enc_layer_step(e, cdtype, x, lp, cache, li, pos0, cos, sin)
-    return rms_norm(x, enc_params["final_norm"], e.norm_eps).to(cdtype)
+        x, tail = _enc_layer_step(e, cdtype, x, tail, lp, cache, li, pos0,
+                                  cos, sin)
+    return add_rms_norm(x, enc_params["final_norm"], e.norm_eps, *tail)[1]
 
 
 @torch.no_grad()

@@ -18,7 +18,7 @@ Differences from the JAX function:
     iteration reads one bool from the device (has the argmax stopped
     moving?), and the iteration count is a host int.
   - The KV cache is written IN PLACE: each pass rewrites the window's W
-    ring slots before it attends to them (`decoder_forward` at T = W, the
+    ring slots before it attends to them (`decoder_layers` at T = W, the
     plain `ring_write` + `ring_attention` path: the JAX package has no
     kernel for decoder chunks of T > 1 either).  At the fixpoint the
     written rows are the sequential ones, as in JAX, where the cache is
@@ -44,7 +44,7 @@ from .decoder import (
     _alts_from_logits,
     _positions,
     _use_graph,
-    decoder_forward,
+    decoder_layers,
     final_logits,
 )
 
@@ -66,8 +66,8 @@ def _jacobi_window(params: PyTree, cfg: VoxtralConfig,
     def window_pass(a32, prev_token, guesses, pos0):
         prev = torch.cat([prev_token, guesses[:-1]])
         embeds = a32 + quant.embed_rows(params, prev)
-        x, _ = decoder_forward(params, cfg, embeds[None], cache, pos0, ada)
-        return final_logits(params, cfg, x)[0]              # [W, V] f32
+        x, y = decoder_layers(params, cfg, embeds[None], cache, pos0, ada)
+        return final_logits(params, cfg, x, y)[0]           # [W, V] f32
 
     if _use_graph(cfg, cache, a32, "jacobi"):
         # one CUDA graph per window size on this cache (ops/graphs.py); the

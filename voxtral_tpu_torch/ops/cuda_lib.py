@@ -141,7 +141,8 @@ def kernels() -> ctypes.CDLL:
             lib.vt_int8_mm_occupancy.restype = i
             lib.vt_int8_mm_occupancy.argtypes = [i, i]
             lib.vt_rms_norm.restype = i
-            lib.vt_rms_norm.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
+            lib.vt_rms_norm.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                        ctypes.c_float, p]
             lib.vt_ring_rows_write.restype = i
             lib.vt_ring_rows_write.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,

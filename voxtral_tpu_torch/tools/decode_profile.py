@@ -14,7 +14,14 @@ step, then the ledger is printed with the JAX tool's lines:
   xla       the plain whole-ring attention (ops/ring.py ring_attention) of
             the 26 layers
   rowwrite  26 row writes (csrc/ring_rows_write.cu, TPU kernel #5)
-  matmuls   the 26-layer qkv/wo/w13/w2 chain with attention stubbed out
+  matmuls   the 26-layer qkv/wo/w13/w2 chain with attention stubbed out,
+            with the step's norm calls between the products
+  norms     the same chain's residual adds, norms, ada scales and casts
+            without its products (their f32 outputs stood in by one
+            tensor): 2 fused calls a layer (ops/norms.py add_rms_norm,
+            csrc/rms_norm.cu), beside the unfused torch sequence the step
+            ran before the fused call (10 kernels a layer); a part of
+            "matmuls", not a term of the sum
   step      the real batched burst (parallel/serving.py bdecode_burst), ms
             per token: on the card it replays the decoder step's CUDA graph
             (ops/graphs.py), so the terms above are what it should approach
@@ -31,7 +38,7 @@ Usage:
 Env: DP_BATCH (32), DP_RING (896), DP_POS (500), DP_BURST (64), DP_KV
 (the ring dtype), DP_ATTN (the step's attn_impl), DP_QUANT (int8|int4),
 DP_REP (4), DP_TERMS (a subset of weights,logits,attn,xla,rowwrite,
-matmuls,step).  DP_BLOCK, the JAX kernel's block size, has no counterpart
+matmuls,norms,step).  DP_BLOCK, the JAX kernel's block size, has no counterpart
 (the port's kernel plans its split from the shapes) and exits 2.
 """
 
@@ -72,7 +79,7 @@ def main(argv=None, cfg=None) -> int:
     from ..models import quant
     from ..models.params import init_params
     from ..ops.flash_decode import flash_decode
-    from ..ops.norms import rms_norm, silu
+    from ..ops.norms import add_rms_norm, rms_norm, silu
     from ..ops.ring import ring_attention, ring_rows_write
     from ..parallel import serving as sv
 
@@ -106,7 +113,7 @@ def main(argv=None, cfg=None) -> int:
     gib = 1 << 30
     rep = int(os.environ.get("DP_REP", "4"))
     terms = set(os.environ.get(
-        "DP_TERMS", "weights,logits,attn,xla,rowwrite,matmuls,step"
+        "DP_TERMS", "weights,logits,attn,xla,rowwrite,matmuls,norms,step"
     ).split(","))
 
     def bytes_of(t):
@@ -190,27 +197,29 @@ def main(argv=None, cfg=None) -> int:
     del cache
 
     # --- term: matmul+norm chain, attention stubbed ---------------------
-    # (on the step's route: row-invariant products in a bf16 config)
+    # (on the step's route: row-invariant products in a bf16 config; each
+    # norm one add_rms_norm call, the last FFN output left to the logits'
+    # norm, as models/decoder.py:_layer_step runs them)
     cdtype = cfg.cdtype
     ri = dmod._use_rowinv(cdtype, "decoder")
-    x_m = torch.zeros((batch, d.dim), device=dev)
+    x_m = torch.zeros((batch, d.dim), dtype=cdtype, device=dev)
+    lps = [{k: v[li] for k, v in dp["layers"].items()}
+           for li in range(d.n_layers)]
 
     def matmuls_only():
-        x = x_m
-        for li in range(d.n_layers):
-            lp = {k: v[li] for k, v in dp["layers"].items()}
-            xn = rms_norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
+        x, y = x_m, None
+        for li, lp in enumerate(lps):
+            x, xn = add_rms_norm(x, lp["attn_norm"], d.norm_eps, y=y)
             qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)
             attn = qkv[:, : d.q_dim]                      # stub: no KV/flash
-            x = x + quant.mm(attn.to(cdtype), lp, "wo",
-                             rowinv=ri).to(x.dtype)
-            hn = rms_norm(x, lp["ffn_norm"], d.norm_eps).float()
-            hn = (hn * (1.0 + ada[li])).to(cdtype)
+            x, hn = add_rms_norm(
+                x, lp["ffn_norm"], d.norm_eps,
+                y=quant.mm(attn.to(cdtype), lp, "wo", rowinv=ri),
+                ada=ada[li])
             g13 = quant.mm(hn, lp, "w13", rowinv=ri)
             gate = silu(g13[:, : d.hidden]) * g13[:, d.hidden:]
-            ffn = quant.mm(gate.to(cdtype), lp, "w2", rowinv=ri)
-            x = x + ffn.to(x.dtype)
-        return x
+            y = quant.mm(gate.to(cdtype), lp, "w2", rowinv=ri)
+        return x, y
 
     t_m = 0.0
     if "matmuls" in terms:
@@ -218,6 +227,35 @@ def main(argv=None, cfg=None) -> int:
         print(f"matmuls : {1000*t_m:7.2f} ms   (26-layer qkv/wo/w13/w2 "
               f"chain, {layer_bytes/gib:.2f} GiB -> "
               f"{layer_bytes/gib/t_m:.0f} GiB/s)")
+
+    # --- term: the chain's norms, residual adds, ada and casts -----------
+    if "norms" in terms:
+        y_m = torch.zeros((batch, d.dim), device=dev)   # a product's output
+
+        def norms_fused():
+            x, y = x_m, None
+            for li, lp in enumerate(lps):
+                x, _ = add_rms_norm(x, lp["attn_norm"], d.norm_eps, y=y)
+                x, _ = add_rms_norm(x, lp["ffn_norm"], d.norm_eps, y=y_m,
+                                    ada=ada[li])
+                y = y_m
+            return x
+
+        def norms_unfused():     # the step's sequence before the fused call
+            x = x_m
+            for li, lp in enumerate(lps):
+                rms_norm(x, lp["attn_norm"], d.norm_eps).to(cdtype)
+                x = x + y_m.to(x.dtype)
+                hn = rms_norm(x, lp["ffn_norm"], d.norm_eps).float()
+                (hn * (1.0 + ada[li])).to(cdtype)
+                x = x + y_m.to(x.dtype)
+            return x
+
+        t_n = graph_time(norms_fused, rep, dev)
+        t_nu = graph_time(norms_unfused, rep, dev)
+        print(f"norms   : {1000*t_n:7.2f} ms   ({d.n_layers}-layer residual "
+              f"adds, norms, ada and casts, {2 * d.n_layers} fused calls; "
+              f"the unfused sequence {1000*t_nu:.2f} ms)")
 
     # --- the real step ---------------------------------------------------
     cache2 = sv.batched_dec_cache(cfg, batch, ring, device=dev)
