@@ -2058,3 +2058,39 @@ def test_add_rms_norm_kernel_in_a_graph_and_refusals(dev):
     with pytest.raises(RuntimeError, match="launch failed"):
         add_rms_norm(torch.zeros((2, 8192), device=dev),
                      torch.ones(8192, device=dev))
+
+
+def test_span_device_markers_hold_the_kernels_inside_it(dev):
+    """runtime/spans.py on the card: a product launched inside a
+    device=True span (synchronized inside it) lies within the span's
+    host interval on the profiler's timeline, and the span's device
+    markers are at least as far apart as the product's kernels; its
+    allocator count sees the output's new block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from voxtral_tpu_torch.runtime import spans
+
+    spans.drain()
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with spans.span("test.product", device=True, mem=True):
+            b = a @ a
+            torch.cuda.synchronize()
+    kept = spans.drain()["spans"]
+    assert [s.name for s in kept] == ["test.product"] and b.shape == a.shape
+    sp = kept[0]
+    on_device = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+    # the span is a host event only: no device-side range of its name
+    assert "test.product" not in {e.name() for e in on_device}
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in on_device]
+    assert kernels
+    lo, hi = min(k[0] for k in kernels), max(k[1] for k in kernels)
+    assert sp.start_ns <= lo and hi <= sp.end_ns
+    assert (hi - lo) * 1e-6 <= sp.device_ms + 2e-3
+    assert sp.device_ms <= sp.host_ms
+    assert sp.alloc_calls >= 1 and sp.reserved_bytes >= b.numel() * 4

@@ -71,9 +71,9 @@ def stand_in(monkeypatch):
     the captured outputs (the body's in-place writes are the replay's)."""
     replay, init = GraphedCall.replay, GraphedCall.__init__
 
-    def keep_body(self, body, inputs, store):
+    def keep_body(self, body, inputs, store, *key):
         self.body = body          # the stand-in replays by running it
-        init(self, body, inputs, store)
+        init(self, body, inputs, store, *key)
 
     def rerun(self):
         counts = graphs._counts()

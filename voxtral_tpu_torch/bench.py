@@ -525,7 +525,8 @@ def run_load(engine, audio: np.ndarray, tag: str, n: int, interval_s: float,
         f"feed x{n} streams ({np.mean(tick_tokens):.0f} tok/tick, "
         f"{'SUSTAINABLE' if sustain else 'OVERLOADED'}; tick split enc "
         f"{pool.encoder_ms / max(1, 2 * n_ticks):.0f} / dec "
-        f"{pool.decoder_ms / max(1, 2 * n_ticks):.0f} ms avg)")
+        f"{pool.decoder_ms / max(1, 2 * n_ticks):.0f} ms avg, slot scans "
+        f"in neither)")
     return {
         f"p50_token_latency_ms_under_{n}stream_load_I{interval_s:g}":
             round(p50, 1),

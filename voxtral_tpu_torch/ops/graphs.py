@@ -58,6 +58,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..runtime import spans
+
 
 def counted_wrappers() -> tuple:
     """The kernel wrappers whose `launches` attribute counts launches."""
@@ -109,7 +111,7 @@ class GraphedCall:
     pool_bytes = 0
 
     def __init__(self, body: Callable, inputs: Sequence[torch.Tensor],
-                 store: "GraphStore"):
+                 store: "GraphStore", key: tuple):
         dev = inputs[0].device
         self.static = [x.clone() for x in inputs]
         self.graph = self.new_graph()
@@ -122,30 +124,34 @@ class GraphedCall:
             self.first = body(*self.static)
         counts = _counts()
         reserved = torch.cuda.memory_reserved(dev) if cuda else 0
-        t0 = time.perf_counter()
-        # no collection inside the capture: freeing a graph there (one held
-        # in a reference cycle) is an operation a capture refuses
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with on_side:
-                self.graph.capture_begin(capture_error_mode="global")
-                try:
-                    self.out = body(*self.static)
-                finally:
-                    self.graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-            added = [a - b for a, b in zip(_counts(), counts)]
-            _set_counts(counts)      # the capture launched nothing
-        self.launches = added
-        if cuda:
-            torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.monotonic()
+        # the span (runtime/spans.py) stays outside the captured body
+        with spans.span("graphs.capture", mem=True, call=key[0],
+                        shapes=[tuple(x.shape) for x in inputs]) as sp:
+            # no collection inside the capture: freeing a graph there (one
+            # held in a reference cycle) is an operation a capture refuses
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with on_side:
+                    self.graph.capture_begin(capture_error_mode="global")
+                    try:
+                        self.out = body(*self.static)
+                    finally:
+                        self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+                added = [a - b for a, b in zip(_counts(), counts)]
+                _set_counts(counts)      # the capture launched nothing
+            self.launches = added
+            if cuda:
+                torch.cuda.current_stream(dev).wait_stream(side)
+            pool = torch.cuda.memory_reserved(dev) - reserved if cuda else 0
+            sp.note(pool_bytes=pool)
         GraphedCall.captures += 1
-        GraphedCall.capture_s += time.perf_counter() - t0
-        GraphedCall.pool_bytes += (torch.cuda.memory_reserved(dev) - reserved
-                                   if cuda else 0)
+        GraphedCall.capture_s += sp.elapsed(t0)
+        GraphedCall.pool_bytes += pool
 
     def new_graph(self):
         """An empty graph (the CPU tests put a stand-in here)."""
@@ -185,7 +191,7 @@ class GraphStore(dict):
         call (which ran); later calls replay."""
         entry = self.get(key)
         if entry is None:
-            g = GraphedCall(body, inputs, self)
+            g = GraphedCall(body, inputs, self, key)
             self[key] = (g, keep)
             out, g.first = g.first, None
             return g, out

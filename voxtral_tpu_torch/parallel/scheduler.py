@@ -78,6 +78,7 @@ from ..models import decoder as dec_mod
 from ..models.decoder import KVCache
 from ..models.fused_stream import ConvTails, fused_encode_chunk
 from ..native import make_mel_context
+from ..runtime import spans
 from ..runtime import stream as stream_mod
 from ..runtime.engine import VoxtralEngine
 from ..tokenizer import TekkenTokenizer
@@ -286,8 +287,13 @@ class StreamPool:
                                               device=dev,
                                               graphs=engine.cuda_graphs)
         self.slots = [_Slot() for _ in range(n_slots)]
+        # host ms of the encoder passes (`pool.encode` spans) and of the
+        # decoder side (`pool.admit`, `pool.decode`, `pool.restart`); the
+        # slot scans that pick each pass's takers and each burst's slots,
+        # and the monitor's symbols, are in neither
         self.encoder_ms = 0.0
         self.decoder_ms = 0.0
+        self.n_ticks = 0
         # burst accounting (tools/tick_probe.py): every decode burst pays
         # its launches and one token read, so bursts per tick multiply the
         # tick's fixed cost
@@ -457,14 +463,19 @@ class StreamPool:
     def tick(self):
         """Advance every slot: encode all eligible backlogs, then decode all
         row backlogs, then run the per-slot watchdogs: the batched form of
-        one vox_stream_feed pass per slot."""
-        t0 = time.monotonic()
-        self._tick_encoder()
-        t1 = time.monotonic()
-        self._tick_decoder()
-        self.encoder_ms += (t1 - t0) * 1000.0
-        self.decoder_ms += (time.monotonic() - t1) * 1000.0
-        self._mon_flush()
+        one vox_stream_feed pass per slot.  Under a profiler it is the span
+        `pool.tick` (request id: the tick number) over the phases' spans
+        (runtime/spans.py)."""
+        with spans.span("pool.tick", mem=True, request=self.n_ticks):
+            self.n_ticks += 1
+            # encoder_ms is host time: issuing each encoder pass, and
+            # waiting in its uploads (blocking copies) for the pass before;
+            # the first burst's uploads wait for the last pass.  The
+            # device's split is the spans' markers (pool.encode and
+            # pool.decode, device=True).
+            self._tick_encoder()
+            self._tick_decoder()
+            self._mon_flush()
 
     # -- --monitor symbol stream (VoxStream's table with a slot prefix, one
     # stderr line per tick) -----------------------------------------------
@@ -497,34 +508,48 @@ class StreamPool:
     def _ints(self, xs) -> torch.Tensor:
         return torch.as_tensor(np.asarray(xs, np.int32), device=self.device)
 
-    def _tick_encoder(self):
-        eng, cfg = self.eng, self.cfg
-        cap = self._enc_cap()
-        gated: set[int] = set()   # once a slot passes its interval gate this
-        while True:               # tick, it drains its WHOLE aligned backlog
-            takers = []           # (VoxStream's per-feed semantics)
-            qs = []
-            for i, s in enumerate(self.slots):
-                ok = False
-                q_i = 0
-                if s.active:
-                    new, aligned = self._avail_mel(s)
-                    need = (STREAM_FIRST_CHUNK_MIN_MEL if not s.conv_init
-                            else s.min_new_mel)
-                    free_rows = self.row_r - s.backlog
-                    q_i = min(aligned, cap, free_rows * 8)
-                    # a finished slot bypasses the interval gate (VoxStream
-                    # processes everything once finished)
-                    ok = (new >= need or i in gated or s.finished) \
-                        and q_i >= 8
-                    if ok:
-                        gated.add(i)
-                takers.append(ok)
-                qs.append(q_i)
-            if not any(takers):
-                return
-            q = min(q for q, t in zip(qs, takers) if t)
+    def _enc_takers(self, cap: int, gated: set) -> tuple[list, int]:
+        """(which slots take part, mel frames q) of one encoder pass; q is 0
+        when no slot does.  Once a slot passes its interval gate in a tick
+        (`gated`), it drains its WHOLE aligned backlog (VoxStream's
+        per-feed semantics)."""
+        takers, qs = [], []
+        for i, s in enumerate(self.slots):
+            ok = False
+            q_i = 0
+            if s.active:
+                new, aligned = self._avail_mel(s)
+                need = (STREAM_FIRST_CHUNK_MIN_MEL if not s.conv_init
+                        else s.min_new_mel)
+                free_rows = self.row_r - s.backlog
+                q_i = min(aligned, cap, free_rows * 8)
+                # a finished slot bypasses the interval gate (VoxStream
+                # processes everything once finished)
+                ok = (new >= need or i in gated or s.finished) and q_i >= 8
+                if ok:
+                    gated.add(i)
+            takers.append(ok)
+            qs.append(q_i)
+        if not any(takers):
+            return takers, 0
+        return takers, min(q for q, t in zip(qs, takers) if t)
 
+    def _tick_encoder(self):
+        cap = self._enc_cap()
+        gated: set[int] = set()
+        while True:
+            takers, q = self._enc_takers(cap, gated)
+            if not q:
+                return
+            t0 = time.monotonic()
+            with spans.span("pool.encode", device=True, mem=True) as sp:
+                self._encode_pass(takers, q)
+            self.encoder_ms += 1e3 * sp.elapsed(t0)
+
+    def _encode_pass(self, takers: list, q: int):
+        """One batched encoder call over q mel frames of the takers."""
+        eng, cfg = self.eng, self.cfg
+        with spans.span("pool.encode.gather"):
             b = self.b
             mel = np.zeros((b, q, cfg.encoder.n_mel), np.float32)
             enc_pos = np.zeros(b, np.int32)
@@ -536,6 +561,7 @@ class StreamPool:
                 enc_pos[i] = s.enc_pos
                 w_pos[i] = s.w_count % self.row_r
 
+        with spans.span("pool.encode.launch"):
             tk = torch.as_tensor(takers, device=self.device)
             mel_t = torch.from_numpy(mel).to(self.device)
             self.n_enc_calls += 1
@@ -555,15 +581,15 @@ class StreamPool:
                         self._ints(w_pos))
                 self.n_ctx = n_new.cpu().numpy().astype(np.int32)
 
-            for i, s in enumerate(self.slots):
-                if takers[i]:
-                    s.mel_cursor += q
-                    s.enc_pos += q // 2
-                    s.w_count += q // 8
-                    s.conv_init = True
-                    s.mel_ctx.discard_before(s.mel_cursor)
-                    if stream_mod.monitor:
-                        s.syms.append("▶")  # ▶ encoder chunk
+        for i, s in enumerate(self.slots):
+            if takers[i]:
+                s.mel_cursor += q
+                s.enc_pos += q // 2
+                s.w_count += q // 8
+                s.conv_init = True
+                s.mel_ctx.discard_before(s.mel_cursor)
+                if stream_mod.monitor:
+                    s.syms.append("▶")  # ▶ encoder chunk
 
     # -- decoder side ---------------------------------------------------
     def _admit_prefill(self, i: int):
@@ -598,95 +624,29 @@ class StreamPool:
         return next(x for x in self.eng.buckets if x <= avail)
 
     def _tick_decoder(self):
-        eng, cfg = self.eng, self.cfg
-        L = eng.prompt_len
+        L = self.eng.prompt_len
         for i, s in enumerate(self.slots):
             if (s.active and not s.decoder_started and not s.eos_seen
                     and s.backlog >= L):
-                self._admit_prefill(i)
+                t0 = time.monotonic()
+                with spans.span("pool.admit", device=True, mem=True,
+                                slot=i) as sp:
+                    self._admit_prefill(i)
+                self.decoder_ms += 1e3 * sp.elapsed(t0)
             elif (stream_mod.monitor and s.active and not s.decoder_started
                     and not s.waiting_prompt):
                 s.syms.append("⌛")  # ⌛ waiting for a prompt-sized backlog
                 s.waiting_prompt = True
 
         t_dec0 = time.monotonic()
-        ring_limited = self.dec_ring < cfg.decoder.window
         while True:
-            cands = []
-            headrooms = []   # ring headroom of EVERY rider (see below)
-            for i, s in enumerate(self.slots):
-                ok = (s.active and s.decoder_started and not s.eos_seen
-                      and not s.ring_overflow and s.backlog > 0)
-                if ok and ring_limited:
-                    allowed = self.dec_ring - s.dec_pos
-                    if allowed <= 0:
-                        if not s.continuous:
-                            raise RuntimeError(
-                                f"slot {i}: decoder KV ring "
-                                f"({self.dec_ring}) full at position "
-                                f"{s.dec_pos}; enable continuous mode or "
-                                f"size the ring to the clip")
-                        s.ring_overflow = True
-                        ok = False
-                cands.append(ok)
-                # Parked slots ride along and write garbage K/V at their own
-                # dec_pos..dec_pos+t-1.  Below the cap that is invisible
-                # (logical < 0 until rewritten), but a write that WRAPS past
-                # the cap lands on slots holding real rows at low positions,
-                # which the slot's later (pre-overflow) decodes attend.  So
-                # t respects every rider's headroom.  Zero-headroom riders
-                # are exempt: their only future is the KV-overflow FULL
-                # reset (a re-prefill from 0 that makes the whole ring's
-                # stale content unreadable), and exempting them avoids a
-                # deadlock at t = 0.
-                if ring_limited and s.active and s.decoder_started:
-                    hr = self.dec_ring - s.dec_pos
-                    if hr > 0:
-                        headrooms.append(hr)
-                elif s.active and s.decoder_started and not ok:
-                    # cap >= window: a PARKED rider's garbage write at
-                    # logical dec_pos+j displaces logical dec_pos+j-cap,
-                    # inside the window the slot attends after it resumes
-                    # iff j >= cap-window+1 (and only once dec_pos+j >=
-                    # cap).  t <= max(cap - dec_pos, cap - window + 1) is
-                    # always safe, and >= 1 when cap >= window.
-                    headrooms.append(max(
-                        self.dec_ring - s.dec_pos,
-                        self.dec_ring - cfg.decoder.window + 1))
-            if not any(cands):
+            cands, q = self._burst_cands()
+            if not q:
                 break
-            q = min(min(s.backlog for s, c in zip(self.slots, cands) if c),
-                    *(headrooms or [1 << 30]))
-            t = self._burst_len(q)
-
-            # parking: non-candidates replay their own position (their
-            # writes are rewritten before any read; outputs discarded)
-            r_pos = [s.r_count % self.row_r for s in self.slots]
-            prev = [s.prev_token for s in self.slots]
-            pos0 = [s.dec_pos for s in self.slots]
-            toks, alt_ids, alt_probs, best_probs, self.dec_cache = \
-                pool_decode_burst(
-                    eng.params["decoder"], cfg, self.row_ring,
-                    self._ints(r_pos), self._ints(prev), self.dec_cache,
-                    self._ints(pos0), eng.ada(), t, self.n_alt)
-            self.n_bursts += 1
-            self.burst_rows += t
-            t_f = time.monotonic()
-            toks = toks.cpu().numpy()                  # the one host read
-            if self.n_alt:
-                alt_ids = alt_ids.cpu().numpy()
-                alt_probs = alt_probs.cpu().numpy()
-                best_probs = best_probs.cpu().numpy()
-            self.fetch_ms += (time.monotonic() - t_f) * 1000.0
-            for i, s in enumerate(self.slots):
-                if not cands[i]:
-                    continue
-                s.r_count += t
-                self._process_tokens(
-                    s, toks[i],
-                    alt_ids[i] if self.n_alt else None,
-                    alt_probs[i] if self.n_alt else None,
-                    best_probs[i] if self.n_alt else None)
+            t0 = time.monotonic()
+            with spans.span("pool.decode", device=True, mem=True) as sp:
+                self._decode_burst(cands, self._burst_len(q))
+            self.decoder_ms += 1e3 * sp.elapsed(t0)
         if stream_mod.monitor:
             # one decode symbol per slot per tick (VoxStream's table); "slow"
             # uses the tick's aggregate wall per step, the bursts being
@@ -714,9 +674,100 @@ class StreamPool:
                     elif s.nontext_streak >= STREAM_MAX_NON_TEXT_STREAK // 2:
                         sev = "⚠"  # elevated streak
                 s.syms.append(sym + sev)
+        t0 = time.monotonic()
+        with spans.span("pool.restart") as sp:
+            for i, s in enumerate(self.slots):
+                if s.active:
+                    self._maybe_restart(i)
+        self.decoder_ms += 1e3 * sp.elapsed(t0)
+
+    def _burst_cands(self) -> tuple[list, int]:
+        """(which slots decode, rows available to all of them and within
+        every rider's ring headroom) of the next burst; 0 rows when no slot
+        decodes."""
+        cfg = self.cfg
+        ring_limited = self.dec_ring < cfg.decoder.window
+        cands = []
+        headrooms = []   # ring headroom of EVERY rider (see below)
         for i, s in enumerate(self.slots):
-            if s.active:
-                self._maybe_restart(i)
+            ok = (s.active and s.decoder_started and not s.eos_seen
+                  and not s.ring_overflow and s.backlog > 0)
+            if ok and ring_limited:
+                allowed = self.dec_ring - s.dec_pos
+                if allowed <= 0:
+                    if not s.continuous:
+                        raise RuntimeError(
+                            f"slot {i}: decoder KV ring "
+                            f"({self.dec_ring}) full at position "
+                            f"{s.dec_pos}; enable continuous mode or "
+                            f"size the ring to the clip")
+                    s.ring_overflow = True
+                    ok = False
+            cands.append(ok)
+            # Parked slots ride along and write garbage K/V at their own
+            # dec_pos..dec_pos+t-1.  Below the cap that is invisible
+            # (logical < 0 until rewritten), but a write that WRAPS past
+            # the cap lands on slots holding real rows at low positions,
+            # which the slot's later (pre-overflow) decodes attend.  So
+            # t respects every rider's headroom.  Zero-headroom riders
+            # are exempt: their only future is the KV-overflow FULL
+            # reset (a re-prefill from 0 that makes the whole ring's
+            # stale content unreadable), and exempting them avoids a
+            # deadlock at t = 0.
+            if ring_limited and s.active and s.decoder_started:
+                hr = self.dec_ring - s.dec_pos
+                if hr > 0:
+                    headrooms.append(hr)
+            elif s.active and s.decoder_started and not ok:
+                # cap >= window: a PARKED rider's garbage write at
+                # logical dec_pos+j displaces logical dec_pos+j-cap,
+                # inside the window the slot attends after it resumes
+                # iff j >= cap-window+1 (and only once dec_pos+j >=
+                # cap).  t <= max(cap - dec_pos, cap - window + 1) is
+                # always safe, and >= 1 when cap >= window.
+                headrooms.append(max(
+                    self.dec_ring - s.dec_pos,
+                    self.dec_ring - cfg.decoder.window + 1))
+        if not any(cands):
+            return cands, 0
+        return cands, min(
+            min(s.backlog for s, c in zip(self.slots, cands) if c),
+            *(headrooms or [1 << 30]))
+
+    def _decode_burst(self, cands: list, t: int):
+        """One batched burst of t rows; the candidates' tokens handled."""
+        eng, cfg = self.eng, self.cfg
+        # parking: non-candidates replay their own position (their writes
+        # are rewritten before any read; outputs discarded)
+        r_pos = [s.r_count % self.row_r for s in self.slots]
+        prev = [s.prev_token for s in self.slots]
+        pos0 = [s.dec_pos for s in self.slots]
+        with spans.span("pool.decode.launch"):
+            toks, alt_ids, alt_probs, best_probs, self.dec_cache = \
+                pool_decode_burst(
+                    eng.params["decoder"], cfg, self.row_ring,
+                    self._ints(r_pos), self._ints(prev), self.dec_cache,
+                    self._ints(pos0), eng.ada(), t, self.n_alt)
+        self.n_bursts += 1
+        self.burst_rows += t
+        t_f = time.monotonic()
+        with spans.span("pool.decode.fetch") as sp:
+            toks = toks.cpu().numpy()                  # the one host read
+            if self.n_alt:
+                alt_ids = alt_ids.cpu().numpy()
+                alt_probs = alt_probs.cpu().numpy()
+                best_probs = best_probs.cpu().numpy()
+        self.fetch_ms += 1e3 * sp.elapsed(t_f)
+        with spans.span("pool.decode.tokens"):
+            for i, s in enumerate(self.slots):
+                if not cands[i]:
+                    continue
+                s.r_count += t
+                self._process_tokens(
+                    s, toks[i],
+                    alt_ids[i] if self.n_alt else None,
+                    alt_probs[i] if self.n_alt else None,
+                    best_probs[i] if self.n_alt else None)
 
     # -- token handling (mirrors VoxStream._process_tokens/_enqueue) ----
     def _enqueue(self, s: _Slot, token: int, alt_ids, alt_probs, best_prob):

@@ -48,6 +48,7 @@ from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..models.decoder import KVCache
 from ..models.encoder import EncKVCache
+from ..runtime import spans
 from ..runtime.engine import decompose
 from ..runtime.stream import _take_rows
 from .mesh import batch_shardings, gather_streams
@@ -129,7 +130,15 @@ def serve_clips(engine, mel):
     the three parts (each ends with a device sync) in seconds, the decode
     steps, `adapter_rows`, this rank's bulk-encoded rows [b, n, dim] f32,
     and `prefill_last_hidden`, the prefill's hidden state at its last
-    position [b, dim] (replicated over tp)."""
+    position [b, dim] (replicated over tp).  Under a profiler the call is
+    the span `serve.clips` over `serve.encode`, `serve.prefill` and
+    `serve.decode` (its `serve.burst`s and `serve.fetch`), whose lengths
+    are the three walls (runtime/spans.py)."""
+    with spans.span("serve.clips", mem=True):
+        return _serve_clips(engine, mel)
+
+
+def _serve_clips(engine, mel):
     cfg, dev = engine.cfg, engine.device
     streams = batch_shardings(engine.mesh, mel.shape[0])
     mel = engine._tensor(mel[streams], torch.float32)
@@ -142,33 +151,40 @@ def serve_clips(engine, mel):
     dparams, plen = engine.params["decoder"], engine.prompt_len
     sync()
     t0 = time.monotonic()
-    rows = engine.encode_clips_bulk(mel)                  # [b, n, dim] f32
-    sync()
+    with spans.span("serve.encode", mem=True) as sp:
+        rows = engine.encode_clips_bulk(mel)              # [b, n, dim] f32
+        sync()
+    encode_s = sp.elapsed(t0)
     t1 = time.monotonic()
-    cache = batched_dec_cache(cfg, bsz, engine.dec_kv_ring, device=dev,
-                              graphs=engine.cuda_graphs)
-    prompt = engine.prompt_embeds(rows[:, : plen - 1])
-    zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    x, _ = dec_mod.decoder_forward(dparams, cfg, prompt, cache, zero,
-                                   engine.ada())
-    sync()
+    with spans.span("serve.prefill", mem=True) as sp:
+        cache = batched_dec_cache(cfg, bsz, engine.dec_kv_ring, device=dev,
+                                  graphs=engine.cuda_graphs)
+        prompt = engine.prompt_embeds(rows[:, : plen - 1])
+        zero = torch.zeros(bsz, dtype=torch.int32, device=dev)
+        x, _ = dec_mod.decoder_forward(dparams, cfg, prompt, cache, zero,
+                                       engine.ada())
+        sync()
+    prefill_s = sp.elapsed(t1)
     t2 = time.monotonic()
-    prev = torch.full((bsz,), TOKEN_STREAMING_PAD, dtype=torch.int32,
-                      device=dev)
-    pos, parts = plen - 1, []
-    for b in decompose(rows.shape[1] - pos, engine.buckets):
-        toks, _, _, _, cache = bdecode_burst(
-            dparams, cfg, rows[:, pos: pos + b], prev, cache,
-            torch.full((bsz,), pos, dtype=torch.int32, device=dev),
-            engine.ada())
-        parts.append(toks)
-        prev = toks[:, -1]
-        pos += b
-    host = torch.cat(parts, dim=1).tolist() if parts else [[]] * bsz
-    t3 = time.monotonic()
+    with spans.span("serve.decode", mem=True) as sp:
+        prev = torch.full((bsz,), TOKEN_STREAMING_PAD, dtype=torch.int32,
+                          device=dev)
+        pos, parts = plen - 1, []
+        for b in decompose(rows.shape[1] - pos, engine.buckets):
+            with spans.span("serve.burst", rows=b):
+                toks, _, _, _, cache = bdecode_burst(
+                    dparams, cfg, rows[:, pos: pos + b], prev, cache,
+                    torch.full((bsz,), pos, dtype=torch.int32, device=dev),
+                    engine.ada())
+            parts.append(toks)
+            prev = toks[:, -1]
+            pos += b
+        with spans.span("serve.fetch"):
+            host = torch.cat(parts, dim=1).tolist() if parts else [[]] * bsz
+    decode_s = sp.elapsed(t2)
     ids = [t[: t.index(TOKEN_EOS)] if TOKEN_EOS in t else t for t in host]
-    return ids, {"encode_s": t1 - t0, "prefill_s": t2 - t1,
-                 "decode_s": t3 - t2, "decode_steps": pos - (plen - 1),
+    return ids, {"encode_s": encode_s, "prefill_s": prefill_s,
+                 "decode_s": decode_s, "decode_steps": pos - (plen - 1),
                  "adapter_rows": rows, "prefill_last_hidden": x[:, -1]}
 
 

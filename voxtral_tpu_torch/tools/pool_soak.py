@@ -116,9 +116,10 @@ def main(argv=None, cfg=None) -> int:
             tokens += len(pool.get(i))
         ticks.append((time.monotonic() - t1) * 1000.0)
         if tick_log:
-            log(f"tick {ti}: {ticks[-1]:.0f} ms (enc "
-                f"{pool.encoder_ms - e0:.0f} / dec "
-                f"{pool.decoder_ms - d0:.0f}) "
+            enc, dec = pool.encoder_ms - e0, pool.decoder_ms - d0
+            # other: the slot scans, outside the pool's phase spans
+            log(f"tick {ti}: {ticks[-1]:.0f} ms (enc {enc:.0f} / dec "
+                f"{dec:.0f} / other {ticks[-1] - enc - dec:.0f}) "
                 f"{sum(s.n_generated for s in pool.slots) - gen0} tok")
         ti += 1
         if ti % 200 == 0:

@@ -5,7 +5,11 @@ StreamPool (ring encoder mode, fp8 encoder and decoder rings), fed
 1x-realtime, one tick broken into its terms:
 
   encode wall  - the batched ring encode call(s)
-  decode wall  - the decode bursts and their token reads
+  decode wall  - the admissions, the decode bursts and their token reads,
+                 the watchdogs
+  other        - the rest of the tick: the feeds and the slot scans that
+                 pick each pass's takers and each burst's slots (outside
+                 the pool's phase spans, so in neither wall; 0 with split)
   bursts/tick  - bursts per tick: q = min(backlogs), so uneven backlogs
                  split one tick into several bursts, each with its own
                  launches and host read
@@ -112,7 +116,8 @@ def main(argv=None, cfg=None) -> int:
                 enc_wall = pool.encoder_ms - e0
                 dec_wall = pool.decoder_ms - d0
             if rnd:
-                rows.append((dt, enc_wall, dec_wall, pool.n_bursts - b0,
+                rows.append((dt, enc_wall, dec_wall, dt - enc_wall - dec_wall,
+                             pool.n_bursts - b0,
                              pool.burst_rows - r0, pool.fetch_ms - f0,
                              pool.n_enc_calls - ec0))
             for s in slots:
@@ -121,7 +126,8 @@ def main(argv=None, cfg=None) -> int:
                 log(f"round {rnd} tick {ti}/{ticks}: {dt:.0f} ms")
 
     a = np.array(rows)
-    names = ["tick", "enc", "dec", "bursts", "rows", "fetch", "enc_calls"]
+    names = ["tick", "enc", "dec", "other", "bursts", "rows", "fetch",
+             "enc_calls"]
     print(f"TICKPROBE n={n} interval={interval_s} gate={gate_s} "
           f"enc_ring={enc_ring} ticks={len(rows)} split={int(split)} "
           f"device={dev.type}")
