@@ -1969,9 +1969,9 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
     run(clips[0][:SAMPLE_RATE])
     per_clip = []
     first_ids = None
-    counts_total = [0, 0, 0, 0]
+    counts_total = [0, 0, 0, 0, 0]
     for i, samples in enumerate(clips):
-        ids, st, wall, (na, nb, nh, nn) = run(samples)
+        ids, st, wall, (na, nb, nh, nn, nq) = run(samples)
         dur = len(samples) / SAMPLE_RATE
         peak = torch.cuda.max_memory_allocated() if on_gpu else 0
         steps = st["decode_steps"]
@@ -1992,14 +1992,18 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
         nl, ne = cfg.decoder.n_layers, cfg.encoder.n_layers
         want_h = (4 * nl + (4 * nl + 1) * steps) * _dec_route(cfg, on_gpu)
         want_n = 2 * nl + (2 * nl + 1) * steps + 2 * ne + 1
-        if (nh, nn) != (want_h, want_n):
-            raise AssertionError(f"[slice] clip {i}: bf16_mm and "
-                                 f"rms_norm launches {nh}, {nn} != "
-                                 f"{want_h}, {want_n}")
+        # the qkv epilogue: one a layer of the prefill, of each step and of
+        # the bulk encoder pass
+        want_q = nl * (1 + steps) + ne
+        if (nh, nn, nq) != (want_h, want_n, want_q):
+            raise AssertionError(f"[slice] clip {i}: bf16_mm, rms_norm and "
+                                 f"qkv_rope launches {nh}, {nn}, {nq} != "
+                                 f"{want_h}, {want_n}, {want_q}")
         counts_total[0] += na
         counts_total[1] += nb
         counts_total[2] += nh
         counts_total[3] += nn
+        counts_total[4] += nq
         n_text = sum(t >= TOKEN_TEXT_MIN for t in ids)
         rec = {
             "clip_s": dur, "tokens": len(ids), "text_tokens": n_text,
@@ -2009,6 +2013,7 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
             "x_realtime": dur / wall, "peak_gib": peak / 2**30,
             "banded_launches": na, "flash_launches": nb,
             "bf16_mm_launches": nh, "rms_norm_launches": nn,
+            "qkv_rope_launches": nq,
         }
         per_clip.append(rec)
         log("slice", f"clip {i} ({dur:.1f} s): {len(ids)} ids "
@@ -2018,7 +2023,7 @@ def phase_slice(cfg, params, device: str, clip_seconds) -> dict:
                      f"{rec['decode_ms_per_step']:.3f} ms/step, "
                      f"{rec['x_realtime']:.2f}x realtime, peak "
                      f"{rec['peak_gib']:.2f} GiB; launches A={na} B={nb} "
-                     f"bf16_mm={nh} rms_norm={nn}")
+                     f"bf16_mm={nh} rms_norm={nn} qkv_rope={nq}")
         if first_ids is None:
             first_ids = ids
     again, _, _, _ = run(clips[0])
@@ -2117,12 +2122,34 @@ def plain_norms():
 
 
 @contextlib.contextmanager
+def plain_qkv_rope(models=("decoder", "encoder", "bulk_encode")):
+    """Routes the qkv product's epilogue of the named model modules
+    (`models/<name>.py`) to the torch sequence, `qkv_rope_plain` (the
+    bias add, the split, `apply_rope_interleaved` and the casts), through
+    an uncounted stand-in for the duration."""
+    import importlib
+
+    from voxtral_tpu_torch.ops.rope import qkv_rope_plain
+
+    mods = [importlib.import_module(f"voxtral_tpu_torch.models.{m}")
+            for m in models]
+    saved = [m.qkv_rope for m in mods]
+    for m in mods:
+        m.qkv_rope = _uncounted(qkv_rope_plain)
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.qkv_rope = fn
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Routes the decoder's products (int4, int8 and the row-invariant
-    bf16), the norms and decode-step row writes to their plain PyTorch
-    versions for the duration (the reference side of a kernel-path check;
-    attn_impl="xla" keeps flash-decode, flash-encode and the bulk
-    encoder's banded kernel off)."""
+    bf16), the norms, the qkv epilogues and decode-step row writes to
+    their plain PyTorch versions for the duration (the reference side of
+    a kernel-path check; attn_impl="xla" keeps flash-decode, flash-encode
+    and the bulk encoder's banded kernel off)."""
     from voxtral_tpu_torch.models import decoder as dec_mod
     from voxtral_tpu_torch.ops import bf16_mm, quant_mm, ring
 
@@ -2133,7 +2160,7 @@ def plain_kernels():
     dec_mod.ring_rows_write = ring.ring_rows_write_plain
     bf16_mm.bf16_mm = _uncounted(bf16_mm.bf16_mm_plain)
     try:
-        with plain_norms():
+        with plain_norms(), plain_qkv_rope():
             yield
     finally:
         (quant_mm.int4_mm, quant_mm.int8_mm, dec_mod.ring_rows_write,
@@ -2238,10 +2265,11 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
 
     from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
     from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.rope import qkv_rope
 
     on_gpu = device == "cuda"
     counters = (banded_attention_batched, flash_decode, ring_rows_write,
-                int4_mm, int8_mm, bf16_mm, rms_norm)
+                int4_mm, int8_mm, bf16_mm, rms_norm, qkv_rope)
 
     def sync():
         if on_gpu:
@@ -2316,7 +2344,8 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
         # product of the prefill, 105 a decode step (the table's included);
         # the float rungs theirs through bf16_mm on the card; the norms 2 a
         # layer of the prefill and of each step, the final norm a step, and
-        # those of the one bulk encoder pass
+        # those of the one bulk encoder pass; the qkv epilogue one a layer
+        # of each of those passes
         quant = 4 * n_layers + (4 * n_layers + 1) * steps
         want = {
             "banded_attention_batched": cfg.encoder.n_layers,
@@ -2327,6 +2356,7 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
             "bf16_mm": quant * (_dec_route(rcfg, on_gpu) and not quantize),
             "rms_norm": (2 * n_layers + (2 * n_layers + 1) * steps
                          + 2 * cfg.encoder.n_layers + 1),
+            "qkv_rope": n_layers * (1 + steps) + cfg.encoder.n_layers,
         }
         if not st["launches"] == first["launches"] == want:
             raise AssertionError(f"[serve] {name}: launches {st['launches']}, "
@@ -2385,7 +2415,8 @@ def phase_serve(cfg, params, device: str, n_streams: int, seconds: float,
                       "ring_rows_write": n_layers * n_steps * (impl == "xla"),
                       "bf16_mm": (4 * n_layers + 1) * n_steps
                       * (_dec_route(rcfg, on_gpu) and not quantize),
-                      "rms_norm": (2 * n_layers + 1) * n_steps}
+                      "rms_norm": (2 * n_layers + 1) * n_steps,
+                      "qkv_rope": n_layers * n_steps}
             if quantize in ("int4", "int8"):
                 want_x[f"{quantize}_mm"] = (4 * n_layers + 1) * n_steps
             if got != want_x:
@@ -2591,11 +2622,13 @@ def bf16_mm_as(x, w, seq: bool, tile_rows=None):
 @contextlib.contextmanager
 def cublas_stream():
     """Routes the streaming encoder side (and with it the decoder's
-    products and norms) through cuBLAS and torch again, through stand-ins:
-    float products to torch.mm (`bf16_mm_plain`), the int kernels on their
-    row-count plans, the norms to torch's (`add_rms_norm_plain`), and T == 1
-    chunks to `ring_attention`.  The stand-ins carry `launches = 0`
-    (ops/graphs.py reads every wrapper's count during a capture)."""
+    products, norms and qkv epilogues) through cuBLAS and torch again,
+    through stand-ins: float products to torch.mm (`bf16_mm_plain`), the
+    int kernels on their row-count plans, the norms to torch's
+    (`add_rms_norm_plain`), the qkv epilogues to torch's
+    (`qkv_rope_plain`), and T == 1 chunks to `ring_attention`.  The
+    stand-ins carry `launches = 0` (ops/graphs.py reads every wrapper's
+    count during a capture)."""
     from voxtral_tpu_torch.models import encoder as enc_mod
     from voxtral_tpu_torch.ops import bf16_mm, quant_mm
     from voxtral_tpu_torch.runtime import stream as stream_mod
@@ -2615,7 +2648,7 @@ def cublas_stream():
     enc_mod.chunk_attention = stream_mod.chunk_attention = (
         lambda t, cdtype: t > 1)
     try:
-        with plain_norms():
+        with plain_norms(), plain_qkv_rope():
             yield
     finally:
         (bf16_mm.bf16_mm, quant_mm.int4_mm, quant_mm.int8_mm,
@@ -3022,6 +3055,16 @@ def _norms_want(cfg) -> int:
             + (2 * cfg.encoder.n_layers + 1) * enc)
 
 
+def _qkv_rope_want(cfg) -> int:
+    """The qkv epilogue kernel's launches since the counters were zeroed,
+    on every rung and dtype: one a layer per decoder forward pass and per
+    encoder pass (bulk or streaming chunk).  CPU calls count only through
+    the tests' stand-ins, which count every call."""
+    fwd = DECODER_CALLS[0].launches
+    enc = sum(c.launches for c in ENCODER_CALLS)
+    return cfg.decoder.n_layers * fwd + cfg.encoder.n_layers * enc
+
+
 def _dec_route(cfg, on_gpu: bool) -> bool:
     """Whether the decoder runs on the card's row-invariant route
     (`decoder._use_rowinv`): its float products on bf16_mm (an int rung's
@@ -3046,19 +3089,21 @@ def _rowinv_expect(cfg, calls: dict, on_gpu: bool,
     else 0 (CPU calls never count; float32 configs keep torch.mm), plus
     the decoder's share (_dec_rowinv_want; `quantized`: the encoder's and
     the decoder's weights int, as the stream phase's int pairs run them);
-    the norm kernel's (_norms_want)."""
+    the norm kernel's (_norms_want) and the qkv epilogue's
+    (_qkv_rope_want)."""
     from voxtral_tpu_torch.models.decoder import _use_rowinv
 
     bf16 = _dec_rowinv_want(cfg, on_gpu, not quantized)
     if on_gpu and _use_rowinv(cfg.cdtype, "stream"):
         bf16 += _rowinv_want(cfg, calls, quantized)
-    return {"bf16_mm": bf16, "rms_norm": _norms_want(cfg)}
+    return {"bf16_mm": bf16, "rms_norm": _norms_want(cfg),
+            "qkv_rope": _qkv_rope_want(cfg)}
 
 
 def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
                   quantized: bool = False) -> dict:
-    """bf16_mm's and the norm kernel's launches since _zero_rowinv,
-    checked exact against _rowinv_expect."""
+    """bf16_mm's, the norm kernel's and the qkv epilogue's launches since
+    _zero_rowinv, checked exact against _rowinv_expect."""
     got = _rowinv_launches()
     want = _rowinv_expect(cfg, calls, on_gpu, quantized)
     if got != want:
@@ -3070,19 +3115,21 @@ def _check_rowinv(tag: str, cfg, calls: dict, on_gpu: bool,
 
 
 def _rowinv_launches() -> dict:
-    """bf16_mm's and the norm kernel's counters."""
+    """bf16_mm's, the norm kernel's and the qkv epilogue's counters."""
     from voxtral_tpu_torch.ops import bf16_mm
     from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.rope import qkv_rope
 
     return {"bf16_mm": bf16_mm.bf16_mm.launches,
-            "rms_norm": rms_norm.launches}
+            "rms_norm": rms_norm.launches, "qkv_rope": qkv_rope.launches}
 
 
 def _zero_rowinv() -> None:
     from voxtral_tpu_torch.ops import bf16_mm
     from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.rope import qkv_rope
 
-    bf16_mm.bf16_mm.launches = rms_norm.launches = 0
+    bf16_mm.bf16_mm.launches = rms_norm.launches = qkv_rope.launches = 0
     for c in DECODER_CALLS + ENCODER_CALLS:
         c.launches = 0
 
@@ -3505,6 +3552,130 @@ def phase_norm(device: str = "cuda", cfg=None,
                 "max_rel_err_rms_norm": worst_rel})
     if on_gpu:
         out.update(_norm_times(gen, cfg, device))
+    return out
+
+
+# qkv_rope: the kernel's shapes on the main path, name: (B, T, model, bias,
+# table shared by the batch, q dtype, k/v dtype): a decode step at B=64, a
+# ring encoder chunk at B=56 T=25, a bulk encoder layer at 64 clips of 60 s
+QKV_ROPE_SHAPES = {
+    "step_b64": (64, 1, "decoder", False, False, "bfloat16", "float32"),
+    "ring_b56_t25": (56, 25, "encoder", True, False, "bfloat16", "float32"),
+    "bulk_b64_t3196": (64, 3196, "encoder", True, True, "bfloat16",
+                       "bfloat16"),
+}
+# the shape that summarises the kernel in the kernels line
+QKV_ROPE_SUMMARY = "step_b64"
+
+
+def _qkv_rope_bound(rows: int, t: int, heads: int, kv_heads: int, d: int,
+                    bias: bool, shared: bool, q_bytes: int, kv_bytes: int,
+                    v_written: bool) -> dict:
+    """bound of one qkv_rope call: the q and k columns of qkv read once
+    (and the v columns where v is written), q, k (and v) written once, the
+    cos and sin rows (one set for a shared table) and the bias read once;
+    its f32 operations (a rotated element's two products and a sum or
+    difference, the bias add) at the card's f32 rate."""
+    q_dim, kv_dim = heads * d, kv_heads * d
+    cols = q_dim + kv_dim * (1 + v_written)
+    n_bytes = (rows * cols * 4 + rows * q_dim * q_bytes
+               + rows * kv_dim * kv_bytes * (1 + v_written)
+               + (t if shared else rows) * d * 4
+               + bias * (q_dim + 2 * kv_dim) * 4)
+    n_ops = rows * (3 * (q_dim + kv_dim) + bias * cols)
+    return bound(n_bytes, n_ops, F32_FLOPS)
+
+
+def phase_qkv_rope(device: str = "cuda", cfg=None,
+                   shapes=QKV_ROPE_SHAPES) -> dict:
+    """The qkv epilogue kernel (csrc/qkv_rope.cu through ops/rope.py:
+    qkv_rope) at each of `shapes` with the model's heads and rope theta,
+    on seeded qkv, biases and `rope_cos_sin` tables (a row's own at
+    staggered positions, or the batch's shared one): q, k and v bit-equal
+    to the torch sequence it replaced (qkv_rope_plain) and to a second
+    call, one launch a call, v a view of qkv exactly where no bias and an
+    f32 v leave nothing to write.  On the card also the graph-replay ms of
+    the kernel and of the torch sequence (a layer's call repeated once a
+    layer of a pass, twice at the bulk shape), the torch sequence's kernels
+    a call, and the bound.  On the CPU both sides are the plain version,
+    nothing gated."""
+    import torch
+
+    from voxtral_tpu_torch.config import full_config
+    from voxtral_tpu_torch.ops.rope import (
+        qkv_rope,
+        qkv_rope_plain,
+        rope_cos_sin,
+    )
+
+    on_gpu = device == "cuda"
+    cfg = cfg or full_config()
+    gen = torch.Generator(device=device)
+    out, faults = {}, []
+    for name, (bsz, t, model, has_bias, shared, qdt, kvdt) in shapes.items():
+        mc = getattr(cfg, model)
+        h, kh, d = mc.n_heads, mc.n_kv_heads, mc.head_dim
+        qdt, kvdt = getattr(torch, qdt), getattr(torch, kvdt)
+        gen.manual_seed(len(name))
+        width = (h + 2 * kh) * d
+        qkv = torch.randn((bsz, t, width), generator=gen,
+                          device=device) * 3.0
+        pos = torch.arange(t, dtype=torch.int32, device=device)
+        if not shared:
+            pos = pos + torch.randint(0, 3000, (bsz, 1), generator=gen,
+                                      dtype=torch.int32, device=device)
+        cos, sin = rope_cos_sin(pos, d, mc.rope_theta)
+        bias = (torch.randn((width,), generator=gen, device=device) * 0.1
+                if has_bias else None)
+        kw = dict(n_heads=h, n_kv_heads=kh, head_dim=d, bias=bias,
+                  q_dtype=qdt, kv_dtype=kvdt)
+        n0 = qkv_rope.launches
+        got = qkv_rope(qkv, cos, sin, **kw)
+        again = qkv_rope(qkv, cos, sin, **kw)
+        launched = qkv_rope.launches - n0
+        want = qkv_rope_plain(qkv, cos, sin, **kw)
+        view = bias is None and kvdt == torch.float32
+        same = {"plain": all(map(torch.equal, got, want)),
+                "twice": all(map(torch.equal, got, again)),
+                "v_view": (got[2].data_ptr() == qkv.data_ptr()
+                           + (h + kh) * d * 4) == view}
+        rec = {f"{k}_equal": v for k, v in same.items()}
+        rec["launches_per_call"] = launched / 2
+        if on_gpu:
+            reps = 2 if t > 64 else mc.n_layers
+            n1 = qkv_rope.launches
+            rec.update({
+                "ms": graph_ms(lambda: qkv_rope(qkv, cos, sin, **kw), reps),
+                "plain_ms": graph_ms(lambda: qkv_rope_plain(qkv, cos, sin,
+                                                            **kw), reps),
+                "library_ms": None,
+                "plain_kernels": len(device_events(
+                    lambda: qkv_rope_plain(qkv, cos, sin, **kw))[0]),
+                **_qkv_rope_bound(bsz * t, t, h, kh, d, has_bias, shared,
+                                  qdt.itemsize, kvdt.itemsize, not view)})
+            qkv_rope.launches = n1
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            if not all(same.values()) or launched != 2:
+                faults.append((name, same, launched))
+        out.update({f"qkv_rope_{k}_{name}": v for k, v in rec.items()})
+        log("qkv_rope", f"{name} [{bsz} x {t} x {width}] {model}"
+                        + (" + bias" if has_bias else "")
+                        + (", shared table" if shared else "")
+                        + f", q {str(qdt)[6:]}, k/v {str(kvdt)[6:]}: "
+                        + ", ".join(f"{k} {'bit-equal' if v else 'DIFFERS'}"
+                                    for k, v in same.items())
+                        + f"; {launched} launches for 2 calls"
+                        + (f"; graph replay {rec['ms']:.4f} ms, torch "
+                           f"sequence {rec['plain_ms']:.4f} ms "
+                           f"({rec['plain_kernels']} kernels); bound "
+                           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                           f"{rec['bound_share']:.1%} of it"
+                           if on_gpu else ""))
+        del qkv, cos, sin, bias, got, again, want
+        if on_gpu:
+            torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError(f"[qkv_rope] the qkv epilogue kernel: {faults}")
     return out
 
 
@@ -4872,7 +5043,8 @@ def parent_decoder_route():
     their row-count plans, the prefill's attention batched over B, and
     flash-decode on the parent's batch-dependent split (parent_flash_plan),
     the norms and the residual adds around them on torch's
-    (add_rms_norm_plain, uncounted); the streaming encoder side keeps its
+    (add_rms_norm_plain, uncounted) and the qkv epilogue on torch's
+    (qkv_rope_plain, uncounted); the streaming encoder side keeps its
     route.  The kernels' launches count as usual."""
     import torch
 
@@ -4884,7 +5056,8 @@ def parent_decoder_route():
                            and cdtype == torch.bfloat16)
     dec_mod.add_rms_norm = _uncounted(add_rms_norm_plain)
     try:
-        with flash_plan(parent_flash_plan, counted=True):
+        with flash_plan(parent_flash_plan, counted=True), \
+                plain_qkv_rope(("decoder",)):
             yield
     finally:
         dec_mod._use_rowinv, dec_mod.add_rms_norm = saved
@@ -5226,13 +5399,14 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
                     banded_attention_batched.launches,
                     "flash_decode": flash_decode.launches,
                     **_rowinv_launches()}
-        # bf16_mm and the norms: the decoder's passes (the prefill, each
-        # sequential step, each Jacobi iteration), counted by
-        # DECODER_CALLS, and the norms of the clip's bulk encoder pass
+        # bf16_mm, the norms and the qkv epilogue: the decoder's passes
+        # (the prefill, each sequential step, each Jacobi iteration),
+        # counted by DECODER_CALLS, and the clip's bulk encoder pass
         want = {"banded_attention_batched": cfg.encoder.n_layers,
                 "flash_decode": cfg.decoder.n_layers * (steps - j_steps),
                 "bf16_mm": _dec_rowinv_want(cfg, on_gpu),
-                "rms_norm": _norms_want(cfg)}
+                "rms_norm": _norms_want(cfg),
+                "qkv_rope": _qkv_rope_want(cfg)}
         if launches != want or (mode == "auto") != (j_steps > 0):
             raise AssertionError(f"[jacobi] {mode}: launches {launches} != "
                                  f"{want} ({steps} steps, {j_steps} by "
@@ -5294,6 +5468,8 @@ def phase_jacobi(cfg, params, device: str, seconds: float = 30.0) -> dict:
             "launches_bf16_mm": sum(r["launches"]["bf16_mm"]
                                     for r in runs.values()),
             "launches_rms_norm": sum(r["launches"]["rms_norm"]
+                                     for r in runs.values()),
+            "launches_qkv_rope": sum(r["launches"]["qkv_rope"]
                                      for r in runs.values()),
             "launches_banded": sum(r["launches"]["banded_attention_batched"]
                                    for r in runs.values())}
@@ -5357,7 +5533,8 @@ def _int8_step_ab(engine, cfg, n_streams: int, dec_ring: int,
     """The int8 rung's graphed decode step at mid fill (position 500, as
     phase_graphs' bursts) with its products on the plain path (under
     plain_kernels: each weight widened to bf16, then torch.mm, the path
-    csrc/int8_mm.cu replaced) and on the kernel, in this call, in the order
+    csrc/int8_mm.cu replaced; the norms and qkv epilogues torch's too) and
+    on the kernel, in this call, in the order
     plain, kernel, kernel, plain: ms/step (CUDA events over bursts of
     `extra_steps`), device ms/step (8 profiled steps) and the memory the
     burst's graph and temporaries take beyond what was allocated before it
@@ -5522,7 +5699,8 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                 qmm: 4 * nl + (4 * nl + 1) * steps,
                 "bf16_mm": (4 * nl + (4 * nl + 1) * steps)
                 * (_dec_route(rcfg, on_gpu) and not quantize),
-                "rms_norm": 2 * nl + (2 * nl + 1) * steps + 2 * el + 1})
+                "rms_norm": 2 * nl + (2 * nl + 1) * steps + 2 * el + 1,
+                "qkv_rope": nl * (1 + steps) + el})
             rec[f"serve_decode_ms_per_step_{tag}"] = (run["decode_s"] * 1e3
                                                      / steps)
             rec[f"serve_wall_s_{tag}"] = (run["encode_s"] + run["prefill_s"]
@@ -5582,7 +5760,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
                     qmm: (4 * nl + 1) * n,
                     "bf16_mm": (4 * nl + 1) * n
                     * (_dec_route(rcfg, on_gpu) and not quantize),
-                    "rms_norm": (2 * nl + 1) * n})
+                    "rms_norm": (2 * nl + 1) * n, "qkv_rope": nl * n})
                 if impl == "xla" and graphed:
                     rec["launches_xla_mid_fill_graph"] = got
                 burst_ids[graphed] = last[0].tolist()
@@ -5666,7 +5844,7 @@ def phase_graphs(cfg, params, device: str, n_streams: int = 16,
             "banded_attention_batched": el,
             "flash_decode": nl * (st["decode_steps"] - j_steps),
             "bf16_mm": _dec_rowinv_want(cfg, on_gpu),
-            "rms_norm": _norms_want(cfg)})
+            "rms_norm": _norms_want(cfg), "qkv_rope": _qkv_rope_want(cfg)})
         jacobi[f"decode_ms_per_token_{tag}"] = (st["decode_s"] * 1e3
                                                 / st["decode_steps"])
     both("jacobi", jids["eager"], jids["graph"])
@@ -6544,8 +6722,8 @@ BENCH_BULK_STREAMS = 4
 # probe; on the card in a bf16 config also the row-invariant product, the
 # "inc" encode's), the int4 product in int4
 BENCH_KERNELS = {"bf16": ("flash_decode", "flash_bulk_attention_batched",
-                          "int8_mm", "rms_norm"),
-                 "int4": ("int4_mm", "rms_norm")}
+                          "int8_mm", "rms_norm", "qkv_rope"),
+                 "int4": ("int4_mm", "rms_norm", "qkv_rope")}
 # bench.step_probe's decode steps: one warm burst of 64, then 4 timed
 BENCH_PROBE_STEPS = 5 * 64
 
@@ -6837,10 +7015,12 @@ def ckpt_config(layers=CKPT_LAYERS):
 
 def _ckpt_counters() -> dict:
     """The ckpt phase's kernels (flash-encode, flash-decode, banded, int4,
-    the norm) by name."""
+    the norm, the qkv epilogue) by name."""
     from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.rope import qkv_rope
 
-    return {f.__name__: f for f in (*_pool_counters()[:4], rms_norm)}
+    return {f.__name__: f for f in (*_pool_counters()[:4], rms_norm,
+                                    qkv_rope)}
 
 
 def _counted_run(fn):
@@ -7023,7 +7203,7 @@ def phase_ckpt(cfg, device: str = "cuda", tag: str = "ckpt",
     want = {"banded_attention_batched": "offline",
             "flash_bulk_attention_batched": "stream",
             "flash_decode": "offline", "int4_mm": "int4",
-            "rms_norm": "offline"}
+            "rms_norm": "offline", "qkv_rope": "offline"}
     idle = [k for k, step in want.items() if step in steps and total[k] <= 0]
     if idle:
         raise AssertionError(f"[{tag}] no launch of {idle}")
@@ -7091,6 +7271,27 @@ def _norm_kernel(rowinv: dict, by_path: dict) -> dict:
             "torch_rms_norm_varies_at": rowinv["torch_rms_norm_varies_at"]}
 
 
+def _qkv_rope_kernel(qr: dict, by_path: dict) -> dict:
+    """The kernels line's entry of the qkv epilogue: launches by path (one
+    a layer of every decoder and encoder pass), the qkv_rope phase's check
+    and times at QKV_ROPE_SUMMARY with every shape's: its plain version is
+    torch's sequence; no PyTorch call computes the fused function, so
+    library_ms is null."""
+    k = QKV_ROPE_SUMMARY
+    return {"name": "qkv_rope", "route": "cuda",
+            "source": "voxtral_tpu_torch/csrc/qkv_rope.cu",
+            # no Pallas kernel: the bias add, rotation and casts XLA fuses
+            # into the layers
+            "replaces": "voxtral_tpu/ops/rope.py:28",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "ms": qr[f"qkv_rope_ms_{k}"],
+            "plain_ms": qr[f"qkv_rope_plain_ms_{k}"],
+            "library_ms": None,
+            "bound_ms": qr[f"qkv_rope_bound_ms_{k}"],
+            "bound_by": qr[f"qkv_rope_bound_by_{k}"],
+            "max_abs_err": 0.0, **qr}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7101,7 +7302,8 @@ def _leaves(tree):
 
 # the phases `--only` runs by name (after device and build), in this order
 ONLY_PHASES = ("banded", "flash", "flash_enc", "f32_auto", "int4", "int8",
-               "rows", "rowinv", "norm", "slice", "serve", "batchinv",
+               "rows", "rowinv", "norm", "qkv_rope", "slice", "serve",
+               "batchinv",
                "graphs", "stream", "bstream", "jacobi", "pool_ring",
                "pool_ring_fp8", "pool_window",
                "mesh", "mel_device", "bench", "ckpt", "ckpt_full")
@@ -7259,6 +7461,7 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
     int8 = timed("int8", phase_int8)
     rows = timed("rows", phase_rows)
     rowinv = timed("rowinv", phase_rowinv)
+    qr = timed("qkv_rope", phase_qkv_rope)
     cfg = full_config()
     params = timed("params", make_params, cfg, "cuda")
     sl = timed("slice", phase_slice, cfg, params, "cuda", (4.0, 11.0, 30.0))
@@ -7423,6 +7626,16 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
             "pool_window": pw["rowinv_launches"]["rms_norm"],
             "mesh": meshed["rms_norm"], "ckpt": ckpt["rms_norm"],
             "bench": benched["rms_norm"]}),
+        _qkv_rope_kernel(qr, {
+            "slice": sl["launches"][4], "serve": served["qkv_rope"],
+            "graphs": graphed["qkv_rope"],
+            "stream": st["rowinv_launches"]["qkv_rope"],
+            "bstream": bst["rowinv_launches"]["qkv_rope"],
+            "jacobi": jac["launches_qkv_rope"],
+            "pool_ring": pr["rowinv_launches"]["qkv_rope"],
+            "pool_window": pw["rowinv_launches"]["qkv_rope"],
+            "mesh": meshed["qkv_rope"], "ckpt": ckpt["qkv_rope"],
+            "bench": benched["qkv_rope"]}),
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -7450,7 +7663,7 @@ def _run_phases(argv: list[str], smi: str, t_start: float) -> int:
     idle = [k["name"] for k in kernels if k.get("launches_ckpt") == 0]
     if idle:   # flash_decode's "ckpt" path is checked above
         raise AssertionError(f"{idle}: no launch on ckpt")
-    idle = [f"{k['name']} {path}" for k in kernels[-2:]
+    idle = [f"{k['name']} {path}" for k in kernels[-3:]
             for path, n in k["launches_by_path"].items() if n <= 0]
     if idle:   # the streaming encoder side, the decoder of every path
         raise AssertionError(f"no launch on {idle}")

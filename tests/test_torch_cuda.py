@@ -2094,3 +2094,206 @@ def test_span_device_markers_hold_the_kernels_inside_it(dev):
     assert (hi - lo) * 1e-6 <= sp.device_ms + 2e-3
     assert sp.device_ms <= sp.host_ms
     assert sp.alloc_calls >= 1 and sp.reserved_bytes >= b.numel() * 4
+
+
+# --- the qkv product's epilogue (csrc/qkv_rope.cu) --------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# name: (B, T, heads, kv heads, head_dim, bias, shared table, q, k/v dtype)
+QKV_ROPE_CASES = {
+    "decoder_step_b64": (64, 1, 32, 8, 128, False, False, BF16, F32),
+    "decoder_prefill_b4_t38": (4, 38, 32, 8, 128, False, False, BF16, F32),
+    "decoder_tp2_rank_b64": (64, 1, 16, 4, 128, False, False, BF16, F32),
+    "ring_chunk_b56_t25": (56, 25, 32, 32, 64, True, False, BF16, F32),
+    "ring_row_b56_t1": (56, 1, 32, 32, 64, True, False, BF16, F32),
+    "bulk_b4_t3196": (4, 3196, 32, 32, 64, True, True, BF16, BF16),
+    "decoder_step_f32": (16, 1, 32, 8, 128, False, False, F32, F32),
+    "ring_chunk_f32": (8, 25, 32, 32, 64, True, False, F32, F32),
+    "bulk_f32_b2_t1500": (2, 1500, 32, 32, 64, True, True, F32, F32),
+}
+
+
+def _qkv_rope_case(dev, seed, bsz, t, h, kh, d, bias, shared):
+    """Seeded qkv [B, T, W] f32 on the card, `rope_cos_sin`'s tables (the
+    batch's shared [T, D/2], or a row's own at staggered positions up to
+    ~3000) and a bias [W] or None."""
+    from voxtral_tpu_torch.ops.rope import rope_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    width = (h + 2 * kh) * d
+    qkv = torch.randn((bsz, t, width), generator=gen, device=dev) * 3.0
+    if shared:
+        pos = torch.arange(t, dtype=torch.int32, device=dev)
+    else:
+        pos = (torch.randint(0, 3000, (bsz, 1), generator=gen, device=dev,
+                             dtype=torch.int32)
+               + torch.arange(t, dtype=torch.int32, device=dev))
+    cos, sin = rope_cos_sin(pos, d, 1e6)
+    b = (torch.randn((width,), generator=gen, device=dev) * 0.1
+         if bias else None)
+    return qkv, cos, sin, b
+
+
+@pytest.mark.parametrize("name", list(QKV_ROPE_CASES))
+def test_qkv_rope_kernel_bit_equal(dev, name):
+    """The kernel at the decode step's, the prefill's, a tp-2 rank's, the
+    ring encoder's and the bulk encoder's shapes, bf16 and f32 outputs:
+    q, k and v bit-equal to qkv_rope_plain on the card (the torch sequence
+    the layers ran before) and to a second call; one launch a call; v a
+    view of qkv exactly where no bias and an f32 v leave nothing to
+    write."""
+    from voxtral_tpu_torch.ops.rope import qkv_rope, qkv_rope_plain
+
+    bsz, t, h, kh, d, bias, shared, qdt, kvdt = QKV_ROPE_CASES[name]
+    qkv, cos, sin, b = _qkv_rope_case(dev, len(name), bsz, t, h, kh, d,
+                                      bias, shared)
+    kw = dict(n_heads=h, n_kv_heads=kh, head_dim=d, bias=b, q_dtype=qdt,
+              kv_dtype=kvdt)
+    n0 = qkv_rope.launches
+    got = qkv_rope(qkv, cos, sin, **kw)
+    assert qkv_rope.launches == n0 + 1
+    want = qkv_rope_plain(qkv, cos, sin, **kw)
+    again = qkv_rope(qkv, cos, sin, **kw)
+    torch.cuda.synchronize()
+    for g, w, a, heads, dt in zip(got, want, again, (h, kh, kh),
+                                  (qdt, kvdt, kvdt)):
+        assert g.dtype == dt and g.shape == (bsz, t, heads, d)
+        assert torch.equal(g, w) and torch.equal(g, a)
+    view = b is None and kvdt == F32
+    assert (got[2].data_ptr() == qkv.data_ptr() + (h + kh) * d * 4) == view
+    assert got[1].is_contiguous() and got[0].is_contiguous()
+
+
+@pytest.mark.parametrize("model", ["decoder", "encoder"])
+def test_qkv_rope_kernel_in_a_graph_between_products(dev, model):
+    """Captured in a CUDA graph between two bf16_mm products (a chain of
+    programmatic dependent launches on both sides of it), the kernel's
+    q, k, v and the next product's output equal eager's and the plain
+    sequence's on every replay."""
+    from voxtral_tpu_torch.ops.bf16_mm import bf16_mm
+    from voxtral_tpu_torch.ops.rope import qkv_rope, qkv_rope_plain
+
+    h, kh, d, dim, bsz, t = ((32, 8, 128, 3072, 64, 1) if model == "decoder"
+                             else (32, 32, 64, 1280, 8, 25))
+    gen = torch.Generator(device=dev).manual_seed(len(model))
+    width = (h + 2 * kh) * d
+    x = _randn(gen, (bsz * t, dim), BF16, dev)
+    wqkv = _randn(gen, (width, dim), BF16, dev) * 0.05
+    wo = _randn(gen, (dim, h * d), BF16, dev) * 0.05
+    _, cos, sin, b = _qkv_rope_case(dev, 3, bsz, t, h, kh, d,
+                                    model == "encoder", False)
+    kw = dict(n_heads=h, n_kv_heads=kh, head_dim=d, bias=b, q_dtype=BF16,
+              kv_dtype=F32)
+
+    def chain(rope_fn=qkv_rope):
+        qkv = bf16_mm(x, wqkv).reshape(bsz, t, width)
+        q, k, v = rope_fn(qkv, cos, sin, **kw)
+        return q, k, v, bf16_mm(q.reshape(bsz * t, h * d), wo)
+
+    eager = chain()
+    plain = chain(qkv_rope_plain)
+    assert all(map(torch.equal, eager, plain))
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        static = chain()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, static, eager))
+
+
+def test_qkv_rope_refusals(dev):
+    """The wrapper refuses a misaligned tensor, a head_dim the kernel has
+    no instance for, tables of another shape, other out dtypes (f32 q
+    beside bf16 k and v among them) and a non-contiguous qkv; the C entry
+    refuses the misaligned tensor, the head_dim and the dtype pair
+    itself."""
+    from voxtral_tpu_torch.ops import cuda_lib
+    from voxtral_tpu_torch.ops.rope import qkv_rope, rope_cos_sin
+
+    qkv, cos, sin, _ = _qkv_rope_case(dev, 1, 4, 1, 32, 8, 128, False, False)
+    kw = dict(n_heads=32, n_kv_heads=8, head_dim=128, q_dtype=BF16,
+              kv_dtype=F32)
+    buf = torch.zeros(qkv.numel() + 1, device=dev)
+    off = buf[1:].view(qkv.shape)                  # 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        qkv_rope(off, cos, sin, **kw)
+    c96, s96 = rope_cos_sin(torch.zeros((4, 1), dtype=torch.int32,
+                                        device=dev), 96, 1e6)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        qkv_rope(torch.zeros((4, 1, 48 * 96), device=dev), c96, s96,
+                 **{**kw, "head_dim": 96})
+    with pytest.raises(ValueError, match="cos"):
+        qkv_rope(qkv, cos[:, :, :32], sin, **kw)
+    with pytest.raises(ValueError, match="cos"):
+        qkv_rope(qkv, cos[:2], sin[:2], **kw)
+    with pytest.raises(ValueError, match="out dtypes"):
+        qkv_rope(qkv, cos, sin, **{**kw, "q_dtype": torch.float16})
+    with pytest.raises(ValueError, match="out dtypes"):
+        qkv_rope(qkv, cos, sin, **{**kw, "q_dtype": F32, "kv_dtype": BF16})
+    with pytest.raises(ValueError, match="qkv"):
+        qkv_rope(qkv.transpose(0, 1), cos.transpose(0, 1), sin, **kw)
+    lib = cuda_lib.kernels()
+    q = torch.empty((4, 32 * 128), dtype=BF16, device=dev)
+    k = torch.empty((4, 8 * 128), device=dev)
+    args = [None, cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
+            k.data_ptr(), None, 4, 1, 0, 32, 8, 128, 1, 0, 8,
+            cuda_lib.stream_handle(dev)]
+    # cudaErrorMisalignedAddress (716), cudaErrorInvalidValue (1)
+    assert lib.vt_qkv_rope(off.data_ptr(), *args) == 716
+    args[11] = 96
+    assert lib.vt_qkv_rope(qkv.data_ptr(), *args) == 1
+    args[11:14] = [128, 0, 1]                      # f32 q beside bf16 k, v
+    assert lib.vt_qkv_rope(qkv.data_ptr(), *args) == 1
+
+
+def test_qkv_rope_launches_a_layer_on_every_path(dev, graph_params):
+    """One launch a layer of every pass at full widths: each graphed
+    decode step (bursts of 4 at B=3, the capture's launches counted once
+    on each replay), the prefill, an encoder chunk, graphed or eager, and
+    the bulk encoder."""
+    from voxtral_tpu_torch.models import bulk_encode
+    from voxtral_tpu_torch.models import decoder as dec_mod
+    from voxtral_tpu_torch.ops.rope import qkv_rope
+    from voxtral_tpu_torch.runtime.engine import VoxtralEngine
+
+    cfg = _graph_cfg()
+    nl, el = cfg.decoder.n_layers, cfg.encoder.n_layers
+    engine = VoxtralEngine(cfg, graph_params, dec_kv_ring=256,
+                           buckets=(64, 16, 4, 1))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dp = engine.params["decoder"]
+    for graphs in (False, True):
+        engine.cuda_graphs = graphs
+        cache = engine.new_dec_cache(3)
+        pos = torch.tensor([0, 40, 200], dtype=torch.int32, device=dev)
+        n0 = qkv_rope.launches
+        dec_mod.prefill(dp, cfg, torch.randn((3, 5, cfg.decoder.dim),
+                                             generator=gen, device=dev),
+                        cache, pos, engine.ada())
+        assert qkv_rope.launches == n0 + nl
+        prev = torch.full((3,), 32, dtype=torch.int32, device=dev)
+        for _ in range(3):
+            n0 = qkv_rope.launches
+            chunk = torch.randn((3, 4, cfg.decoder.dim), generator=gen,
+                                device=dev)
+            out = dec_mod.decode_burst(dp, cfg, chunk, prev, cache, pos + 5,
+                                       engine.ada())
+            assert qkv_rope.launches == n0 + 4 * nl
+            prev, pos = out[0][:, -1], pos + 4
+        ecache = engine.new_enc_cache(2)
+        for i in range(2):
+            n0 = qkv_rope.launches
+            engine.encode(torch.randn((2, 16, cfg.encoder.dim), generator=gen,
+                                      device=dev).to(cfg.cdtype), ecache,
+                          16 * i)
+            assert qkv_rope.launches == n0 + el
+    n0 = qkv_rope.launches
+    bulk_encode.bulk_transformer(engine.params["encoder"], cfg, torch.randn(
+        (2, 96, cfg.encoder.dim), generator=gen, device=dev))
+    torch.cuda.synchronize()
+    assert qkv_rope.launches == n0 + el

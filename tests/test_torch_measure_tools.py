@@ -133,7 +133,8 @@ def test_decode_profile_prints_the_jax_tools_ledger(monkeypatch, capsys,
                                                     same_weights):
     """Every term: the GiB it moves, the burst and batch equal; the port's
     own "norms" term (a part of "matmuls": the chain's norm calls without
-    its products, fused and unfused) beside them."""
+    its products, fused and unfused) and "rope" term (the qkv epilogues,
+    the kernel and the torch sequence) beside them."""
     for k, v in (("DP_BATCH", "2"), ("DP_RING", "64"), ("DP_POS", "40"),
                  ("DP_BURST", "4"), ("DP_REP", "1")):
         monkeypatch.setenv(k, v)
@@ -142,8 +143,12 @@ def test_decode_profile_prints_the_jax_tools_ledger(monkeypatch, capsys,
     got = _lines(port)
     labels = [ln.split(":")[0].strip() for ln in got]
     assert labels == ["weights", "logits", "attn/grid", "attn/flat",
-                      "attn/xla", "rowwrite", "matmuls", "norms", "step"]
+                      "attn/xla", "rowwrite", "matmuls", "norms", "rope",
+                      "step"]
     nl = tiny_config().decoder.n_layers
+    assert got.pop(labels.index("rope")) == (
+        f"rope : T ms ({nl} qkv epilogues (split, RoPE on q and k, casts), "
+        f"{nl} kernel launches; the torch sequence T ms)")
     assert got.pop(labels.index("norms")) == (
         f"norms : T ms ({nl}-layer residual adds, norms, ada and casts, "
         f"{2 * nl} fused calls; the unfused sequence T ms)")

@@ -1,5 +1,6 @@
-"""chip_smoke.py's slice, serve, flash_enc, int8, stream, bstream, jacobi,
-pool, mesh, mel_device and bench phases rehearsed on the CPU at tiny size.
+"""chip_smoke.py's slice, serve, qkv_rope, flash_enc, int8, stream, bstream,
+jacobi, pool, mesh, mel_device and bench phases rehearsed on the CPU at tiny
+size.
 CPU tensors launch no kernel, so the plain functions stand in for the
 kernels and count as their launches; the phases' own checks (exact launch
 counts per rung, ids in range, identical second runs, kernel path against
@@ -21,6 +22,7 @@ from voxtral_tpu_torch.ops import (
     norms,
     quant_mm,
     ring,
+    rope,
 )
 
 torch.set_num_threads(1)
@@ -61,11 +63,15 @@ def counted_kernels(monkeypatch):
     for mod in (decoder, encoder, bulk_encode):
         monkeypatch.setattr(mod, "add_rms_norm", _counted(
             norms.rms_norm, norms.add_rms_norm_plain))
+        # each layer's qkv epilogue, counted as the qkv_rope kernel's
+        monkeypatch.setattr(mod, "qkv_rope", _counted(
+            rope.qkv_rope, rope.qkv_rope_plain))
     with cs.decoder_calls():
         yield
     for fn in (banded_encode.banded_attention_batched,
                flash_decode.flash_decode, ring.ring_rows_write,
-               flash_encode.flash_bulk_attention_batched, norms.rms_norm):
+               flash_encode.flash_bulk_attention_batched, norms.rms_norm,
+               rope.qkv_rope):
         fn.launches = 0
 
 
@@ -78,6 +84,9 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
     assert sl["launches"][0] == 2 * cfg.encoder.n_layers
     assert sl["launches"][1] == cfg.decoder.n_layers * sum(
         c["decode_steps"] for c in sl["clips"])
+    assert sl["launches"][4] == sum(
+        cfg.decoder.n_layers * (1 + c["decode_steps"]) + cfg.encoder.n_layers
+        for c in sl["clips"])
 
     sv = cs.phase_serve(cfg, params, "cpu", n_streams=3, seconds=2.0,
                         dec_ring=64, extra_steps=4)
@@ -90,7 +99,8 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
     # int4 and int8 rungs each their product, one launch a layer product of
     # the prefill and 4 a layer + the table a step; every rung its norms:
     # 2 a layer of the prefill and of each step, the final norm a step, 2 a
-    # layer and the final one of the bulk encoder pass
+    # layer and the final one of the bulk encoder pass; and its qkv
+    # epilogues, one a layer of each of those passes
     nl, ne = cfg.decoder.n_layers, cfg.encoder.n_layers
     quant = 4 * nl + (4 * nl + 1) * steps
     assert sv["launches"] == {
@@ -99,12 +109,14 @@ def test_slice_and_serve_phases_on_cpu(counted_kernels):
         "ring_rows_write": nl * 4,
         "int4_mm": quant, "int8_mm": quant, "bf16_mm": 0,
         "rms_norm": 5 * (2 * nl + (2 * nl + 1) * steps + 2 * ne + 1),
+        "qkv_rope": 5 * (nl * (1 + steps) + ne),
     }
     assert rungs["int8"]["launches"]["int8_mm"] == quant
     assert rungs["fp8kv"]["launches_xla_mid_fill"] == {
         "banded_attention_batched": 0, "flash_decode": 0,
         "ring_rows_write": nl * 4, "int4_mm": 0,
-        "int8_mm": 0, "bf16_mm": 0, "rms_norm": (2 * nl + 1) * 4}
+        "int8_mm": 0, "bf16_mm": 0, "rms_norm": (2 * nl + 1) * 4,
+        "qkv_rope": nl * 4}
     assert rungs["bf16"]["stream0_agree_b1"] == 1.0   # f32 on the CPU
     for name in ("fp8kv", "int8", "int4", "int4deq"):
         assert 0.0 <= rungs[name]["agree_bf16"] <= 1.0
@@ -199,6 +211,52 @@ def test_rowinv_phase_on_cpu(counted_kernels, monkeypatch):
     assert not any(k.endswith(f"_rows{n}") for k in out for n in rows)
     assert (bf16_mm.bf16_mm.launches, quant_mm.int8_mm.launches,
             quant_mm.int4_mm.launches) == (0, 0, 0)
+
+
+def test_qkv_rope_phase_on_cpu(counted_kernels):
+    """The qkv_rope phase at tiny width on the CPU, where the kernel's
+    wrapper runs the plain version: at a step, a ring chunk with bias, a
+    bulk layer on the shared table and an f32 step, q, k and v equal the
+    torch sequence's and a second call's, v is a view of qkv exactly where
+    no bias and an f32 v leave nothing to write, nothing launches and
+    nothing is timed off the card."""
+    cfg = tiny_config(compute_dtype="bfloat16")
+    shapes = {
+        "step": (3, 1, "decoder", False, False, "bfloat16", "float32"),
+        "ring": (2, 5, "encoder", True, False, "bfloat16", "float32"),
+        "bulk": (2, 7, "encoder", True, True, "bfloat16", "bfloat16"),
+        "f32": (2, 3, "decoder", False, False, "float32", "float32"),
+    }
+    out = cs.phase_qkv_rope("cpu", cfg, shapes)
+    for name in shapes:
+        for check in ("plain", "twice", "v_view"):
+            assert out[f"qkv_rope_{check}_equal_{name}"] is True
+        assert out[f"qkv_rope_launches_per_call_{name}"] == 0
+        assert f"qkv_rope_ms_{name}" not in out
+    assert rope.qkv_rope.launches == 0
+
+
+@pytest.mark.parametrize("route, routed", [
+    ("plain_kernels", ("decoder", "encoder", "bulk_encode")),
+    ("cublas_stream", ("decoder", "encoder", "bulk_encode")),
+    ("parent_decoder_route", ("decoder",)),
+])
+def test_reference_routes_take_the_plain_qkv_epilogue(counted_kernels, route,
+                                                      routed):
+    """The smoke's reference routes send the qkv epilogue of the modules
+    they cover to the torch sequence (qkv_rope_plain) through an
+    uncounted stand-in, so a kernel-path check never compares the kernel
+    with itself; every module gets its own function back afterwards."""
+    mods = {"decoder": decoder, "encoder": encoder,
+            "bulk_encode": bulk_encode}
+    before = {n: m.qkv_rope for n, m in mods.items()}
+    with getattr(cs, route)():
+        for n, m in mods.items():
+            plain = m.qkv_rope.__wrapped__ is rope.qkv_rope_plain
+            assert plain == (n in routed)
+            if plain:
+                assert m.qkv_rope.launches == 0
+    assert {n: m.qkv_rope for n, m in mods.items()} == before
 
 
 def test_stream_and_bstream_phases_on_cpu(counted_kernels):

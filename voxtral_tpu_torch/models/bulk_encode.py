@@ -27,7 +27,7 @@ import torch
 from ..config import VoxtralConfig
 from ..ops.banded_encode import banded_attention_batched, banded_attention_plain
 from ..ops.norms import add_rms_norm, silu
-from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..ops.rope import qkv_rope, rope_cos_sin
 from ..parallel.mesh import tp_sum
 from .decoder import _use_flash
 from .encoder import adapter_forward, conv0_chunk, conv1_chunk
@@ -70,14 +70,10 @@ def bulk_transformer(enc_params: PyTree, cfg: VoxtralConfig, x: torch.Tensor,
     for li in range(e.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
         x, xn = add_rms_norm(x, lp["attn_norm"], e.norm_eps, *tail)
-        qkv = mm(xn, lp, "wqkv") + lp["bqkv"]
-        q = qkv[..., :qkv_dim].reshape(bsz, t, e.n_heads, e.head_dim)
-        k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, e.n_kv_heads, e.head_dim)
-        v = qkv[..., 2 * qkv_dim:].reshape(bsz, t, e.n_kv_heads, e.head_dim)
-        q = apply_rope_interleaved(q, cos, sin)
-        k = apply_rope_interleaved(k, cos, sin)
-        attn = banded(q.to(cdtype), k.to(cdtype), v.to(cdtype), kv_lo,
-                      window=e.window, out_dtype=cdtype,
+        q, k, v = qkv_rope(mm(xn, lp, "wqkv"), cos, sin, n_heads=e.n_heads,
+                           n_kv_heads=e.n_kv_heads, head_dim=e.head_dim,
+                           bias=lp["bqkv"], q_dtype=cdtype, kv_dtype=cdtype)
+        attn = banded(q, k, v, kv_lo, window=e.window, out_dtype=cdtype,
                       ).reshape(bsz, t, qkv_dim)
         # row-parallel products: on a tp mesh, summed over the ranks in
         # f32, the bias added once after the sum (parallel/mesh.py)

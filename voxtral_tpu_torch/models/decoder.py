@@ -54,7 +54,7 @@ from ..ops.flash_decode import flash_decode
 from ..ops.graphs import GraphStore, graph_key
 from ..ops.norms import add_rms_norm, gelu, silu
 from ..ops.ring import ring_attention, ring_rows_write, ring_write
-from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..ops.rope import qkv_rope, rope_cos_sin
 from ..parallel.mesh import tp_of, tp_sum
 from . import quant
 
@@ -197,20 +197,18 @@ def _layer_step(
     ri = _use_rowinv(cdtype, "decoder")
 
     x, xn = add_rms_norm(x, lp["attn_norm"], cfg.norm_eps, y=y)
-    qkv = quant.mm(xn, lp, "wqkv", rowinv=ri)        # f32
-    q = qkv[..., :q_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
-    k = qkv[..., q_dim: q_dim + cfg.kv_dim].reshape(
-        bsz, t, cfg.n_kv_heads, cfg.head_dim)
-    v = qkv[..., q_dim + cfg.kv_dim:].reshape(
-        bsz, t, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope_interleaved(q, cos, sin)
-    k = apply_rope_interleaved(k, cos, sin)
+    # q rotated in the compute dtype; k rotated and v in f32, rounded to
+    # the ring's dtype once, by the row write
+    q, k, v = qkv_rope(quant.mm(xn, lp, "wqkv", rowinv=ri), cos, sin,
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, q_dtype=cdtype,
+                       kv_dtype=torch.float32)
 
     if t == 1 and _use_flash(cfg, cache.k):
         # one call writes the row at pos % cap of layer li (in place) and
         # attends over the live window: one kernel launch per layer per step
         attn = flash_decode(
-            q[:, 0].to(cdtype), cache.k, cache.v, li, pos0, k[:, 0], v[:, 0],
+            q[:, 0], cache.k, cache.v, li, pos0, k[:, 0], v[:, 0],
             window=cfg.window, out_dtype=cdtype,
         ).reshape(bsz, t, q_dim)
     else:
@@ -221,7 +219,7 @@ def _layer_step(
             ring_write(k_ring, k, pos0)                      # in place
             ring_write(v_ring, v, pos0)
         attn = ring_attention(
-            q.to(cdtype), k_ring, v_ring, pos0, window=cfg.window,
+            q, k_ring, v_ring, pos0, window=cfg.window,
             out_dtype=cdtype, per_stream=ri,
         ).reshape(bsz, t, q_dim)
 

@@ -62,7 +62,7 @@ from ..ops.flash_encode import flash_bulk_attention_batched
 from ..ops.graphs import GraphStore, graph_key
 from ..ops.norms import add_rms_norm, gelu, silu
 from ..ops.ring import ring_attention, ring_chunk_write, ring_rows_write_plain
-from ..ops.rope import apply_rope_interleaved, rope_cos_sin
+from ..ops.rope import qkv_rope, rope_cos_sin
 from ..parallel.mesh import tp_sum
 from .decoder import _positions, _use_flash, _use_graph, _use_rowinv
 from .quant import matmul_f32, matmul_rows, mm
@@ -168,13 +168,11 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, tail, lp,
     ri = _use_rowinv(cdtype, "stream")
 
     x, xn = add_rms_norm(x, lp["attn_norm"], cfg.norm_eps, *tail)
-    qkv = mm(xn, lp, "wqkv", ri) + lp["bqkv"]
-    q = qkv[..., :qkv_dim].reshape(bsz, t, cfg.n_heads, cfg.head_dim)
-    k = qkv[..., qkv_dim: 2 * qkv_dim].reshape(bsz, t, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = qkv[..., 2 * qkv_dim:].reshape(bsz, t, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope_interleaved(q, cos, sin)
-    k = apply_rope_interleaved(k, cos, sin)
+    # k and v in f32: the ring writes round them to the ring's dtype once
+    q, k, v = qkv_rope(mm(xn, lp, "wqkv", ri), cos, sin,
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, bias=lp["bqkv"],
+                       q_dtype=cdtype, kv_dtype=torch.float32)
 
     if t == 1:
         ring_rows_write_plain(cache.k, cache.v, k[:, 0], v[:, 0], li, pos0)
@@ -184,10 +182,9 @@ def _enc_layer_step(cfg: EncoderConfig, cdtype, x, tail, lp,
                                                 pos0)
     if chunk_attention(t, cdtype) and _use_flash(cfg, k_ring):
         attn = flash_bulk_attention_batched(
-            q.to(cdtype), k_ring, v_ring, pos0, window=cfg.window,
-            out_dtype=cdtype)
+            q, k_ring, v_ring, pos0, window=cfg.window, out_dtype=cdtype)
     else:
-        attn = ring_attention(q.to(cdtype), k_ring, v_ring, pos0,
+        attn = ring_attention(q, k_ring, v_ring, pos0,
                               window=cfg.window, out_dtype=cdtype)
     attn = attn.reshape(bsz, t, qkv_dim)
     # row-parallel products: on a tp mesh, summed over the ranks in f32,

@@ -143,6 +143,9 @@ def kernels() -> ctypes.CDLL:
             lib.vt_rms_norm.restype = i
             lib.vt_rms_norm.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                         ctypes.c_float, p]
+            lib.vt_qkv_rope.restype = i
+            lib.vt_qkv_rope.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, i, p]
             lib.vt_ring_rows_write.restype = i
             lib.vt_ring_rows_write.argtypes = [
                 p, p, p, p, p, i, i, i, i, i, i, i, p,

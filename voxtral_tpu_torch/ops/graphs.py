@@ -70,10 +70,11 @@ def counted_wrappers() -> tuple:
     from .norms import rms_norm
     from .quant_mm import int4_mm, int8_mm
     from .ring import ring_rows_write
+    from .rope import qkv_rope
 
     return (banded_attention_batched, flash_decode,
             flash_bulk_attention_batched, int4_mm, int8_mm, ring_rows_write,
-            bf16_mm, rms_norm)
+            bf16_mm, rms_norm, qkv_rope)
 
 
 def _counts() -> list[int]:

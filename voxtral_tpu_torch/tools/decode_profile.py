@@ -22,6 +22,12 @@ step, then the ledger is printed with the JAX tool's lines:
             csrc/rms_norm.cu), beside the unfused torch sequence the step
             ran before the fused call (10 kernels a layer); a part of
             "matmuls", not a term of the sum
+  rope      the 26 layers' qkv epilogues at the step's shape (the split,
+            interleaved RoPE on q and k, the casts: q to the compute dtype,
+            k and v kept f32 for the row write) as one launch a layer
+            (ops/rope.py qkv_rope, csrc/qkv_rope.cu), beside the torch
+            sequence the step ran before it (qkv_rope_plain, 17 kernels a
+            layer); the kernel's time is a term of the sum
   step      the real batched burst (parallel/serving.py bdecode_burst), ms
             per token: on the card it replays the decoder step's CUDA graph
             (ops/graphs.py), so the terms above are what it should approach
@@ -38,7 +44,7 @@ Usage:
 Env: DP_BATCH (32), DP_RING (896), DP_POS (500), DP_BURST (64), DP_KV
 (the ring dtype), DP_ATTN (the step's attn_impl), DP_QUANT (int8|int4),
 DP_REP (4), DP_TERMS (a subset of weights,logits,attn,xla,rowwrite,
-matmuls,norms,step).  DP_BLOCK, the JAX kernel's block size, has no counterpart
+matmuls,norms,rope,step).  DP_BLOCK, the JAX kernel's block size, has no counterpart
 (the port's kernel plans its split from the shapes) and exits 2.
 """
 
@@ -81,6 +87,7 @@ def main(argv=None, cfg=None) -> int:
     from ..ops.flash_decode import flash_decode
     from ..ops.norms import add_rms_norm, rms_norm, silu
     from ..ops.ring import ring_attention, ring_rows_write
+    from ..ops.rope import qkv_rope, qkv_rope_plain, rope_cos_sin
     from ..parallel import serving as sv
 
     cfg = cfg or full_config()
@@ -113,7 +120,8 @@ def main(argv=None, cfg=None) -> int:
     gib = 1 << 30
     rep = int(os.environ.get("DP_REP", "4"))
     terms = set(os.environ.get(
-        "DP_TERMS", "weights,logits,attn,xla,rowwrite,matmuls,norms,step"
+        "DP_TERMS",
+        "weights,logits,attn,xla,rowwrite,matmuls,norms,rope,step"
     ).split(","))
 
     def bytes_of(t):
@@ -257,6 +265,25 @@ def main(argv=None, cfg=None) -> int:
               f"adds, norms, ada and casts, {2 * d.n_layers} fused calls; "
               f"the unfused sequence {1000*t_nu:.2f} ms)")
 
+    # --- term: the qkv epilogues, kernel and torch sequence --------------
+    t_r = 0.0
+    if "rope" in terms:
+        qkv_m = torch.ones((batch, 1, d.q_dim + 2 * d.kv_dim), device=dev)
+        cos, sin = rope_cos_sin(pos[:, None], d.head_dim, d.rope_theta)
+        kw = dict(n_heads=d.n_heads, n_kv_heads=d.n_kv_heads,
+                  head_dim=d.head_dim, q_dtype=cdtype,
+                  kv_dtype=torch.float32)
+
+        def ropes(fn):
+            return lambda: [fn(qkv_m, cos, sin, **kw)
+                            for _ in range(d.n_layers)]
+
+        t_r = graph_time(ropes(qkv_rope), rep, dev)
+        t_rs = graph_time(ropes(qkv_rope_plain), rep, dev)
+        print(f"rope    : {1000*t_r:7.2f} ms   ({d.n_layers} qkv epilogues "
+              f"(split, RoPE on q and k, casts), {d.n_layers} kernel "
+              f"launches; the torch sequence {1000*t_rs:.2f} ms)")
+
     # --- the real step ---------------------------------------------------
     cache2 = sv.batched_dec_cache(cfg, batch, ring, device=dev)
     chunk = torch.zeros((batch, burst, d.dim), device=dev)
@@ -264,7 +291,7 @@ def main(argv=None, cfg=None) -> int:
     t_s = timeit(lambda: sv.bdecode_burst(dp, cfg, chunk, prev, cache2, pos,
                                           ada)[0], 5, dev)
     ms = 1000 * t_s / burst
-    terms_ms = 1000 * (t_m + t_l + t_a + t_rw)
+    terms_ms = 1000 * (t_m + t_l + t_a + t_rw + t_r)
     print(f"step    : {ms:7.2f} ms/token (burst {burst}, B={batch}) — "
           f"terms sum {terms_ms:.2f} ms "
           f"-> residual {ms - terms_ms:+.2f} ms "
